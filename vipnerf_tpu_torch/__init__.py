@@ -1,0 +1,14 @@
+"""ViP-NeRF in PyTorch for an NVIDIA H100.
+
+A port of `vipnerf_tpu` (the JAX package, which stays the reference) with the
+same sub-package layout: `core/` (encoding, rays, poses, sampling,
+compositing), `models/` (MLP and renderer), `kernels/` (the hand-written
+Hopper kernels and their plain versions), `infer/` (tiled renderer and
+tester), `data/` (test-mode preprocessor), `train/` (checkpoint naming) and
+`utils/`.
+
+Entry points run on the card unless the caller asks for the CPU
+(`utils.device.resolve_device`). Kernels build at first use, never at import.
+"""
+
+__version__ = "0.1.0"

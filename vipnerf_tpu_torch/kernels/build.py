@@ -1,0 +1,87 @@
+"""Build the CUDA sources under `csrc/` with nvcc and load them with ctypes.
+
+Each source compiles on its own into a shared library with a plain C
+interface, under `vipnerf_tpu_torch/build/` (ignored by git), named after a
+hash of the source so an edited source rebuilds. Nothing builds at import: a
+wrapper calls `load` at its first launch, and `build_all` starts one nvcc
+per source at once, so several kernels build in parallel.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+
+# kernel name -> source file under csrc/
+SOURCES = {"fused_mlp": "fused_mlp.cu"}
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}
+ptxas_reports: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(nvcc).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every named source that has no library yet, all nvcc processes
+    running at once. Returns the wall seconds of each build; raises with the
+    compiler's output if one fails."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
+            tmp, out, time.perf_counter(),
+        )
+    failures = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        build_seconds[name] = time.perf_counter() - t0
+        ptxas_reports[name] = log
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return dict(build_seconds)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, building it first if needed."""
+    if name not in _loaded:
+        path = library_path(name)
+        if not path.exists():
+            build_all([name])
+        _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]

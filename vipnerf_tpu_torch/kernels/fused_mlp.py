@@ -1,0 +1,303 @@
+"""K1: the whole flagship ViP-NeRF MLP forward in one CUDA kernel.
+
+Counterpart of experiments/fused_mlp.py (`_make_fwd_kernel`, launched by
+`_fwd_pallas`): for the 8x256 flagship config (PE 10/4, view-dependent rgb,
+visibility head) it computes the trunk, the skip layer, the feature and sigma
+heads and the view branch once for the primary view and once per secondary
+view (`n_sec` <= 3), keeping every activation on chip. The source is
+`csrc/fused_mlp.cu`; it is built with nvcc at the first launch.
+
+Layout contract, one row per point:
+
+    xe  (N, 64)            padded PE(pts) (63 real + 1 zero)
+    ve  (N, 32)            padded PE(view dir) (27 real + 5 zeros)
+    ve2 (N, 32*max(n_sec,1)) padded PE of each secondary view dir
+    out (N, 8)             [0] sigma, [1:4] rgb, [4] vis, [5:5+n_sec] vis2,
+                           raw (before noise/ReLU/sigmoid), rest zero
+
+all in the working dtype: bf16 (f32 accumulation, each product rounded to
+bf16 before the bf16 bias add, then ReLU) or f32. The epilogues (sigma
+noise and ReLU, sigmoids) run outside, in f32.
+
+`fused_mlp_raw` is the wrapper: on a CUDA tensor it launches the kernel (or
+raises), on a CPU tensor it runs `fused_mlp_reference`, the same function in
+plain torch. It counts its launches in `fused_mlp_raw.launches`.
+"""
+
+import ctypes
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from vipnerf_tpu_torch.core.encoding import positional_encoding
+from vipnerf_tpu_torch.kernels import build
+
+PTS_IN = 64  # padded PE(pts) width (63 real)
+VIEW_IN = 32  # padded PE(view dir) width (27 real)
+NOUT = 8  # output columns
+MAX_SEC = 3
+
+# (out, in) of each packed layer, in the kernel's order: trunk 0..7, feature,
+# sigma (1 real row of 8), view hidden, view output (4 real rows of 8)
+LAYER_SHAPES: Tuple[Tuple[int, int], ...] = (
+    (256, 64), (256, 256), (256, 256), (256, 256), (256, 256),
+    (256, 320), (256, 256), (256, 256),
+    (256, 256), (8, 256), (128, 288), (8, 128),
+)
+W_NUMEL = sum(n * k for n, k in LAYER_SHAPES)
+B_NUMEL = sum(n for n, _ in LAYER_SHAPES)
+SIGMA, FEATURE, VIEW, VIEW_OUT = 9, 8, 10, 11
+
+# multiply-adds per point, real (unpadded) widths: trunk + heads + view branch
+MACS_PER_POINT = 63 * 256 + 4 * 256 * 256 + 319 * 256 + 2 * 256 * 256 + 256 * 257 + 283 * 128 + 128 * 4
+MACS_PER_SEC_VIEW = 283 * 128 + 128 * 4
+
+
+class FusedWeights(NamedTuple):
+    """Packed weights of one MLP for K1 and for its plain version."""
+
+    layers: List[Tuple[torch.Tensor, torch.Tensor]]  # (W (out,in) dtype, b f32)
+    w_flat: torch.Tensor  # kernel layout, dtype
+    b_flat: torch.Tensor  # f32, bf16-rounded for the bf16 kernel
+    dtype: torch.dtype
+
+
+def supports_config(mlp_cfg: Dict[str, Any]) -> bool:
+    """K1 implements the flagship architecture only."""
+    return (
+        mlp_cfg["netdepth"] == 8
+        and mlp_cfg["netwidth"] == 256
+        and mlp_cfg["points_positional_encoding_degree"] == 10
+        and mlp_cfg["views_positional_encoding_degree"] == 4
+        and mlp_cfg["use_view_dirs"]
+        and mlp_cfg["view_dependent_rgb"]
+        and mlp_cfg["predict_visibility"]
+    )
+
+
+def pack_layers(mlp, dtype: torch.dtype) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Pad the module's weights to the kernel's (out, in) shapes.
+
+    Zero columns go where the inputs are zero-padded (PE(pts) 63->64, in front
+    of h in the skip layer; PE(view) 27->32 at the end of the view concat);
+    zero rows pad the 1-wide sigma and 4-wide view outputs to 8.
+    """
+    with torch.no_grad():
+        pl = mlp.pts_linears
+        w5 = pl[5].weight
+        zero_col = torch.zeros_like(w5[:, :1])
+        pairs = [(F.pad(pl[0].weight, (0, 1)), pl[0].bias)]
+        pairs += [(pl[i].weight, pl[i].bias) for i in (1, 2, 3, 4)]
+        pairs.append((torch.cat([w5[:, :63], zero_col, w5[:, 63:]], dim=1), pl[5].bias))
+        pairs += [(pl[i].weight, pl[i].bias) for i in (6, 7)]
+        pairs.append((mlp.feature_linear.weight, mlp.feature_linear.bias))
+        pairs.append((
+            F.pad(mlp.pts_output_linear.weight, (0, 0, 0, 7)),
+            F.pad(mlp.pts_output_linear.bias, (0, 7)),
+        ))
+        pairs.append((
+            F.pad(mlp.views_linears[0].weight, (0, 5)), mlp.views_linears[0].bias,
+        ))
+        pairs.append((
+            F.pad(mlp.views_output_linear.weight, (0, 0, 0, 4)),
+            F.pad(mlp.views_output_linear.bias, (0, 4)),
+        ))
+        layers = []
+        for (w, b), shape in zip(pairs, LAYER_SHAPES):
+            if tuple(w.shape) != shape:
+                raise ValueError(f"layer shape {tuple(w.shape)} != {shape}")
+            layers.append((w.detach().to(dtype).contiguous(), b.detach().to(dtype).float()))
+    return layers
+
+
+def _fragment_order(w: torch.Tensor) -> torch.Tensor:
+    """(N, K) -> the B-operand fragments of mma.m16n8k16, flat.
+
+    Order [N/8][K/16][lane 32][4]: lane = 4*g + t holds W[8nt+g, 16kt+2t+{0,1}]
+    then W[8nt+g, 16kt+2t+8+{0,1}], so each lane loads its fragment with one
+    8-byte load and a warp reads 256 contiguous bytes.
+    """
+    n, k = w.shape
+    return w.reshape(n // 8, 8, k // 16, 2, 4, 2).permute(0, 2, 1, 4, 3, 5).reshape(-1)
+
+
+def kernel_buffers(layers, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat weight and bias buffers in the kernel's layout: fragment order for
+    bf16, (in, out) row-major for f32."""
+    if dtype == torch.bfloat16:
+        ws = [_fragment_order(w) for w, _ in layers]
+    else:
+        ws = [w.t().contiguous().reshape(-1) for w, _ in layers]
+    return torch.cat(ws), torch.cat([b for _, b in layers])
+
+
+def prepare_weights(mlp, dtype: torch.dtype) -> FusedWeights:
+    """Packed weights of `mlp`, cached on it until a parameter changes."""
+    params = list(mlp.parameters())
+    # a tensor's _version counts its in-place updates (optimizer steps, loads)
+    key = (dtype, params[0].device, tuple(p._version for p in params),
+           tuple(p.data_ptr() for p in params))
+    cache = getattr(mlp, "_fused_weights", None)
+    if cache is not None and cache[0] == key:
+        return cache[1]
+    layers = pack_layers(mlp, dtype)
+    w_flat, b_flat = kernel_buffers(layers, dtype)
+    packed = FusedWeights(layers, w_flat, b_flat, dtype)
+    mlp._fused_weights = (key, packed)
+    return packed
+
+
+def encode_inputs(
+    pts: torch.Tensor,
+    view_dirs: torch.Tensor,
+    view_dirs2: Optional[torch.Tensor],
+    dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """PE and zero-padding of the kernel's inputs: (xe, ve, ve2, n_sec).
+    With no secondary view, K1 reads no ve2: `ve` stands in for it."""
+    npts = pts.shape[0]
+    n_sec = view_dirs2.shape[1] if view_dirs2 is not None else 0
+    xe = F.pad(positional_encoding(pts, 10), (0, PTS_IN - 63)).to(dtype)
+    ve = F.pad(positional_encoding(view_dirs, 4), (0, VIEW_IN - 27)).to(dtype)
+    if n_sec:
+        enc2 = positional_encoding(view_dirs2.reshape(npts * n_sec, 3), 4)
+        ve2 = F.pad(enc2, (0, VIEW_IN - 27)).reshape(npts, n_sec * VIEW_IN).to(dtype)
+    else:
+        ve2 = ve
+    return xe.contiguous(), ve.contiguous(), ve2.contiguous(), n_sec
+
+
+def fused_mlp_reference(
+    layers, xe: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor, n_sec: int
+) -> torch.Tensor:
+    """K1's function in plain torch: f32 matmuls of dtype-valued tensors; in
+    bf16 each product is rounded to bf16 before the bias add, as the kernel
+    does. Returns (N, 8) in the inputs' dtype."""
+    dtype = xe.dtype
+    bf16 = dtype == torch.bfloat16
+
+    def dense(x, i, relu):
+        w, b = layers[i]
+        y = x.float() @ w.float().t()
+        y = (y.to(dtype).float() + b).to(dtype) if bf16 else y + b
+        return torch.relu(y) if relu else y
+
+    h = dense(xe, 0, True)
+    for i in (1, 2, 3, 4):
+        h = dense(h, i, True)
+    h = dense(torch.cat([xe, h], dim=1), 5, True)
+    for i in (6, 7):
+        h = dense(h, i, True)
+    feature = dense(h, FEATURE, False)
+    sigma = dense(h, SIGMA, False)[:, :1]
+
+    def view_branch(enc_v):
+        hv = dense(torch.cat([feature, enc_v], dim=1), VIEW, True)
+        return dense(hv, VIEW_OUT, False)
+
+    cols = [sigma, view_branch(ve)[:, 0:4]]
+    for j in range(n_sec):
+        cols.append(view_branch(ve2[:, j * VIEW_IN:(j + 1) * VIEW_IN])[:, 3:4])
+    out = torch.cat(cols, dim=1)
+    return F.pad(out, (0, NOUT - out.shape[1])).to(dtype)
+
+
+_ENTRY = {torch.bfloat16: "vipnerf_fused_mlp_bf16", torch.float32: "vipnerf_fused_mlp_f32"}
+
+
+def _entry(dtype: torch.dtype):
+    lib = build.load("fused_mlp")
+    fn = getattr(lib, _ENTRY[dtype])
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(weights: FusedWeights, xe, ve, ve2, n_sec: int):
+    n = xe.shape[0]
+    if weights.dtype not in _ENTRY:
+        raise TypeError(f"K1 takes bf16 or f32, not {weights.dtype}")
+    if not 0 <= n_sec <= MAX_SEC:
+        raise ValueError(f"n_sec must be in 0..{MAX_SEC}, got {n_sec}")
+    expect = {
+        "xe": (xe, (n, PTS_IN)),
+        "ve": (ve, (n, VIEW_IN)),
+        "ve2": (ve2, (n, VIEW_IN * max(n_sec, 1))),
+    }
+    for name, (t, shape) in expect.items():
+        if t.dim() != 2 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != weights.dtype:
+            raise TypeError(f"{name} is {t.dtype}, weights are {weights.dtype}")
+        if t.device != xe.device:
+            raise ValueError(f"{name} is on {t.device}, xe on {xe.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if weights.w_flat.numel() != W_NUMEL or weights.b_flat.numel() != B_NUMEL:
+        raise ValueError("packed weights do not match the kernel's layer table")
+    if weights.w_flat.device != xe.device:
+        raise ValueError(f"weights on {weights.w_flat.device}, inputs on {xe.device}")
+
+
+def fused_mlp_raw(
+    weights: FusedWeights, xe: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
+    n_sec: int,
+) -> torch.Tensor:
+    """K1 on (xe, ve, ve2) -> raw (N, 8) outputs. CPU tensors take the plain
+    version; CUDA tensors launch the kernel on the current stream."""
+    _check(weights, xe, ve, ve2, n_sec)
+    if xe.device.type == "cpu":
+        return fused_mlp_reference(weights.layers, xe, ve, ve2, n_sec)
+    if xe.device.type != "cuda":
+        raise ValueError(f"K1 runs on cuda or cpu tensors, not {xe.device}")
+    n = xe.shape[0]
+    out = torch.empty((n, NOUT), dtype=weights.dtype, device=xe.device)
+    if n == 0:
+        return out
+    fn = _entry(weights.dtype)
+    stream = torch.cuda.current_stream(xe.device).cuda_stream
+    with torch.cuda.device(xe.device):
+        rc = fn(xe.data_ptr(), ve.data_ptr(), ve2.data_ptr(),
+                weights.w_flat.data_ptr(), weights.b_flat.data_ptr(),
+                out.data_ptr(), n, n_sec, stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 launch failed: cudaError {rc}")
+    fused_mlp_raw.launches += 1
+    return out
+
+
+fused_mlp_raw.launches = 0
+
+
+def apply_fused_mlp(
+    mlp,
+    pts: torch.Tensor,
+    view_dirs: torch.Tensor,
+    view_dirs2: Optional[torch.Tensor] = None,
+    *,
+    raw_noise_std: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Dict[str, torch.Tensor]:
+    """NeRFMLP.forward for the flagship config, through K1. Same output dict
+    (sigma, rgb, rgb_view_dependent, visibility[, visibility2]), f32."""
+    if not supports_config(mlp.cfg):
+        raise ValueError("K1 implements the flagship 8x256 config only")
+    xe, ve, ve2, n_sec = encode_inputs(pts, view_dirs, view_dirs2, dtype)
+    raw = fused_mlp_raw(prepare_weights(mlp, dtype), xe, ve, ve2, n_sec).float()
+    sigma = raw[:, 0:1]
+    if raw_noise_std > 0.0 and generator is not None:
+        sigma = sigma + raw_noise_std * torch.randn(
+            sigma.shape, generator=generator, device=sigma.device
+        )
+    out = {
+        "sigma": torch.relu(sigma),
+        "rgb_view_dependent": torch.sigmoid(raw[:, 1:4]),
+        "visibility": torch.sigmoid(raw[:, 4:5]),
+    }
+    out["rgb"] = out["rgb_view_dependent"]
+    if n_sec:
+        out["visibility2"] = torch.sigmoid(raw[:, 5:5 + n_sec])[..., None]
+    return out

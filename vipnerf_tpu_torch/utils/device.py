@@ -1,0 +1,35 @@
+"""Which device an entry point runs on."""
+
+from typing import Any
+
+import torch
+
+
+def resolve_device(device_sel: Any = "all") -> torch.device:
+    """`test_configs['device']` -> torch.device.
+
+    "all", None or [0] -> cuda:0; [i] -> cuda:i; "cpu" -> the CPU. More than
+    one device is the multi-device slice, not yet ported. Without CUDA, any
+    choice but "cpu" raises: the port never falls back to the CPU quietly.
+    """
+    if device_sel == "cpu":
+        return torch.device("cpu")
+    if device_sel in ("all", None):
+        index = 0
+    elif isinstance(device_sel, (list, tuple)):
+        if len(device_sel) != 1:
+            raise NotImplementedError(
+                f"device {device_sel!r}: rendering on more than one GPU arrives "
+                "with the multi-device slice of the port"
+            )
+        index = int(device_sel[0])
+    else:
+        raise ValueError(f"unrecognized device selection: {device_sel!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device_sel!r} asks for CUDA, which is not available; "
+            'pass device "cpu" to run on the CPU'
+        )
+    if index >= torch.cuda.device_count():
+        raise ValueError(f"cuda:{index} requested, {torch.cuda.device_count()} present")
+    return torch.device("cuda", index)
