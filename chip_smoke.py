@@ -7,19 +7,29 @@ Phases, each of which fails the run loudly:
 1. the card's name and power limit, then the build of every CUDA kernel;
 2. K1 (the fused MLP forward) against its plain torch version on the card,
    bf16 and f32, n_sec 0..3, at N = 262,144 points and a ragged N = 2,085,
-   with the kernel's, the plain version's and a library yardstick's times;
+   and at the two tile shapes the serving path launches (8192 rays x 64
+   coarse and x 192 fine samples) for n_sec 0 and 2, with the kernel's, the
+   plain version's and a library yardstick's times at those shapes;
 3. the serving path: a run tree at the flagship width (8x256 MLPs, 64+128
    samples, NDC, bf16 matmuls with bf16 heads) with seeded random weights,
    rendered by the port's `start_testing` at 1008x756 -- 3 train frames with
    visibility towards the 2 others, 2 held-out frames -- checking the
-   outputs and that K1 ran on every tile; then a 64x48 crop rendered through
-   the kernel on the card and through the plain version on the CPU;
+   outputs and that K1 ran on every tile; warm frame times; then a 64x48
+   crop rendered through the kernel on the card and through the plain
+   version on the CPU, and the same crop of the model without its density
+   offset (a nearly empty scene) through K1 and the plain version on the
+   card and the plain version on the CPU, to show how far depth and
+   visibility drift apart where the accumulated weight is near 0; last, a
+   torch.profiler table of one held-out frame (device time by kernel, the
+   device's busy share);
 4. a JSON line of the kernels, and the device line last.
 
 It needs CUDA and the repository around it, and exits non-zero without a
 result otherwise. Nothing of JAX is imported.
 """
 
+import contextlib
+import copy
 import json
 import math
 import subprocess
@@ -36,18 +46,22 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
-# bf16: the kernel and its plain version sum in different orders, so a
-# rounding to bf16 can land one step apart and the step propagates; f32:
-# summation order only.
-TOL_RAW = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-TOL_SIGMOID = {torch.bfloat16: 5e-3, torch.float32: 5e-6}
+# K1 against its plain version, relative to the plain outputs' own scale.
+# bf16: the two sum in different orders, so a rounding to bf16 can land one
+# step (2^-8 relative) apart and the step propagates; the max error may be a
+# few such steps at the largest output, the RMS error stays far below one
+# step. f32: summation order only.
+TOL_REL_MAX = {torch.bfloat16: 2.0 ** -5, torch.float32: 1e-5}  # max|err| / max|plain|
+TOL_REL_RMS = {torch.bfloat16: 2e-3, torch.float32: 1e-6}  # ||err|| / ||plain||
 TOL_CROP_RGB = 2.0 / 255  # K1 on the card vs its plain version on the CPU
 TOL_CROP_DEPTH = 5e-3  # of the NDC depth, in [0, 1]
+MIN_CROP_ACC = 0.1  # the crop check holds only where depth is well conditioned
 
 H, W = 756, 1008
 SIGMA_OFFSET = 0.5
 CHUNK = 8192
-MAIN_N = CHUNK * 192  # points of one fine tile: the main path's largest K1 call
+TILE_N = {"coarse": CHUNK * 64, "fine": CHUNK * 192}  # K1's points per launch on the path
+MAIN_N = TILE_N["fine"]  # the shape of the kernels line
 
 
 def log(*args):
@@ -109,59 +123,58 @@ def k1_bound_ms(k1, n, n_sec, dtype):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def k1_inputs(k1, n, n_sec, dtype, g, dev):
+    pts = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
+    unit = lambda t: torch.nn.functional.normalize(t, dim=-1)  # noqa: E731
+    vd = unit(torch.randn((n, 3), generator=g, device=dev))
+    vd2 = unit(torch.randn((n, n_sec, 3), generator=g, device=dev)) if n_sec else None
+    return k1.encode_inputs(pts, vd, vd2, dtype)
+
+
 def phase_k1(k1, mlp, dev):
-    """K1 against its plain version on the card; returns the stats of the
-    main path's shape (bf16, n_sec 0, one fine tile)."""
+    """K1 against its plain version on the card at every checked shape, timed
+    at the serving path's two tile shapes. Returns the worst bf16 error and
+    the timings keyed by (dtype, n_sec, n)."""
     g = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
+    timings = {}
     for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
         weights = k1.prepare_weights(mlp, dtype)
         for n_sec in range(4):
-            for n in (2048 + 37, 262144):
-                pts = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
-                vd = torch.nn.functional.normalize(torch.randn((n, 3), generator=g, device=dev), dim=-1)
-                vd2 = None
-                if n_sec:
-                    vd2 = torch.nn.functional.normalize(
-                        torch.randn((n, n_sec, 3), generator=g, device=dev), dim=-1)
-                xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype)
+            sizes = [2048 + 37, 262144] + (list(TILE_N.values()) if n_sec in (0, 2) else [])
+            for n in sizes:
+                xe, ve, ve2, ns = k1_inputs(k1, n, n_sec, dtype, g, dev)
                 out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns).float()
                 torch.cuda.synchronize()
                 ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
                 err = (out - ref).abs().max().item()
-                err_sig = (torch.sigmoid(out[:, 1:5 + ns]) - torch.sigmoid(ref[:, 1:5 + ns])).abs().max().item()
+                rel_max = err / ref.abs().max().item()
+                rel_rms = ((out - ref).norm() / ref.norm()).item()
                 finite = bool(torch.isfinite(out).all())
-                log(f"K1 {str(dtype)[6:]} n_sec={n_sec} N={n}: max|raw err| {err:.3g} "
-                    f"(tol {TOL_RAW[dtype]}), max|sigmoid err| {err_sig:.3g} "
-                    f"(tol {TOL_SIGMOID[dtype]}), finite {finite}")
-                if not (finite and err <= TOL_RAW[dtype] and err_sig <= TOL_SIGMOID[dtype]):
+                pad_zero = not out[:, 5 + ns:].any()
+                log(f"K1 {name} n_sec={n_sec} N={n}: max|err| {err:.3g}, max|err|/max|plain| "
+                    f"{rel_max:.3g} (tol {TOL_REL_MAX[dtype]:.3g}), rms rel {rel_rms:.3g} "
+                    f"(tol {TOL_REL_RMS[dtype]:.3g}), finite {finite}, padding zero {pad_zero}")
+                if not (finite and pad_zero and rel_max <= TOL_REL_MAX[dtype]
+                        and rel_rms <= TOL_REL_RMS[dtype]):
                     raise AssertionError(f"K1 disagrees with its plain version: {dtype} n_sec={n_sec} N={n}")
                 if dtype == torch.bfloat16:
                     worst = max(worst, err)
-            if n_sec in (0, 2):
-                n = MAIN_N
-                pts = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
-                vd = torch.nn.functional.normalize(torch.randn((n, 3), generator=g, device=dev), dim=-1)
-                vd2 = None
-                if n_sec:
-                    vd2 = torch.nn.functional.normalize(torch.randn((n, n_sec, 3), generator=g, device=dev), dim=-1)
-                xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype)
-                saved = k1.fused_mlp_raw.launches
+                if n not in TILE_N.values():
+                    continue
                 ms = cuda_ms(lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns))
-                k1.fused_mlp_raw.launches = saved  # timing launches are not the path's
                 plain_ms = cuda_ms(lambda: k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns), reps=3)
                 lib_ms = cuda_ms(lambda: library_raw(weights.layers, xe, ve, ve2, ns), reps=5)
                 bound, bound_by = k1_bound_ms(k1, n, ns, dtype)
                 tflops = 2 * n * (k1.MACS_PER_POINT + ns * k1.MACS_PER_SEC_VIEW) / (ms * 1e-3) / 1e12
-                log(f"K1 timing {str(dtype)[6:]} n_sec={n_sec} N={n}: kernel_ms {ms:.4f} "
+                log(f"K1 timing {name} n_sec={n_sec} N={n}: kernel_ms {ms:.4f} "
                     f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (torch.nn.functional.linear "
                     f"per layer, no single call) bound_ms {bound:.4f} ({bound_by}) "
                     f"achieved {tflops:.1f} TFLOP/s")
-                if dtype == torch.bfloat16 and n_sec == 0:
-                    main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=bound, bound_by=bound_by)
-    main["max_abs_err"] = worst
-    return main
+                timings[(dtype, n_sec, n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                                  bound_ms=bound, bound_by=bound_by)
+    return worst, timings
 
 
 def check_png(path: Path):
@@ -173,14 +186,120 @@ def check_png(path: Path):
         raise AssertionError(f"{path} is {w}x{h}, expected {W}x{H}")
 
 
-def phase_slice(k1, dev):
+@contextlib.contextmanager
+def k1_runs_plain(k1):
+    """Within the block, K1's wrapper runs the plain version on CUDA tensors
+    too: the same render with the plain MLP on the card."""
+    kernel = k1.fused_mlp_raw
+    k1.fused_mlp_raw = lambda w, xe, ve, ve2, ns: k1.fused_mlp_reference(w.layers, xe, ve, ve2, ns)
+    try:
+        yield
+    finally:
+        k1.fused_mlp_raw = kernel
+
+
+def render_crop(model, configs, crop, device):
+    from vipnerf_tpu_torch.models.vip_nerf import render_rays
+
+    with torch.no_grad():
+        out = render_rays(model.to(device), configs, {k: v.to(device) for k, v in crop.items()},
+                          train=False, sec_views_vis=True)
+    return {k: out[f"{k}_fine"].cpu() for k in ("rgb", "depth_ndc", "visibility2", "acc")}
+
+
+def crop_diffs(a, b):
+    return {k: (a[k] - b[k]).abs().max().item() for k in ("rgb", "depth_ndc", "visibility2")}
+
+
+def phase_crop(k1, tester, configs, poses):
+    """A 64x48 crop of train frame 0 (visibility towards frames 2 and 4)
+    through K1 on the card against the plain version on the CPU; then the
+    witness: the same crop without the density offset."""
+    batch = tester.data_preprocessor.create_test_data(poses[0], secondary_poses=[poses[2], poses[4]])
+    r0, c0 = (H - 48) // 2, (W - 64) // 2
+    crop = {k: v.reshape(H, W, *v.shape[1:])[r0:r0 + 48, c0:c0 + 64].reshape(48 * 64, *v.shape[1:])
+            for k, v in batch.items()}
+    cpu = torch.device("cpu")
+    model = copy.deepcopy(tester.model)  # render_crop moves it between devices
+    gpu_k1 = render_crop(model, configs, crop, tester.device)
+    cpu_plain = render_crop(model, configs, crop, cpu)
+    d = crop_diffs(gpu_k1, cpu_plain)
+    acc = cpu_plain["acc"]
+    log(f"crop 64x48: K1 on the card vs plain on the CPU: max|rgb diff| {d['rgb']:.3g} "
+        f"(tol {TOL_CROP_RGB:.3g}), max|NDC depth diff| {d['depth_ndc']:.3g} (tol {TOL_CROP_DEPTH}), "
+        f"max|visibility2 diff| {d['visibility2']:.3g} (tol {TOL_CROP_RGB:.3g}); "
+        f"acc min {acc.min().item():.4g}, median {acc.median().item():.4g} (must be >= {MIN_CROP_ACC})")
+    if acc.min().item() < MIN_CROP_ACC:
+        raise AssertionError("the crop's accumulated weight is too small for a depth comparison")
+    if not (d["rgb"] <= TOL_CROP_RGB and d["depth_ndc"] <= TOL_CROP_DEPTH and d["visibility2"] <= TOL_CROP_RGB):
+        raise AssertionError("the kernel path and the plain path render different crops")
+
+    # witness: without the offset the random scene is nearly empty, and depth
+    # and visibility2 (sums over the weights, divided by acc + 1e-6) are ratios
+    # of numbers near 0 -- compare K1 with the plain version on the same card.
+    # The model write_run_tree(seed=0) draws, before it adds the offset:
+    model = type(tester.model)(configs, torch.Generator().manual_seed(0)).eval()
+    w_k1 = render_crop(model, configs, crop, tester.device)
+    with k1_runs_plain(k1):
+        w_plain = render_crop(model, configs, crop, tester.device)
+    w_cpu = render_crop(model, configs, crop, cpu)
+    acc = w_cpu["acc"]
+    worst = (w_k1["depth_ndc"] - w_cpu["depth_ndc"]).abs().argmax()
+    log(f"witness crop, no density offset: acc median {acc.median().item():.3g}, "
+        f"{int((acc < 1e-4).sum())} of {acc.numel()} rays with acc < 1e-4; at the ray of the "
+        f"largest K1-card vs plain-CPU depth diff acc is {w_k1['acc'][worst].item():.3g} (K1, card) "
+        f"and {acc[worst].item():.3g} (plain, CPU)")
+    for label, a, b in (("K1 card vs plain CPU", w_k1, w_cpu), ("plain card vs plain CPU", w_plain, w_cpu),
+                        ("K1 card vs plain card", w_k1, w_plain)):
+        d = crop_diffs(a, b)
+        log(f"witness {label}: max|rgb diff| {d['rgb']:.3g}, max|NDC depth diff| {d['depth_ndc']:.3g}, "
+            f"max|visibility2 diff| {d['visibility2']:.3g}")
+    if not all(torch.isfinite(v).all() for r in (w_k1, w_plain, w_cpu) for v in r.values()):
+        raise AssertionError("the witness crop is not finite")
+
+
+def device_time_us(evt):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return getattr(evt, name)
+    return 0.0
+
+
+def phase_profile(tester, pose, warm_s):
+    """torch.profiler over one held-out frame: device time by kernel, and the
+    busy share against the fastest unprofiled held-out frame (the profiler's
+    own host cost stretches the profiled frame)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        tester.predict_frame(pose)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only (device-side events): the CPU ops that launch them carry
+    # the same time again
+    rows = []
+    for evt in prof.key_averages():
+        us = device_time_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append({"name": evt.key[:90], "calls": evt.count, "device_ms": us / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    device_ms = sum(r["device_ms"] for r in rows)
+    if not device_ms:
+        raise AssertionError("torch.profiler recorded no device time")
+    log(f"profile of one held-out frame: device {device_ms:.1f} ms, wall {wall_ms:.1f} ms "
+        f"(profiled); busy share {device_ms / (1e3 * min(warm_s)):.3f} of the fastest warm frame")
+    for r in rows[:12]:
+        log(f"  {r['device_ms']:9.2f} ms  {r['calls']:5d} x  {r['name']}")
+
+
+def phase_slice(k1, dev, timings):
     from vipnerf_tpu_torch.data.synthetic_rig import (
         flagship_train_configs,
         forward_facing_rig,
         write_run_tree,
     )
     from vipnerf_tpu_torch.infer.tester import NerfTester, start_testing
-    from vipnerf_tpu_torch.models.vip_nerf import render_rays
 
     poses = forward_facing_rig(5, seed=0)
     is_train = [True, False, True, False, True]
@@ -234,38 +353,27 @@ def phase_slice(k1, dev):
         log(f"outputs: 5 PNG frames, 10 depth maps, {n_vis} visibility maps, all finite; "
             f"mean NDC depth of frame 1: {mean_depth:.4f}")
 
-        # steady state: one more held-out frame and one train frame, warm
+        # steady state: held-out and train frames, warm, twice each
         tester = NerfTester(json.loads((root / "runs/training/train0001/Configs.json").read_text()),
                             model_configs, test_configs, root)
         tester.load_model(root / "runs/training/train0001/rig/saved_models/Model_Latest.tar")
         frame_s = {}
         for label, i, sec in (("held-out, n_sec 0", 1, None), ("train, n_sec 2", 0, [poses[2], poses[4]])):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tester.predict_frame(poses[i], secondary_poses=sec)
-            torch.cuda.synchronize()
-            frame_s[label] = time.perf_counter() - t0
-            log(f"predict_frame ({label}): {frame_s[label]:.4f} s per {W}x{H} frame")
+            frame_s[label] = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tester.predict_frame(poses[i], secondary_poses=sec)
+                torch.cuda.synchronize()
+                frame_s[label].append(time.perf_counter() - t0)
+            n_sec = 2 if sec else 0
+            k1_ms = tiles * sum(timings[(torch.bfloat16, n_sec, n)]["ms"] for n in TILE_N.values())
+            log(f"predict_frame ({label}): {', '.join(f'{s:.4f}' for s in frame_s[label])} s per "
+                f"{W}x{H} frame; K1 {k1_ms:.1f} ms of it ({tiles} tiles x the coarse and fine "
+                f"launch times of phase 2)")
 
-        # a 64x48 crop through K1 on the card and through its plain version on the CPU
-        batch = tester.data_preprocessor.create_test_data(poses[0], secondary_poses=[poses[2], poses[4]])
-        r0, c0 = (H - 48) // 2, (W - 64) // 2
-        rows, cols = slice(r0, r0 + 48), slice(c0, c0 + 64)
-        crop = {k: v.reshape(H, W, *v.shape[1:])[rows, cols].reshape(48 * 64, *v.shape[1:])
-                for k, v in batch.items()}
-        with torch.no_grad():
-            gpu = render_rays(tester.model, configs, crop, train=False, sec_views_vis=True)
-            cpu_model = type(tester.model)(configs).eval()
-            cpu_model.load_state_dict({k: v.cpu() for k, v in tester.model.state_dict().items()})
-            cpu = render_rays(cpu_model, configs, {k: v.cpu() for k, v in crop.items()},
-                              train=False, sec_views_vis=True)
-        d_rgb = (gpu["rgb_fine"].cpu() - cpu["rgb_fine"]).abs().max().item()
-        d_depth = (gpu["depth_ndc_fine"].cpu() - cpu["depth_ndc_fine"]).abs().max().item()
-        d_vis = (gpu["visibility2_fine"].cpu() - cpu["visibility2_fine"]).abs().max().item()
-        log(f"crop 64x48: max|rgb diff| {d_rgb:.3g} (tol {TOL_CROP_RGB:.3g}), max|NDC depth "
-            f"diff| {d_depth:.3g} (tol {TOL_CROP_DEPTH}), max|visibility2 diff| {d_vis:.3g} (tol {TOL_CROP_RGB:.3g})")
-        if not (d_rgb <= TOL_CROP_RGB and d_depth <= TOL_CROP_DEPTH and d_vis <= TOL_CROP_RGB):
-            raise AssertionError("the kernel path and the plain path render different crops")
+        phase_crop(k1, tester, configs, poses)
+        phase_profile(tester, poses[1], frame_s["held-out, n_sec 0"])
     return launches, seconds / 5, frame_s
 
 
@@ -296,9 +404,10 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
-    stats = phase_k1(k1, mlp, dev)
-    launches, s_per_frame, frame_s = phase_slice(k1, dev)
+    worst, timings = phase_k1(k1, mlp, dev)
+    launches, s_per_frame, frame_s = phase_slice(k1, dev, timings)
 
+    main_shape = timings[(torch.bfloat16, 0, MAIN_N)]
     log(json.dumps({"slice": {
         "resolution": [H, W], "chunk_size": CHUNK, "k1_timing_shape": {
             "points": MAIN_N, "n_sec": 0, "dtype": "bf16"},
@@ -310,12 +419,12 @@ def main() -> int:
         "source": "vipnerf_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "experiments/fused_mlp.py:130",
         "launches": launches,
-        "max_abs_err": stats["max_abs_err"],
-        "ms": stats["ms"],
-        "plain_ms": stats["plain_ms"],
-        "bound_ms": stats["bound_ms"],
-        "bound_by": stats["bound_by"],
-        "library_ms": stats["library_ms"],
+        "max_abs_err": worst,
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
