@@ -6,15 +6,21 @@ Phases, each of which fails the run loudly:
 
 1. the card's name and power limit, then the build of every CUDA kernel;
 2. K1 (the fused MLP forward) against its plain torch version on the card,
-   bf16 and f32, n_sec 0..3, at N = 262,144 points and a ragged N = 2,085,
-   and at the two tile shapes the serving path launches (8192 rays x 64
-   coarse and x 192 fine samples) for n_sec 0 and 2, with the kernel's, the
-   plain version's and a library yardstick's times at those shapes;
+   both instances (bf16 and f32), n_sec 0..3, at N = 262,144 points, at
+   ragged N = 1, 2,085 and 132 * 128 * 3 + 37 (the bf16 kernel's persistent
+   loop runs several tiles per CTA and ends mid-tile), and at the two tile
+   shapes the serving path launches (8192 rays x 64 coarse and x 192 fine
+   samples) for n_sec 0 and 2, with the kernel's, the plain version's and a
+   library yardstick's times at those shapes;
 3. the serving path: a run tree at the flagship width (8x256 MLPs, 64+128
    samples, NDC, bf16 matmuls with bf16 heads) with seeded random weights,
    rendered by the port's `start_testing` at 1008x756 -- 3 train frames with
    visibility towards the 2 others, 2 held-out frames -- checking the
-   outputs and that K1 ran on every tile; warm frame times; then a 64x48
+   outputs and that K1 ran on every tile; warm frame times; one warm
+   held-out frame in each precision mode the dispatch knows (bf16 with bf16
+   heads through the bf16 instance, the shipped default bf16 with f32 heads
+   through the module MLP, f32 through the f32 instance), counting each
+   instance's launches in each; then a 64x48
    crop rendered through the kernel on the card and through the plain
    version on the CPU, and the same crop of the model without its density
    offset (a nearly empty scene) through K1 and the plain version on the
@@ -62,6 +68,10 @@ SIGMA_OFFSET = 0.5
 CHUNK = 8192
 TILE_N = {"coarse": CHUNK * 64, "fine": CHUNK * 192}  # K1's points per launch on the path
 MAIN_N = TILE_N["fine"]  # the shape of the kernels line
+RAGGED_N = [1, 2048 + 37, 132 * 128 * 3 + 37]  # 132 SMs: 3 tiles of 128 per CTA, then 37 rows
+# precision modes of a flagship level: (bf16_matmuls, f32_heads) -> K1 instance or None
+MODES = {"bf16, bf16 heads": (True, False), "bf16, f32 heads (default)": (True, True),
+         "f32": (False, False)}
 
 
 def log(*args):
@@ -133,24 +143,25 @@ def k1_inputs(k1, n, n_sec, dtype, g, dev):
 
 def phase_k1(k1, mlp, dev):
     """K1 against its plain version on the card at every checked shape, timed
-    at the serving path's two tile shapes. Returns the worst bf16 error and
-    the timings keyed by (dtype, n_sec, n)."""
+    at the serving path's two tile shapes. Returns the worst max|err| of each
+    instance and the timings keyed by (dtype, n_sec, n)."""
     g = torch.Generator(device=dev).manual_seed(1)
-    worst = 0.0
+    worst = {}
     timings = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
         weights = k1.prepare_weights(mlp, dtype)
+        worst[dtype] = 0.0
         for n_sec in range(4):
-            sizes = [2048 + 37, 262144] + (list(TILE_N.values()) if n_sec in (0, 2) else [])
+            sizes = RAGGED_N + [262144] + (list(TILE_N.values()) if n_sec in (0, 2) else [])
             for n in sizes:
                 xe, ve, ve2, ns = k1_inputs(k1, n, n_sec, dtype, g, dev)
                 out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns).float()
                 torch.cuda.synchronize()
                 ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
                 err = (out - ref).abs().max().item()
-                rel_max = err / ref.abs().max().item()
-                rel_rms = ((out - ref).norm() / ref.norm()).item()
+                rel_max = err / max(ref.abs().max().item(), 1e-30)
+                rel_rms = ((out - ref).norm() / ref.norm().clamp_min(1e-30)).item()
                 finite = bool(torch.isfinite(out).all())
                 pad_zero = not out[:, 5 + ns:].any()
                 log(f"K1 {name} n_sec={n_sec} N={n}: max|err| {err:.3g}, max|err|/max|plain| "
@@ -159,8 +170,7 @@ def phase_k1(k1, mlp, dev):
                 if not (finite and pad_zero and rel_max <= TOL_REL_MAX[dtype]
                         and rel_rms <= TOL_REL_RMS[dtype]):
                     raise AssertionError(f"K1 disagrees with its plain version: {dtype} n_sec={n_sec} N={n}")
-                if dtype == torch.bfloat16:
-                    worst = max(worst, err)
+                worst[dtype] = max(worst[dtype], err)
                 if n not in TILE_N.values():
                     continue
                 ms = cuda_ms(lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns))
@@ -171,7 +181,7 @@ def phase_k1(k1, mlp, dev):
                 log(f"K1 timing {name} n_sec={n_sec} N={n}: kernel_ms {ms:.4f} "
                     f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (torch.nn.functional.linear "
                     f"per layer, no single call) bound_ms {bound:.4f} ({bound_by}) "
-                    f"achieved {tflops:.1f} TFLOP/s")
+                    f"share of bound {bound / ms:.3f}, achieved {tflops:.1f} TFLOP/s")
                 timings[(dtype, n_sec, n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                                   bound_ms=bound, bound_by=bound_by)
     return worst, timings
@@ -319,19 +329,19 @@ def phase_slice(k1, dev, timings):
             i: {"extrinsic": poses[i], "is_train_frame": is_train[i]} for i in range(5)
         }}}
 
-        k1.fused_mlp_raw.launches = 0
+        k1.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out_dir = start_testing(test_configs, scenes_data, save_depth=True, save_visibility=True)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = k1.fused_mlp_raw.launches
+        launches = dict(k1.fused_mlp_raw.launches_by_instance)
 
         tiles = math.ceil(H * W / CHUNK)
-        expected = 5 * 2 * tiles
+        expected = {"fused_mlp_bf16": 5 * 2 * tiles, "fused_mlp_f32": 0}
         log(f"start_testing: 5 frames of {W}x{H} in {seconds:.3f} s "
             f"({seconds / 5:.3f} s per frame, tester set-up and checkpoint load included); "
-            f"K1 launches {launches} (expected {expected} = 5 frames x 2 levels x {tiles} tiles)")
+            f"K1 launches {launches} (expected {expected}: 5 frames x 2 levels x {tiles} tiles)")
         if launches != expected:
             raise AssertionError(f"K1 ran {launches} times, expected {expected}")
 
@@ -372,9 +382,47 @@ def phase_slice(k1, dev, timings):
                 f"{W}x{H} frame; K1 {k1_ms:.1f} ms of it ({tiles} tiles x the coarse and fine "
                 f"launch times of phase 2)")
 
+        modes = phase_modes(k1, root, model_configs, test_configs, poses[1], tiles)
         phase_crop(k1, tester, configs, poses)
         phase_profile(tester, poses[1], frame_s["held-out, n_sec 0"])
-    return launches, seconds / 5, frame_s
+    return launches, seconds / 5, frame_s, modes
+
+
+def phase_modes(k1, root, model_configs, test_configs, pose, tiles):
+    """One warm held-out frame in each precision mode, with each K1
+    instance's launches counted over that frame alone: a mode runs through
+    the instance the dispatch picks (2 levels x `tiles` launches) or through
+    the module MLP (none)."""
+    from vipnerf_tpu_torch.infer.tester import NerfTester
+    from vipnerf_tpu_torch.models.vip_nerf import uses_fused_mlp
+
+    train_configs = json.loads((root / "runs/training/train0001/Configs.json").read_text())
+    modes = {}
+    for label, (bf16, f32_heads) in MODES.items():
+        cfg = copy.deepcopy(train_configs)
+        cfg["model"].update(bf16_matmuls=bf16, f32_heads=f32_heads)
+        tester = NerfTester(cfg, model_configs, test_configs, root)
+        tester.load_model(root / "runs/training/train0001/rig/saved_models/Model_Latest.tar")
+        tester.predict_frame(pose)  # warm-up
+        k1.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = tester.predict_frame(pose)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(k1.fused_mlp_raw.launches_by_instance)
+        expected = dict.fromkeys(launches, 0)
+        path = "module MLP"
+        if uses_fused_mlp(cfg["model"]["fine_mlp"], bf16, f32_heads):
+            path = "fused_mlp_bf16" if bf16 else "fused_mlp_f32"
+            expected[path] = 2 * tiles
+        finite = all(np.isfinite(np.asarray(v)).all() for v in frame.values())
+        log(f"warm held-out frame, {label}: {seconds:.4f} s through the {path}; "
+            f"K1 launches {launches} (expected {expected}); outputs finite {finite}")
+        if launches != expected or not finite:
+            raise AssertionError(f"precision mode {label}: launches {launches}, finite {finite}")
+        modes[label] = {"seconds": seconds, "path": path, "launches": launches}
+    return modes
 
 
 def main() -> int:
@@ -403,29 +451,41 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
+    for dtype in (torch.bfloat16, torch.float32):
+        log(f"{k1.INSTANCE[dtype]}: {k1.smem_bytes(dtype)} bytes of dynamic shared memory per CTA")
+
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
     worst, timings = phase_k1(k1, mlp, dev)
-    launches, s_per_frame, frame_s = phase_slice(k1, dev, timings)
+    launches, s_per_frame, frame_s, modes = phase_slice(k1, dev, timings)
 
-    main_shape = timings[(torch.bfloat16, 0, MAIN_N)]
     log(json.dumps({"slice": {
-        "resolution": [H, W], "chunk_size": CHUNK, "k1_timing_shape": {
-            "points": MAIN_N, "n_sec": 0, "dtype": "bf16"},
+        "resolution": [H, W], "chunk_size": CHUNK, "k1_timing_shape": {"points": MAIN_N, "n_sec": 0},
         "seconds_per_frame_start_testing": s_per_frame, "warm_frame_seconds": frame_s,
-        "card": card}}))
-    log(json.dumps({"kernels": [{
-        "name": "fused_mlp",
-        "route": "cuda",
-        "source": "vipnerf_tpu_torch/csrc/fused_mlp.cu",
-        "replaces": "experiments/fused_mlp.py:130",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-    }]}))
+        "precision_modes": modes, "card": card}}))
+    # each instance's launches come from its own path: the bf16 one from
+    # start_testing, the f32 one from the f32 frame of phase_modes
+    path_launches = {"fused_mlp_bf16": launches["fused_mlp_bf16"],
+                     "fused_mlp_f32": modes["f32"]["launches"]["fused_mlp_f32"]}
+    kernels = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = k1.INSTANCE[dtype]
+        main_shape = timings[(dtype, 0, MAIN_N)]
+        if not path_launches[name]:
+            raise AssertionError(f"{name} was not launched on its path")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vipnerf_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": "experiments/fused_mlp.py:130",
+            "launches": path_launches[name],
+            "max_abs_err": worst[dtype],
+            "ms": main_shape["ms"],
+            "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape["library_ms"],
+        })
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -145,14 +145,83 @@ def test_packing_layout(models):
     assert torch.equal(layers[5][0][:, :63], w5[:, :63]) and not layers[5][0][:, 63].any()
     assert torch.equal(layers[5][0][:, 64:], w5[:, 63:])
     assert not layers[k1.SIGMA][0][1:].any() and not layers[k1.VIEW_OUT][0][4:].any()
-    # fragment order: lane 4g+t of tile (nt, kt) holds W[8nt+g, 16kt+2t+{0,1,8,9}]
-    w = torch.arange(16 * 32, dtype=torch.float32).reshape(16, 32)
-    frag = k1._fragment_order(w).reshape(2, 2, 32, 4)
-    nt, kt, g, t = 1, 1, 3, 2
-    expect = [w[8 * nt + g, 16 * kt + 2 * t + j] for j in (0, 1, 8, 9)]
-    assert frag[nt, kt, 4 * g + t].tolist() == [float(x) for x in expect]
-    w_flat, b_flat = k1.kernel_buffers(layers, torch.float32)
-    assert w_flat.numel() == k1.W_NUMEL and b_flat.numel() == k1.B_NUMEL
+    # buffer lengths against the byte table, for both instances
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        w_flat, b_flat = k1.kernel_buffers(k1.pack_layers(mlp, dtype), dtype)
+        assert w_flat.numel() == k1.W_NUMEL and b_flat.numel() == k1.B_NUMEL
+        assert w_flat.numel() * size == sum(k1.LAYER_BYTES[dtype])
+
+
+def _inverse_bf16_image(flat, rows, cols):
+    """A (rows, cols) weight from its bf16 image, written from the hardware's
+    definition: K-slabs of 64 columns (the last one 32), K-major rows of
+    2*kw bytes; the 128-byte swizzle XORs address bits 4-6 with bits 7-9,
+    the 64-byte one bits 4-5 with bits 7-8."""
+    out = torch.empty(rows, cols, dtype=flat.dtype)
+    n = torch.arange(rows)[:, None]
+    base = 0
+    for k0 in range(0, cols, 64):
+        kw = min(64, cols - k0)
+        k = torch.arange(kw)[None, :]
+        plain = n * (2 * kw) + 2 * k  # byte offset without swizzle
+        mask = 7 if kw == 64 else 3
+        swz = plain ^ (((plain >> 7) & mask) << 4)
+        out[:, k0:k0 + kw] = flat[base // 2 + swz // 2]
+        base += 2 * rows * kw
+    return out
+
+
+@pytest.mark.parametrize("layer", range(len(k1.LAYER_SHAPES)))
+def test_bf16_slab_image_inverts_to_the_weight(models, layer):
+    """Each layer's swizzled K-slab image (the 64-byte-swizzled 32-wide view
+    slab of layer 10 included) maps back to its (out, in) weight exactly."""
+    _, mlp = models
+    layers = k1.pack_layers(mlp, torch.bfloat16)
+    w_flat, _ = k1.kernel_buffers(layers, torch.bfloat16)
+    rows, cols = k1.LAYER_SHAPES[layer]
+    start = sum(k1.LAYER_BYTES[torch.bfloat16][:layer]) // 2
+    image = w_flat[start:start + rows * cols]
+    w = layers[layer][0]
+    assert torch.equal(_inverse_bf16_image(image, rows, cols), w)
+
+
+def test_f32_slab_layout_round_trips(models):
+    """f32 layers are W^T row-major: slab s of a layer holds rows
+    [s*KS, (s+1)*KS) of W^T, 16 KB at most (a whole 8-wide head)."""
+    _, mlp = models
+    layers = k1.pack_layers(mlp, torch.float32)
+    w_flat, _ = k1.kernel_buffers(layers, torch.float32)
+    start = 0
+    for (w, _), (rows, cols) in zip(layers, k1.LAYER_SHAPES):
+        seg = w_flat[start:start + rows * cols]
+        ks = k1.f32_slab_rows(rows, cols)
+        assert cols % ks == 0 and ks * rows <= k1.F32_SLAB
+        for s in range(cols // ks):
+            assert torch.equal(seg[s * ks * rows:(s + 1) * ks * rows], w.t()[s * ks:(s + 1) * ks].reshape(-1))
+        start += rows * cols
+
+
+def test_dispatch_routes_each_precision_mode():
+    """The f32 instance beats the cuBLAS f32 chain on the card, so
+    `bf16_matmuls: False` stays on K1; bf16 with f32 heads (the shipped
+    default) has no instance and runs the module MLP."""
+    from vipnerf_tpu_torch.models.vip_nerf import uses_fused_mlp
+
+    assert uses_fused_mlp(CFG, bf16_matmuls=True, f32_heads=False)
+    assert uses_fused_mlp(CFG, bf16_matmuls=False, f32_heads=False)
+    assert uses_fused_mlp(CFG, bf16_matmuls=False, f32_heads=True)
+    assert not uses_fused_mlp(CFG, bf16_matmuls=True, f32_heads=True)
+    assert not uses_fused_mlp(dict(CFG, netwidth=128), bf16_matmuls=False, f32_heads=False)
+
+
+def test_launch_counts_per_instance(models):
+    _, mlp = models
+    k1.reset_launch_counts()
+    assert k1.fused_mlp_raw.launches == 0
+    assert k1.fused_mlp_raw.launches_by_instance == {"fused_mlp_bf16": 0, "fused_mlp_f32": 0}
+    xe, ve, ve2, ns = k1.encode_inputs(*inputs(16, 1), torch.float32)
+    k1.fused_mlp_raw(k1.prepare_weights(mlp, torch.float32), xe, ve, ve2, ns)
+    assert k1.fused_mlp_raw.launches_by_instance == {"fused_mlp_bf16": 0, "fused_mlp_f32": 0}
 
 
 def test_prepare_weights_repacks_after_an_update(models):

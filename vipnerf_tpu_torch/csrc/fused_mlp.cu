@@ -9,21 +9,57 @@
 //
 // What bounds it: tensor-core operations. ~1.19 MFLOP per point against
 // ~200 bytes of inputs and outputs, far above the card's ~295 FLOP/byte
-// ridge. The design keeps every activation out of device memory: a CTA owns
-// a tile of points, holds the tile's activations in shared memory from the
-// first layer to the last, and writes only the 8 raw outputs per point.
-// Weights (1.19 MB in bf16) are read from global memory and stay resident
-// in L2; each weight fragment a warp loads feeds every point of the tile.
+// ridge. Every activation stays in shared memory from the first layer to the
+// last; only the 8 raw outputs per point are written. What remains to move is
+// the weights (1.19 MB in bf16), read from L2 once per tile of points.
 //
-// bf16 instance: 128 points per CTA, 8 warps, mma.sync m16n8k16 with f32
-// accumulators. Each warp owns a column slice of the layer for all 128 rows
-// (or a row slice for the 8-wide outputs). Per layer the f32 sum is rounded
-// to bf16, the bf16 bias is added as bf16(float(h) + float(b)), then ReLU:
-// the numerics of _make_fwd_kernel and of models/mlp.py with bf16 matmuls.
-// Weights come pre-arranged in fragment order (kernels/fused_mlp.py).
+// bf16 instance: a persistent, warp-specialised CTA per SM (384 threads).
+// - Two consumer warpgroups each own 64 points of a 128-point tile for the
+//   whole chain. Each layer is a sequence of wgmma.mma_async m64nNk16 (N 256,
+//   128 or 8) with A (activations) and B (weights) both read from shared
+//   memory through descriptors, f32 accumulators in registers. Rows are
+//   independent, so a warpgroup only waits for its own 128 threads (named
+//   barrier), never for the other warpgroup.
+// - A: activations are K-major 64-column slabs with the 128-byte swizzle
+//   (64 rows x 128 B, 8 KB). The epilogue of a layer writes its bf16 output
+//   over its input in that layout, so there is one buffer, no ping-pong. The
+//   concatenations are slab sequences: the skip layer reads the xe slab and
+//   then the four h slabs, the view layer the four feature slabs and then a
+//   32-column PE(dir) slab with the 64-byte swizzle.
+// - B: the packer (kernels/fused_mlp.py) writes every layer as K-slabs that
+//   are already the swizzled image the B descriptor reads (N rows x 64 K,
+//   32 KB for N = 256), so a producer thread copies each with one 1-D
+//   cp.async.bulk into a 2-stage ring, completing on a "full" mbarrier; the
+//   8 consumer warps arrive on the stage's "empty" mbarrier when their wgmma
+//   has read it. The weight stream is the same for every tile (layers 0-11,
+//   then layers 10-11 again per secondary view) and the producer replays it.
+// - Numerics of _make_fwd_kernel and models/mlp.py with bf16 matmuls: the f32
+//   sum is rounded to bf16, the bf16 bias is added as bf16(float(h)+float(b)),
+//   then ReLU.
+// - Each CTA reads every weight from L2 once per 128 points. Sharing one copy
+//   between the 2 CTAs of a cluster (multicast) was slower on the H100: with
+//   the 64 KB ring that the shared memory leaves, the round trip between the
+//   two CTAs before a stage can be refilled cost more than the halved L2
+//   traffic saved (PERF.md, section 6).
 //
-// f32 instance: 64 points per CTA, plain FFMA on an 8x8 register tile per
-// thread, weights in (in, out) row-major.
+// Traps, each handled below:
+// - Stores by threads into shared memory are not seen by the async proxy
+//   (wgmma, bulk copies) without fence.proxy.async.shared::cta: the next
+//   layer would read stale activations, and only sometimes.
+// - The transpose bits of wgmma are 0 because both operands are K-major: the
+//   packer stores W as (out, in), K contiguous, the layout A has too.
+// - mbarrier phase parity is tracked per stage by a running chunk counter
+//   (stage = it % 2, parity = it / 2 % 2) that carries across tiles.
+// - Register arrays are indexed only with unrolled constants; a spill would
+//   show in the ptxas line chip_smoke.py prints.
+// - A layer's output overwrites its input: a warpgroup barrier sits between
+//   its last wgmma and its epilogue.
+//
+// f32 instance: 64 points per CTA, plain FFMA (no TF32), activations in
+// shared memory, each layer's W^T staged in 16 KB K-slabs by cp.async, double
+// buffered, so every weight comes from L2 once per CTA. A thread owns an 8x8
+// register tile (8 rows x 2 float4 column groups), reading one float4 of
+// activations (a broadcast) and two of weights per 4 k-steps and row block.
 //
 // Both mask the ragged last tile: rows past n load as zeros and are never
 // stored. C entry points return cudaGetLastError() after the launch.
@@ -39,7 +75,6 @@ constexpr int VIEW_IN = 32;
 constexpr int WIDTH = 256;
 constexpr int NOUT = 8;
 constexpr int MAX_SEC = 3;
-constexpr int THREADS = 256;
 constexpr int NLAYERS = 12;
 
 // (out, in) of each packed layer: trunk 0..7, feature 8, sigma 9, view 10,
@@ -63,297 +98,544 @@ __host__ __device__ constexpr int b_off(int l) {
 static_assert(w_off(NLAYERS) == 596992, "weight table");
 static_assert(b_off(NLAYERS) == 2448, "bias table");
 
+// ------------------------------------------------------------ PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// A wait that never ends (a broken pipeline) traps after 2^24 polls, so a
+// fault ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// 1-D bulk copy global -> shared, completing `bytes` on the mbarrier
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// thread stores into shared memory -> visible to wgmma and bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns them.
+template <int R>
+__device__ __forceinline__ void acc_fence(float (&d)[R], int count) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (i < count) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand with the SW-byte
+// swizzle (SW = 128 or 64): rows of SW bytes, 8-row groups SW * 8 bytes apart
+// (the stride byte offset); the leading byte offset is unused in this mode.
+template <int SW>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  static_assert(SW == 128 || SW == 64, "swizzle");
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(8 * SW / 16) << 32) | (static_cast<uint64_t>(SW == 128 ? 1 : 2) << 62);
+}
+
+#define ACC8(i)                                                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N]; the accumulator fragment of thread t
+// of the warpgroup: d[4j + 2h + e] is row 16 (t / 32) + (t % 32) / 4 + 8h,
+// column 8j + 2 (t % 4) + e.
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56), ACC8(64),
+        ACC8(72), ACC8(80), ACC8(88), ACC8(96), ACC8(104), ACC8(112), ACC8(120)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// the same for N = 128 in d[0..63]
+__device__ __forceinline__ void wgmma_n128(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+#undef ACC8
+
 // ------------------------------------------------------------------ bf16
 
-constexpr int BM16 = 128;
-constexpr int XE_LD = PTS_IN + 8;                   // +8: conflict-free ldmatrix
-constexpr int H_LD = WIDTH + 8;
-constexpr int VE_LD = VIEW_IN * (1 + MAX_SEC) + 8;
-constexpr int SMEM16 = BM16 * (XE_LD + 2 * H_LD + VE_LD) * 2 + BM16 * NOUT * 4;
+constexpr int CONSUMERS = 2;                      // consumer warpgroups per CTA
+constexpr int THREADS16 = 128 * (CONSUMERS + 1);  // + one producer warpgroup
+constexpr int ROWS_WG = 64;                       // points per consumer warpgroup
+constexpr int TILE16 = ROWS_WG * CONSUMERS;       // points per tile
+constexpr int SLAB_K = 64;                        // K of a 128-byte-swizzled slab
+constexpr int A_SLAB = ROWS_WG * SLAB_K * 2;      // 8 KB
+constexpr int PE_SLAB = ROWS_WG * VIEW_IN * 2;    // 4 KB, 64-byte swizzle
+// a consumer warpgroup's shared memory
+constexpr int WG_ACT = 0;                    // 4 slabs: h, then the feature
+constexpr int WG_HID = WG_ACT + 4 * A_SLAB;  // 2 slabs: the view layer's output
+constexpr int WG_XE = WG_HID + 2 * A_SLAB;   // 1 slab
+constexpr int WG_PE = WG_XE + A_SLAB;        // 1 + MAX_SEC slabs
+constexpr int WG_BYTES = WG_PE + (1 + MAX_SEC) * PE_SLAB;
+// the CTA's
+constexpr int STAGES = 2;
+constexpr int STAGE_BYTES = WIDTH * SLAB_K * 2;  // one K-slab of a 256-wide layer
+constexpr int RING = CONSUMERS * WG_BYTES;
+constexpr int OUT_TILE = RING + STAGES * STAGE_BYTES;  // [64][8] bf16 per warpgroup
+constexpr int BARS = OUT_TILE + CONSUMERS * ROWS_WG * NOUT * 2;
+constexpr int SMEM16 = BARS + 2 * STAGES * 8 + 1024;  // + slack to align the base to 1 KB
+static_assert(WG_BYTES % 1024 == 0 && RING % 1024 == 0, "swizzled slabs need 1 KB alignment");
+static_assert(SMEM16 <= 232448, "shared memory");
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
+// byte offset of element (r, c) in a stack of 128-byte-swizzled 64-column slabs
+__device__ __forceinline__ int swz128(int r, int c) {
+  return (c >> 6) * A_SLAB + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// Epilogue sinks: a bf16 activation buffer in shared memory ...
-struct ToSmem16 {
-  __nv_bfloat16* p;
-  int ld;
-  __device__ void operator()(int r, int c, float v0, float v1) const {
-    *reinterpret_cast<__nv_bfloat162*>(p + r * ld + c) = __floats2bfloat162_rn(v0, v1);
+// The weight ring as a consumer sees it: `it` counts the chunks consumed.
+struct Ring {
+  uint32_t stages, full, empty, it;
+  __device__ __forceinline__ uint32_t acquire() {
+    const uint32_t s = it % STAGES;
+    mbar_wait(full + 8 * s, (it / STAGES) & 1);
+    return stages + s * STAGE_BYTES;
+  }
+  __device__ __forceinline__ void release(int lane) {
+    if (lane == 0) mbar_arrive(empty + 8 * (it % STAGES));
+    ++it;
   }
 };
 
-// ... or columns [lo, hi) of a layer's output into the f32 output tile at dst.
-struct ToOut {
-  float* p;
-  int lo, hi, dst;
-  __device__ void operator()(int r, int c, float v0, float v1) const {
-    if (c >= lo && c < hi) p[r * NOUT + dst + c - lo] = v0;
-    if (c + 1 >= lo && c + 1 < hi) p[r * NOUT + dst + c + 1 - lo] = v1;
+// wgmma over one K-slab: SW / 32 steps of k16 (32 bytes of each row)
+template <int N, int SW, int R>
+__device__ __forceinline__ void mma_slab(float (&d)[R], uint32_t a, uint32_t b, int accumulate) {
+#pragma unroll
+  for (int t = 0; t < SW / 32; ++t) {
+    const uint64_t da = desc<SW>(a + 32 * t), db = desc<SW>(b + 32 * t);
+    const int acc = accumulate | (t > 0);
+    if constexpr (N == 256) wgmma_n256(d, da, db, acc);
+    else if constexpr (N == 128) wgmma_n128(d, da, db, acc);
+    else wgmma_n8(d, da, db, acc);
   }
-};
+}
 
-// One layer on the tile: out = epilogue(A @ W^T + b). A is two column
-// segments in shared memory (kt1 and kt2 steps of 16), so the skip concat
-// [xe, h] and the view concat [feature, PE(dir)] are never copied. Warps
-// form a (8 / WARPS_N) x WARPS_N grid; each owns MT m16 tiles x NTW n8 tiles.
-template <int MT, int NTW, int WARPS_N, bool RELU, class Store>
-__device__ __forceinline__ void layer16(const __nv_bfloat16* a1, int lda1, int kt1,
-                                        const __nv_bfloat16* a2, int lda2, int kt2,
-                                        const uint2* __restrict__ wf,
-                                        const float* __restrict__ bias, Store store) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = (warp / WARPS_N) * MT * 16;
-  const int nt0 = (warp % WARPS_N) * NTW;
-  const int kts = kt1 + kt2;
-  float acc[MT][NTW][4];
+// One chunk of the weight stream (NSUB consecutive K-slabs of one layer):
+// wait for it, run it against the A slabs from `a` on, release it.
+template <int N, int SW, int NSUB, int R>
+__device__ __forceinline__ void mma_chunk(float (&d)[R], Ring& ring, uint32_t a, int accumulate, int lane) {
+  const uint32_t b = ring.acquire();
+  acc_fence(d, N / 2);
+  wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NTW; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int s = 0; s < NSUB; ++s) mma_slab<N, SW>(d, a + s * A_SLAB, b + s * N * SW, accumulate | (s > 0));
+  wgmma_commit();
+  wgmma_wait0();
+  acc_fence(d, N / 2);
+  ring.release(lane);
+}
 
-  const int arow = lane & 15, acol = (lane >> 4) * 8;
-  // B fragments of step kt+1 are in flight while step kt computes
-  uint2 b[NTW], bn[NTW];
+// a 256-wide trunk layer from the four h slabs, after the xe slab if `skip`
+__device__ __forceinline__ void mma_trunk(float (&d)[128], Ring& ring, uint32_t xe, uint32_t act, bool skip,
+                                          int lane) {
+  if (skip) mma_chunk<256, 128, 1>(d, ring, xe, 0, lane);
+  for (int s = 0; s < 4; ++s) mma_chunk<256, 128, 1>(d, ring, act + s * A_SLAB, (s > 0) | skip, lane);
+}
+
+// bf16(bf16(acc) + b), ReLU, into the swizzled slabs at dst, a pair of
+// columns at a time: one cvt.rn.bf16x2.f32, then fma.rn(.relu).bf16x2 with
+// 1.0, which rounds bf16(acc) + b once, as bf16(float(h) + float(b)) does.
+template <int N, bool RELU>
+__device__ __forceinline__ void epilogue_to_slabs(const float (&d)[128], const float* __restrict__ bias,
+                                                  unsigned char* dst, int warp, int lane) {
+  const int r = warp * 16 + (lane >> 2);
+  const __nv_bfloat162 one = __floats2bfloat162_rn(1.f, 1.f);
 #pragma unroll
-  for (int j = 0; j < NTW; ++j) b[j] = __ldg(&wf[(nt0 + j) * kts * 32 + lane]);
-  for (int kt = 0; kt < kts; ++kt) {
-    const bool first = kt < kt1;
-    const __nv_bfloat16* a = first ? a1 : a2;
-    const int lda = first ? lda1 : lda2;
-    const int kc = (first ? kt : kt - kt1) * 16;
-    if (kt + 1 < kts) {
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    const float2 bf = __ldg(reinterpret_cast<const float2*>(bias + c));
+    const __nv_bfloat162 b = __floats2bfloat162_rn(bf.x, bf.y);  // exact: the bias is bf16-valued
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) bn[j] = __ldg(&wf[((nt0 + j) * kts + kt + 1) * 32 + lane]);
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dst + swz128(r + 8 * h, c)) =
+          RELU ? __hfma2_relu(h2, one, b) : __hfma2(h2, one, b);
     }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      uint32_t af[4];
-      ldmatrix_x4(af, a + (m0 + i * 16 + arow) * lda + kc + acol);
-#pragma unroll
-      for (int j = 0; j < NTW; ++j) mma_bf16(acc[i][j], af, b[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < NTW; ++j) b[j] = bn[j];
   }
+}
 
-  const int g = lane >> 2, t = lane & 3;
+// columns [lo, hi) of an 8-wide head into columns dst.. of the output tile
+__device__ __forceinline__ void epilogue_to_out(const float (&d)[4], const float* __restrict__ bias,
+                                                __nv_bfloat16* tile, int lo, int hi, int dst, int warp,
+                                                int lane) {
+  const int r = warp * 16 + (lane >> 2);
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < NTW; ++j) {
-      const int col = (nt0 + j) * 8 + 2 * t;
-      const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v0 = bf16_round(bf16_round(acc[i][j][2 * h]) + b0);
-        float v1 = bf16_round(bf16_round(acc[i][j][2 * h + 1]) + b1);
-        if (RELU) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
+    for (int e = 0; e < 2; ++e) {
+      const int c = 2 * (lane & 3) + e;
+      if (c >= lo && c < hi)
+        tile[(r + 8 * h) * NOUT + dst + c - lo] = __float2bfloat16_rn(bf16_round(d[2 * h + e]) + __ldg(bias + c));
+    }
+}
+
+__global__ void __launch_bounds__(THREADS16, 1)
+    fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ xe, const __nv_bfloat16* __restrict__ ve,
+                          const __nv_bfloat16* __restrict__ ve2, const __nv_bfloat16* __restrict__ w,
+                          const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int n, int n_sec) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + BARS, empty = full + 8 * STAGES;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int ntiles = (n + TILE16 - 1) / TILE16;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // producer: one thread replays the weight stream into the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      const unsigned char* wb = reinterpret_cast<const unsigned char*>(w);
+      uint32_t it = 0;
+      auto push = [&](int off, int bytes) {
+        const uint32_t s = it % STAGES;
+        mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, bytes);
+        bulk_g2s(base + RING + s * STAGE_BYTES, wb + off, bytes, full + 8 * s);
+        ++it;
+      };
+      // a layer is its K-slabs in order: one chunk each, or one chunk in all
+      // for the 8-wide heads (4 and 2 KB)
+      auto push_layer = [&](int l) {
+        const int nn = layer_n(l), k = layer_k(l), off = 2 * w_off(l);
+        if (nn == NOUT) {
+          push(off, 2 * nn * k);
+          return;
         }
-        store(m0 + i * 16 + g + h * 8, col, v0, v1);
+        for (int k0 = 0; k0 < k; k0 += SLAB_K) push(off + 2 * nn * k0, 2 * nn * min(SLAB_K, k - k0));
+      };
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        for (int l = 0; l < NLAYERS; ++l) push_layer(l);
+        for (int j = 0; j < n_sec; ++j) {
+          push_layer(10);
+          push_layer(11);
+        }
       }
     }
-}
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int warp = tid / 32, lane = tid % 32, bar_id = 1 + wg;
+    unsigned char* mine = smem + wg * WG_BYTES;
+    const uint32_t act = base + wg * WG_BYTES + WG_ACT, hid = act - WG_ACT + WG_HID;
+    const uint32_t xs = act - WG_ACT + WG_XE, pe = act - WG_ACT + WG_PE;
+    __nv_bfloat16* otile = reinterpret_cast<__nv_bfloat16*>(smem + OUT_TILE) + wg * ROWS_WG * NOUT;
+    Ring ring{base + RING, full, empty, 0};
+    const int ve2_ld = VIEW_IN * (n_sec > 0 ? n_sec : 1);
+    const int vpieces = 4 * (1 + n_sec);  // 16-byte pieces of PE per row
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    float d[128];
+    float d8[4];
 
-__global__ void __launch_bounds__(THREADS, 1)
-    fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ xe,
-                          const __nv_bfloat16* __restrict__ ve,
-                          const __nv_bfloat16* __restrict__ ve2,
-                          const __nv_bfloat16* __restrict__ w,
-                          const float* __restrict__ bias,
-                          __nv_bfloat16* __restrict__ out, int n, int n_sec) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem);  // [BM][XE_LD]
-  __nv_bfloat16* h0 = sx + BM16 * XE_LD;                       // [BM][H_LD]
-  __nv_bfloat16* h1 = h0 + BM16 * H_LD;                        // [BM][H_LD]
-  __nv_bfloat16* sv = h1 + BM16 * H_LD;                        // [BM][VE_LD]
-  float* so = reinterpret_cast<float*>(sv + BM16 * VE_LD);     // [BM][NOUT]
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int row0 = tile * TILE16 + wg * ROWS_WG;
+      bar_sync(bar_id, 128);  // the previous tile's output rows are stored
+      // the tile's inputs, swizzled; rows past n are zeros
+      for (int i = tid; i < ROWS_WG * 8; i += 128) {
+        const int r = i >> 3, c = i & 7;
+        const uint4 v = row0 + r < n ? __ldg(reinterpret_cast<const uint4*>(xe + (size_t)(row0 + r) * PTS_IN) + c)
+                                     : zero;
+        *reinterpret_cast<uint4*>(mine + WG_XE + r * 128 + ((c ^ (r & 7)) << 4)) = v;
+      }
+      for (int i = tid; i < ROWS_WG * vpieces; i += 128) {
+        const int r = i / vpieces, q = i % vpieces, v = q >> 2, c = q & 3;
+        uint4 val = zero;
+        if (row0 + r < n)
+          val = v == 0 ? __ldg(reinterpret_cast<const uint4*>(ve + (size_t)(row0 + r) * VIEW_IN) + c)
+                       : __ldg(reinterpret_cast<const uint4*>(ve2 + (size_t)(row0 + r) * ve2_ld) + q - 4);
+        *reinterpret_cast<uint4*>(mine + WG_PE + v * PE_SLAB + r * 64 + ((c ^ ((r >> 1) & 3)) << 4)) = val;
+      }
+      if (tid < ROWS_WG) reinterpret_cast<uint4*>(otile)[tid] = zero;
+      fence_proxy_async();
+      bar_sync(bar_id, 128);
 
-  const int row0 = blockIdx.x * BM16;
-  const int tid = threadIdx.x;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  const int ve2_ld = VIEW_IN * (n_sec > 0 ? n_sec : 1);
-
-  // Stage the tile's inputs in 16-byte pieces (8 bf16): xe has 8 per row,
-  // ve 4, ve2 4 per secondary view. Rows past n are zeros.
-  for (int i = tid; i < BM16 * 8; i += THREADS) {
-    const int r = i >> 3, c = i & 7;
-    const bool in = row0 + r < n;
-    const uint4 v = in ? __ldg(reinterpret_cast<const uint4*>(xe + (size_t)(row0 + r) * PTS_IN) + c) : zero;
-    *reinterpret_cast<uint4*>(sx + r * XE_LD + c * 8) = v;
-  }
-  const int vpieces = 4 * (1 + n_sec);
-  for (int i = tid; i < BM16 * vpieces; i += THREADS) {
-    const int r = i / vpieces, c = i % vpieces;
-    const bool in = row0 + r < n;
-    uint4 v = zero;
-    if (in) {
-      v = c < 4 ? __ldg(reinterpret_cast<const uint4*>(ve + (size_t)(row0 + r) * VIEW_IN) + c)
-                : __ldg(reinterpret_cast<const uint4*>(ve2 + (size_t)(row0 + r) * ve2_ld) + c - 4);
+      // trunk: each layer's output overwrites its input
+      mma_chunk<256, 128, 1>(d, ring, xs, 0, lane);
+      epilogue_to_slabs<256, true>(d, bias + b_off(0), mine + WG_ACT, warp, lane);
+      fence_proxy_async();
+      bar_sync(bar_id, 128);
+      for (int l = 1; l <= 7; ++l) {
+        mma_trunk(d, ring, xs, act, l == 5, lane);
+        bar_sync(bar_id, 128);  // no wgmma of this warpgroup still reads h
+        epilogue_to_slabs<256, true>(d, bias + b_off(l), mine + WG_ACT, warp, lane);
+        fence_proxy_async();
+        bar_sync(bar_id, 128);
+      }
+      // heads from h: the feature (over h) and sigma (output column 0)
+      mma_trunk(d, ring, xs, act, false, lane);
+      mma_chunk<8, 128, 4>(d8, ring, act, 0, lane);
+      bar_sync(bar_id, 128);
+      epilogue_to_slabs<256, false>(d, bias + b_off(8), mine + WG_ACT, warp, lane);
+      epilogue_to_out(d8, bias + b_off(9), otile, 0, 1, 0, warp, lane);
+      fence_proxy_async();
+      bar_sync(bar_id, 128);
+      // view branch [feature, PE(dir)]: the primary view gives rgb + vis
+      // (columns 1..4), secondary view v its vis (column 4 + v)
+      for (int v = 0; v <= n_sec; ++v) {
+        for (int s = 0; s < 4; ++s) mma_chunk<128, 128, 1>(d, ring, act + s * A_SLAB, s > 0, lane);
+        mma_chunk<128, 64, 1>(d, ring, pe + v * PE_SLAB, 1, lane);
+        bar_sync(bar_id, 128);  // no wgmma of this warpgroup still reads the hidden slabs
+        epilogue_to_slabs<128, true>(d, bias + b_off(10), mine + WG_HID, warp, lane);
+        fence_proxy_async();
+        bar_sync(bar_id, 128);
+        mma_chunk<8, 128, 2>(d8, ring, hid, 0, lane);
+        if (v == 0)
+          epilogue_to_out(d8, bias + b_off(11), otile, 0, 4, 1, warp, lane);
+        else
+          epilogue_to_out(d8, bias + b_off(11), otile, 3, 4, 4 + v, warp, lane);
+      }
+      bar_sync(bar_id, 128);
+      if (tid < ROWS_WG && row0 + tid < n)
+        reinterpret_cast<uint4*>(out)[row0 + tid] = reinterpret_cast<const uint4*>(otile)[tid];
     }
-    *reinterpret_cast<uint4*>(sv + r * VE_LD + c * 8) = v;
-  }
-  for (int i = tid; i < BM16 * NOUT; i += THREADS) so[i] = 0.f;
-  __syncthreads();
-
-  const uint2* wf = reinterpret_cast<const uint2*>(w);
-#define W16(l) (wf + w_off(l) / 4)
-#define B16(l) (bias + b_off(l))
-  // trunk: activations ping-pong between h0 and h1
-  layer16<8, 4, 8, true>(sx, XE_LD, 4, sx, XE_LD, 0, W16(0), B16(0), ToSmem16{h0, H_LD});
-  __syncthreads();
-  layer16<8, 4, 8, true>(h0, H_LD, 16, h0, H_LD, 0, W16(1), B16(1), ToSmem16{h1, H_LD});
-  __syncthreads();
-  layer16<8, 4, 8, true>(h1, H_LD, 16, h1, H_LD, 0, W16(2), B16(2), ToSmem16{h0, H_LD});
-  __syncthreads();
-  layer16<8, 4, 8, true>(h0, H_LD, 16, h0, H_LD, 0, W16(3), B16(3), ToSmem16{h1, H_LD});
-  __syncthreads();
-  layer16<8, 4, 8, true>(h1, H_LD, 16, h1, H_LD, 0, W16(4), B16(4), ToSmem16{h0, H_LD});
-  __syncthreads();
-  // skip layer: [xe, h] with no copy
-  layer16<8, 4, 8, true>(sx, XE_LD, 4, h0, H_LD, 16, W16(5), B16(5), ToSmem16{h1, H_LD});
-  __syncthreads();
-  layer16<8, 4, 8, true>(h1, H_LD, 16, h1, H_LD, 0, W16(6), B16(6), ToSmem16{h0, H_LD});
-  __syncthreads();
-  layer16<8, 4, 8, true>(h0, H_LD, 16, h0, H_LD, 0, W16(7), B16(7), ToSmem16{h1, H_LD});
-  __syncthreads();
-  // heads: feature -> h0, sigma -> output column 0
-  layer16<8, 4, 8, false>(h1, H_LD, 16, h1, H_LD, 0, W16(8), B16(8), ToSmem16{h0, H_LD});
-  layer16<1, 1, 1, false>(h1, H_LD, 16, h1, H_LD, 0, W16(9), B16(9), ToOut{so, 0, 1, 0});
-  __syncthreads();
-  // view branch, primary view: rgb + vis -> output columns 1..4
-  layer16<8, 2, 8, true>(h0, H_LD, 16, sv, VE_LD, 2, W16(10), B16(10), ToSmem16{h1, H_LD});
-  __syncthreads();
-  layer16<1, 1, 1, false>(h1, H_LD, 8, h1, H_LD, 0, W16(11), B16(11), ToOut{so, 0, 4, 1});
-  // secondary views: vis only -> output column 5 + j
-  for (int j = 0; j < n_sec; ++j) {
-    __syncthreads();
-    layer16<8, 2, 8, true>(h0, H_LD, 16, sv + VIEW_IN * (1 + j), VE_LD, 2, W16(10), B16(10),
-                           ToSmem16{h1, H_LD});
-    __syncthreads();
-    layer16<1, 1, 1, false>(h1, H_LD, 8, h1, H_LD, 0, W16(11), B16(11), ToOut{so, 3, 4, 5 + j});
-  }
-#undef W16
-#undef B16
-  __syncthreads();
-
-  for (int r = tid; r < BM16; r += THREADS) {
-    if (row0 + r >= n) continue;
-    const float* o = so + r * NOUT;
-    const uint4 q = make_uint4(pack_bf16x2(o[0], o[1]), pack_bf16x2(o[2], o[3]),
-                               pack_bf16x2(o[4], o[5]), pack_bf16x2(o[6], o[7]));
-    *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * NOUT) = q;
   }
 }
 
 // ------------------------------------------------------------------- f32
 
 constexpr int BM32 = 64;
-constexpr int VE32_LD = VIEW_IN * (1 + MAX_SEC);
-constexpr int SMEM32 = BM32 * (PTS_IN + 2 * WIDTH + VE32_LD + NOUT) * 4;
+constexpr int THREADS32 = 256;
+// row strides in floats: +4 puts consecutive rows 4 banks apart, so the
+// 8-wide heads' reads of 8 rows at one k are conflict-free
+constexpr int XE32_LD = PTS_IN + 4;
+constexpr int H32_LD = WIDTH + 4;
+constexpr int VE32_LD = VIEW_IN * (1 + MAX_SEC) + 4;
+constexpr int WSLAB = 4096;  // floats of one weight slab (16 KB)
+constexpr int SMEM32 = (BM32 * (XE32_LD + 2 * H32_LD + VE32_LD + NOUT) + 2 * WSLAB) * 4;
+static_assert(SMEM32 <= 232448, "shared memory");
 
-struct ToSmem32 {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int q) {
+  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
+}
+
+// Where a layer's output goes: a shared activation buffer (N >= 128), or
+// columns [lo, hi) of an 8-wide head into output columns dst.. (N = 8).
+struct Sink32 {
   float* p;
-  int ld;
-  __device__ void operator()(int r, int c, float v) const { p[r * ld + c] = v; }
+  int ld, lo, hi, dst;
 };
 
-struct ToOut32 {
-  float* p;
-  int lo, hi, dst;
-  __device__ void operator()(int r, int c, float v) const {
-    if (c >= lo && c < hi) p[r * NOUT + dst + c - lo] = v;
-  }
-};
-
-// out = epilogue(A @ W + b), W (K, N) row-major. Thread tile RT rows x CT
-// columns; a warp shares its rows, so the A reads are broadcasts and the W
-// reads are contiguous.
-template <int N, int RT, int CT, bool RELU, class Store>
-__device__ __forceinline__ void layer32(const float* a1, int lda1, int k1, const float* a2,
-                                        int lda2, int k2, const float* __restrict__ wt,
-                                        const float* __restrict__ bias, Store store) {
-  constexpr int NCG = N / CT;
-  static_assert((BM32 / RT) * NCG == THREADS, "thread tiling");
-  const int c0 = (threadIdx.x % NCG) * CT, r0 = (threadIdx.x / NCG) * RT;
+// out = epilogue(A @ W + b), W^T (K, N) row-major in global memory, staged in
+// K-slabs of KS rows (the whole layer for an 8-wide head). A is two column
+// segments in shared memory (k1 columns, then the rest), so the skip and view
+// concatenations are never copied.
+template <int N, int K, bool RELU>
+__device__ __forceinline__ void layer32(const float* a1, int lda1, int k1, const float* a2, int lda2,
+                                        const float* __restrict__ wt, const float* __restrict__ bias, float* wbuf,
+                                        Sink32 sink) {
+  constexpr int KS = N == NOUT ? K : WSLAB / N;
+  constexpr int NS = K / KS;
+  static_assert(KS * N <= WSLAB && K % KS == 0 && KS % 4 == 0, "weight slabs");
+  constexpr int RT = N == NOUT ? 1 : 8;                          // rows per thread
+  constexpr int CT = N == 256 ? 8 : (N == 128 ? 4 : 2);          // columns per thread
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int r0 = N == NOUT ? tid >> 2 : (tid >> 5) * RT;
+  auto load = [&](int s) {
+    const float* src = wt + s * KS * N;
+    float* dst = wbuf + (s & 1) * WSLAB;
+    for (int i = tid; i < KS * N / 4; i += THREADS32) cp_async16(dst + 4 * i, src + 4 * i);
+    cp_async_commit();
+  };
   float acc[RT][CT];
 #pragma unroll
   for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < k1 + k2; ++k) {
-    const bool first = k < k1;
-    const float* a = first ? a1 + k : a2 + (k - k1);
-    const int lda = first ? lda1 : lda2;
-    float wv[CT];
-#pragma unroll
-    for (int j = 0; j < CT; ++j) wv[j] = __ldg(wt + k * N + c0 + j);
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const float av = a[(r0 + i) * lda];
-#pragma unroll
-      for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(av, wv[j], acc[i][j]);
+
+  load(0);
+  for (int s = 0; s < NS; ++s) {
+    if (s + 1 < NS) {
+      load(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const float* wv = wbuf + (s & 1) * WSLAB;
+    const int k0 = s * KS;
+    const float* a = k0 < k1 ? a1 + k0 : a2 + (k0 - k1);
+    const int lda = k0 < k1 ? lda1 : lda2;
+    if constexpr (N == NOUT) {
+      const int c0 = (tid & 3) * 2;
+#pragma unroll 4
+      for (int kk = 0; kk < KS; kk += 4) {
+        const float4 av = *reinterpret_cast<const float4*>(a + r0 * lda + kk);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 b = *reinterpret_cast<const float2*>(wv + (kk + q) * N + c0);
+          acc[0][0] = fmaf(lane_of(av, q), b.x, acc[0][0]);
+          acc[0][1] = fmaf(lane_of(av, q), b.y, acc[0][1]);
+        }
+      }
+    } else {
+#pragma unroll 2
+      for (int kk = 0; kk < KS; kk += 4) {
+        float4 av[RT], bv[4][CT / 4];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) av[i] = *reinterpret_cast<const float4*>(a + (r0 + i) * lda + kk);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int g = 0; g < CT / 4; ++g)
+            bv[q][g] = *reinterpret_cast<const float4*>(wv + (kk + q) * N + g * 128 + lane * 4);
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float x = lane_of(av[i], q);
+#pragma unroll
+            for (int g = 0; g < CT / 4; ++g) {
+              acc[i][4 * g + 0] = fmaf(x, bv[q][g].x, acc[i][4 * g + 0]);
+              acc[i][4 * g + 1] = fmaf(x, bv[q][g].y, acc[i][4 * g + 1]);
+              acc[i][4 * g + 2] = fmaf(x, bv[q][g].z, acc[i][4 * g + 2]);
+              acc[i][4 * g + 3] = fmaf(x, bv[q][g].w, acc[i][4 * g + 3]);
+            }
+          }
+      }
+    }
+    __syncthreads();
   }
+
+  if constexpr (N == NOUT) {
+    const int c0 = (tid & 3) * 2;
 #pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      float v = acc[i][j] + bias[c0 + j];
-      if (RELU) v = fmaxf(v, 0.f);
-      store(r0 + i, c0 + j, v);
+    for (int e = 0; e < 2; ++e) {
+      const int c = c0 + e;
+      if (c >= sink.lo && c < sink.hi) sink.p[r0 * NOUT + sink.dst + c - sink.lo] = acc[0][e] + bias[c];
     }
+  } else {
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int g = 0; g < CT / 4; ++g) {
+        const int c = g * 128 + lane * 4;
+        const float4 b = __ldg(reinterpret_cast<const float4*>(bias + c));
+        float4 v = make_float4(acc[i][4 * g] + b.x, acc[i][4 * g + 1] + b.y, acc[i][4 * g + 2] + b.z,
+                               acc[i][4 * g + 3] + b.w);
+        if (RELU) v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
+        *reinterpret_cast<float4*>(sink.p + (r0 + i) * sink.ld + c) = v;
+      }
+  }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS32, 1)
     fused_mlp_f32_kernel(const float* __restrict__ xe, const float* __restrict__ ve,
                          const float* __restrict__ ve2, const float* __restrict__ w,
-                         const float* __restrict__ bias, float* __restrict__ out, int n,
-                         int n_sec) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sx = reinterpret_cast<float*>(smem);  // [BM][64]
-  float* h0 = sx + BM32 * PTS_IN;              // [BM][256]
-  float* h1 = h0 + BM32 * WIDTH;               // [BM][256]
-  float* sv = h1 + BM32 * WIDTH;               // [BM][128]
-  float* so = sv + BM32 * VE32_LD;             // [BM][8]
+                         const float* __restrict__ bias, float* __restrict__ out, int n, int n_sec) {
+  extern __shared__ __align__(16) float smem32[];
+  float* sx = smem32;                // [BM][XE32_LD]
+  float* h0 = sx + BM32 * XE32_LD;   // [BM][H32_LD]
+  float* h1 = h0 + BM32 * H32_LD;    // [BM][H32_LD]
+  float* sv = h1 + BM32 * H32_LD;    // [BM][VE32_LD]
+  float* so = sv + BM32 * VE32_LD;   // [BM][NOUT]
+  float* wbuf = so + BM32 * NOUT;    // [2][WSLAB]
 
   const int row0 = blockIdx.x * BM32;
   const int tid = threadIdx.x;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const int ve2_ld = VIEW_IN * (n_sec > 0 ? n_sec : 1);
 
-  for (int i = tid; i < BM32 * (PTS_IN / 4); i += THREADS) {
+  for (int i = tid; i < BM32 * (PTS_IN / 4); i += THREADS32) {
     const int r = i / (PTS_IN / 4), c = i % (PTS_IN / 4);
-    const float4 v = row0 + r < n ? __ldg(reinterpret_cast<const float4*>(xe + (size_t)(row0 + r) * PTS_IN) + c) : zero;
-    *reinterpret_cast<float4*>(sx + r * PTS_IN + c * 4) = v;
+    const float4 v =
+        row0 + r < n ? __ldg(reinterpret_cast<const float4*>(xe + (size_t)(row0 + r) * PTS_IN) + c) : zero;
+    *reinterpret_cast<float4*>(sx + r * XE32_LD + c * 4) = v;
   }
   const int vpieces = (VIEW_IN / 4) * (1 + n_sec);
-  for (int i = tid; i < BM32 * vpieces; i += THREADS) {
+  for (int i = tid; i < BM32 * vpieces; i += THREADS32) {
     const int r = i / vpieces, c = i % vpieces;
     float4 v = zero;
     if (row0 + r < n) {
@@ -363,78 +645,87 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     *reinterpret_cast<float4*>(sv + r * VE32_LD + c * 4) = v;
   }
-  for (int i = tid; i < BM32 * NOUT; i += THREADS) so[i] = 0.f;
+  for (int i = tid; i < BM32 * NOUT; i += THREADS32) so[i] = 0.f;
   __syncthreads();
 
+  const Sink32 to_h0{h0, H32_LD, 0, 0, 0}, to_h1{h1, H32_LD, 0, 0, 0};
 #define W32(l) (w + w_off(l))
 #define B32(l) (bias + b_off(l))
-  layer32<256, 8, 8, true>(sx, PTS_IN, 64, sx, PTS_IN, 0, W32(0), B32(0), ToSmem32{h0, WIDTH});
+  // trunk: activations ping-pong between h0 and h1
+  layer32<256, 64, true>(sx, XE32_LD, 64, sx, XE32_LD, W32(0), B32(0), wbuf, to_h0);
   __syncthreads();
-  layer32<256, 8, 8, true>(h0, WIDTH, 256, h0, WIDTH, 0, W32(1), B32(1), ToSmem32{h1, WIDTH});
+  layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(1), B32(1), wbuf, to_h1);
   __syncthreads();
-  layer32<256, 8, 8, true>(h1, WIDTH, 256, h1, WIDTH, 0, W32(2), B32(2), ToSmem32{h0, WIDTH});
+  layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(2), B32(2), wbuf, to_h0);
   __syncthreads();
-  layer32<256, 8, 8, true>(h0, WIDTH, 256, h0, WIDTH, 0, W32(3), B32(3), ToSmem32{h1, WIDTH});
+  layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(3), B32(3), wbuf, to_h1);
   __syncthreads();
-  layer32<256, 8, 8, true>(h1, WIDTH, 256, h1, WIDTH, 0, W32(4), B32(4), ToSmem32{h0, WIDTH});
+  layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(4), B32(4), wbuf, to_h0);
   __syncthreads();
-  layer32<256, 8, 8, true>(sx, PTS_IN, 64, h0, WIDTH, 256, W32(5), B32(5), ToSmem32{h1, WIDTH});
+  // skip layer: [xe, h] with no copy
+  layer32<256, 320, true>(sx, XE32_LD, 64, h0, H32_LD, W32(5), B32(5), wbuf, to_h1);
   __syncthreads();
-  layer32<256, 8, 8, true>(h1, WIDTH, 256, h1, WIDTH, 0, W32(6), B32(6), ToSmem32{h0, WIDTH});
+  layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(6), B32(6), wbuf, to_h0);
   __syncthreads();
-  layer32<256, 8, 8, true>(h0, WIDTH, 256, h0, WIDTH, 0, W32(7), B32(7), ToSmem32{h1, WIDTH});
+  layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(7), B32(7), wbuf, to_h1);
   __syncthreads();
-  layer32<256, 8, 8, false>(h1, WIDTH, 256, h1, WIDTH, 0, W32(8), B32(8), ToSmem32{h0, WIDTH});
-  layer32<8, 2, 1, false>(h1, WIDTH, 256, h1, WIDTH, 0, W32(9), B32(9), ToOut32{so, 0, 1, 0});
+  // heads: feature -> h0, sigma -> output column 0
+  layer32<256, 256, false>(h1, H32_LD, 256, h1, H32_LD, W32(8), B32(8), wbuf, to_h0);
+  layer32<8, 256, false>(h1, H32_LD, 256, h1, H32_LD, W32(9), B32(9), wbuf, Sink32{so, NOUT, 0, 1, 0});
   __syncthreads();
-  layer32<128, 8, 4, true>(h0, WIDTH, 256, sv, VE32_LD, VIEW_IN, W32(10), B32(10), ToSmem32{h1, WIDTH});
-  __syncthreads();
-  layer32<8, 2, 1, false>(h1, WIDTH, 128, h1, WIDTH, 0, W32(11), B32(11), ToOut32{so, 0, 4, 1});
-  for (int j = 0; j < n_sec; ++j) {
+  // view branch, primary view: rgb + vis -> output columns 1..4; secondary
+  // view j: vis -> output column 5 + j
+  for (int j = 0; j <= n_sec; ++j) {
+    layer32<128, 288, true>(h0, H32_LD, 256, sv + VIEW_IN * j, VE32_LD, W32(10), B32(10), wbuf, to_h1);
     __syncthreads();
-    layer32<128, 8, 4, true>(h0, WIDTH, 256, sv + VIEW_IN * (1 + j), VE32_LD, VIEW_IN, W32(10),
-                             B32(10), ToSmem32{h1, WIDTH});
+    const Sink32 heads = j == 0 ? Sink32{so, NOUT, 0, 4, 1} : Sink32{so, NOUT, 3, 4, 4 + j};
+    layer32<8, 128, false>(h1, H32_LD, 128, h1, H32_LD, W32(11), B32(11), wbuf, heads);
     __syncthreads();
-    layer32<8, 2, 1, false>(h1, WIDTH, 128, h1, WIDTH, 0, W32(11), B32(11), ToOut32{so, 3, 4, 5 + j});
   }
 #undef W32
 #undef B32
-  __syncthreads();
 
-  for (int i = tid; i < BM32 * 2; i += THREADS) {
+  for (int i = tid; i < BM32 * 2; i += THREADS32) {
     const int r = i >> 1, c = i & 1;
     if (row0 + r < n)
-      reinterpret_cast<float4*>(out + (size_t)(row0 + r) * NOUT)[c] =
-          reinterpret_cast<const float4*>(so + r * NOUT)[c];
+      reinterpret_cast<float4*>(out + (size_t)(row0 + r) * NOUT)[c] = reinterpret_cast<const float4*>(so + r * NOUT)[c];
   }
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  return sms;
 }
 
 }  // namespace
 
-extern "C" int vipnerf_fused_mlp_bf16(const void* xe, const void* ve, const void* ve2,
-                                      const void* w, const void* bias, void* out, int n,
-                                      int n_sec, void* stream) {
+// dynamic shared memory per CTA of each instance (ptxas reports static only)
+extern "C" int vipnerf_fused_mlp_smem_bytes(int bf16) { return bf16 ? SMEM16 : SMEM32; }
+
+extern "C" int vipnerf_fused_mlp_bf16(const void* xe, const void* ve, const void* ve2, const void* w,
+                                      const void* bias, void* out, int n, int n_sec, void* stream) {
   if (n_sec < 0 || n_sec > MAX_SEC) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(fused_mlp_bf16_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM16);
+  cudaError_t e = cudaFuncSetAttribute(fused_mlp_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM16);
   if (e != cudaSuccess) return (int)e;
   if (n <= 0) return 0;
-  fused_mlp_bf16_kernel<<<(n + BM16 - 1) / BM16, THREADS, SMEM16, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)xe, (const __nv_bfloat16*)ve, (const __nv_bfloat16*)ve2,
-      (const __nv_bfloat16*)w, (const float*)bias, (__nv_bfloat16*)out, n, n_sec);
+  const int tiles = (n + TILE16 - 1) / TILE16, sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  fused_mlp_bf16_kernel<<<tiles < sms ? tiles : sms, THREADS16, SMEM16, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)xe, (const __nv_bfloat16*)ve, (const __nv_bfloat16*)ve2, (const __nv_bfloat16*)w,
+      (const float*)bias, (__nv_bfloat16*)out, n, n_sec);
   return (int)cudaGetLastError();
 }
 
-extern "C" int vipnerf_fused_mlp_f32(const void* xe, const void* ve, const void* ve2,
-                                     const void* w, const void* bias, void* out, int n,
-                                     int n_sec, void* stream) {
+extern "C" int vipnerf_fused_mlp_f32(const void* xe, const void* ve, const void* ve2, const void* w,
+                                     const void* bias, void* out, int n, int n_sec, void* stream) {
   if (n_sec < 0 || n_sec > MAX_SEC) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(fused_mlp_f32_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM32);
+  cudaError_t e = cudaFuncSetAttribute(fused_mlp_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM32);
   if (e != cudaSuccess) return (int)e;
   if (n <= 0) return 0;
-  fused_mlp_f32_kernel<<<(n + BM32 - 1) / BM32, THREADS, SMEM32, (cudaStream_t)stream>>>(
-      (const float*)xe, (const float*)ve, (const float*)ve2, (const float*)w,
-      (const float*)bias, (float*)out, n, n_sec);
+  fused_mlp_f32_kernel<<<(n + BM32 - 1) / BM32, THREADS32, SMEM32, (cudaStream_t)stream>>>(
+      (const float*)xe, (const float*)ve, (const float*)ve2, (const float*)w, (const float*)bias, (float*)out, n,
+      n_sec);
   return (int)cudaGetLastError();
 }

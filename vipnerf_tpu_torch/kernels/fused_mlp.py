@@ -19,9 +19,16 @@ all in the working dtype: bf16 (f32 accumulation, each product rounded to
 bf16 before the bf16 bias add, then ReLU) or f32. The epilogues (sigma
 noise and ReLU, sigmoids) run outside, in f32.
 
+Weight layout (`kernel_buffers`): bf16 layers are K-slabs of 64 columns (the
+view layer's last one 32), each the 128-byte (64-byte) swizzled K-major image
+that the kernel's wgmma B descriptor reads, so the kernel copies a slab into
+shared memory with one bulk copy. f32 layers are W^T row-major, staged by
+the kernel in slabs of `f32_slab_rows` rows.
+
 `fused_mlp_raw` is the wrapper: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs `fused_mlp_reference`, the same function in
-plain torch. It counts its launches in `fused_mlp_raw.launches`.
+plain torch. It counts its launches in `fused_mlp_raw.launches`, and per
+instance in `fused_mlp_raw.launches_by_instance`.
 """
 
 import ctypes
@@ -111,22 +118,48 @@ def pack_layers(mlp, dtype: torch.dtype) -> List[Tuple[torch.Tensor, torch.Tenso
     return layers
 
 
-def _fragment_order(w: torch.Tensor) -> torch.Tensor:
-    """(N, K) -> the B-operand fragments of mma.m16n8k16, flat.
+SLAB_K = 64  # K of one K-slab of a bf16 layer (the view layer's last one is 32)
+F32_SLAB = 4096  # floats of one f32 weight slab (16 KB)
 
-    Order [N/8][K/16][lane 32][4]: lane = 4*g + t holds W[8nt+g, 16kt+2t+{0,1}]
-    then W[8nt+g, 16kt+2t+8+{0,1}], so each lane loads its fragment with one
-    8-byte load and a warp reads 256 contiguous bytes.
-    """
-    n, k = w.shape
-    return w.reshape(n // 8, 8, k // 16, 2, 4, 2).permute(0, 2, 1, 4, 3, 5).reshape(-1)
+# bytes of each packed layer, in the kernel's order
+LAYER_BYTES = {
+    torch.bfloat16: tuple(2 * n * k for n, k in LAYER_SHAPES),
+    torch.float32: tuple(4 * n * k for n, k in LAYER_SHAPES),
+}
+
+
+def swizzled_slab(w: torch.Tensor) -> torch.Tensor:
+    """(N, kw) K-slab of a (out, in) weight -> its K-major swizzled image,
+    flat: row n at n * 2kw bytes, its 16-byte chunk c at chunk position
+    c ^ (n % 8) for kw 64 (128-byte swizzle) or c ^ (n // 2 % 4) for kw 32
+    (64-byte swizzle) -- shared-memory address bits 4-6 (4-5) XORed with bits
+    7-9 (7-8), as wgmma's descriptor reads them."""
+    n, kw = w.shape
+    r = torch.arange(n)[:, None]
+    c = torch.arange(kw // 8)[None, :]
+    src = w.reshape(n, kw // 8, 8)
+    out = torch.empty_like(src)
+    out[r, c ^ ((r & 7) if kw == SLAB_K else ((r >> 1) & 3))] = src
+    return out.reshape(-1)
+
+
+def pack_bf16(w: torch.Tensor) -> torch.Tensor:
+    """(N, K) bf16 weight -> the swizzled images of its K-slabs, in K order."""
+    return torch.cat([swizzled_slab(w[:, k0:k0 + SLAB_K].contiguous())
+                      for k0 in range(0, w.shape[1], SLAB_K)])
+
+
+def f32_slab_rows(n: int, k: int) -> int:
+    """Rows of W^T in one f32 slab: 16 KB of them, or a whole 8-wide head."""
+    return k if n == NOUT else F32_SLAB // n
 
 
 def kernel_buffers(layers, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flat weight and bias buffers in the kernel's layout: fragment order for
-    bf16, (in, out) row-major for f32."""
+    """Flat weight and bias buffers in the kernel's layout: swizzled K-slabs
+    for bf16; W^T (in, out) row-major for f32, whose slabs of `f32_slab_rows`
+    rows are then contiguous, as the kernel's cp.async reads them."""
     if dtype == torch.bfloat16:
-        ws = [_fragment_order(w) for w, _ in layers]
+        ws = [pack_bf16(w) for w, _ in layers]
     else:
         ws = [w.t().contiguous().reshape(-1) for w, _ in layers]
     return torch.cat(ws), torch.cat([b for _, b in layers])
@@ -204,6 +237,7 @@ def fused_mlp_reference(
 
 
 _ENTRY = {torch.bfloat16: "vipnerf_fused_mlp_bf16", torch.float32: "vipnerf_fused_mlp_f32"}
+INSTANCE = {torch.bfloat16: "fused_mlp_bf16", torch.float32: "fused_mlp_f32"}
 
 
 def _entry(dtype: torch.dtype):
@@ -213,6 +247,11 @@ def _entry(dtype: torch.dtype):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(dtype: torch.dtype) -> int:
+    """Dynamic shared memory per CTA of the instance (builds the kernel)."""
+    return build.load("fused_mlp").vipnerf_fused_mlp_smem_bytes(int(dtype == torch.bfloat16))
 
 
 def _check(weights: FusedWeights, xe, ve, ve2, n_sec: int):
@@ -265,10 +304,16 @@ def fused_mlp_raw(
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     fused_mlp_raw.launches += 1
+    fused_mlp_raw.launches_by_instance[INSTANCE[weights.dtype]] += 1
     return out
 
 
-fused_mlp_raw.launches = 0
+def reset_launch_counts():
+    fused_mlp_raw.launches = 0
+    fused_mlp_raw.launches_by_instance = dict.fromkeys(INSTANCE.values(), 0)
+
+
+reset_launch_counts()
 
 
 def apply_fused_mlp(
