@@ -11,7 +11,8 @@ Phases, each of which fails the run loudly:
    loop runs several tiles per CTA and ends mid-tile), and at the two tile
    shapes the serving path launches (8192 rays x 64 coarse and x 192 fine
    samples) for n_sec 0 and 2, with the kernel's, the plain version's and a
-   library yardstick's times at those shapes;
+   library yardstick's times at those shapes, and at the training step's
+   two launch shapes (4096 rays x 64 and x 192 samples, n_sec 2);
 3. the serving path: a run tree at the flagship width (8x256 MLPs, 64+128
    samples, NDC, bf16 matmuls with bf16 heads) with seeded random weights,
    rendered by the port's `start_testing` at 1008x756 -- 3 train frames with
@@ -28,7 +29,19 @@ Phases, each of which fails the run loudly:
    visibility drift apart where the accumulated weight is near 0; last, a
    torch.profiler table of one held-out frame (device time by kernel, the
    device's busy share);
-4. a JSON line of the kernels, and the device line last.
+4. the training slice: a synthetic LLFF scene at 1008x756 (3 train views,
+   1 validation, 1 test) with sparse depths and visibility masks, the
+   flagship training config (2048 + 2048 rays, 64 + 128 samples, the four
+   losses with the visibility prior staged in at half the run, Adam) with
+   bf16 heads; K1's parameter gradients against the module MLP's on one
+   batch (both instances); `start_training` for 200 steps (checkpoint at
+   100, validation at 200), then resumed to 220, checking finite and falling
+   losses, the checkpoints, exactly 2 K1 launches per step and the
+   validation's, and the trained model's PSNR on the test frame against the
+   untrained one's; the median warm step time with rays/s, K1's share and
+   peak memory; a torch.profiler table of one step split into forward,
+   backward and Adam; a warm step in each precision mode;
+5. a JSON line of the kernels, and the device line last.
 
 It needs CUDA and the repository around it, and exits non-zero without a
 result otherwise. Nothing of JAX is imported.
@@ -36,8 +49,10 @@ result otherwise. Nothing of JAX is imported.
 
 import contextlib
 import copy
+import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -68,6 +83,9 @@ SIGMA_OFFSET = 0.5
 CHUNK = 8192
 TILE_N = {"coarse": CHUNK * 64, "fine": CHUNK * 192}  # K1's points per launch on the path
 MAIN_N = TILE_N["fine"]  # the shape of the kernels line
+TRAIN_RAYS = 2048 + 2048  # NeRF + sparse-depth rays per training step
+TRAIN_N = {"coarse": TRAIN_RAYS * 64, "fine": TRAIN_RAYS * 192}  # K1's points per training launch
+TRAIN_SEC = 2  # a training step sees the 2 other train views
 RAGGED_N = [1, 2048 + 37, 132 * 128 * 3 + 37]  # 132 SMs: 3 tiles of 128 per CTA, then 37 rows
 # precision modes of a flagship level: (bf16_matmuls, f32_heads) -> K1 instance or None
 MODES = {"bf16, bf16 heads": (True, False), "bf16, f32 heads (default)": (True, True),
@@ -143,7 +161,8 @@ def k1_inputs(k1, n, n_sec, dtype, g, dev):
 
 def phase_k1(k1, mlp, dev):
     """K1 against its plain version on the card at every checked shape, timed
-    at the serving path's two tile shapes. Returns the worst max|err| of each
+    at the serving path's two tile shapes and the training step's two launch
+    shapes. Returns the worst max|err| of each
     instance and the timings keyed by (dtype, n_sec, n)."""
     g = torch.Generator(device=dev).manual_seed(1)
     worst = {}
@@ -153,8 +172,10 @@ def phase_k1(k1, mlp, dev):
         weights = k1.prepare_weights(mlp, dtype)
         worst[dtype] = 0.0
         for n_sec in range(4):
-            sizes = RAGGED_N + [262144] + (list(TILE_N.values()) if n_sec in (0, 2) else [])
-            for n in sizes:
+            timed = set(TILE_N.values()) if n_sec in (0, 2) else set()
+            if n_sec == TRAIN_SEC:
+                timed |= set(TRAIN_N.values())
+            for n in RAGGED_N + sorted({262144} | timed):
                 xe, ve, ve2, ns = k1_inputs(k1, n, n_sec, dtype, g, dev)
                 out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns).float()
                 torch.cuda.synchronize()
@@ -171,7 +192,7 @@ def phase_k1(k1, mlp, dev):
                         and rel_rms <= TOL_REL_RMS[dtype]):
                     raise AssertionError(f"K1 disagrees with its plain version: {dtype} n_sec={n_sec} N={n}")
                 worst[dtype] = max(worst[dtype], err)
-                if n not in TILE_N.values():
+                if n not in timed:
                     continue
                 ms = cuda_ms(lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns))
                 plain_ms = cuda_ms(lambda: k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns), reps=3)
@@ -425,6 +446,343 @@ def phase_modes(k1, root, model_configs, test_configs, pose, tiles):
     return modes
 
 
+# ------------------------------------------------------------- training
+
+TRAIN_STEPS = 200  # the first start_training run; the resume adds RESUME_STEPS
+RESUME_STEPS = 20
+TIMED_STEPS = 25
+# K1's gradients against the module MLP's on the same batch and generator
+# state (perturbed samples; no sigma noise, which the module adds in bf16 and
+# K1's epilogue in f32, as in the JAX package), relative to the module
+# gradient's scale, per parameter tensor. f32: summation order only, except
+# where a fine sample lands in the next bin of the inverse CDF. bf16: a
+# product rounded one bf16 step (2^-8) apart moves the coarse weights, hence
+# the fine samples, and the step propagates (0.6 % RMS measured on the CPU).
+TOL_GRAD_REL_MAX = {torch.bfloat16: 0.1, torch.float32: 1e-2}  # max|dg| / max|g|
+TOL_GRAD_REL_RMS = {torch.bfloat16: 3e-2, torch.float32: 1e-3}  # ||dg|| / ||g||
+MIN_PSNR_GAIN_DB = 1.0
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    return float(10 * np.log10(255.0 ** 2 / np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)))
+
+
+@contextlib.contextmanager
+def module_mlp_path():
+    """Within the block, every level runs the nn.Module MLP, whatever the
+    precision mode: the same render without K1."""
+    from vipnerf_tpu_torch.models import vip_nerf
+
+    dispatch = vip_nerf.uses_fused_mlp
+    vip_nerf.uses_fused_mlp = lambda *a: False
+    try:
+        yield
+    finally:
+        vip_nerf.uses_fused_mlp = dispatch
+
+
+class TrainRig:
+    """The flagship model, its training preprocessor on the card, a loss
+    computer and an optimizer, for the checks and timings beside
+    start_training."""
+
+    def __init__(self, root, configs, dev):
+        from vipnerf_tpu_torch.data.loaders import get_data_loader
+        from vipnerf_tpu_torch.data.preprocessor import get_data_preprocessor
+        from vipnerf_tpu_torch.losses import LossComputer
+        from vipnerf_tpu_torch.models.vip_nerf import ViPNeRF, render_rays
+
+        self.configs = copy.deepcopy(configs)
+        self.configs["data_loader"]["scene_id"] = "synth01"
+        raw = get_data_loader(self.configs, root / "data" / configs["database_dirpath"], "train").load_data()
+        self.prep = get_data_preprocessor(self.configs, "train", raw_data_dict=raw, device=dev)
+        self.model = ViPNeRF(self.configs, torch.Generator().manual_seed(0)).to(dev)
+        self.render_rays = render_rays
+        self.loss_computer = LossComputer(self.configs)
+        self.generator = torch.Generator(device=dev)
+
+    def step_fn(self, bf16: bool, f32_heads: bool):
+        from vipnerf_tpu_torch.train.step import make_optimizer, make_train_step
+
+        cfg = copy.deepcopy(self.configs)
+        cfg["model"].update(bf16_matmuls=bf16, f32_heads=f32_heads)
+        step = make_train_step(cfg, self.render_rays, self.loss_computer,
+                               make_optimizer(cfg, self.model.parameters()))
+        return lambda batch: step(self.model, batch, self.generator)
+
+    def batch(self, it: int):
+        return self.prep.get_next_batch(it)
+
+    def grads(self, configs, batch, seed):
+        """Every parameter's gradient of TotalLoss on `batch`."""
+        self.model.zero_grad(set_to_none=True)
+        self.generator.manual_seed(seed)
+        out = self.render_rays(self.model, configs, batch, train=True, generator=self.generator)
+        self.loss_computer.compute_losses(batch, out)["TotalLoss"].backward()
+        return {k: p.grad.detach().clone() for k, p in self.model.named_parameters()}
+
+
+def phase_grad_check(k1, rig):
+    """One gathered batch, one generator state: the parameters' gradients of
+    a training render through K1 against the same render through the module
+    MLP, on the card, for the bf16 (bf16 heads) and f32 instances."""
+    batch = rig.batch(0)
+    worst = {}
+    for dtype, bf16 in ((torch.bfloat16, True), (torch.float32, False)):
+        cfg = copy.deepcopy(rig.configs)
+        cfg["model"].update(bf16_matmuls=bf16, f32_heads=False, raw_noise_std=0.0)
+        k1.reset_launch_counts()
+        g_k1 = rig.grads(cfg, batch, seed=7)
+        launches = k1.fused_mlp_raw.launches
+        with module_mlp_path():
+            g_mod = rig.grads(cfg, batch, seed=7)
+        rel_max = rel_rms = 0.0
+        for name, g in g_mod.items():
+            d = g_k1[name] - g
+            rel_max = max(rel_max, (d.abs().max() / g.abs().max().clamp_min(1e-30)).item())
+            rel_rms = max(rel_rms, (d.norm() / g.norm().clamp_min(1e-30)).item())
+        log(f"K1 gradients, {k1.INSTANCE[dtype]} vs the module MLP, one batch of {TRAIN_RAYS} rays, "
+            f"{len(g_mod)} parameter tensors: worst max|dg|/max|g| {rel_max:.3g} "
+            f"(tol {TOL_GRAD_REL_MAX[dtype]}), worst ||dg||/||g|| {rel_rms:.3g} "
+            f"(tol {TOL_GRAD_REL_RMS[dtype]}); K1 launches in the K1 render {launches}")
+        if launches != 2 or rel_max > TOL_GRAD_REL_MAX[dtype] or rel_rms > TOL_GRAD_REL_RMS[dtype]:
+            raise AssertionError(f"K1's gradients disagree with the module MLP's ({dtype})")
+        worst[dtype] = (rel_max, rel_rms)
+    return worst
+
+
+def read_scalars(scene_dir: Path):
+    series = {}
+    for line in (scene_dir / "logs/scalars.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        series.setdefault(rec["tag"], []).append((rec["step"], rec["value"]))
+    return series
+
+
+def phase_training_run(k1, root, configs, gt, tiles):
+    """start_training for TRAIN_STEPS steps (checkpoint at half, validation
+    at the end), then again to TRAIN_STEPS + RESUME_STEPS, which must resume;
+    checks the logs, checkpoints, K1 launches and the trained model's PSNR
+    on the held-out test frame against the untrained model's."""
+    from vipnerf_tpu_torch.infer.tester import NerfTester, start_testing
+    from vipnerf_tpu_torch.train.trainer import start_training
+
+    n = TRAIN_STEPS
+    cfg = copy.deepcopy(configs)
+    cfg.update(num_iterations=n, model_save_interval=n // 2, validation_interval=n)
+    k1.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start_training(cfg)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches_run = dict(k1.fused_mlp_raw.launches_by_instance)
+    val_frames = 3 + 1  # train frames (n_sec 2) + the validation frame
+    expected = {"fused_mlp_bf16": 2 * n + 2 * tiles * val_frames, "fused_mlp_f32": 0}
+    log(f"start_training: {n} steps and one validation of {val_frames} frames in {run_s:.2f} s; "
+        f"K1 launches {launches_run} (expected {expected}: 2 per step, 2 levels x {tiles} tiles "
+        f"per validation frame)")
+    if launches_run != expected:
+        raise AssertionError(f"training launched K1 {launches_run}, expected {expected}")
+
+    k1.reset_launch_counts()
+    cfg.update(num_iterations=n + RESUME_STEPS)
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        start_training(cfg)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    text = out.getvalue()
+    sys.stdout.write(text)
+    launches_resume = dict(k1.fused_mlp_raw.launches_by_instance)
+    if f"Resuming Training from iteration {n + 1}" not in text:
+        raise AssertionError(f"the second start_training did not resume at {n}")
+    if launches_resume != {"fused_mlp_bf16": 2 * RESUME_STEPS, "fused_mlp_f32": 0}:
+        raise AssertionError(f"the resumed run launched K1 {launches_resume}")
+    log(f"resumed at {n} and trained to {n + RESUME_STEPS} in {resume_s:.2f} s; K1 launches {launches_resume}")
+
+    scene_dir = root / "runs/training/train0001/synth01"
+    saved = scene_dir / "saved_models"
+    for it in (n // 2, n, n + RESUME_STEPS):
+        if not (saved / f"Model_Iter{it:06}.tar").exists():
+            raise AssertionError(f"checkpoint of iteration {it} missing")
+    if os.readlink(saved / "Model_Latest.tar") != f"Model_Iter{n + RESUME_STEPS:06}.tar":
+        raise AssertionError("Model_Latest.tar does not point at the last checkpoint")
+    series = read_scalars(scene_dir)
+    total = [v for _, v in sorted(series["train/TotalLoss"])]
+    finite = all(np.isfinite(v) for tag, pts in series.items() if tag.startswith("train/") for _, v in pts)
+    first, last = float(np.mean(total[:20])), float(np.mean(total[-20:]))
+    losses = {tag[6:]: [round(v, 5) for _, v in sorted(p)][::40] for tag, p in series.items()
+              if tag.startswith("train/") and tag != "train/lr"}
+    log(f"train losses every 40 steps: {json.dumps(losses)}")
+    log(f"validation at {n}: " + json.dumps({t: round(p[0][1], 5) for t, p in series.items()
+                                              if t.startswith("validation/")}))
+    log(f"{len(total)} logged steps, every loss finite {finite}; mean TotalLoss of the first 20 "
+        f"steps {first:.5f}, of the last 20 {last:.5f}")
+    if len(total) != n + RESUME_STEPS or not finite or not last < first:
+        raise AssertionError("training did not log finite, falling losses for every step")
+    samples = len(list((scene_dir / "samples/predicted_frames").glob("*.png")))
+    log(f"validation wrote {samples} sample frames")
+
+    db = root / "data/databases/NeRF_LLFF/data/all/database_data/synth01"
+    extr = np.loadtxt(db / "CameraExtrinsics.csv", delimiter=",").reshape(-1, 4, 4)
+    intr = np.loadtxt(db / "CameraIntrinsics.csv", delimiter=",").reshape(-1, 3, 3)
+    test_configs = {"test_num": 1, "train_num": 1, "model_name": "Model_Latest.tar",
+                    "root_dirpath": str(root), "device": "all", "chunk_size": CHUNK}
+    frame = {"extrinsic": extr[3], "intrinsic": intr[3], "is_train_frame": False}
+    k1.reset_launch_counts()
+    out_dir = start_testing(test_configs, {"synth01": {"output_dirname": "synth01", "frames_data": {3: frame}}})
+    from vipnerf_tpu_torch.utils.io import read_image
+
+    trained = psnr(read_image(out_dir / "synth01/predicted_frames/0003.png"), gt["images"][3])
+    train_configs = json.loads((root / "runs/training/train0001/Configs.json").read_text())
+    train_configs["data_loader"]["scene_id"] = "synth01"
+    model_configs = json.loads((scene_dir / "ModelConfigs.json").read_text())
+    untrained_tester = NerfTester(train_configs, model_configs, test_configs, root)  # seed-0 weights
+    untrained = psnr(untrained_tester.predict_frame(extr[3], intrinsic=intr[3])["image"], gt["images"][3])
+    log(f"held-out test frame 3 at {W}x{H}: PSNR {trained:.3f} dB after {n + RESUME_STEPS} steps, "
+        f"{untrained:.3f} dB untrained (gain must be >= {MIN_PSNR_GAIN_DB} dB)")
+    if not trained - untrained >= MIN_PSNR_GAIN_DB:
+        raise AssertionError("the trained model does not beat the untrained one on the test frame")
+    return {"launches": launches_run["fused_mlp_bf16"] + launches_resume["fused_mlp_bf16"],
+            "seconds": run_s, "resume_seconds": resume_s, "psnr": trained, "psnr_untrained": untrained,
+            "total_loss_first20": first, "total_loss_last20": last}
+
+
+def timed_steps(step, rig, start_it: int, count: int, warmup: int = 3):
+    """Host-clock seconds of `count` warm steps, one synchronise per step."""
+    for i in range(warmup):
+        step(rig.batch(start_it + i))
+    seconds = []
+    for i in range(count):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(rig.batch(start_it + warmup + i))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+def phase_step_profile(rig, warm_ms):
+    """torch.profiler over one bf16 training step, split at synchronised
+    boundaries into forward (gather, render, losses), backward and Adam."""
+    from vipnerf_tpu_torch.train.step import make_optimizer
+
+    optimizer = make_optimizer(rig.configs, rig.model.parameters())
+    batch = rig.batch(1000)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for phase in ("forward", "backward", "adam"):
+            with torch.profiler.record_function(f"step/{phase}"):
+                if phase == "forward":
+                    optimizer.zero_grad(set_to_none=True)
+                    rig.generator.manual_seed(3)
+                    out = rig.render_rays(rig.model, rig.configs, batch, train=True, generator=rig.generator)
+                    total = rig.loss_computer.compute_losses(batch, out)["TotalLoss"]
+                elif phase == "backward":
+                    total.backward()
+                else:
+                    optimizer.step()
+                torch.cuda.synchronize()
+    events = prof.events()
+    ranges = {e.name[5:]: (e.time_range.start, e.time_range.end) for e in events
+              if e.name.startswith("step/") and e.device_type == torch.autograd.DeviceType.CPU}
+    # device-side kernels only: record_function ranges (ours, the optimizer's)
+    # also appear on the device's timeline as annotations
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and device_time_us(e) > 0 and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("step/", "Optimizer."))]
+    device_ms = sum(device_time_us(e) for e in kernels) / 1e3
+    if not device_ms:
+        raise AssertionError("torch.profiler recorded no device time in the training step")
+    split = {}
+    for phase, (start, end) in ranges.items():
+        rows = {}
+        for e in kernels:
+            if start <= e.time_range.start <= end:
+                r = rows.setdefault(e.name[:80], [0, 0.0])
+                r[0] += 1
+                r[1] += device_time_us(e) / 1e3
+        split[phase] = rows
+        ms = sum(v[1] for v in rows.values())
+        log(f"training step profile, {phase}: device {ms:.2f} ms in {sum(v[0] for v in rows.values())} "
+            f"kernels")
+        for name, (calls, t) in sorted(rows.items(), key=lambda kv: -kv[1][1])[:8]:
+            log(f"  {t:9.3f} ms  {calls:5d} x  {name}")
+    attributed = sum(t for rows in split.values() for _, t in rows.values())
+    log(f"training step profile: device {device_ms:.2f} ms ({attributed:.2f} ms attributed to the "
+        f"three phases); busy share {device_ms / warm_ms:.3f} of the median warm step ({warm_ms:.2f} ms)")
+    return {phase: sum(t for _, t in rows.values()) for phase, rows in split.items()}
+
+
+def phase_train(k1, dev, timings):
+    """The training slice at the flagship width: a synthetic LLFF scene at
+    1008x756, K1's gradient check, start_training with a resume, the warm
+    step time, the step profile and a step in each precision mode."""
+    from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
+    from vipnerf_tpu_torch.data.synthetic_rig import flagship_training_configs
+    from vipnerf_tpu_torch.models.vip_nerf import uses_fused_mlp
+
+    tiles = math.ceil(H * W / CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        gt = write_synthetic_database(root / "data/databases", scene_name="synth01", num_frames=5,
+                                      train_frames=(0, 2, 4), val_frames=(1,), height=H, width=W)
+        log(f"synthetic LLFF scene: 5 frames of {W}x{H} (train 0, 2, 4; validation 1; test 3), "
+            f"sparse depths and visibility masks written in {time.perf_counter() - t0:.2f} s")
+        configs = flagship_training_configs(root, TRAIN_STEPS, visibility_prior_start_iter=TRAIN_STEPS // 2)
+
+        t0 = time.perf_counter()
+        rig = TrainRig(root, configs, dev)
+        log(f"training data on the card in {time.perf_counter() - t0:.2f} s: "
+            f"{rig.prep.cache['rays_o'].shape[0]} cached rays, "
+            f"{len(rig.prep._indices_sd)} sparse-depth rays")
+        grads = phase_grad_check(k1, rig)
+        run = phase_training_run(k1, root, configs, gt, tiles)
+
+        step = rig.step_fn(bf16=True, f32_heads=False)
+        torch.cuda.reset_peak_memory_stats()
+        k1.reset_launch_counts()
+        seconds = timed_steps(step, rig, 2000, TIMED_STEPS)
+        launches = k1.fused_mlp_raw.launches
+        peak = torch.cuda.max_memory_allocated()
+        med_ms = 1e3 * float(np.median(seconds))
+        k1_ms = sum(timings[(torch.bfloat16, TRAIN_SEC, n)]["ms"] for n in TRAIN_N.values())
+        log(f"warm training step (bf16, bf16 heads, K1): median {med_ms:.2f} ms over {TIMED_STEPS} "
+            f"steps (min {1e3 * min(seconds):.2f}, max {1e3 * max(seconds):.2f}), "
+            f"{TRAIN_RAYS / (med_ms / 1e3):,.0f} rays/s; K1 forward {k1_ms:.3f} ms of it "
+            f"({k1_ms / med_ms:.3f}, CUDA-event times at N {TRAIN_N['coarse']} and "
+            f"{TRAIN_N['fine']}, n_sec {TRAIN_SEC}); K1 launches {launches} in {TIMED_STEPS + 3} "
+            f"steps; peak memory {peak / 2**30:.2f} GiB")
+        if launches != 2 * (TIMED_STEPS + 3):
+            raise AssertionError(f"K1 ran {launches} times in {TIMED_STEPS + 3} steps")
+        profile = phase_step_profile(rig, med_ms)
+
+        modes = {}
+        for label, (bf16, f32_heads) in MODES.items():
+            step = rig.step_fn(bf16, f32_heads)
+            k1.reset_launch_counts()
+            secs = timed_steps(step, rig, 3000, 5, warmup=2)
+            launches_m = dict(k1.fused_mlp_raw.launches_by_instance)
+            path = "module MLP"
+            expected = dict.fromkeys(launches_m, 0)
+            if uses_fused_mlp(rig.configs["model"]["fine_mlp"], bf16, f32_heads):
+                path = "fused_mlp_bf16" if bf16 else "fused_mlp_f32"
+                expected[path] = 2 * 7
+            ms = 1e3 * float(np.median(secs))
+            log(f"warm training step, {label}: median {ms:.2f} ms over 5 steps through the {path}; "
+                f"K1 launches {launches_m} in 7 steps (expected {expected})")
+            if launches_m != expected:
+                raise AssertionError(f"precision mode {label}: K1 launches {launches_m}")
+            modes[label] = {"ms": ms, "path": path, "launches": launches_m}
+    return {"run": run, "step_ms": med_ms, "step_ms_all": [1e3 * s for s in seconds],
+            "rays_per_s": TRAIN_RAYS / (med_ms / 1e3), "k1_ms": k1_ms, "peak_bytes": peak,
+            "profile_ms": profile, "modes": modes, "grad_check": {str(k)[6:]: v for k, v in grads.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -457,14 +815,18 @@ def main() -> int:
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
     worst, timings = phase_k1(k1, mlp, dev)
     launches, s_per_frame, frame_s, modes = phase_slice(k1, dev, timings)
+    train = phase_train(k1, dev, timings)
 
     log(json.dumps({"slice": {
         "resolution": [H, W], "chunk_size": CHUNK, "k1_timing_shape": {"points": MAIN_N, "n_sec": 0},
         "seconds_per_frame_start_testing": s_per_frame, "warm_frame_seconds": frame_s,
         "precision_modes": modes, "card": card}}))
+    log(json.dumps({"training": {
+        "resolution": [H, W], "rays_per_step": TRAIN_RAYS, "k1_shapes": TRAIN_N, "n_sec": TRAIN_SEC,
+        **{k: v for k, v in train.items() if k != "run"}, **train["run"], "card": card}}))
     # each instance's launches come from its own path: the bf16 one from
-    # start_testing, the f32 one from the f32 frame of phase_modes
-    path_launches = {"fused_mlp_bf16": launches["fused_mlp_bf16"],
+    # start_testing and start_training, the f32 one from the f32 frame of phase_modes
+    path_launches = {"fused_mlp_bf16": launches["fused_mlp_bf16"] + train["run"]["launches"],
                      "fused_mlp_f32": modes["f32"]["launches"]["fused_mlp_f32"]}
     kernels = []
     for dtype in (torch.bfloat16, torch.float32):

@@ -86,7 +86,7 @@ def test_apply_fused_mlp_matches_pallas_interpret(models):
     out = k1.apply_fused_mlp(mlp, pts, vd, vd2, dtype=torch.float32)
     assert set(out) == set(ref)
     for k in ref:
-        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), atol=2e-5, err_msg=k)
+        np.testing.assert_allclose(out[k].detach().numpy(), np.asarray(ref[k]), atol=2e-5, err_msg=k)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -100,7 +100,7 @@ def test_apply_fused_mlp_matches_module(models, dtype):
         ref = mlp(pts, vd, vd2, bf16_matmuls=bf16)
     out = k1.apply_fused_mlp(mlp, pts, vd, vd2, dtype=dtype)
     for k in out:
-        np.testing.assert_allclose(out[k].numpy(), ref[k].numpy(), atol=8e-3 if bf16 else 1e-5)
+        np.testing.assert_allclose(out[k].detach().numpy(), ref[k].numpy(), atol=8e-3 if bf16 else 1e-5)
 
 
 def test_ragged_tail(models):

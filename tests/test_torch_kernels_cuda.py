@@ -5,11 +5,13 @@ nothing of JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-Tolerances are chip_smoke.py's, relative to the plain outputs' scale
-(`TOL_REL_MAX` on max|err| / max|plain|, `TOL_REL_RMS` on the RMS ratio):
-bf16 1/32 and 2e-3 (kernel and plain version sum in different orders, so a
-bf16 rounding can land one step apart and carry on); f32 1e-5 and 1e-6
-(summation order only).
+Tolerances of the forward are chip_smoke.py's, relative to the plain
+outputs' scale (`TOL_REL_MAX` on max|err| / max|plain|, `TOL_REL_RMS` on
+the RMS ratio): bf16 1/32 and 2e-3 (kernel and plain version sum in
+different orders, so a bf16 rounding can land one step apart and carry on);
+f32 1e-5 and 1e-6 (summation order only). K1's backward on the card is held
+against autograd through its recompute there; one training step on the
+card against the same step on the CPU (tolerances at each test).
 """
 
 import sys
@@ -61,3 +63,100 @@ def test_fused_mlp_matches_plain(device, dtype, n_sec, n):
     assert err.abs().max().item() <= TOL_REL_MAX[dtype] * ref.abs().max().item()
     assert err.norm().item() <= TOL_REL_RMS[dtype] * ref.norm().item()
     assert torch.isfinite(out).all() and not out[:, 5 + n_sec:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2048 + 37, 132 * 128 * 3 + 37])
+def test_fused_raw_backward_matches_the_recompute(device, dtype, n):
+    """K1's autograd.Function on the card: one launch forward, and the
+    gradients of autograd through `raw_recompute` on the card, for every
+    parameter and for xe/ve/ve2 (the same function, so equal exactly)."""
+    mlp = NeRFMLP(CFG, torch.Generator().manual_seed(1)).to(device)
+    g = torch.Generator(device=device).manual_seed(2)
+    pts = torch.rand((n, 3), generator=g, device=device) * 2 - 1
+    unit = lambda t: torch.nn.functional.normalize(t, dim=-1)  # noqa: E731
+    vd = unit(torch.randn((n, 3), generator=g, device=device))
+    vd2 = unit(torch.randn((n, 2, 3), generator=g, device=device))
+    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype)
+    inputs = [t.clone().requires_grad_() for t in (xe, ve, ve2)]
+    params = k1.module_params(mlp)
+    upstream = torch.randn((n, k1.NOUT), generator=g, device=device).to(dtype)
+    before = k1.fused_mlp_raw.launches
+    out = k1.FusedRaw.apply(k1.prepare_weights(mlp, dtype), ns, *inputs, *params)
+    assert k1.fused_mlp_raw.launches == before + 1
+    got = torch.autograd.grad(out, inputs + params, upstream)
+    ref_in = [t.clone().requires_grad_() for t in (xe, ve, ve2)]
+    want = torch.autograd.grad(k1.raw_recompute(params, *ref_in, ns), ref_in + params, upstream)
+    assert k1.fused_mlp_raw.launches == before + 1  # the backward launches nothing
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _train_batch(nr=48, nf=3, seed=0):
+    """A [nerf; sparse-depth] batch of a forward-facing NDC scene."""
+    g = torch.Generator().manual_seed(seed)
+    mask = torch.arange(nr) < nr // 2
+    rays_d = torch.cat([0.2 * torch.randn((nr, 2), generator=g), -torch.ones(nr, 1)], 1)
+    poses = torch.eye(4).repeat(nf, 1, 1)
+    poses[:, :3, 3] = 0.2 * torch.randn((nf, 3), generator=g)
+    u = lambda *s: torch.rand(s, generator=g)  # noqa: E731
+    return {
+        "rays_o": torch.cat([0.1 * torch.randn((nr, 2), generator=g), torch.zeros(nr, 1)], 1),
+        "rays_d": rays_d, "view_dirs": torch.nn.functional.normalize(rays_d, dim=-1),
+        "rays_o_ndc": torch.cat([u(nr, 2) - 0.5, -torch.ones(nr, 1)], 1),
+        "rays_d_ndc": torch.cat([0.4 * u(nr, 2) - 0.2, 2 * torch.ones(nr, 1)], 1),
+        "near": torch.ones(nr, 1), "far": torch.full((nr, 1), 8.0),
+        "near_ndc": torch.zeros(nr, 1), "far_ndc": torch.ones(nr, 1),
+        "target_rgb": torch.where(mask[:, None], u(nr, 3), -1.0),
+        "sparse_depth_values": torch.where(mask[:, None], -1.0, 2 + 4 * u(nr, 1)),
+        "visibility_prior_masks": torch.where(mask[:, None], (u(nr, nf - 1) > 0.5).float(), -1.0),
+        "indices_mask_nerf": mask, "indices_mask_sparse_depth": ~mask,
+        "poses": poses, "pixel_id": torch.randint(0, nf, (nr, 3), generator=g, dtype=torch.int32),
+        "iter_num": 20,
+    }
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(device):
+    """One flagship training step with the f32 instance on the card and with
+    its plain version on the CPU, same weights and batch (perturb and sigma
+    noise off; 0.5 on the sigma biases, as chip_smoke's serving phase adds,
+    so that depth, a ratio over the accumulated weight, is well
+    conditioned): the losses within 1e-4 relative; every parameter's
+    gradient within 1e-2 of its norm (f32 sums in another order move a fine
+    sample into the neighbouring bin of the inverse CDF now and then, which
+    reaches every layer: 1.3e-3 measured at the first layer); every
+    parameter moved by Adam's first step (at most lr)."""
+    from vipnerf_tpu_torch.data.synthetic_rig import flagship_training_configs
+    from vipnerf_tpu_torch.losses import LossComputer
+    from vipnerf_tpu_torch.models.vip_nerf import ViPNeRF, render_rays
+    from vipnerf_tpu_torch.train.step import make_optimizer, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = flagship_training_configs(Path("."), 10)
+    cfg["model"].update(bf16_matmuls=False, perturb=False, raw_noise_std=0.0)
+    lr = cfg["optimizer"]["lr_initial"]
+    results = {}
+    for dev in (torch.device("cpu"), device):
+        model = ViPNeRF(cfg, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for mlp in model.children():
+                mlp.pts_output_linear.bias += 0.5
+        model = model.to(dev)
+        start = {k: v.detach().clone() for k, v in model.named_parameters()}
+        step = make_train_step(cfg, render_rays, LossComputer(cfg), make_optimizer(cfg, model.parameters()))
+        batch = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in _train_batch().items()}
+        before = k1.fused_mlp_raw.launches
+        scalars = step(model, batch, torch.Generator(device=dev))
+        launched = k1.fused_mlp_raw.launches - before
+        results[dev.type] = (scalars, {k: p.grad.cpu() for k, p in model.named_parameters()},
+                             {k: (p.detach() - start[k]).cpu() for k, p in model.named_parameters()})
+        assert launched == (2 if dev.type == "cuda" else 0)
+    (s_cpu, g_cpu, d_cpu), (s_gpu, g_gpu, d_gpu) = results["cpu"], results["cuda"]
+    for k in s_cpu:
+        torch.testing.assert_close(s_gpu[k].cpu(), s_cpu[k], rtol=1e-4, atol=0)
+    for k, g in g_cpu.items():
+        assert (g_gpu[k] - g).norm() <= 1e-2 * g.norm(), k
+        assert d_gpu[k].abs().max() <= lr * (1 + 1e-3) and d_gpu[k].abs().max() > 0, k

@@ -154,8 +154,25 @@ def test_tiled_renderer_is_tile_size_invariant():
         assert set(other) == set(outs[0])
         for k in outs[0]:
             np.testing.assert_allclose(other[k], outs[0][k], atol=1e-6, rtol=1e-6, err_msg=k)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # losses need a loss computer
         renderer.render(model, b_t, with_losses=True)
+    # the losses of a full-image batch (every ray on the nerf stream, as in
+    # validation) do not depend on the tile size either: pad rays are
+    # excluded and tiles weighted by their real rays. f32, 1e-6 relative
+    from vipnerf_tpu_torch.losses import LossComputer
+
+    lcfg = dict(cfg, losses=[{"name": "MSE01", "weight": 1}, {"name": "VisibilityLoss01", "weight": 0.1},
+                             {"name": "VisibilityPriorLoss01", "iter_weights": {"0": 0.001}}])
+    rgb = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (100, 3)).astype(np.float32))
+    lb = dict(b_t, iter_num=5, indices_mask_nerf=torch.ones(100, dtype=torch.bool), target_rgb=rgb)
+    loss_renderer = TiledRenderer(t_vn.render_rays, lcfg, loss_computer=LossComputer(lcfg))
+    losses = [loss_renderer.render(model, lb, chunk_size=c, sec_views_vis=True, with_losses=True)[1]
+              for c in (100, 32, 7)]
+    assert set(losses[0]) == {"MSE01", "VisibilityLoss01", "VisibilityPriorLoss01", "TotalLoss"}
+    for other in losses[1:]:
+        np.testing.assert_allclose(other["TotalLoss"], losses[0]["TotalLoss"], rtol=1e-6)
+        for k in ("MSE01", "VisibilityLoss01", "VisibilityPriorLoss01"):
+            np.testing.assert_allclose(other[k]["loss_value"], losses[0][k]["loss_value"], rtol=1e-6)
 
 
 # ----------------------------------------------------------- tester level

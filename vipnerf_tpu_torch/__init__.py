@@ -3,8 +3,10 @@
 A port of `vipnerf_tpu` (the JAX package, which stays the reference) with the
 same sub-package layout: `core/` (encoding, rays, poses, sampling,
 compositing), `models/` (MLP and renderer), `kernels/` (the hand-written
-Hopper kernels and their plain versions), `infer/` (tiled renderer and
-tester), `data/` (test-mode preprocessor), `train/` (checkpoint naming) and
+Hopper kernels, their plain versions and K1's autograd), `losses/`, `infer/`
+(tiled renderer with losses, tester), `data/` (loaders, the synthetic
+database, the preprocessor in train, validation and test mode), `train/`
+(LR schedules, Adam step, checkpoints, logging, `start_training`) and
 `utils/`.
 
 Entry points run on the card unless the caller asks for the CPU

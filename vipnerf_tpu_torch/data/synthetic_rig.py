@@ -4,6 +4,8 @@
 small patch, all looking at one point); `write_run_tree` writes what
 `infer.tester.start_testing` reads: runs/training/train{N:04}/Configs.json,
 {scene}/ModelConfigs.json and {scene}/saved_models/Model_Iter000000.tar.
+`flagship_training_configs` is the flagship training config for the
+synthetic database of `data.synthetic`.
 """
 
 import json
@@ -54,6 +56,45 @@ def flagship_train_configs(seed: int = 0) -> Dict[str, Any]:
         },
         "seed": seed,
     }
+
+
+def flagship_training_configs(
+    root_dirpath: Path, num_iterations: int, *, visibility_prior_start_iter: int = 30000,
+) -> Dict[str, Any]:
+    """The flagship training config of the JAX package's apps/configs.py
+    `build_train_configs` (2048 NeRF + 2048 sparse-depth rays, the four
+    losses with the visibility prior staged in at `visibility_prior_start_iter`,
+    Adam at 5e-4 * 0.1^(it/250k)) with bf16 heads, for the synthetic LLFF
+    scene `synth01` of `data.synthetic.write_synthetic_database` under
+    {root_dirpath}/data/databases."""
+    configs = flagship_train_configs()
+    configs["data_loader"].update({
+        "train_set_num": 2, "scene_names": ["synth01"], "resolution_suffix": "",
+        "precrop_fraction": 1, "precrop_iterations": -1,
+        "visibility_prior": {"load_masks": True, "load_weights": False, "masks_dirname": "VW02"},
+        "sparse_depth": {"dirname": "DE02", "num_rays": 2048},
+    })
+    configs.update({
+        "database_dirpath": "databases/NeRF_LLFF/data",
+        "root_dirpath": str(root_dirpath),
+        "losses": [
+            {"name": "MSE01", "weight": 1},
+            {"name": "VisibilityLoss01", "weight": 0.1},
+            {"name": "VisibilityPriorLoss01",
+             "iter_weights": {"0": 0, str(visibility_prior_start_iter): 0.001}},
+            {"name": "SparseDepthMSE01", "weight": 0.1},
+        ],
+        "optimizer": {"lr_decayer_name": "NeRFLearningRateDecayer01", "lr_initial": 5e-4,
+                      "lr_decay": 250, "beta1": 0.9, "beta2": 0.999},
+        "resume_training": True,
+        "num_iterations": num_iterations,
+        "validation_interval": 10000,
+        "validation_chunk_size": 16384,
+        "validation_save_loss_maps": False,
+        "model_save_interval": 10000,
+        "device": "all",
+    })
+    return configs
 
 
 def look_at_w2c(centre: np.ndarray, target: np.ndarray) -> np.ndarray:

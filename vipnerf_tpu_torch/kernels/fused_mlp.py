@@ -29,6 +29,13 @@ the kernel in slabs of `f32_slab_rows` rows.
 raises), on a CPU tensor it runs `fused_mlp_reference`, the same function in
 plain torch. It counts its launches in `fused_mlp_raw.launches`, and per
 instance in `fused_mlp_raw.launches_by_instance`.
+
+Gradients: `FusedRaw` is the `torch.autograd.Function` around the wrapper
+(the counterpart of `_make_fused_raw`, a `jax.custom_vjp`). It takes the
+module's own parameters as inputs; its backward recomputes the raw output
+with `raw_recompute`, a differentiable torch function with K1's numerics
+(as `_raw_xla` is in JAX), and returns autograd's gradients of it. The
+backward is matrix products outside any kernel, as in the JAX package.
 """
 
 import ctypes
@@ -135,8 +142,8 @@ def swizzled_slab(w: torch.Tensor) -> torch.Tensor:
     (64-byte swizzle) -- shared-memory address bits 4-6 (4-5) XORed with bits
     7-9 (7-8), as wgmma's descriptor reads them."""
     n, kw = w.shape
-    r = torch.arange(n)[:, None]
-    c = torch.arange(kw // 8)[None, :]
+    r = torch.arange(n, device=w.device)[:, None]
+    c = torch.arange(kw // 8, device=w.device)[None, :]
     src = w.reshape(n, kw // 8, 8)
     out = torch.empty_like(src)
     out[r, c ^ ((r & 7) if kw == SLAB_K else ((r >> 1) & 3))] = src
@@ -316,6 +323,82 @@ def reset_launch_counts():
 reset_launch_counts()
 
 
+def module_params(mlp) -> List[torch.Tensor]:
+    """The flagship MLP's parameters in `raw_recompute`'s order: trunk 0..7
+    (weight, bias each), feature, sigma head, view hidden, view output."""
+    linears = list(mlp.pts_linears) + [
+        mlp.feature_linear, mlp.pts_output_linear, mlp.views_linears[0],
+        mlp.views_output_linear,
+    ]
+    return [p for lin in linears for p in (lin.weight, lin.bias)]
+
+
+def raw_recompute(
+    params, xe: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor, n_sec: int
+) -> torch.Tensor:
+    """K1's raw (N, 8) output as a differentiable torch function of the
+    module's real parameters (`module_params` order), in the inputs' dtype;
+    the counterpart of `_raw_xla`. Zero padding is built from the real
+    weights with `F.pad`/`torch.cat`, so it takes no gradient; in bf16 each
+    product is rounded to bf16 before the bf16 bias add. Unlike
+    `fused_mlp_reference`, the products run in the working dtype (cuBLAS on
+    the card), as XLA's do."""
+    dt = xe.dtype
+    w = [p.to(dt) for p in params[0::2]]
+    b = [p.to(dt) for p in params[1::2]]
+
+    def dense(x, i, relu):
+        y = F.linear(x, w[i]) + b[i]
+        return torch.relu(y) if relu else y
+
+    def pad_cols(wi, at, n):
+        return torch.cat([wi[:, :at], wi.new_zeros(wi.shape[0], n), wi[:, at:]], dim=1)
+
+    w[0] = F.pad(w[0], (0, 1))
+    w[5] = pad_cols(w[5], 63, 1)
+    w[10] = F.pad(w[10], (0, VIEW_IN - 27))
+    h = dense(xe, 0, True)
+    for i in range(1, 5):
+        h = dense(h, i, True)
+    h = dense(torch.cat([xe, h], dim=1), 5, True)
+    for i in (6, 7):
+        h = dense(h, i, True)
+    feature = dense(h, 8, False)
+    sigma = dense(h, 9, False)
+
+    def view_branch(enc_v):
+        return dense(dense(torch.cat([feature, enc_v], dim=1), 10, True), 11, False)
+
+    cols = [sigma, view_branch(ve)]
+    for j in range(n_sec):
+        cols.append(view_branch(ve2[:, j * VIEW_IN:(j + 1) * VIEW_IN])[:, 3:4])
+    out = torch.cat(cols, dim=1)
+    return F.pad(out, (0, NOUT - out.shape[1]))
+
+
+class FusedRaw(torch.autograd.Function):
+    """K1 with a gradient: forward launches the kernel (the plain version on
+    the CPU); backward recomputes through `raw_recompute` and differentiates
+    that, for the parameters and for xe/ve/ve2 where they need it."""
+
+    @staticmethod
+    def forward(ctx, weights: FusedWeights, n_sec: int, xe, ve, ve2, *params):
+        ctx.n_sec = n_sec
+        ctx.save_for_backward(xe, ve, ve2, *params)
+        return fused_mlp_raw(weights, xe, ve, ve2, n_sec)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+        with torch.enable_grad():
+            out = raw_recompute(inputs[3:], *inputs[:3], ctx.n_sec)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype), allow_unused=True))
+        return (None, None) + tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
 def apply_fused_mlp(
     mlp,
     pts: torch.Tensor,
@@ -327,11 +410,13 @@ def apply_fused_mlp(
     dtype: torch.dtype = torch.bfloat16,
 ) -> Dict[str, torch.Tensor]:
     """NeRFMLP.forward for the flagship config, through K1. Same output dict
-    (sigma, rgb, rgb_view_dependent, visibility[, visibility2]), f32."""
+    (sigma, rgb, rgb_view_dependent, visibility[, visibility2]), f32, and
+    differentiable in the module's parameters (and pts/view dirs)."""
     if not supports_config(mlp.cfg):
         raise ValueError("K1 implements the flagship 8x256 config only")
     xe, ve, ve2, n_sec = encode_inputs(pts, view_dirs, view_dirs2, dtype)
-    raw = fused_mlp_raw(prepare_weights(mlp, dtype), xe, ve, ve2, n_sec).float()
+    weights = prepare_weights(mlp, dtype)
+    raw = FusedRaw.apply(weights, n_sec, xe, ve, ve2, *module_params(mlp)).float()
     sigma = raw[:, 0:1]
     if raw_noise_std > 0.0 and generator is not None:
         sigma = sigma + raw_noise_std * torch.randn(

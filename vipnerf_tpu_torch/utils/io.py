@@ -1,17 +1,115 @@
-"""Image and array output with the standard library and numpy only.
+"""Image, array and CSV I/O with the standard library and numpy only.
 
-Semantics of vipnerf_tpu/utils/io.py `save_image` / `save_numpy_array`
-(arrays saved as .npy, their PNG normalised by the array's max). PNGs are
-written by `write_png`, an 8-bit grayscale/RGB/RGBA encoder on zlib.
+Semantics of vipnerf_tpu/utils/io.py `read_image` / `read_mask` /
+`save_image` / `save_numpy_array` (arrays saved as .npy, their PNG
+normalised by the array's max; a mask is a PNG == 255). PNGs are written by
+`write_png`, an 8-bit grayscale/RGB/RGBA encoder on zlib, and read by
+`read_png`, which decodes 8-bit non-interlaced grayscale, grey+alpha, RGB
+and RGBA with all five row filters. CSVs with a header are read by
+`read_csv_columns`.
 """
 
+import csv
 import struct
 import zlib
 from pathlib import Path
+from typing import Dict
 
 import numpy as np
 
 _PNG_COLOR_TYPE = {1: 0, 3: 2, 4: 6}  # channels -> PNG colour type
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> channels
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _unfilter_row(ftype: int, row: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo one scanline's PNG filter (uint8 arrays of the row's bytes)."""
+    if ftype == 0:
+        return row
+    if ftype == 2:  # Up
+        return row + prev
+    if ftype == 1:  # Sub: a running sum mod 256 along each byte of a pixel
+        cols = row.reshape(-1, bpp).astype(np.int64)
+        return (np.cumsum(cols, axis=0) % 256).astype(np.uint8).reshape(-1)
+    out = bytearray(row.tobytes())
+    up = prev.tobytes()
+    n = len(out)
+    if ftype == 3:  # Average
+        for i in range(n):
+            left = out[i - bpp] if i >= bpp else 0
+            out[i] = (out[i] + ((left + up[i]) >> 1)) & 0xFF
+    elif ftype == 4:  # Paeth
+        for i in range(n):
+            a = out[i - bpp] if i >= bpp else 0
+            b = up[i]
+            c = up[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            out[i] = (out[i] + pred) & 0xFF
+    else:
+        raise ValueError(f"unknown PNG filter type {ftype}")
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def read_png(path) -> np.ndarray:
+    """An 8-bit PNG as uint8 (h, w) (grayscale) or (h, w, c)."""
+    blob = Path(path).read_bytes()
+    if blob[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path} is not a PNG")
+    pos, idat, header = 8, [], None
+    while pos < len(blob):
+        (length,) = struct.unpack(">I", blob[pos:pos + 4])
+        tag, data = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat.append(data)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path} has no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(
+            f"{path}: read_png takes 8-bit non-interlaced gray/RGB/RGBA, got depth "
+            f"{depth}, colour type {color}, interlace {interlace}"
+        )
+    c = _PNG_CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
+    image = np.empty((h, w * c), np.uint8)
+    prev = np.zeros(w * c, np.uint8)
+    for y in range(h):
+        prev = image[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prev, c)
+    return image.reshape(h, w) if c == 1 else image.reshape(h, w, c)
+
+
+def read_image(path) -> np.ndarray:
+    return read_png(path)
+
+
+def read_mask(path) -> np.ndarray:
+    return read_image(path) == 255
+
+
+def read_csv_columns(path) -> Dict[str, np.ndarray]:
+    """A CSV with a header row -> {column: numpy array}, numeric where every
+    value of the column parses as a number (int if all are integers)."""
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    out = {}
+    for name in (rows[0].keys() if rows else []):
+        values = [r[name] for r in rows]
+        for kind in (int, float):
+            try:
+                out[name] = np.array([kind(v) for v in values])
+                break
+            except ValueError:
+                continue
+        else:
+            out[name] = np.array(values)
+    return out
 
 
 def write_png(path, image: np.ndarray) -> None:
