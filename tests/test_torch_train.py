@@ -36,8 +36,18 @@ def scalars(scene_dir):
     return [json.loads(line) for line in (scene_dir / "logs/scalars.jsonl").read_text().splitlines()]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: the steps are too small for more to pay, and the
+    spinning of idle ones takes the cores of the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
-def trained(tmp_path_factory):
+def trained(tmp_path_factory, two_threads):
     root = tmp_path_factory.mktemp("train")
     gt = write_synthetic_database(root / "data/databases", scene_name="synth01", num_frames=6,
                                   train_frames=(0, 5), val_frames=(2,), height=32, width=40)

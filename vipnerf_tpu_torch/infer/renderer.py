@@ -100,7 +100,6 @@ class TiledRenderer:
         *,
         chunk_size: int = 65536,
         sec_views_vis: bool = False,
-        retraw: bool = False,
         with_losses: bool = False,
         return_loss_maps: bool = False,
     ):
@@ -121,7 +120,7 @@ class TiledRenderer:
         for tile_batch in _split_batch(batch, nr, tile):
             out = self.render_fn(
                 model, self.configs, tile_batch, train=False, sec_views_vis=sec_views_vis,
-                retraw=retraw or with_losses,
+                retraw=with_losses,
             )
             for k in _KEEP_KEYS:
                 if k in out:

@@ -210,7 +210,7 @@ class Trainer:
             batch = data_preprocessor.get_next_batch(iter_num, image_num=frame_num)
             outputs, losses = self.renderer.render(
                 self.model, batch, chunk_size=chunk_size, sec_views_vis=is_train_data,
-                retraw=True, with_losses=True, return_loss_maps=save_loss_maps,
+                with_losses=True, return_loss_maps=save_loss_maps,
             )
             for name, val in losses.items():
                 total[name] = total.get(name, 0.0) + (val["loss_value"] if isinstance(val, dict) else val)
@@ -246,25 +246,6 @@ class Trainer:
                             save_dirpath / f"Losses/{full_name}_{frame_num:04}_{it_tag}.npy",
                             np.asarray(loss_map).reshape(h, w), as_png=True)
         return {k: v / max(len(frame_nums), 1) for k, v in total.items()}
-
-    def save_sample_images(self, iter_num: int, save_dirpath: Path):
-        """Render every train and validation frame from its own pose and save
-        the frame, depth and depth variance (the reference's loop does not
-        call it either)."""
-        prep0 = self.train_data_preprocessor
-        for prep in (self.train_data_preprocessor, self.val_data_preprocessor):
-            for frame_num, pose in zip(prep.frame_nums, prep.poses):
-                pose44 = np.eye(4, dtype=np.float32)
-                pose44[:3] = np.asarray(pose)[:3]
-                batch = prep0.create_test_data(pose44, preprocess_pose=False)
-                outputs, _ = self.renderer.render(
-                    self.model, batch, chunk_size=self.configs["validation_chunk_size"])
-                predictions = prep0.retrieve_inference_outputs(outputs)
-                name = f"{int(frame_num):04}_Iter{iter_num:05}.png"
-                save_image(save_dirpath / f"predicted_frames/{name}", predictions["image"])
-                save_numpy_array(save_dirpath / f"predicted_depths/{name}", predictions["depth"])
-                save_numpy_array(save_dirpath / f"predicted_depths_variance/{name}",
-                                 predictions["depth_var"])
 
     # ------------------------------------------------------------ checkpoints
 

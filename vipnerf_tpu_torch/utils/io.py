@@ -22,34 +22,45 @@ _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> channels
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
-def _unfilter_row(ftype: int, row: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
-    """Undo one scanline's PNG filter (uint8 arrays of the row's bytes)."""
-    if ftype == 0:
-        return row
-    if ftype == 2:  # Up
-        return row + prev
-    if ftype == 1:  # Sub: a running sum mod 256 along each byte of a pixel
-        cols = row.reshape(-1, bpp).astype(np.int64)
-        return (np.cumsum(cols, axis=0) % 256).astype(np.uint8).reshape(-1)
-    out = bytearray(row.tobytes())
-    up = prev.tobytes()
-    n = len(out)
-    if ftype == 3:  # Average
-        for i in range(n):
-            left = out[i - bpp] if i >= bpp else 0
-            out[i] = (out[i] + ((left + up[i]) >> 1)) & 0xFF
-    elif ftype == 4:  # Paeth
-        for i in range(n):
-            a = out[i - bpp] if i >= bpp else 0
-            b = up[i]
-            c = up[i - bpp] if i >= bpp else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-            out[i] = (out[i] + pred) & 0xFF
-    else:
-        raise ValueError(f"unknown PNG filter type {ftype}")
-    return np.frombuffer(bytes(out), np.uint8)
+def _unfilter(raw: np.ndarray, w: int, c: int) -> np.ndarray:
+    """Undo the PNG row filters of `raw` (h, 1 + w * c) -> uint8 (h, w * c)."""
+    types, rows = raw[:, 0], raw[:, 1:]
+    if types.max(initial=0) > 4:
+        raise ValueError(f"unknown PNG filter type {types.max()}")
+    if (types <= 2).all():  # None, Sub and Up decode a row at once
+        image = np.empty_like(rows)
+        prev = np.zeros(w * c, np.uint8)
+        for y, ftype in enumerate(types):
+            row = rows[y]
+            if ftype == 1:  # Sub: a running sum mod 256 along each byte of a pixel
+                row = (np.cumsum(row.reshape(w, c), axis=0, dtype=np.int64) % 256).astype(np.uint8).ravel()
+            elif ftype == 2:  # Up
+                row = row + prev
+            prev = image[y] = row
+        return image
+    # Average and Paeth predict a pixel from the decoded pixel to its left, so
+    # a row decodes pixel by pixel. Pixel (y, x) needs only the pixels left of,
+    # above and above-left of it, which lie on earlier anti-diagonals y + x:
+    # each anti-diagonal decodes at once, every pixel under its row's filter.
+    # The image is sheared so that anti-diagonal d is the slab skew[d + 2] and
+    # pixel (y, x) is skew[y + x + 2, y + 1]; its left and upper neighbours are
+    # then skew[d + 1, y + 1] and skew[d + 1, y], its upper-left skew[d, y],
+    # and the slots outside the image stay 0, as the filters define them.
+    h = rows.shape[0]
+    ys, xs = np.divmod(np.arange(h * w), w)
+    filt = np.zeros((h + w - 1, h, c), np.int32)
+    filt[ys + xs, ys] = rows.reshape(h * w, c)
+    skew = np.zeros((h + w + 1, h + 1, c), np.int32)
+    kind = [(types == k)[:, None] for k in (1, 2, 3, 4)]
+    for d in range(h + w - 1):
+        y0, y1 = max(0, d - w + 1), min(h, d + 1)
+        a, b, cc = skew[d + 1, y0 + 1:y1 + 1], skew[d + 1, y0:y1], skew[d, y0:y1]
+        pa, pb, pc = np.abs(b - cc), np.abs(a - cc), np.abs(a + b - 2 * cc)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+        sub, up, avg, pae = (k[y0:y1] for k in kind)
+        pred = sub * a + up * b + avg * ((a + b) >> 1) + pae * paeth
+        skew[d + 2, y0 + 1:y1 + 1] = (filt[d, y0:y1] + pred) & 0xFF
+    return skew[ys + xs + 2, ys + 1].astype(np.uint8).reshape(h, w * c)
 
 
 def read_png(path) -> np.ndarray:
@@ -78,10 +89,7 @@ def read_png(path) -> np.ndarray:
         )
     c = _PNG_CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
-    image = np.empty((h, w * c), np.uint8)
-    prev = np.zeros(w * c, np.uint8)
-    for y in range(h):
-        prev = image[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prev, c)
+    image = _unfilter(raw, w, c)
     return image.reshape(h, w) if c == 1 else image.reshape(h, w, c)
 
 
