@@ -41,7 +41,19 @@ Phases, each of which fails the run loudly:
    untrained one's; the median warm step time with rays/s, K1's share and
    peak memory; a torch.profiler table of one step split into forward,
    backward and Adam; a warm step in each precision mode;
-5. a JSON line of the kernels, and the device line last.
+5. the user's pipeline at 1008x756: a synthetic LLFF scene under the LLFF
+   policy's _down4 suffix without a visibility prior; the prior generated
+   by the entry point of `python -m vipnerf_tpu_torch.priors.visibility` on
+   the card (64 planes, 3 pairs x 2 directions, timed per direction), its
+   files checked and one direction held against the same function on the
+   CPU; the sparse-depth CLI's ColmapNotFoundError (the card has no
+   COLMAP); the NeRF_LLFF app with demo1a's shipped configs (bf16 with f32
+   heads, so the module MLP and no K1) cut to 200 steps: training on the
+   generated prior, testing with its QA subprocess (finite RMSE02, PSNR02,
+   SSIM02; LPIPS02 null without weights), and both video tracks as frame
+   directories;
+6. a JSON line of each of phases 3-5 and of the kernels, and the device
+   line last.
 
 It needs CUDA and the repository around it, and exits non-zero without a
 result otherwise. Nothing of JAX is imported.
@@ -53,6 +65,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -783,6 +796,223 @@ def phase_train(k1, dev, timings):
             "profile_ms": profile, "modes": modes, "grad_check": {str(k)[6:]: v for k, v in grads.items()}}
 
 
+# ------------------------------------------------------- the user's pipeline
+
+PIPE_STEPS = 200  # demo1a's 200k iterations, cut
+PIPE_TRAIN = (0, 2, 4)
+# the visibility prior on the card against the same function on the CPU: the
+# warp is f32 fused multiply-adds on both, so only exp and the last ulps of
+# the sampler's sums may differ
+TOL_PRIOR_W = 1e-3  # max |w_card - w_cpu|
+TOL_PRIOR_MASK_FRAC = 1e-4  # share of pixels whose mask (w > 0.5) differs
+
+
+def check_prior_outputs(out_dir: Path, pairs):
+    """6 directions: weights .npy + .png, masks .npy + .png equal to w > 0.5."""
+    from vipnerf_tpu_torch.utils.io import read_mask
+
+    if not (out_dir / "Configs.json").exists():
+        raise AssertionError("the visibility prior wrote no Configs.json")
+    for a, b in pairs:
+        for f1, f2 in ((a, b), (b, a)):
+            name = f"{f1:04}_{f2:04}"
+            w = np.load(out_dir / f"synth01/visibility_weights/{name}.npy")
+            m = np.load(out_dir / f"synth01/visibility_masks/{name}.npy")
+            check_png(out_dir / f"synth01/visibility_weights/{name}.png")
+            if w.shape != (H, W) or w.dtype != np.float32 or not np.isfinite(w).all() or w.min() < 0 or w.max() > 1:
+                raise AssertionError(f"visibility weights {name}: shape {w.shape}, dtype {w.dtype}, out of [0, 1]")
+            if m.dtype != bool or not np.array_equal(m, w > 0.5) \
+                    or not np.array_equal(read_mask(out_dir / f"synth01/visibility_masks/{name}.png"), m):
+                raise AssertionError(f"visibility mask {name} is not weights > 0.5")
+
+
+def phase_prior_vs_cpu(root: Path, out_dir: Path, f1: int, f2: int):
+    """One direction of the card's prior against compute_visibility_weights
+    on the CPU at full size, from the same frames, poses and planes."""
+    from vipnerf_tpu_torch.priors.visibility import compute_visibility_weights, get_depth_planes
+    from vipnerf_tpu_torch.utils.io import read_image
+
+    base = root / "data/databases/NeRF_LLFF/data/all/database_data/synth01"
+    extr = np.loadtxt(base / "CameraExtrinsics.csv", delimiter=",").reshape(-1, 4, 4).astype(np.float32)
+    intr = np.loadtxt(base / "CameraIntrinsics_down4.csv", delimiter=",").reshape(-1, 3, 3).astype(np.float32)
+    bds = np.loadtxt(base / "DepthBounds.csv", delimiter=",")[list(PIPE_TRAIN)]
+    planes = torch.as_tensor(get_depth_planes(bds.min(), bds.max(), 64), dtype=torch.float32)
+    frame = {f: torch.as_tensor(read_image(base / f"rgb_down4/{f:04}.png")[..., :3], dtype=torch.float32)
+             for f in (f1, f2)}
+    t0 = time.perf_counter()
+    cpu = compute_visibility_weights(frame[f1], frame[f2], extr[f1], extr[f2], intr[f1], intr[f2],
+                                     planes, 10).numpy()
+    cpu_s = time.perf_counter() - t0
+    card = np.load(out_dir / f"synth01/visibility_weights/{f1:04}_{f2:04}.npy")
+    max_dw = float(np.abs(card - cpu).max())
+    mask_frac = float(np.mean((card > 0.5) != (cpu > 0.5)))
+    log(f"visibility prior {f1:04}->{f2:04}, card vs CPU at {W}x{H} x 64 planes: max|dw| {max_dw:.3g} "
+        f"(tol {TOL_PRIOR_W}), masks differ at {mask_frac:.3g} of the pixels (tol {TOL_PRIOR_MASK_FRAC}); "
+        f"mean weight {card.mean():.4f}, visible {np.mean(card > 0.5):.4f}; the CPU took {cpu_s:.2f} s")
+    if not (max_dw <= TOL_PRIOR_W and mask_frac <= TOL_PRIOR_MASK_FRAC):
+        raise AssertionError("the visibility prior on the card disagrees with the CPU")
+    return {"max_abs_dw": max_dw, "mask_diff_frac": mask_frac, "cpu_s": cpu_s}
+
+
+def qa_breakdown(root: Path, pred_path: Path):
+    """Where a QA subprocess's seconds go: a process that starts and imports
+    what the runner imports (with the CUDA probe of its LPIPS device), one
+    1008x756 PNG decode (the runner decodes ground truth and prediction once
+    per metric and frame), and each metric on one frame."""
+    from vipnerf_tpu_torch.qa import metrics
+    from vipnerf_tpu_torch.utils.io import read_image
+
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import torch, vipnerf_tpu_torch.qa.runner; torch.cuda.device_count()"],
+                   check=True, cwd=Path(__file__).resolve().parent)
+    parts = {"start_and_imports": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    gt = read_image(root / "data/databases/NeRF_LLFF/data/all/database_data/synth01/rgb_down4/0003.png")[..., :3]
+    parts["png_decode"] = time.perf_counter() - t0
+    pred = read_image(pred_path)[..., :3]
+    for name in ("rmse", "psnr", "ssim"):
+        t0 = time.perf_counter()
+        getattr(metrics, f"compute_{name}")(gt, pred)
+        parts[name] = time.perf_counter() - t0
+    log("QA breakdown (s): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; the runner decodes 8 PNGs per frame (2 per metric, LPIPS included)")
+    return parts
+
+
+def phase_pipeline(k1):
+    """The user's pipeline at 1008x756: a synthetic LLFF scene written under
+    the LLFF policy's _down4 suffix with sparse depths and no visibility
+    prior; the prior generated by `priors.cli.main_visibility` on the card
+    (64 planes, 3 pairs x 2 directions) with TF32 matmuls allowed, its files
+    checked and one direction held against the CPU; the sparse-depth CLI's
+    ColmapNotFoundError; then the NeRF_LLFF app with demo1a's shipped configs
+    (bf16 with f32 heads: the module MLP) cut to PIPE_STEPS iterations:
+    start_training on the generated prior, start_testing with its QA
+    subprocess, and both video tracks of a 3-pose track."""
+    from vipnerf_tpu_torch.apps import nerf_llff
+    from vipnerf_tpu_torch.apps.common import DatasetApp
+    from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
+    from vipnerf_tpu_torch.models.vip_nerf import uses_fused_mlp
+    from vipnerf_tpu_torch.priors.cli import main_sparse_depth, main_visibility
+    from vipnerf_tpu_torch.priors.sparse_depth import ColmapNotFoundError
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_synthetic_database(root / "data/databases", scene_name="synth01", num_frames=5,
+                                 train_frames=PIPE_TRAIN, val_frames=(1,), height=H, width=W,
+                                 resolution_suffix="_down4", with_visibility_prior=False)
+        log(f"pipeline: synthetic LLFF scene at {W}x{H} under rgb_down4 (train {PIPE_TRAIN}, validation 1, "
+            f"test 3), sparse depths, no visibility prior, in {time.perf_counter() - t0:.2f} s")
+
+        k1.reset_launch_counts()
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True  # no matmul setting may reach the warp
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                main_visibility(["--database", "NeRF_LLFF", "--gen_nums", "2", "--root_dirpath", str(root)])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        prior_s = time.perf_counter() - t0
+        sys.stdout.write(out.getvalue())
+        directions = [float(s) for pair in re.findall(r"([\d.]+) s and ([\d.]+) s per direction", out.getvalue())
+                      for s in pair]
+        pairs = [(a, b) for i, a in enumerate(PIPE_TRAIN) for b in PIPE_TRAIN[i + 1:]]
+        if len(directions) != 2 * len(pairs) or "on cuda:0" not in out.getvalue():
+            raise AssertionError(f"main_visibility ran {len(directions)} directions on the card, expected {2 * len(pairs)}")
+        out_dir = root / "data/databases/NeRF_LLFF/data/all/visibility_prior/VW02"
+        check_prior_outputs(out_dir, pairs)
+        log(f"visibility prior on the card: {len(directions)} directions of {W}x{H} x 64 planes, seconds per "
+            f"direction {', '.join(f'{s:.4f}' for s in directions)}; "
+            f"{prior_s:.2f} s with reads and writes; outputs checked")
+        prior_cmp = phase_prior_vs_cpu(root, out_dir, 0, 2)
+
+        try:
+            main_sparse_depth(["--database", "NeRF_LLFF", "--gen_nums", "2", "--root_dirpath", str(root)])
+        except ColmapNotFoundError as e:
+            log(f"sparse-depth prior: ColmapNotFoundError as expected ({e}); DE02 comes from the writer")
+        else:
+            raise AssertionError("main_sparse_depth did not raise ColmapNotFoundError")
+
+        app = DatasetApp("NeRF_LLFF", "scene_name", "all", root_dirpath=root)
+        train_configs, test_configs = nerf_llff.demo_configs(11, 2, "synth01", sparse_depth=True, num_rays=2048,
+                                                             num_iterations=PIPE_STEPS)
+        model = train_configs["model"]
+        path_k1 = uses_fused_mlp(model["fine_mlp"], model["bf16_matmuls"], model["f32_heads"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        app.start_training(train_configs)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        scene_train = root / "runs/training/train0011/synth01"
+        losses = [v for _, v in sorted(read_scalars(scene_train)["train/TotalLoss"])]
+        if len(losses) != PIPE_STEPS or not np.isfinite(losses).all() \
+                or not (scene_train / f"saved_models/Model_Iter{PIPE_STEPS:06}.tar").exists():
+            raise AssertionError("the app's training logged no finite loss per step or wrote no checkpoint")
+        log(f"app start_training (demo1a configs: bf16, f32 heads, 2048 + 2048 rays, the generated VW02 prior): "
+            f"{PIPE_STEPS} steps in {train_s:.2f} s with set-up and checkpoint, {PIPE_STEPS / train_s:.2f} steps/s; "
+            f"mean TotalLoss first 20 {np.mean(losses[:20]):.5f}, last 20 {np.mean(losses[-20:]):.5f}")
+
+        qa_s = []
+        run_qa = app.run_qa
+
+        def timed_qa(*args):
+            t = time.perf_counter()
+            run_qa(*args)
+            qa_s.append(time.perf_counter() - t)
+
+        app.run_qa = timed_qa
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        test_dir = app.start_testing(test_configs)
+        test_s = time.perf_counter() - t0 - sum(qa_s)
+        scene = test_dir / "synth01"
+        test_frames = sorted(int(p.stem) for p in (scene / "predicted_frames").glob("*.png"))
+        if test_frames != [0, 2, 3, 4] or len(qa_s) != 1:
+            raise AssertionError(f"start_testing rendered frames {test_frames}, QA ran {len(qa_s)} times")
+        for f in test_frames:
+            check_png(scene / f"predicted_frames/{f:04}.png")
+        scores = json.loads((test_dir / "QA_Scores.json").read_text())["predicted_frames"]
+        log(f"app start_testing: {len(test_frames)} frames (test 3; train 0, 2, 4 with visibility) in {test_s:.2f} s, "
+            f"{test_s / len(test_frames):.3f} s per frame with set-up; QA subprocess {qa_s[0]:.2f} s for 1 test "
+            f"frame; QA_Scores.json {json.dumps(scores)}")
+        if not (all(np.isfinite(scores.get(k, np.nan)) for k in ("RMSE02", "PSNR02", "SSIM02"))
+                and "LPIPS02" in scores and scores["LPIPS02"] is None):
+            raise AssertionError("QA_Scores.json lacks finite RMSE02, PSNR02, SSIM02 or LPIPS02 null")
+        qa_parts = qa_breakdown(root, scene / "predicted_frames/0003.png")
+
+        track_dir = root / "data/databases/NeRF_LLFF/data/train_test_sets/set02/video_poses01"
+        track_dir.mkdir(parents=True)
+        extr = np.loadtxt(root / "data/databases/NeRF_LLFF/data/all/database_data/synth01/CameraExtrinsics.csv",
+                          delimiter=",")
+        np.savetxt(track_dir / "synth01.csv", extr[[1, 2, 3]], delimiter=",")  # 3 poses: 2 frames
+        video_s = {}
+        for label, fn, suffix, name in (
+                ("moving", app.start_testing_videos, "_video01", "PredictedVideo"),
+                ("static", app.start_testing_static_videos, "_video01_static_camera", "StaticCameraVideo")):
+            t0 = time.perf_counter()
+            fn(test_configs)
+            video_s[label] = time.perf_counter() - t0
+            frames = sorted((test_dir / f"synth01{suffix}/{name}_frames").glob("*.png"))
+            if [p.name for p in frames] != ["0000.png", "0001.png"]:
+                raise AssertionError(f"the {label} video track wrote {[p.name for p in frames]}")
+            for p in frames:
+                check_png(p)
+        launches = dict(k1.fused_mlp_raw.launches_by_instance)
+        log(f"app video tracks: 2 frames each, moving {video_s['moving']:.2f} s, static {video_s['static']:.2f} s, "
+            f"written as frame directories; K1 launches over the pipeline {launches} (the shipped f32 heads run "
+            f"the module MLP: {'K1' if path_k1 else 'no K1'} expected)")
+        if path_k1 or any(launches.values()):
+            raise AssertionError(f"the pipeline launched K1 {launches}")
+    return {"prior_s_per_direction": directions, "prior_vs_cpu": prior_cmp, "train_s": train_s,
+            "steps_per_s": PIPE_STEPS / train_s, "test_s_per_frame": test_s / len(test_frames),
+            "qa_s_per_frame": qa_s[0], "qa_breakdown_s": qa_parts,
+            "video_s_per_frame": {k: v / 2 for k, v in video_s.items()},
+            "qa_scores": scores, "k1_launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -816,6 +1046,7 @@ def main() -> int:
     worst, timings = phase_k1(k1, mlp, dev)
     launches, s_per_frame, frame_s, modes = phase_slice(k1, dev, timings)
     train = phase_train(k1, dev, timings)
+    pipeline = phase_pipeline(k1)
 
     log(json.dumps({"slice": {
         "resolution": [H, W], "chunk_size": CHUNK, "k1_timing_shape": {"points": MAIN_N, "n_sec": 0},
@@ -824,6 +1055,8 @@ def main() -> int:
     log(json.dumps({"training": {
         "resolution": [H, W], "rays_per_step": TRAIN_RAYS, "k1_shapes": TRAIN_N, "n_sec": TRAIN_SEC,
         **{k: v for k, v in train.items() if k != "run"}, **train["run"], "card": card}}))
+    log(json.dumps({"pipeline": {"resolution": [H, W], "prior_planes": 64, "app_steps": PIPE_STEPS,
+                                 **pipeline, "card": card}}))
     # each instance's launches come from its own path: the bf16 one from
     # start_testing and start_training, the f32 one from the f32 frame of phase_modes
     path_launches = {"fused_mlp_bf16": launches["fused_mlp_bf16"] + train["run"]["launches"],

@@ -263,9 +263,30 @@ def test_validation_and_uncached_batches_match_jax(databases):
         np.testing.assert_allclose(tb[k].numpy(), np.asarray(jb[k]), atol=1e-6, rtol=1e-6, err_msg=k)
 
 
+def test_downsampled_caches_match_jax(databases):
+    """downsampling_factor 2: frames, dense depths and both visibility priors
+    area-downscaled (the JAX package's cv2 INTER_AREA), the intrinsics and
+    the sparse-depth coordinates halved; the train caches and the batches."""
+    db_dir, _ = databases["jax"]
+    cfg = train_configs(downsampling_factor=2, dense_depth={"dirname": "DD02"})
+    jp, tp, _, _ = both_preprocessors(db_dir, cfg)
+    assert tp.resolution == jp.resolution == [H // 2, W // 2]
+    np.testing.assert_array_equal(tp.intrinsics, jp.intrinsics)
+    assert set(tp.cache) == set(jp.cache)
+    for k, jv in jp.cache.items():
+        jv, tv = np.asarray(jv), tp.cache[k].numpy()
+        assert tv.shape == jv.shape, k
+        if jv.dtype.kind == "f":
+            np.testing.assert_allclose(tv, jv, atol=1e-6, rtol=1e-6, err_msg=k)
+        else:
+            np.testing.assert_array_equal(tv, jv, err_msg=k)
+    assert tp.get_model_configs() == jp.get_model_configs()
+    np.testing.assert_array_equal(tp.get_index_chunk(0, 3)[1], jp.get_index_chunk(0, 3)[1])
+
+
 def test_unported_options_raise(databases):
     db_dir, _ = databases["jax"]
-    cfg = train_configs(downsampling_factor=2)
+    cfg = train_configs(spherify=True)
     raw = get_data_loader(cfg, db_dir, "train").load_data()
     with pytest.raises(NotImplementedError):
         get_data_preprocessor(cfg, "train", raw)

@@ -16,9 +16,12 @@ and output reshaping (counterpart of vipnerf_tpu/data/preprocessor.py).
 - `gather_batch`: [nerf rays; sparse-depth rays] with stream masks and -1
   fills off-stream, on the device.
 
-Not ported: `downsampling_factor > 1` (needs an anti-aliased rescale), the
-mip-NeRF `radii` fields (`render_rays` does not read them) and the C++
-raystream of vipnerf_tpu/native.
+`downsampling_factor > 1` rescales the frames, the dense depths and the
+visibility priors with `utils.io.rescale_image` (OpenCV's INTER_AREA, as the
+JAX package does with cv2) and divides the intrinsics and the sparse-depth
+coordinates by the factor. Not ported: the mip-NeRF `radii` fields
+(`render_rays` does not read them) and the C++ raystream of
+vipnerf_tpu/native.
 """
 
 from typing import Any, Dict, List, Optional
@@ -28,6 +31,7 @@ import torch
 
 from vipnerf_tpu_torch.core import poses as pose_ops
 from vipnerf_tpu_torch.core import rays as ray_ops
+from vipnerf_tpu_torch.utils.io import rescale_image
 
 
 def get_data_preprocessor(
@@ -64,11 +68,6 @@ class DataPreprocessor:
 
         self.bd_factor = dl["bd_factor"]
         self.downsampling_factor = dl["downsampling_factor"]
-        if self.downsampling_factor > 1:
-            raise NotImplementedError(
-                "downsampling_factor > 1 needs an anti-aliased rescale, which arrives "
-                "with a later slice of the port"
-            )
         self.use_batching = dl.get("batching", True)
         self.num_rays = dl["num_rays"]
         self.sparse_depth_needed = "sparse_depth" in dl
@@ -98,10 +97,16 @@ class DataPreprocessor:
         raw = self.raw_data_dict
         nerf_raw = raw["nerf_data"]
         images = self._preprocess_images(np.asarray(nerf_raw["images"]))
+        intrinsics = np.asarray(nerf_raw["intrinsics"], dtype=np.float64).copy()
+        resolution = [int(x) for x in nerf_raw["resolution"]]
+        if self.downsampling_factor > 1:
+            images = np.stack([self._rescale(im) for im in images])
+            resolution = [x // self.downsampling_factor for x in resolution]
+            intrinsics[:, :2] /= self.downsampling_factor
         self.frame_nums = np.asarray(raw["frame_nums"])
         self.num_frames = len(self.frame_nums)
-        self.resolution = [int(x) for x in nerf_raw["resolution"]]
-        self.intrinsics = np.asarray(nerf_raw["intrinsics"], dtype=np.float64).astype(np.float32)
+        self.resolution = resolution
+        self.intrinsics = intrinsics.astype(np.float32)
 
         bounds = np.asarray(nerf_raw["bounds"], dtype=np.float64)
         if self.mode == "train":
@@ -155,6 +160,9 @@ class DataPreprocessor:
         if self.configs["model"]["white_bkgd"]:
             return images[..., :3] * images[..., -1:] + (1.0 - images[..., -1:])
         return images[..., :3]
+
+    def _rescale(self, image: np.ndarray) -> np.ndarray:
+        return rescale_image(image, self.downsampling_factor, anti_aliasing=True)
 
     def _ray_intrinsic(self, intr: np.ndarray) -> np.ndarray:
         """mip-NeRF casts rays through pixel centres: a -0.5 principal-point
@@ -221,8 +229,9 @@ class DataPreprocessor:
             fd = raw["sparse_depth_data"].get(int(frame_num))
             if fd is None:
                 continue
-            xi = np.round(np.asarray(fd["x"], np.float64)).astype(int)
-            yi = np.round(np.asarray(fd["y"], np.float64)).astype(int)
+            # an edge feature can round onto the downscaled grid's edge: dropped
+            xi = np.round(np.asarray(fd["x"], np.float64) / self.downsampling_factor).astype(int)
+            yi = np.round(np.asarray(fd["y"], np.float64) / self.downsampling_factor).astype(int)
             keep = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
             depths[i, yi[keep], xi[keep]] = (np.asarray(fd["depth"], np.float64) * self.sc)[keep]
             errors[i, yi[keep], xi[keep]] = np.asarray(fd["reprojection_error"], np.float64)[keep]
@@ -238,6 +247,9 @@ class DataPreprocessor:
     def _build_dense_depth_cache(self, raw: dict):
         depths = np.asarray(raw["dense_depth_data"]["depth_values"], np.float32) * self.sc
         weights = np.asarray(raw["dense_depth_data"]["depth_weights"], np.float32)
+        if self.downsampling_factor > 1:
+            depths = np.stack([self._rescale(d) for d in depths])
+            weights = np.stack([self._rescale(x) for x in weights])
         flat = depths.reshape(-1, 1)
         self.cache["dense_depth_values"] = self._tensor(flat)
         self.cache["dense_depth_weights"] = self._tensor(weights.reshape(-1, 1))
@@ -253,8 +265,13 @@ class DataPreprocessor:
                              ("weights", vp_cfg.get("load_weights"))):
             if not enabled:
                 continue
-            arr = np.asarray(raw["visibility_prior_data"][key], np.float32)
-            nm1 = arr.shape[1]
+            arr = np.asarray(raw["visibility_prior_data"][key], np.float32)  # (n, n-1, h, w)
+            n, nm1, h, w = arr.shape
+            if self.downsampling_factor > 1:
+                flat = np.stack([self._rescale(m) for m in arr.reshape(n * nm1, h, w)])
+                if key == "masks":  # a cell touching any visible pixel is visible
+                    flat = flat.astype(bool).astype(np.float32)
+                arr = flat.reshape(n, nm1, *flat.shape[1:])
             self.cache[f"visibility_prior_{key}"] = self._tensor(
                 np.transpose(arr, (0, 2, 3, 1)).reshape(-1, nm1)
             )

@@ -1,6 +1,6 @@
 """A synthetic scene written in the reference database layout (a copy of
-vipnerf_tpu/data/synthetic.py `SphereScene`, `make_camera_ring` and
-`write_synthetic_database` that writes its PNGs with the port's own
+vipnerf_tpu/data/synthetic.py `SphereScene`, `make_dtu_scene`,
+`make_camera_ring` and `write_synthetic_database` that writes its PNGs with the port's own
 encoder): coloured spheres inside a textured shell, ray-traced exactly, on a
 forward-facing arc of cameras, with sparse depths and visibility priors.
 The output is byte for byte what the JAX package writes for the same
@@ -77,6 +77,15 @@ class SphereScene:
             color = np.where(valid[..., None], col, color)
         # ray length along unit dirs -> camera z-depth
         return color, t_best / np.linalg.norm(dirs_cam, axis=-1)
+
+
+def make_dtu_scene(seed: int = 0):
+    """A scene and camera ring inside the DTU loader's fixed depth bounds
+    [0.1, 5]: cameras at radius 1.2 (height 0.25) inside a shell of radius
+    2.2 see z-depths of about 0.4-3.5, where the default ring (radius 3, shell
+    6) would put most of the scene beyond far = 5. Returns (scene,
+    ring_kwargs) for `write_synthetic_database`."""
+    return SphereScene(seed=seed, shell_radius=2.2), {"ring_radius": 1.2, "ring_height": 0.25}
 
 
 def make_camera_ring(

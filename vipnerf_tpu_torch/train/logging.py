@@ -1,10 +1,13 @@
 """Training scalars as JSON lines (counterpart of vipnerf_tpu/train/logging.py
 `ScalarLogger`, without TensorBoard): one record
-{"tag": ..., "value": ..., "step": ...} per scalar in logs/scalars.jsonl."""
+{"tag": ..., "value": ..., "step": ...} per scalar in logs/scalars.jsonl, and
+`export_plots`, which draws each series to a PNG where matplotlib is
+installed."""
 
+import collections
 import json
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 
 class ScalarLogger:
@@ -25,3 +28,37 @@ class ScalarLogger:
 
     def close(self):
         self._jsonl.close()
+
+
+def export_plots(logs_dirpath: Path, save_dirpath: Optional[Path] = None):
+    """Plot every series of logs/scalars.jsonl to {prefix}_{name}.png in
+    `save_dirpath` (default: the logs dir). Needs matplotlib, which the GPU
+    machine does not have: there it raises ImportError, and the scalars stay
+    readable in scalars.jsonl."""
+    logs_dirpath = Path(logs_dirpath)
+    jsonl = logs_dirpath / "scalars.jsonl"
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError(
+            f"export_plots needs matplotlib, which is not installed (the GPU machine has none); "
+            f"the logged scalars are in {jsonl}, one JSON record per line"
+        ) from e
+    matplotlib.use("Agg")
+    from matplotlib import pyplot
+
+    save_dirpath = Path(save_dirpath) if save_dirpath else logs_dirpath
+    if not jsonl.exists():
+        return
+    series = collections.defaultdict(list)
+    for line in jsonl.read_text().splitlines():
+        rec = json.loads(line)
+        series[rec["tag"]].append((rec["step"], rec["value"]))
+    for tag, points in series.items():
+        points.sort()
+        prefix, *rest = tag.split("/")
+        pyplot.figure()
+        pyplot.plot([p[0] for p in points], [p[1] for p in points])
+        pyplot.title(tag)
+        pyplot.savefig(save_dirpath / f"{prefix}_{'_'.join(rest)}.png")
+        pyplot.close()

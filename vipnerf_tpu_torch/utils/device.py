@@ -33,3 +33,9 @@ def resolve_device(device_sel: Any = "all") -> torch.device:
     if index >= torch.cuda.device_count():
         raise ValueError(f"cuda:{index} requested, {torch.cuda.device_count()} present")
     return torch.device("cuda", index)
+
+
+def device_from_arg(arg: str) -> Any:
+    """A CLI's --device value ("all", "cpu" or a GPU index) -> the selection
+    `resolve_device` takes."""
+    return [int(arg)] if arg.isdigit() else arg

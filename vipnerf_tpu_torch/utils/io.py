@@ -1,19 +1,23 @@
-"""Image, array and CSV I/O with the standard library and numpy only.
+"""Image, array, CSV and video I/O with the standard library and numpy only.
 
 Semantics of vipnerf_tpu/utils/io.py `read_image` / `read_mask` /
 `save_image` / `save_numpy_array` (arrays saved as .npy, their PNG
-normalised by the array's max; a mask is a PNG == 255). PNGs are written by
-`write_png`, an 8-bit grayscale/RGB/RGBA encoder on zlib, and read by
-`read_png`, which decodes 8-bit non-interlaced grayscale, grey+alpha, RGB
-and RGBA with all five row filters. CSVs with a header are read by
-`read_csv_columns`.
+normalised by the array's max; a mask is a PNG == 255), `rescale_image`
+(OpenCV's INTER_AREA / INTER_LINEAR downscale, as separable weight
+matrices) and `save_video` (always its no-codec branch: a directory of
+frames). PNGs are written by `write_png`, an 8-bit grayscale/RGB/RGBA
+encoder on zlib, and read by `read_png`, which decodes 8-bit non-interlaced
+grayscale, grey+alpha, RGB and RGBA with all five row filters. CSVs with a
+header are read by `read_csv_columns` and written by `write_csv_columns`,
+with pandas' number and NaN conventions.
 """
 
 import csv
+import math
 import struct
 import zlib
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -101,23 +105,48 @@ def read_mask(path) -> np.ndarray:
     return read_image(path) == 255
 
 
+def _parse_cell(kind, value: str):
+    return math.nan if kind is float and value == "" else kind(value)
+
+
 def read_csv_columns(path) -> Dict[str, np.ndarray]:
     """A CSV with a header row -> {column: numpy array}, numeric where every
-    value of the column parses as a number (int if all are integers)."""
+    value of the column parses as a number (int if all are integers; an
+    empty field is NaN, as pandas reads it). A CSV with no rows gives each
+    column as an empty float array."""
     with open(path, newline="") as f:
-        rows = list(csv.DictReader(f))
+        reader = csv.reader(f)
+        header = next(reader, [])
+        rows = [r for r in reader if r]
     out = {}
-    for name in (rows[0].keys() if rows else []):
-        values = [r[name] for r in rows]
+    for i, name in enumerate(header):
+        values = [r[i] for r in rows]
         for kind in (int, float):
             try:
-                out[name] = np.array([kind(v) for v in values])
+                out[name] = np.array([_parse_cell(kind, v) for v in values])
                 break
             except ValueError:
                 continue
         else:
             out[name] = np.array(values)
     return out
+
+
+def _csv_cell(value) -> str:
+    if isinstance(value, (float, np.floating)) and math.isnan(value):
+        return ""
+    return str(value)  # numpy scalars print their shortest round-trip form in their own precision
+
+
+def write_csv_columns(path, columns: Dict[str, Sequence]) -> None:
+    """Write {column: values} as a CSV with a header row, as pandas'
+    `to_csv(index=False)` writes it: numbers in their shortest round-trip
+    form, NaN as an empty field."""
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(list(columns))
+        for row in zip(*columns.values()):
+            writer.writerow([_csv_cell(v) for v in row])
 
 
 def write_png(path, image: np.ndarray) -> None:
@@ -174,3 +203,75 @@ def save_numpy_array(path, data_array: np.ndarray, as_png: bool = False):
             write_png(path.parent / f"{path.stem}.png", data_image)
     else:
         raise RuntimeError(f"Unknown data format: {path.as_posix()}")
+
+
+def _area_weights(src: int, dst: int, scale: float) -> np.ndarray:
+    """(dst, src) weights of OpenCV's INTER_AREA downscale along one axis
+    (its `computeResizeAreaTab`): an output cell of `scale` input pixels
+    averages the pixels it overlaps, each by its overlap; a sliver of under
+    1e-3 of a pixel is dropped. For an integer `scale` this is the block mean."""
+    weights = np.zeros((dst, src), np.float32)
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s2 = min(math.floor(f2), src - 1)
+        s1 = min(math.ceil(f1), s2)
+        if s1 - f1 > 1e-3:
+            weights[d, s1 - 1] += np.float32((s1 - f1) / cell)
+        weights[d, s1:s2] += np.float32(1.0 / cell)
+        if f2 - s2 > 1e-3:
+            weights[d, s2] += np.float32(min(f2 - s2, 1.0, cell) / cell)
+    return weights
+
+
+def _linear_weights(src: int, dst: int, scale: float) -> np.ndarray:
+    """(dst, src) weights of OpenCV's INTER_LINEAR along one axis: output
+    pixel d samples input position (d + 0.5) * scale - 0.5, clamped to the
+    first and last pixel."""
+    weights = np.zeros((dst, src), np.float32)
+    for d in range(dst):
+        pos = (d + 0.5) * scale - 0.5
+        s = math.floor(pos)
+        frac = pos - s
+        if s < 0:
+            s, frac = 0, 0.0
+        if s >= src - 1:
+            s, frac = src - 1, 0.0
+        weights[d, s] += np.float32(1.0 - frac)
+        if frac:
+            weights[d, s + 1] += np.float32(frac)
+    return weights
+
+
+def rescale_image(
+    image: np.ndarray, downsampling_factor: float, *, anti_aliasing: bool = True
+) -> np.ndarray:
+    """Downscale an (h, w) or (h, w, c) image by `downsampling_factor` to
+    (int(h / f), int(w / f)) in f32: OpenCV's INTER_AREA when anti-aliasing
+    (the JAX package's cv2.resize), else INTER_LINEAR, computed per channel
+    as Ry @ image @ Rx^T with the exact one-axis weight matrices."""
+    if downsampling_factor < 1:
+        raise ValueError(f"rescale_image downscales; got factor {downsampling_factor}")
+    h, w = image.shape[:2]
+    new_h, new_w = int(h / downsampling_factor), int(w / downsampling_factor)
+    # OpenCV's scale: the inverse of dsize / ssize, in double precision
+    scale_y, scale_x = 1.0 / (new_h / h), 1.0 / (new_w / w)
+    one_axis = _area_weights if anti_aliasing else _linear_weights
+    ry, rx = one_axis(h, new_h, scale_y), one_axis(w, new_w, scale_x)
+    img = np.asarray(image, np.float32)
+    rows = (ry @ img.reshape(h, -1)).reshape(new_h, w, -1)  # (new_h, w, c)
+    out = rx @ rows.transpose(1, 0, 2).reshape(w, -1)  # (new_w, new_h * c)
+    return out.reshape(new_w, new_h, -1).transpose(1, 0, 2).reshape(new_h, new_w, *image.shape[2:])
+
+
+def save_video(path, frames: np.ndarray) -> None:
+    """Write (t, h, w, 3) uint8 frames as {stem}_frames/{i:04}.png beside
+    `path`: the no-codec branch of the JAX package's save_video, since the
+    GPU machine has no video encoder. Returns None, as that branch does."""
+    path = Path(path)
+    frames_dir = path.parent / f"{path.stem}_frames"
+    frames_dir.mkdir(parents=True, exist_ok=True)
+    for i, frame in enumerate(frames):
+        write_png(frames_dir / f"{i:04}.png", np.asarray(frame))
+    print(f"save_video: no video encoder; {len(frames)} frames written to {frames_dir}", flush=True)
