@@ -4,7 +4,8 @@
 
 Phases, each of which fails the run loudly:
 
-1. the card's name and power limit, then the build of every CUDA kernel;
+1. the card's name and power limit, then the build of every library under
+   csrc/ (the CUDA kernels with nvcc, the ray stream with g++);
 2. K1 (the fused MLP forward) against its plain torch version on the card,
    both instances (bf16 and f32), n_sec 0..3, at N = 262,144 points, at
    ragged N = 1, 2,085 and 132 * 128 * 3 + 37 (the bf16 kernel's persistent
@@ -52,7 +53,19 @@ Phases, each of which fails the run loudly:
    generated prior, testing with its QA subprocess (finite RMSE02, PSNR02,
    SSIM02; LPIPS02 null without weights), and both video tracks as frame
    directories;
-6. a JSON line of each of phases 3-5 and of the kernels, and the device
+6. batched multi-scene training: two seeded synthetic LLFF scenes at
+   1008x756 (3 train views each) in one database; the scene-batched K1
+   (both instances, 2 and 4 scenes with their own weights, at the
+   training step's launch shapes) against its plain version and bit for bit against
+   single-scene launches, timed beside them, the plain version and a
+   `torch.baddbmm` chain; the NeRF_LLFF app with `batch_scenes: true` at
+   the flagship width with bf16 heads for 100 steps (checkpoint at 50,
+   validation at 100), then resumed to 110, with exactly 2 K1 launches per
+   step for both scenes; each scene's test-frame PSNR against its untrained
+   value; the batched step's gradients against each scene's own step on
+   the same batches; the warm step, rays/s and peak memory at S = 1, 2, 4;
+   a step at S = 2 in each precision mode;
+7. a JSON line of each of phases 3-6 and of the kernels, and the device
    line last.
 
 It needs CUDA and the repository around it, and exits non-zero without a
@@ -152,13 +165,14 @@ def library_raw(layers, xe, ve, ve2, n_sec):
     return torch.cat(out, 1)
 
 
-def k1_bound_ms(k1, n, n_sec, dtype):
-    """Least time for K1 on n points: operations at the tensor-core (bf16) or
-    CUDA-core (f32) peak, or the bytes of its inputs, outputs and weights."""
+def k1_bound_ms(k1, n, n_sec, dtype, scenes=1):
+    """Least time for K1 on n points (of `scenes` scenes, each with its own
+    weights): operations at the tensor-core (bf16) or CUDA-core (f32) peak,
+    or the bytes of its inputs, outputs and weights."""
     macs = n * (k1.MACS_PER_POINT + n_sec * k1.MACS_PER_SEC_VIEW)
     size = 2 if dtype == torch.bfloat16 else 4
     cols_in = k1.PTS_IN + k1.VIEW_IN * (1 + n_sec)
-    nbytes = n * (cols_in + k1.NOUT) * size + k1.W_NUMEL * size + k1.B_NUMEL * 4
+    nbytes = n * (cols_in + k1.NOUT) * size + scenes * (k1.W_NUMEL * size + k1.B_NUMEL * 4)
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = 2 * macs / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -690,7 +704,7 @@ def phase_step_profile(rig, warm_ms):
         for phase in ("forward", "backward", "adam"):
             with torch.profiler.record_function(f"step/{phase}"):
                 if phase == "forward":
-                    optimizer.zero_grad(set_to_none=True)
+                    optimizer.zero_grad()
                     rig.generator.manual_seed(3)
                     out = rig.render_rays(rig.model, rig.configs, batch, train=True, generator=rig.generator)
                     total = rig.loss_computer.compute_losses(batch, out)["TotalLoss"]
@@ -794,6 +808,384 @@ def phase_train(k1, dev, timings):
     return {"run": run, "step_ms": med_ms, "step_ms_all": [1e3 * s for s in seconds],
             "rays_per_s": TRAIN_RAYS / (med_ms / 1e3), "k1_ms": k1_ms, "peak_bytes": peak,
             "profile_ms": profile, "modes": modes, "grad_check": {str(k)[6:]: v for k, v in grads.items()}}
+
+
+# --------------------------------------------------- batched multi-scene training
+
+MS_SCENES = ["synth01", "synth02"]
+MS_STEPS = 100  # the app's first run; the resume adds MS_RESUME_STEPS
+MS_RESUME_STEPS = 10
+MS_TIMED_STEPS = 15
+MS_SIZES = (1, 2, 4)  # scenes per step timed, from the seed's weights; 4 takes each scene twice
+
+
+def library_raw_batched(layers, xe, ve, ve2, n_sec):
+    """Yardstick for the scene-batched K1: `library_raw` with one
+    `torch.baddbmm` over the scene axis per layer, in the working dtype."""
+    s = layers[0][0].shape[0]
+    xe, ve, ve2 = (t.reshape(s, -1, t.shape[-1]) for t in (xe, ve, ve2))
+    w = [ww.transpose(1, 2) for ww, _ in layers]
+    b = [bb.to(xe.dtype)[:, None] for _, bb in layers]
+    relu = torch.relu
+
+    def lin(x, i):
+        return torch.baddbmm(b[i], x, w[i])
+
+    h = relu(lin(xe, 0))
+    for i in (1, 2, 3, 4):
+        h = relu(lin(h, i))
+    h = relu(lin(torch.cat([xe, h], -1), 5))
+    for i in (6, 7):
+        h = relu(lin(h, i))
+    feature = lin(h, 8)
+    out = [lin(h, 9)[..., :1], lin(relu(lin(torch.cat([feature, ve], -1), 10)), 11)[..., :4]]
+    for j in range(n_sec):
+        out.append(lin(relu(lin(torch.cat([feature, ve2[..., 32 * j:32 * j + 32]], -1), 10)), 11)[..., 3:4])
+    return torch.cat(out, -1)
+
+
+def phase_k1_scenes(k1, dev, scenes):
+    """The scene-batched K1, both instances, at the training step's two
+    launch shapes (S x 4096 rays x 64 and x 192 samples, n_sec 2) with
+    different weights per scene: against its plain version (looped over the
+    scenes, the forward tolerances) and bit for bit against S single-scene
+    launches; timed beside the S single launches, the plain version and the
+    baddbmm chain. Returns the timings and worst max|err| per instance."""
+    from vipnerf_tpu_torch.data.synthetic_rig import flagship_mlp_config
+    from vipnerf_tpu_torch.models.mlp import NeRFMLP
+
+    cfg = flagship_mlp_config(0)
+    singles = [NeRFMLP(cfg, torch.Generator().manual_seed(10 + s)).to(dev) for s in range(scenes)]
+    stacked = NeRFMLP(cfg, scenes=scenes).to(dev)
+    with torch.no_grad():
+        for name, p in stacked.named_parameters():
+            p.copy_(torch.stack([dict(m.named_parameters())[name] for m in singles]))
+    g = torch.Generator(device=dev).manual_seed(2)
+    out, worst = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = k1.INSTANCE[dtype]
+        weights = k1.prepare_weights(stacked, dtype)
+        single_w = [k1.prepare_weights(m, dtype) for m in singles]
+        worst[name] = 0.0
+        for level, n in TRAIN_N.items():
+            xe, ve, ve2, ns = k1_inputs(k1, scenes * n, TRAIN_SEC, dtype, g, dev)
+            k1.reset_launch_counts()
+            raw = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
+            torch.cuda.synchronize()
+            if k1.fused_mlp_raw.launches != 1:
+                raise AssertionError(f"the scene-batched K1 took {k1.fused_mlp_raw.launches} launches")
+            ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
+            err = (raw.float() - ref).abs().max().item()
+            rel_max = err / max(ref.abs().max().item(), 1e-30)
+            rel_rms = ((raw.float() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+            rows = [slice(s * n, (s + 1) * n) for s in range(scenes)]
+            parts = [(xe[r].contiguous(), ve[r].contiguous(), ve2[r].contiguous()) for r in rows]
+            same = all(torch.equal(raw[r], k1.fused_mlp_raw(single_w[s], *parts[s], ns))
+                       for s, r in enumerate(rows))
+            log(f"K1 {name}, {scenes} scenes x {n} points ({level}, n_sec {ns}), one launch: max|err| {err:.3g}, "
+                f"max|err|/max|plain| {rel_max:.3g} (tol {TOL_REL_MAX[dtype]:.3g}), rms rel {rel_rms:.3g} "
+                f"(tol {TOL_REL_RMS[dtype]:.3g}); bit-identical to {scenes} single-scene launches: {same}")
+            if not (same and rel_max <= TOL_REL_MAX[dtype] and rel_rms <= TOL_REL_RMS[dtype]):
+                raise AssertionError(f"the scene-batched K1 disagrees ({name}, {level})")
+            worst[name] = max(worst[name], err)
+            ms = cuda_ms(lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns))
+            singles_ms = cuda_ms(lambda: [k1.fused_mlp_raw(single_w[s], *parts[s], ns) for s in range(scenes)])
+            plain_ms = cuda_ms(lambda: k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns), reps=3)
+            lib_ms = cuda_ms(lambda: library_raw_batched(weights.layers, xe, ve, ve2, ns), reps=5)
+            bound, bound_by = k1_bound_ms(k1, scenes * n, ns, dtype, scenes)
+            log(f"K1 timing {name}, {scenes} scenes x {n} points: one launch {ms:.4f} ms, {scenes} single launches "
+                f"{singles_ms:.4f} ms, plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} (torch.baddbmm per layer), "
+                f"bound_ms {bound:.4f} ({bound_by}), share of bound {bound / ms:.3f}")
+            out[f"{name} S={scenes} {level}"] = dict(ms=ms, singles_ms=singles_ms, plain_ms=plain_ms,
+                                                     library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                                                     max_abs_err=err)
+    return out, worst
+
+
+def ms_grad_check(k1, trainer):
+    """One step's gradients of the stacked model (its two scenes' trained
+    weights) on a gathered two-scene batch against each scene's own model on
+    its own batch, deterministic (no perturbation, no sigma noise), through
+    each K1 instance."""
+    from vipnerf_tpu_torch.losses import LossComputer
+    from vipnerf_tpu_torch.models.vip_nerf import render_rays, unstack_model
+
+    nerf, sd = trainer._index_rows(0, 1)
+    prep0 = trainer.preprocessors[0]
+    batch = prep0.gather_batch(nerf[:, 0], sd[:, 0], 0, cache=trainer.cache, near=trainer.near, far=trainer.far)
+    rps = trainer.rays_per_scene
+    local = [p.gather_batch(nerf[i, 0] - i * rps, sd[i, 0] - i * rps, 0) for i, p in enumerate(trainer.preprocessors)]
+    scenes = len(trainer.scene_ids)
+    worst = {}
+    for dtype, bf16 in ((torch.bfloat16, True), (torch.float32, False)):
+        cfg = copy.deepcopy(trainer.configs)
+        cfg["model"].update(bf16_matmuls=bf16, f32_heads=False, perturb=False, raw_noise_std=0.0)
+        losses = LossComputer(cfg)
+        trainer.model.zero_grad(set_to_none=True)
+        k1.reset_launch_counts()
+        total = losses.scene_losses(batch, render_rays(trainer.model, cfg, batch, train=True), scenes)["TotalLoss"]
+        total.sum().backward()
+        launches = k1.fused_mlp_raw.launches
+        stacked = {k: p.grad for k, p in trainer.model.named_parameters()}
+        rel_max = rel_rms = 0.0
+        worst_tensor = (0.0, "")
+        for i in range(scenes):
+            model = unstack_model(trainer.model, i)
+            one = losses.compute_losses(local[i], render_rays(model, cfg, local[i], train=True))["TotalLoss"]
+            one.backward()
+            if abs(one.item() - total[i].item()) > 1e-5 * abs(one.item()):
+                raise AssertionError(f"scene {i}: batched loss {total[i].item()} vs single {one.item()}")
+            # the scene's whole gradient: a bias that sums ~10^6 terms which
+            # nearly cancel moves more, relative to itself, with the
+            # reduction order (reported as the worst tensor)
+            d = torch.cat([(stacked[k][i] - p.grad).reshape(-1) for k, p in model.named_parameters()])
+            gs = torch.cat([p.grad.reshape(-1) for _, p in model.named_parameters()])
+            rel_max = max(rel_max, (d.abs().max() / gs.abs().max().clamp_min(1e-30)).item())
+            rel_rms = max(rel_rms, (d.norm() / gs.norm().clamp_min(1e-30)).item())
+            for k, p in model.named_parameters():
+                r = ((stacked[k][i] - p.grad).norm() / p.grad.norm().clamp_min(1e-30)).item()
+                worst_tensor = max(worst_tensor, (r, f"scene {i} {k} ({p.numel()} entries)"))
+        log(f"batched step gradients, {k1.INSTANCE[dtype]}, {scenes} scenes x {TRAIN_RAYS} rays vs each scene's own "
+            f"step, over all of a scene's parameters: worst max|dg|/max|g| {rel_max:.3g} (tol "
+            f"{TOL_GRAD_REL_MAX[dtype]}), worst ||dg||/||g|| {rel_rms:.3g} (tol {TOL_GRAD_REL_RMS[dtype]}); worst "
+            f"tensor {worst_tensor[1]} at ||dg||/||g|| {worst_tensor[0]:.3g}; K1 launches in the batched render "
+            f"{launches}")
+        if launches != 2 or rel_max > TOL_GRAD_REL_MAX[dtype] or rel_rms > TOL_GRAD_REL_RMS[dtype]:
+            raise AssertionError(f"the batched step's gradients disagree with single-scene steps ({dtype})")
+        worst[k1.INSTANCE[dtype]] = {"rel_max": rel_max, "rel_rms": rel_rms, "worst_tensor": worst_tensor}
+    trainer.model.zero_grad(set_to_none=True)
+    return worst
+
+
+def ms_timed_steps(k1, trainer, steps, start_it=0, warmup=3):
+    """Host-clock seconds of `steps` warm batched steps (gather included),
+    one synchronise per step, and K1's launches over all of them."""
+    nerf, sd = trainer._index_rows(start_it, warmup + steps)
+    prep0 = trainer.preprocessors[0]
+
+    def step(j):
+        batch = prep0.gather_batch(nerf[:, j], None if sd is None else sd[:, j], start_it + j,
+                                   cache=trainer.cache, near=trainer.near, far=trainer.far)
+        trainer.generator.manual_seed(start_it + j)
+        return trainer.train_step(trainer.model, batch, trainer.generator)
+
+    k1.reset_launch_counts()
+    for j in range(warmup):
+        step(j)
+    seconds = []
+    for j in range(warmup, warmup + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scalars = step(j)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    if not all(bool(torch.isfinite(v).all()) for v in scalars.values()):
+        raise AssertionError("a batched step's losses are not finite")
+    return seconds, k1.fused_mlp_raw.launches
+
+
+def ms_time_trainer(k1, trainer, label):
+    """The median warm batched step of `trainer` (bf16 heads, K1), rays/s
+    over all its scenes, K1's launches per step and the peak memory."""
+    s = len(trainer.scene_ids)
+    torch.cuda.reset_peak_memory_stats()
+    seconds, launches = ms_timed_steps(k1, trainer, MS_TIMED_STEPS)
+    med = float(np.median(seconds))
+    out = {"ms": 1e3 * med, "ms_min": 1e3 * min(seconds), "ms_max": 1e3 * max(seconds),
+           "rays_per_s": s * TRAIN_RAYS / med, "k1_launches_per_step": launches / (MS_TIMED_STEPS + 3),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"warm batched step, S = {label} (bf16, bf16 heads, K1): median {1e3 * med:.2f} ms over {MS_TIMED_STEPS} "
+        f"steps (min {1e3 * min(seconds):.2f}, max {1e3 * max(seconds):.2f}), {s * TRAIN_RAYS / med:,.0f} rays/s in "
+        f"all; K1 launches {launches} in {MS_TIMED_STEPS + 3} steps; peak memory {out['peak_bytes'] / 2**30:.2f} GiB")
+    if launches != 2 * (MS_TIMED_STEPS + 3):
+        raise AssertionError(f"S = {label}: K1 ran {launches} times in {MS_TIMED_STEPS + 3} steps")
+    return out
+
+
+def ms_step_profile(trainer, warm_ms):
+    """torch.profiler over one warm batched step (gather included): the
+    device time, its busy share of the median warm step, and the kernels
+    that take the most of it."""
+    nerf, sd = trainer._index_rows(5000, 1)
+    batch = trainer.preprocessors[0].gather_batch(nerf[:, 0], None if sd is None else sd[:, 0], 5000,
+                                                  cache=trainer.cache, near=trainer.near, far=trainer.far)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.generator.manual_seed(5000)
+        trainer.train_step(trainer.model, batch, trainer.generator)
+        torch.cuda.synchronize()
+    rows = [(device_time_us(e) / 1e3, e.count, e.key[:80]) for e in prof.key_averages()
+            if device_time_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    if not device_ms:
+        raise AssertionError("torch.profiler recorded no device time in the batched step")
+    kernels = sum(r[1] for r in rows)
+    log(f"batched step profile, S = {len(trainer.scene_ids)}: device {device_ms:.2f} ms in {kernels} kernels, busy "
+        f"share {device_ms / warm_ms:.3f} of the median warm step ({warm_ms:.2f} ms)")
+    for ms, calls, name in rows[:8]:
+        log(f"  {ms:9.3f} ms  {calls:5d} x  {name}")
+    return {"device_ms": device_ms, "kernels": kernels, "busy_share": device_ms / warm_ms,
+            "top": [{"ms": ms, "calls": calls, "name": name} for ms, calls, name in rows[:8]]}
+
+
+def phase_multi_scene(k1, dev):
+    """Batched multi-scene training at the flagship width with bf16 heads:
+    two seeded synthetic LLFF scenes at 1008x756 (3 train views each) in one
+    database; the scene-batched K1 checks; the NeRF_LLFF app with
+    `batch_scenes: true` for MS_STEPS steps (checkpoint at half, validation
+    at the end), then resumed by the same call to MS_STEPS + MS_RESUME_STEPS;
+    each scene's test-frame PSNR trained vs untrained; the batched step's
+    gradients against single-scene steps; the warm step at S = 1, 2, 4; a
+    step at S = 2 in each precision mode."""
+    from vipnerf_tpu_torch.apps.common import DatasetApp
+    from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
+    from vipnerf_tpu_torch.data.synthetic_rig import flagship_training_configs
+    from vipnerf_tpu_torch.infer.tester import NerfTester, start_testing
+    from vipnerf_tpu_torch.models.vip_nerf import render_rays, uses_fused_mlp
+    from vipnerf_tpu_torch.train.multi_scene import MultiSceneTrainer
+    from vipnerf_tpu_torch.train.step import make_optimizer, make_train_step
+    from vipnerf_tpu_torch.utils.io import read_image
+
+    device_cfg = "cpu" if dev.type == "cpu" else "all"
+    k1_timings, k1_worst = {}, {}
+    for scenes in (2, 4):
+        timings, worst = phase_k1_scenes(k1, dev, scenes)
+        k1_timings.update(timings)
+        k1_worst = {name: max(err, k1_worst.get(name, 0.0)) for name, err in worst.items()}
+    tiles = math.ceil(H * W / CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        gts = [write_synthetic_database(root / "data/databases", scene_name=name, num_frames=5, train_frames=(0, 2, 4),
+                                        val_frames=(1,), height=H, width=W, seed=i)
+               for i, name in enumerate(MS_SCENES)]
+        log(f"multi-scene: scenes {MS_SCENES} (seeds 0, 1) of 5 frames at {W}x{H} (train 0, 2, 4; validation 1; "
+            f"test 3) written in {time.perf_counter() - t0:.2f} s")
+        configs = flagship_training_configs(root, MS_STEPS, visibility_prior_start_iter=MS_STEPS // 2)
+        configs["data_loader"]["scene_names"] = list(MS_SCENES)
+        configs.update(train_num=2, batch_scenes=True, device=device_cfg,
+                       model_save_interval=MS_STEPS // 2, validation_interval=MS_STEPS)
+        app = DatasetApp("NeRF_LLFF", "scene_name", "all", root_dirpath=root)
+
+        k1.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        app.start_training(copy.deepcopy(configs))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches_run = dict(k1.fused_mlp_raw.launches_by_instance)
+        val_frames = 3 + 1
+        expected = {"fused_mlp_bf16": 2 * MS_STEPS + 2 * tiles * val_frames * len(MS_SCENES), "fused_mlp_f32": 0}
+        log(f"app start_training, batch_scenes, {len(MS_SCENES)} scenes: {MS_STEPS} steps and one validation of "
+            f"{val_frames} frames per scene in {run_s:.2f} s; K1 launches {launches_run} (expected {expected}: 2 per "
+            f"step for all scenes, 2 levels x {tiles} tiles per validation frame and scene)")
+        if launches_run != expected:
+            raise AssertionError(f"batched training launched K1 {launches_run}, expected {expected}")
+
+        k1.reset_launch_counts()
+        configs["num_iterations"] = MS_STEPS + MS_RESUME_STEPS
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            app.start_training(copy.deepcopy(configs))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        sys.stdout.write(out.getvalue())
+        launches_resume = dict(k1.fused_mlp_raw.launches_by_instance)
+        if f"Resuming multi-scene training from iteration {MS_STEPS + 1}" not in out.getvalue():
+            raise AssertionError(f"the second batched run did not resume at {MS_STEPS}")
+        if launches_resume != {"fused_mlp_bf16": 2 * MS_RESUME_STEPS, "fused_mlp_f32": 0}:
+            raise AssertionError(f"the resumed batched run launched K1 {launches_resume}")
+        log(f"resumed at {MS_STEPS} and trained to {MS_STEPS + MS_RESUME_STEPS} in {resume_s:.2f} s; "
+            f"K1 launches {launches_resume}")
+
+        run = root / "runs/training/train0002"
+        end = MS_STEPS + MS_RESUME_STEPS
+        losses = {}
+        for name in MS_SCENES:
+            saved = run / f"{name}/saved_models"
+            for it in (MS_STEPS // 2, MS_STEPS, end):
+                if not (saved / f"Model_Iter{it:06}.tar").exists():
+                    raise AssertionError(f"{name}: checkpoint of iteration {it} missing")
+            if os.readlink(saved / "Model_Latest.tar") != f"Model_Iter{end:06}.tar":
+                raise AssertionError(f"{name}: Model_Latest.tar does not point at the last checkpoint")
+            total = [v for _, v in sorted(read_scalars(run / name)["train/TotalLoss"])]
+            first, last = float(np.mean(total[:20])), float(np.mean(total[-20:]))
+            if len(total) != end or not np.isfinite(total).all() or not last < first:
+                raise AssertionError(f"{name}: {len(total)} logged losses, not finite and falling")
+            samples = len(list((run / f"{name}/samples/predicted_frames").glob("*.png")))
+            losses[name] = {"first20": first, "last20": last, "validation_frames": samples}
+            log(f"{name}: {len(total)} logged steps, mean TotalLoss first 20 {first:.5f}, last 20 {last:.5f}; "
+                f"validation wrote {samples} sample frames")
+
+        test_configs = {"test_num": 2, "train_num": 2, "model_name": "Model_Latest.tar",
+                        "root_dirpath": str(root), "device": device_cfg, "chunk_size": CHUNK}
+        scenes_data, extr, intr = {}, {}, {}
+        for name in MS_SCENES:
+            db = root / f"data/databases/NeRF_LLFF/data/all/database_data/{name}"
+            extr[name] = np.loadtxt(db / "CameraExtrinsics.csv", delimiter=",").reshape(-1, 4, 4)
+            intr[name] = np.loadtxt(db / "CameraIntrinsics.csv", delimiter=",").reshape(-1, 3, 3)
+            scenes_data[name] = {"output_dirname": name, "frames_data": {
+                3: {"extrinsic": extr[name][3], "intrinsic": intr[name][3], "is_train_frame": False}}}
+        out_dir = start_testing(test_configs, scenes_data)
+        train_configs = json.loads((run / "Configs.json").read_text())
+        psnrs = {}
+        for i, name in enumerate(MS_SCENES):
+            trained = psnr(read_image(out_dir / f"{name}/predicted_frames/0003.png"), gts[i]["images"][3])
+            cfg = copy.deepcopy(train_configs)
+            cfg["data_loader"]["scene_id"] = name
+            model_configs = json.loads((run / f"{name}/ModelConfigs.json").read_text())
+            untrained_tester = NerfTester(cfg, model_configs, test_configs, root)  # the seed's weights
+            frame = untrained_tester.predict_frame(extr[name][3], intrinsic=intr[name][3])["image"]
+            untrained = psnr(frame, gts[i]["images"][3])
+            psnrs[name] = {"trained": trained, "untrained": untrained}
+            log(f"{name} test frame 3 at {W}x{H}: PSNR {trained:.3f} dB after {end} batched steps, {untrained:.3f} dB "
+                f"untrained (gain must be >= {MIN_PSNR_GAIN_DB} dB)")
+            if not trained - untrained >= MIN_PSNR_GAIN_DB:
+                raise AssertionError(f"{name}: the trained model does not beat the untrained one")
+
+        db_dir = root / "data" / configs["database_dirpath"]
+        trainer = MultiSceneTrainer(configs, MS_SCENES, db_dir, device=dev, output_dirpath=run, verbose_log=False)
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer.load_checkpoints()  # the two scenes' trained weights
+        grads = ms_grad_check(k1, trainer)
+
+        steps = {"2, trained": ms_time_trainer(k1, trainer, "2, trained weights")}
+        for s in MS_SIZES:
+            del trainer
+            torch.cuda.empty_cache()
+            trainer = MultiSceneTrainer(configs, (MS_SCENES * 2)[:s], db_dir, device=dev, verbose_log=False)
+            steps[str(s)] = ms_time_trainer(k1, trainer, str(s))
+            steps[str(s)]["profile"] = ms_step_profile(trainer, steps[str(s)]["ms"])
+            if s == 2:
+                modes = {}
+                for label, (bf16, f32_heads) in MODES.items():
+                    cfg = copy.deepcopy(configs)
+                    cfg["model"].update(bf16_matmuls=bf16, f32_heads=f32_heads)
+                    trainer.train_step = make_train_step(cfg, render_rays, trainer.loss_computer,
+                                                         make_optimizer(cfg, trainer.model.parameters(), scenes=2))
+                    k1.reset_launch_counts()
+                    secs, _ = ms_timed_steps(k1, trainer, 5, start_it=1000, warmup=2)
+                    launches_m = dict(k1.fused_mlp_raw.launches_by_instance)
+                    path = "module MLP"
+                    expected = dict.fromkeys(launches_m, 0)
+                    if uses_fused_mlp(cfg["model"]["fine_mlp"], bf16, f32_heads):
+                        path = k1.INSTANCE[torch.bfloat16 if bf16 else torch.float32]
+                        expected[path] = 2 * 7
+                    ms = 1e3 * float(np.median(secs))
+                    log(f"warm batched step, S = 2, {label}: median {ms:.2f} ms over 5 steps through the {path}; "
+                        f"K1 launches {launches_m} in 7 steps (expected {expected})")
+                    if launches_m != expected:
+                        raise AssertionError(f"S = 2, precision mode {label}: K1 launches {launches_m}")
+                    modes[label] = {"ms": ms, "path": path, "launches": launches_m}
+        del trainer
+        torch.cuda.empty_cache()
+    return {"k1": k1_timings, "k1_worst": k1_worst,
+            "launches": launches_run["fused_mlp_bf16"] + launches_resume["fused_mlp_bf16"],
+            "run_s": run_s, "resume_s": resume_s, "losses": losses, "psnr": psnrs, "grad_check": grads,
+            "steps": steps, "modes_s2": modes}
 
 
 # ------------------------------------------------------- the user's pipeline
@@ -1047,6 +1439,7 @@ def main() -> int:
     launches, s_per_frame, frame_s, modes = phase_slice(k1, dev, timings)
     train = phase_train(k1, dev, timings)
     pipeline = phase_pipeline(k1)
+    multi = phase_multi_scene(k1, dev)
 
     log(json.dumps({"slice": {
         "resolution": [H, W], "chunk_size": CHUNK, "k1_timing_shape": {"points": MAIN_N, "n_sec": 0},
@@ -1055,11 +1448,14 @@ def main() -> int:
     log(json.dumps({"training": {
         "resolution": [H, W], "rays_per_step": TRAIN_RAYS, "k1_shapes": TRAIN_N, "n_sec": TRAIN_SEC,
         **{k: v for k, v in train.items() if k != "run"}, **train["run"], "card": card}}))
+    log(json.dumps({"multi_scene": {"resolution": [H, W], "scenes": MS_SCENES, "rays_per_step_per_scene": TRAIN_RAYS,
+                                    "steps": MS_STEPS + MS_RESUME_STEPS, **multi, "card": card}}))
     log(json.dumps({"pipeline": {"resolution": [H, W], "prior_planes": 64, "app_steps": PIPE_STEPS,
                                  **pipeline, "card": card}}))
     # each instance's launches come from its own path: the bf16 one from
-    # start_testing and start_training, the f32 one from the f32 frame of phase_modes
-    path_launches = {"fused_mlp_bf16": launches["fused_mlp_bf16"] + train["run"]["launches"],
+    # start_testing, start_training and the batched app run, the f32 one from
+    # the f32 frame of phase_modes
+    path_launches = {"fused_mlp_bf16": launches["fused_mlp_bf16"] + train["run"]["launches"] + multi["launches"],
                      "fused_mlp_f32": modes["f32"]["launches"]["fused_mlp_f32"]}
     kernels = []
     for dtype in (torch.bfloat16, torch.float32):

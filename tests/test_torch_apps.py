@@ -88,10 +88,22 @@ def test_apps_run_as_modules(module, tmp_path):
     assert "Program started at" in res.stdout and "Error: " in res.stdout and "Traceback" in res.stderr
 
 
-def test_batch_scenes_names_the_multi_device_slice(tmp_path):
+def test_batch_scenes_names_the_multi_device_slice(tmp_path, monkeypatch):
+    """`batch_scenes` goes to the batched trainer on one device (trained end
+    to end in tests/test_torch_multi_scene.py); more than one GPU is the last
+    slice of the port."""
+    calls = []
+    monkeypatch.setattr(common.multi_scene, "start_training_batched", calls.append)
+    monkeypatch.setattr(common.trainer_mod, "start_training", lambda cfg: calls.append(None))
     app = common.DatasetApp("NeRF_LLFF", "scene_name", "all", root_dirpath=tmp_path)
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        app.start_training({"train_num": 1, "batch_scenes": True})
+    app.start_training({"train_num": 1, "batch_scenes": True})
+    assert calls == [{"train_num": 1, "batch_scenes": True, "root_dirpath": str(tmp_path)}]
+    app.start_training({"train_num": 1})
+    assert calls[-1] is None
+    from vipnerf_tpu_torch.utils.device import resolve_device
+
+    with pytest.raises(NotImplementedError, match="last slice"):
+        resolve_device([0, 1])
 
 
 @pytest.mark.parametrize("dataset", ["NeRF_LLFF", "DTU"])

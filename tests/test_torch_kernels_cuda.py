@@ -9,9 +9,11 @@ Tolerances of the forward are chip_smoke.py's, relative to the plain
 outputs' scale (`TOL_REL_MAX` on max|err| / max|plain|, `TOL_REL_RMS` on
 the RMS ratio): bf16 1/32 and 2e-3 (kernel and plain version sum in
 different orders, so a bf16 rounding can land one step apart and carry on);
-f32 1e-5 and 1e-6 (summation order only). K1's backward on the card is held
-against autograd through its recompute there; one training step on the
-card against the same step on the CPU (tolerances at each test).
+f32 1e-5 and 1e-6 (summation order only). The scene-batched launch is held
+against the plain version looped over the scenes with the same tolerances,
+and against each scene's single-scene launch bit for bit. K1's backward on
+the card is held against autograd through its recompute there; one training
+step on the card against the same step on the CPU (tolerances at each test).
 """
 
 import itertools
@@ -93,6 +95,72 @@ def test_fused_raw_backward_matches_the_recompute(device, dtype, n):
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _stacked_mlp(device, scenes):
+    """S flagship MLPs with different weights, and the same as one stacked MLP."""
+    singles = [NeRFMLP(CFG, torch.Generator().manual_seed(10 + s)).to(device) for s in range(scenes)]
+    stacked = NeRFMLP(CFG, scenes=scenes).to(device)
+    with torch.no_grad():
+        for name, p in stacked.named_parameters():
+            p.copy_(torch.stack([dict(m.named_parameters())[name] for m in singles]))
+    return singles, stacked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scenes,n_per_scene,n_sec", [(1, 2048 + 37, 2), (2, 4096 * 64 + 37, 2),
+                                                      (3, 132 * 128 + 5, 0), (4, 129, 3)])
+def test_scene_batched_launch(device, dtype, scenes, n_per_scene, n_sec):
+    """One launch for S scenes, each on its own weights and its own ragged
+    last tile: within the forward tolerances of the plain version looped over
+    the scenes, and bit for bit each scene's own single-scene launch."""
+    singles, stacked = _stacked_mlp(device, scenes)
+    g = torch.Generator(device=device).manual_seed(scenes)
+    n = scenes * n_per_scene
+    pts = torch.rand((n, 3), generator=g, device=device) * 2 - 1
+    unit = lambda t: torch.nn.functional.normalize(t, dim=-1)  # noqa: E731
+    vd = unit(torch.randn((n, 3), generator=g, device=device))
+    vd2 = unit(torch.randn((n, n_sec, 3), generator=g, device=device)) if n_sec else None
+    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype)
+    weights = k1.prepare_weights(stacked, dtype)
+    before = k1.fused_mlp_raw.launches
+    out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
+    torch.cuda.synchronize()
+    assert k1.fused_mlp_raw.launches == before + 1
+    ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
+    err = out.float() - ref
+    assert err.abs().max().item() <= TOL_REL_MAX[dtype] * ref.abs().max().item()
+    assert err.norm().item() <= TOL_REL_RMS[dtype] * ref.norm().item()
+    rows = [slice(s * n_per_scene, (s + 1) * n_per_scene) for s in range(scenes)]
+    for s, r in enumerate(rows):
+        one = k1.fused_mlp_raw(k1.prepare_weights(singles[s], dtype), xe[r].contiguous(), ve[r].contiguous(),
+                               ve2[r].contiguous(), ns)
+        torch.testing.assert_close(out[r], one, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_scene_batched_backward_matches_per_scene(device):
+    """The stacked MLP through K1 (f32) forward and backward against each
+    scene's own MLP: the same outputs, and each scene's gradient its own
+    within 1e-5 of its scale (the recompute's batched products sum in
+    another order than the single-scene ones: an entry that nearly cancels
+    may differ more, relative to itself)."""
+    singles, stacked = _stacked_mlp(device, 2)
+    g = torch.Generator(device=device).manual_seed(5)
+    pts = torch.rand((2, 3000, 3), generator=g, device=device)
+    vd = torch.nn.functional.normalize(torch.randn((2, 3000, 3), generator=g, device=device), dim=-1)
+    vd2 = torch.nn.functional.normalize(torch.randn((2, 3000, 2, 3), generator=g, device=device), dim=-1)
+    out = k1.apply_fused_mlp(stacked, pts, vd, vd2, dtype=torch.float32)
+    sum(v.square().sum() for v in out.values()).backward()
+    for s, mlp in enumerate(singles):
+        one = k1.apply_fused_mlp(mlp, pts[s], vd[s], vd2[s], dtype=torch.float32)
+        for k, v in one.items():
+            torch.testing.assert_close(out[k][s], v, rtol=0, atol=0)
+        sum(v.square().sum() for v in one.values()).backward()
+        for name, p in mlp.named_parameters():  # batched vs single products: summation order
+            d = dict(stacked.named_parameters())[name].grad[s] - p.grad
+            assert d.norm() <= 1e-5 * p.grad.norm() and d.abs().max() <= 1e-5 * p.grad.abs().max(), name
 
 
 def _train_batch(nr=48, nf=3, seed=0):

@@ -286,7 +286,17 @@ def test_sub_batches_sum_gradients_and_scalars():
 
 
 def test_loss_guard_is_not_ported_yet():
+    """The guard is ported now (tests/test_torch_guards.py holds it against
+    optax): `optimizer.loss_guard` wraps Adam, and a step whose loss spikes
+    past the warmup leaves the parameters and Adam's count as they were."""
     cfg = narrow_configs()
-    cfg["optimizer"]["loss_guard"] = {}
-    with pytest.raises(NotImplementedError):
-        make_optimizer(cfg, t_vn.ViPNeRF(cfg).parameters())
+    cfg["optimizer"]["loss_guard"] = {"warmup": 1}
+    model = t_vn.ViPNeRF(cfg)
+    opt = make_optimizer(cfg, model.parameters())
+    for loss in (1.0, 100.0):
+        for p in model.parameters():
+            p.grad = torch.ones_like(p)
+        before = [p.detach().clone() for p in model.parameters()]
+        opt.step(loss=torch.tensor(loss))
+    assert all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    assert int(opt.state_dict()["state"][0]["step"]) == 1

@@ -2,7 +2,8 @@
 vipnerf_tpu/apps/common.py, without pandas):
 
 - `start_training`: the run-level configs and every scene of them through
-  `train.trainer.start_training`;
+  `train.trainer.start_training`, or all scenes at once through
+  `train.multi_scene.start_training_batched` with `batch_scenes: true`;
 - `start_testing`: scenes_data from the split CSVs and camera CSVs, the
   tester with depth, depth variance and visibility outputs, then QA as a
   subprocess of `python -m vipnerf_tpu_torch.qa.runner`;
@@ -25,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from vipnerf_tpu_torch.infer import tester as tester_mod
+from vipnerf_tpu_torch.train import multi_scene
 from vipnerf_tpu_torch.train import trainer as trainer_mod
 from vipnerf_tpu_torch.utils.io import read_csv_columns, read_image, save_video
 from vipnerf_tpu_torch.utils.naming import scene_dirname
@@ -67,15 +69,14 @@ class DatasetApp:
     # --------------------------------------------------------------- training
 
     def start_training(self, train_configs: Dict[str, Any]):
-        """Train the scenes of `train_configs` one after another."""
+        """Train the scenes of `train_configs` one after another, or with
+        `batch_scenes` all at once on one device."""
         train_configs = dict(train_configs)
         train_configs["root_dirpath"] = str(self.root_dirpath)
         if train_configs.get("batch_scenes"):
-            raise NotImplementedError(
-                "batch_scenes (all scenes of a set trained at once, one per device) "
-                "arrives with the multi-device slice of the port"
-            )
-        trainer_mod.start_training(train_configs)
+            multi_scene.start_training_batched(train_configs)
+        else:
+            trainer_mod.start_training(train_configs)
 
     # ---------------------------------------------------------------- testing
 

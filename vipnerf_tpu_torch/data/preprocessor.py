@@ -7,21 +7,27 @@ and output reshaping (counterpart of vipnerf_tpu/data/preprocessor.py).
 - ray cache (train/validation), built on the preprocessor's device: rays,
   NDC rays, view dirs, pixel ids (image, x, y), target rgb, poses;
 - sparse-depth, dense-depth and visibility-prior caches (train);
-- index streams on the host in numpy: a shuffled NeRF-ray stream (precrop
-  window while `precrop_iterations` lasts, regenerated after it, also on a
+- index streams on the host: a shuffled NeRF-ray stream (precrop window
+  while `precrop_iterations` lasts, the full stream after it, also on a
   resume past it) and a shuffled stream of the sparse-depth rays; an epoch
-  tail wraps into the next permutation and consumes it. With the same seed
-  they are the JAX package's numpy streams (`native_raystream: False`),
-  index for index: same generator, same shuffles in the same order;
+  tail wraps into the next permutation and consumes it. With
+  `native_raystream` (default True, as in the JAX package) a train
+  preprocessor's `get_index_chunk` draws from the C++ streams of
+  `data/raystream.py` (seeded with `seed` and `seed + 1`, over the numpy
+  streams' first permutations); with it False, and always in
+  `get_next_batch`, from numpy. Either way they are the JAX package's
+  streams index for index: same generators, same shuffles in the same
+  order. Unlike the JAX package, a failed g++ build raises;
 - `gather_batch`: [nerf rays; sparse-depth rays] with stream masks and -1
-  fills off-stream, on the device.
+  fills off-stream, on the device; from several scenes' caches stacked
+  along the ray axis (batched multi-scene training), every scene's batch
+  in turn with its own near/far and its own poses.
 
 `downsampling_factor > 1` rescales the frames, the dense depths and the
 visibility priors with `utils.io.rescale_image` (OpenCV's INTER_AREA, as the
 JAX package does with cv2) and divides the intrinsics and the sparse-depth
 coordinates by the factor. Not ported: the mip-NeRF `radii` fields
-(`render_rays` does not read them) and the C++ raystream of
-vipnerf_tpu/native.
+(`render_rays` does not read them).
 """
 
 from typing import Any, Dict, List, Optional
@@ -31,6 +37,7 @@ import torch
 
 from vipnerf_tpu_torch.core import poses as pose_ops
 from vipnerf_tpu_torch.core import rays as ray_ops
+from vipnerf_tpu_torch.data.raystream import NativeRayStream
 from vipnerf_tpu_torch.utils.io import rescale_image
 
 
@@ -87,9 +94,21 @@ class DataPreprocessor:
         self._indices_sd: Optional[np.ndarray] = None
         self._i_batch_sd = 0
         self.cache: Dict[str, torch.Tensor] = {}
+        self._native_nerf: Optional[NativeRayStream] = None
+        self._native_sd: Optional[NativeRayStream] = None
         self._preprocess_all()
         if self.mode == "train":
             self.model_configs = self._create_model_configs()
+            if dl.get("native_raystream", True):
+                self._init_native_streams(0 if seed is None else seed)
+
+    def _init_native_streams(self, seed: int):
+        """C++ streams over the numpy streams' first permutations (as the
+        JAX package seeds its native streams)."""
+        if self._indices is not None and len(self._indices):
+            self._native_nerf = NativeRayStream(seed, candidates=self._indices)
+        if self._indices_sd is not None and len(self._indices_sd):
+            self._native_sd = NativeRayStream(seed + 1, candidates=self._indices_sd)
 
     # ------------------------------------------------------------ preprocess
 
@@ -351,7 +370,19 @@ class DataPreprocessor:
 
     def get_index_chunk(self, start_iter: int, num_iters: int):
         """Index blocks of `num_iters` steps: (nerf (K, num_rays) int32,
-        sparse-depth (K, num_rays_sd) int32 or None)."""
+        sparse-depth (K, num_rays_sd) int32 or None). The native NeRF stream
+        leaves the precrop window at a chunk that starts at or past
+        `precrop_iterations`: the trainer cuts its chunks there."""
+        if self._native_nerf is not None:
+            precrop_end = self.configs["data_loader"].get("precrop_iterations", -1)
+            n_full = self.num_frames * self.resolution[0] * self.resolution[1]
+            if start_iter >= precrop_end > 0 and self._native_nerf.size < n_full:
+                self._native_nerf.reset(count=n_full)
+            nerf = self._native_nerf.next_block(num_iters, self.num_rays)
+            sd = None
+            if self._native_sd is not None:
+                sd = self._native_sd.next_block(num_iters, self.num_rays_sparse_depth)
+            return nerf, sd
         nerf = np.stack(
             [self._next_nerf_indices(start_iter + i) for i in range(num_iters)]
         ).astype(np.int32)
@@ -364,18 +395,27 @@ class DataPreprocessor:
 
     def gather_batch(
         self, nerf_indices: torch.Tensor, sd_indices: Optional[torch.Tensor], iter_num: int,
+        *, cache: Optional[Dict[str, torch.Tensor]] = None, near: Optional[torch.Tensor] = None,
+        far: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
         """A training batch from the cache: [nerf rays; sparse-depth rays],
-        boolean stream masks, -1 in the fields of the other stream."""
-        cache = self.cache
+        boolean stream masks, -1 in the fields of the other stream.
+
+        S scenes at once: `cache` holds their caches stacked along the ray
+        axis (poses (S, nf, 4, 4)), the index rows are (S, R) flat indices
+        into it, `near`/`far` (S,); the batch is the S scenes' batches one
+        after the other, each [nerf; sparse-depth]."""
+        cache = self.cache if cache is None else cache
         nerf_indices = nerf_indices.to(self.device, torch.int64)
-        n_nerf = nerf_indices.shape[0]
+        n_nerf = nerf_indices.shape[-1]
         if sd_indices is not None:
-            indices = torch.cat([nerf_indices, sd_indices.to(self.device, torch.int64)])
+            indices = torch.cat([nerf_indices, sd_indices.to(self.device, torch.int64)], dim=-1)
         else:
             indices = nerf_indices
+        per_scene = indices.shape[-1]
+        mask_nerf = (torch.arange(per_scene, device=self.device) < n_nerf).repeat(indices.numel() // per_scene)
+        indices = indices.reshape(-1)
         nr = indices.shape[0]
-        mask_nerf = torch.arange(nr, device=self.device) < n_nerf
         mask_sd = ~mask_nerf if sd_indices is not None else None
 
         def take(key):
@@ -385,6 +425,10 @@ class DataPreprocessor:
             return torch.where(mask[:, None], take(key), torch.full((), -1.0, device=self.device))
 
         full = lambda v: torch.full((nr, 1), float(v), device=self.device)  # noqa: E731
+
+        def per_ray(v, own):  # one value per scene, or this scene's
+            return full(own) if v is None else v.to(self.device).repeat_interleave(per_scene)[:, None]
+
         batch: Dict[str, Any] = {
             "iter_num": iter_num,
             "num_frames": self.num_frames,
@@ -395,8 +439,8 @@ class DataPreprocessor:
             "view_dirs": take("view_dirs"),
             "pixel_id": take("pixel_id"),
             "target_rgb": on(mask_nerf, "target_rgb"),
-            "near": full(self.near),
-            "far": full(self.far),
+            "near": per_ray(near, self.near),
+            "far": per_ray(far, self.far),
         }
         if self.ndc:
             batch["rays_o_ndc"] = take("rays_o_ndc")

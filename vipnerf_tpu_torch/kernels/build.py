@@ -1,10 +1,12 @@
-"""Build the CUDA sources under `csrc/` with nvcc and load them with ctypes.
+"""Build the sources under `csrc/` and load them with ctypes.
 
 Each source compiles on its own into a shared library with a plain C
 interface, under `vipnerf_tpu_torch/build/` (ignored by git), named after a
-hash of the source so an edited source rebuilds. Nothing builds at import: a
-wrapper calls `load` at its first launch, and `build_all` starts one nvcc
-per source at once, so several kernels build in parallel.
+hash of the source so an edited source rebuilds: CUDA sources (`.cu`) with
+nvcc for sm_90a, host C++ sources (`.cpp`) with g++. Nothing builds at
+import: a wrapper calls `load` at its first use, and `build_all` starts one
+compiler per source at once, so several libraries build in parallel. A
+failed build raises with the compiler's output; nothing falls back.
 """
 
 import ctypes
@@ -14,30 +16,36 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 
-# kernel name -> source file under csrc/
-SOURCES = {"fused_mlp": "fused_mlp.cu"}
+# library name -> source file under csrc/
+SOURCES = {"fused_mlp": "fused_mlp.cu", "raystream": "raystream.cpp"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
 ptxas_reports: Dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def _compiler(source: str) -> List[str]:
+    if source.endswith(".cpp"):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found: the host C++ sources cannot be built")
+        return [gxx, *GXX_FLAGS]
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not Path(nvcc).exists():
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
-    return nvcc
+    return [nvcc, *NVCC_FLAGS]
 
 
 def library_path(name: str) -> Path:
@@ -47,7 +55,7 @@ def library_path(name: str) -> Path:
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile every named source that has no library yet, all nvcc processes
+    """Compile every named source that has no library yet, all compilers
     running at once. Returns the wall seconds of each build; raises with the
     compiler's output if one fails."""
     names = list(SOURCES if names is None else names)
@@ -58,7 +66,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        cmd = [*_compiler(SOURCES[name]), "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
             tmp, out, time.perf_counter(),
@@ -69,16 +77,16 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         build_seconds[name] = time.perf_counter() - t0
         ptxas_reports[name] = log
         if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failures.append(f"{name}: {Path(proc.args[0]).name} exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        raise RuntimeError("build failed:\n" + "\n".join(failures))
     return dict(build_seconds)
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, building it first if needed."""
+    """The loaded library `name`, building it first if needed."""
     if name not in _loaded:
         path = library_path(name)
         if not path.exists():

@@ -36,6 +36,14 @@ module's own parameters as inputs; its backward recomputes the raw output
 with `raw_recompute`, a differentiable torch function with K1's numerics
 (as `_raw_xla` is in JAX), and returns autograd's gradients of it. The
 backward is matrix products outside any kernel, as in the JAX package.
+
+Scene axis (batched multi-scene training, the counterpart of vmap over K1):
+a stacked MLP (`models.mlp.NeRFMLP(..., scenes=S)`) packs S scenes' weights
+one after the other (`FusedWeights.scenes`), its inputs are S blocks of N/S
+rows, and one launch runs every scene on its own weights: a tile never
+straddles two scenes. The plain version loops `fused_mlp_reference` over the
+scenes; the backward recomputes with batched products over the scene axis.
+With one scene the launch is the unstacked kernel, bit for bit.
 """
 
 import ctypes
@@ -45,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from vipnerf_tpu_torch.core.encoding import positional_encoding
+from vipnerf_tpu_torch.core.scene_linear import scene_matmul
 from vipnerf_tpu_torch.kernels import build
 
 PTS_IN = 64  # padded PE(pts) width (63 real)
@@ -71,10 +80,11 @@ MACS_PER_SEC_VIEW = 283 * 128 + 128 * 4
 class FusedWeights(NamedTuple):
     """Packed weights of one MLP for K1 and for its plain version."""
 
-    layers: List[Tuple[torch.Tensor, torch.Tensor]]  # (W (out,in) dtype, b f32)
-    w_flat: torch.Tensor  # kernel layout, dtype
+    layers: List[Tuple[torch.Tensor, torch.Tensor]]  # (W ([S,] out, in) dtype, b ([S,] out) f32)
+    w_flat: torch.Tensor  # kernel layout, dtype; S packs one after the other
     b_flat: torch.Tensor  # f32, bf16-rounded for the bf16 kernel
     dtype: torch.dtype
+    scenes: int = 1
 
 
 def supports_config(mlp_cfg: Dict[str, Any]) -> bool:
@@ -95,15 +105,16 @@ def pack_layers(mlp, dtype: torch.dtype) -> List[Tuple[torch.Tensor, torch.Tenso
 
     Zero columns go where the inputs are zero-padded (PE(pts) 63->64, in front
     of h in the skip layer; PE(view) 27->32 at the end of the view concat);
-    zero rows pad the 1-wide sigma and 4-wide view outputs to 8.
+    zero rows pad the 1-wide sigma and 4-wide view outputs to 8. A stacked
+    MLP's layers keep their leading scene axis.
     """
     with torch.no_grad():
         pl = mlp.pts_linears
         w5 = pl[5].weight
-        zero_col = torch.zeros_like(w5[:, :1])
+        zero_col = torch.zeros_like(w5[..., :1])
         pairs = [(F.pad(pl[0].weight, (0, 1)), pl[0].bias)]
         pairs += [(pl[i].weight, pl[i].bias) for i in (1, 2, 3, 4)]
-        pairs.append((torch.cat([w5[:, :63], zero_col, w5[:, 63:]], dim=1), pl[5].bias))
+        pairs.append((torch.cat([w5[..., :63], zero_col, w5[..., 63:]], dim=-1), pl[5].bias))
         pairs += [(pl[i].weight, pl[i].bias) for i in (6, 7)]
         pairs.append((mlp.feature_linear.weight, mlp.feature_linear.bias))
         pairs.append((
@@ -119,8 +130,8 @@ def pack_layers(mlp, dtype: torch.dtype) -> List[Tuple[torch.Tensor, torch.Tenso
         ))
         layers = []
         for (w, b), shape in zip(pairs, LAYER_SHAPES):
-            if tuple(w.shape) != shape:
-                raise ValueError(f"layer shape {tuple(w.shape)} != {shape}")
+            if tuple(w.shape[-2:]) != shape:
+                raise ValueError(f"layer shape {tuple(w.shape[-2:])} != {shape}")
             layers.append((w.detach().to(dtype).contiguous(), b.detach().to(dtype).float()))
     return layers
 
@@ -161,15 +172,39 @@ def f32_slab_rows(n: int, k: int) -> int:
     return k if n == NOUT else F32_SLAB // n
 
 
-def kernel_buffers(layers, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flat weight and bias buffers in the kernel's layout: swizzled K-slabs
-    for bf16; W^T (in, out) row-major for f32, whose slabs of `f32_slab_rows`
+def _layer_image(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One (out, in) layer in the kernel's layout, flat: swizzled K-slabs for
+    bf16; W^T (in, out) row-major for f32, whose slabs of `f32_slab_rows`
     rows are then contiguous, as the kernel's cp.async reads them."""
-    if dtype == torch.bfloat16:
-        ws = [pack_bf16(w) for w, _ in layers]
-    else:
-        ws = [w.t().contiguous().reshape(-1) for w, _ in layers]
-    return torch.cat(ws), torch.cat([b for _, b in layers])
+    return pack_bf16(w) if dtype == torch.bfloat16 else w.t().contiguous().reshape(-1)
+
+
+_PACK_INDEX: Dict[Tuple[torch.dtype, torch.device], torch.Tensor] = {}
+
+
+def pack_index(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The kernel's weight layout as one gather: entry i of a packed buffer
+    is entry pack_index[i] of the layers' flattened (out, in) weights, one
+    after the other. Built once per device by laying out the entries' own
+    positions, so that a training step packs with one gather, however many
+    slabs and scenes there are."""
+    key = (dtype, torch.device(device))
+    if key not in _PACK_INDEX:
+        images, start = [], 0
+        for n, k in LAYER_SHAPES:
+            images.append(_layer_image(torch.arange(start, start + n * k).reshape(n, k), dtype))
+            start += n * k
+        _PACK_INDEX[key] = torch.cat(images).to(device)
+    return _PACK_INDEX[key]
+
+
+def kernel_buffers(layers, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat weight and bias buffers in the kernel's layout (`_layer_image`
+    of each layer in turn); stacked layers give each scene's pack in turn."""
+    lead = layers[0][0].shape[:-2]  # () or (S,)
+    flat = torch.cat([w.reshape(*lead, -1) for w, _ in layers], dim=-1)
+    w_flat = flat[..., pack_index(dtype, flat.device)].reshape(-1)
+    return w_flat, torch.cat([b for _, b in layers], dim=-1).reshape(-1)
 
 
 def prepare_weights(mlp, dtype: torch.dtype) -> FusedWeights:
@@ -183,7 +218,7 @@ def prepare_weights(mlp, dtype: torch.dtype) -> FusedWeights:
         return cache[1]
     layers = pack_layers(mlp, dtype)
     w_flat, b_flat = kernel_buffers(layers, dtype)
-    packed = FusedWeights(layers, w_flat, b_flat, dtype)
+    packed = FusedWeights(layers, w_flat, b_flat, dtype, mlp.scenes or 1)
     mlp._fused_weights = (key, packed)
     return packed
 
@@ -213,7 +248,13 @@ def fused_mlp_reference(
 ) -> torch.Tensor:
     """K1's function in plain torch: f32 matmuls of dtype-valued tensors; in
     bf16 each product is rounded to bf16 before the bias add, as the kernel
-    does. Returns (N, 8) in the inputs' dtype."""
+    does. Returns (N, 8) in the inputs' dtype. Stacked layers (S scenes) take
+    S blocks of N/S rows, each through its own scene's layers, in turn."""
+    if layers[0][0].dim() == 3:
+        scenes = layers[0][0].shape[0]
+        blocks = zip(*(t.chunk(scenes) for t in (xe, ve, ve2)))
+        return torch.cat([fused_mlp_reference([(w[s], b[s]) for w, b in layers], *block, n_sec)
+                          for s, block in enumerate(blocks)])
     dtype = xe.dtype
     bf16 = dtype == torch.bfloat16
 
@@ -251,7 +292,7 @@ def _entry(dtype: torch.dtype):
     lib = build.load("fused_mlp")
     fn = getattr(lib, _ENTRY[dtype])
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -281,8 +322,10 @@ def _check(weights: FusedWeights, xe, ve, ve2, n_sec: int):
             raise ValueError(f"{name} is on {t.device}, xe on {xe.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if weights.w_flat.numel() != W_NUMEL or weights.b_flat.numel() != B_NUMEL:
+    if weights.w_flat.numel() != weights.scenes * W_NUMEL or weights.b_flat.numel() != weights.scenes * B_NUMEL:
         raise ValueError("packed weights do not match the kernel's layer table")
+    if n % weights.scenes:
+        raise ValueError(f"{n} rows do not split into {weights.scenes} scenes")
     if weights.w_flat.device != xe.device:
         raise ValueError(f"weights on {weights.w_flat.device}, inputs on {xe.device}")
 
@@ -291,8 +334,9 @@ def fused_mlp_raw(
     weights: FusedWeights, xe: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
     n_sec: int,
 ) -> torch.Tensor:
-    """K1 on (xe, ve, ve2) -> raw (N, 8) outputs. CPU tensors take the plain
-    version; CUDA tensors launch the kernel on the current stream."""
+    """K1 on (xe, ve, ve2) -> raw (N, 8) outputs; with stacked weights of S
+    scenes, N/S rows per scene, one launch for all. CPU tensors take the
+    plain version; CUDA tensors launch the kernel on the current stream."""
     _check(weights, xe, ve, ve2, n_sec)
     if xe.device.type == "cpu":
         return fused_mlp_reference(weights.layers, xe, ve, ve2, n_sec)
@@ -307,7 +351,7 @@ def fused_mlp_raw(
     with torch.cuda.device(xe.device):
         rc = fn(xe.data_ptr(), ve.data_ptr(), ve2.data_ptr(),
                 weights.w_flat.data_ptr(), weights.b_flat.data_ptr(),
-                out.data_ptr(), n, n_sec, stream)
+                out.data_ptr(), weights.scenes, n // weights.scenes, n_sec, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     fused_mlp_raw.launches += 1
@@ -342,17 +386,24 @@ def raw_recompute(
     weights with `F.pad`/`torch.cat`, so it takes no gradient; in bf16 each
     product is rounded to bf16 before the bf16 bias add. Unlike
     `fused_mlp_reference`, the products run in the working dtype (cuBLAS on
-    the card), as XLA's do."""
+    the card), as XLA's do. Stacked parameters (S scenes) take S blocks of
+    N/S rows and run each layer as one batched product over the scenes."""
     dt = xe.dtype
     w = [p.to(dt) for p in params[0::2]]
     b = [p.to(dt) for p in params[1::2]]
+    n = xe.shape[0]
+    if w[0].dim() == 3:  # (S, N/S, cols): a product per scene
+        xe, ve, ve2 = (t.reshape(w[0].shape[0], -1, t.shape[-1]) for t in (xe, ve, ve2))
 
     def dense(x, i, relu):
-        y = F.linear(x, w[i]) + b[i]
+        if x.dim() == 3:
+            y = scene_matmul(x, w[i]) + b[i][:, None]
+        else:
+            y = F.linear(x, w[i]) + b[i]
         return torch.relu(y) if relu else y
 
     def pad_cols(wi, at, n):
-        return torch.cat([wi[:, :at], wi.new_zeros(wi.shape[0], n), wi[:, at:]], dim=1)
+        return torch.cat([wi[..., :at], wi.new_zeros(*wi.shape[:-1], n), wi[..., at:]], dim=-1)
 
     w[0] = F.pad(w[0], (0, 1))
     w[5] = pad_cols(w[5], 63, 1)
@@ -360,20 +411,20 @@ def raw_recompute(
     h = dense(xe, 0, True)
     for i in range(1, 5):
         h = dense(h, i, True)
-    h = dense(torch.cat([xe, h], dim=1), 5, True)
+    h = dense(torch.cat([xe, h], dim=-1), 5, True)
     for i in (6, 7):
         h = dense(h, i, True)
     feature = dense(h, 8, False)
     sigma = dense(h, 9, False)
 
     def view_branch(enc_v):
-        return dense(dense(torch.cat([feature, enc_v], dim=1), 10, True), 11, False)
+        return dense(dense(torch.cat([feature, enc_v], dim=-1), 10, True), 11, False)
 
     cols = [sigma, view_branch(ve)]
     for j in range(n_sec):
-        cols.append(view_branch(ve2[:, j * VIEW_IN:(j + 1) * VIEW_IN])[:, 3:4])
-    out = torch.cat(cols, dim=1)
-    return F.pad(out, (0, NOUT - out.shape[1]))
+        cols.append(view_branch(ve2[..., j * VIEW_IN:(j + 1) * VIEW_IN])[..., 3:4])
+    out = torch.cat(cols, dim=-1)
+    return F.pad(out, (0, NOUT - out.shape[-1])).reshape(n, NOUT)
 
 
 class FusedRaw(torch.autograd.Function):
@@ -411,10 +462,14 @@ def apply_fused_mlp(
 ) -> Dict[str, torch.Tensor]:
     """NeRFMLP.forward for the flagship config, through K1. Same output dict
     (sigma, rgb, rgb_view_dependent, visibility[, visibility2]), f32, and
-    differentiable in the module's parameters (and pts/view dirs)."""
+    differentiable in the module's parameters (and pts/view dirs). A stacked
+    MLP takes and gives (S, n, ...), in one launch."""
     if not supports_config(mlp.cfg):
         raise ValueError("K1 implements the flagship 8x256 config only")
-    xe, ve, ve2, n_sec = encode_inputs(pts, view_dirs, view_dirs2, dtype)
+    lead = pts.shape[:-1]
+    xe, ve, ve2, n_sec = encode_inputs(
+        pts.reshape(-1, 3), view_dirs.reshape(-1, 3),
+        None if view_dirs2 is None else view_dirs2.reshape(-1, *view_dirs2.shape[-2:]), dtype)
     weights = prepare_weights(mlp, dtype)
     raw = FusedRaw.apply(weights, n_sec, xe, ve, ve2, *module_params(mlp)).float()
     sigma = raw[:, 0:1]
@@ -430,4 +485,4 @@ def apply_fused_mlp(
     out["rgb"] = out["rgb_view_dependent"]
     if n_sec:
         out["visibility2"] = torch.sigmoid(raw[:, 5:5 + n_sec])[..., None]
-    return out
+    return {k: v.reshape(*lead, *v.shape[1:]) for k, v in out.items()}

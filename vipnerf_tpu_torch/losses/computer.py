@@ -6,6 +6,9 @@ largest threshold <= the iteration wins; a '0' stage is required, checked up
 front); a loss that returns None is skipped; the result holds each loss's
 dict and 'TotalLoss'. The iteration is a Python int here, so a staged weight
 is a Python float.
+
+`scene_losses` views a batch of S scenes' rays and its render (flat, S*R
+rays scene-major) as (S, R, ...), so that every loss comes out per scene.
 """
 
 from typing import Any, Callable, Dict
@@ -66,3 +69,14 @@ class LossComputer:
             total = total + self.get_loss_weight(name, iter_num) * loss_dict["loss_value"]
         loss_values["TotalLoss"] = total
         return loss_values
+
+    def scene_losses(self, batch: Dict[str, Any], outputs: Dict[str, Any], scenes: int) -> Dict[str, Any]:
+        """`compute_losses` of each of S scenes' rays: every value (S,)."""
+        nr = batch["rays_o"].shape[0]
+
+        def per_scene(tree):
+            return {k: v.reshape(scenes, nr // scenes, *v.shape[1:])
+                    if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == nr else v
+                    for k, v in tree.items()}
+
+        return self.compute_losses(per_scene(batch), per_scene(outputs))

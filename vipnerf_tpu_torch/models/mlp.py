@@ -16,6 +16,14 @@ a reference state_dict.
 `bf16_matmuls` runs every matmul on bf16 operands with f32 accumulation
 rounded to bf16, then adds the bf16 bias; `f32_heads` keeps the heads in f32
 on the upcast trunk output. Both as in the JAX package.
+
+With `scenes=S` the module holds S MLPs of one config (batched multi-scene
+training): every parameter gets a leading scene axis (`StackedLinear`, same
+names), inputs and outputs gain it too, and each layer is one batched
+product over the scenes (`core.scene_linear.scene_matmul`, a `torch.bmm`,
+with the bf16 product rounded before the bias add as in `_dense`). Every
+scene starts from the weights the unstacked module draws from the same
+generator.
 """
 
 import math
@@ -26,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vipnerf_tpu_torch.core.encoding import encoding_dim, positional_encoding
+from vipnerf_tpu_torch.core.scene_linear import scene_matmul
 
 SKIPS = (4,)
 
@@ -48,13 +57,31 @@ def mlp_feature_dims(mlp_cfg: Dict[str, Any]) -> Dict[str, int]:
     }
 
 
-def _linear(fan_in: int, fan_out: int) -> nn.Linear:
-    """An nn.Linear whose parameters are filled later (no global-RNG init)."""
+class StackedLinear(nn.Module):
+    """`scenes` linear layers of one shape: weight (S, out, in), bias (S, out)."""
+
+    def __init__(self, in_features: int, out_features: int, scenes: int):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.weight = nn.Parameter(torch.empty(scenes, out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(scenes, out_features))
+
+
+def _linear(fan_in: int, fan_out: int, scenes: Optional[int] = None) -> nn.Module:
+    """A layer whose parameters are filled later (no global-RNG init)."""
+    if scenes is not None:
+        return StackedLinear(fan_in, fan_out, scenes)
     return torch.nn.utils.skip_init(nn.Linear, fan_in, fan_out)
 
 
-def _dense(x: torch.Tensor, layer: nn.Linear, bf16: bool) -> torch.Tensor:
-    """x @ w.T + b; in bf16 the product is rounded before the bf16 bias add."""
+def _dense(x: torch.Tensor, layer: nn.Module, bf16: bool) -> torch.Tensor:
+    """x @ w.T + b; in bf16 the product is rounded before the bf16 bias add.
+    A stacked layer takes x (S, n, in) and multiplies scene by scene."""
+    if layer.weight.dim() == 3:
+        if bf16:
+            y = scene_matmul(x.to(torch.bfloat16), layer.weight.to(torch.bfloat16))
+            return y + layer.bias.to(torch.bfloat16)[:, None]
+        return scene_matmul(x, layer.weight) + layer.bias[:, None]
     if bf16:
         y = F.linear(x.to(torch.bfloat16), layer.weight.to(torch.bfloat16))
         return y + layer.bias.to(torch.bfloat16)
@@ -65,7 +92,8 @@ class NeRFMLP(nn.Module):
     """One MLP (coarse or fine) of the ViP-NeRF model."""
 
     def __init__(
-        self, mlp_cfg: Dict[str, Any], generator: Optional[torch.Generator] = None
+        self, mlp_cfg: Dict[str, Any], generator: Optional[torch.Generator] = None,
+        scenes: Optional[int] = None,
     ):
         super().__init__()
         if not mlp_cfg["use_view_dirs"] and (
@@ -75,6 +103,7 @@ class NeRFMLP(nn.Module):
                 "view_dependent_rgb / predict_visibility require use_view_dirs"
             )
         self.cfg = dict(mlp_cfg)
+        self.scenes = scenes
         depth, width = mlp_cfg["netdepth"], mlp_cfg["netwidth"]
         dims = mlp_feature_dims(mlp_cfg)
         self.view_dep_outputs = (
@@ -84,30 +113,32 @@ class NeRFMLP(nn.Module):
         layers = []
         in_dim = dims["pts_in"]
         for i in range(depth):
-            layers.append(_linear(in_dim, width))
+            layers.append(_linear(in_dim, width, scenes))
             in_dim = width + dims["pts_in"] if i in SKIPS else width
         self.pts_linears = nn.ModuleList(layers)
         if self.view_dep_outputs:
             self.views_linears = nn.ModuleList(
-                [_linear(dims["views_in"] + width, width // 2)]
+                [_linear(dims["views_in"] + width, width // 2, scenes)]
             )
-        self.pts_output_linear = _linear(width, dims["pts_out"])
+        self.pts_output_linear = _linear(width, dims["pts_out"], scenes)
         if self.view_dep_outputs:
-            self.feature_linear = _linear(width, width)
-            self.views_output_linear = _linear(width // 2, dims["views_out"])
+            self.feature_linear = _linear(width, width, scenes)
+            self.views_output_linear = _linear(width // 2, dims["views_out"], scenes)
         self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """torch.nn.Linear's bounds, U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn
-        from `generator` (a fresh generator seeded 0 when None)."""
+        from `generator` (a fresh generator seeded 0 when None); a stacked
+        layer draws one scene's values and gives them to every scene."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for module in self.modules():
-            if isinstance(module, nn.Linear):
+            if isinstance(module, (nn.Linear, StackedLinear)):
                 bound = 1.0 / math.sqrt(module.in_features)
                 for p in (module.weight, module.bias):
-                    vals = torch.rand(p.shape, generator=generator, dtype=torch.float32)
+                    shape = p.shape[1:] if isinstance(module, StackedLinear) else p.shape
+                    vals = torch.rand(shape, generator=generator, dtype=torch.float32)
                     p.copy_(vals * (2 * bound) - bound)
 
     def forward(
@@ -121,7 +152,8 @@ class NeRFMLP(nn.Module):
         bf16_matmuls: bool = False,
         f32_heads: bool = False,
     ) -> Dict[str, torch.Tensor]:
-        """pts (npts, 3); view_dirs (npts, 3); view_dirs2 (npts, nf-1, 3).
+        """pts (npts, 3); view_dirs (npts, 3); view_dirs2 (npts, nf-1, 3);
+        a stacked module takes each with a leading scene axis (S, npts, ...).
 
         Returns sigma (npts, 1), rgb (npts, 3) and, as configured,
         rgb_view_independent / rgb_view_dependent / visibility /
@@ -183,11 +215,11 @@ class NeRFMLP(nn.Module):
                 rgb = primary["rgb_view_dependent"]
 
             if predict_visibility and view_dirs2 is not None:
-                npts, nf_m1 = view_dirs2.shape[0], view_dirs2.shape[1]
-                enc2 = positional_encoding(view_dirs2.reshape(npts * nf_m1, 3), degree)
-                feat2 = feature.repeat_interleave(nf_m1, dim=0) if nf_m1 > 1 else feature
+                lead, (npts, nf_m1) = view_dirs2.shape[:-3], view_dirs2.shape[-3:-1]
+                enc2 = positional_encoding(view_dirs2.reshape(*lead, npts * nf_m1, 3), degree)
+                feat2 = feature.repeat_interleave(nf_m1, dim=-2) if nf_m1 > 1 else feature
                 vis2 = view_branch(enc2, feat2)["visibility"]
-                out["visibility2"] = vis2.reshape(npts, nf_m1, 1)
+                out["visibility2"] = vis2.reshape(*lead, npts, nf_m1, 1)
 
         out["rgb"] = rgb
         return {k: v.float() for k, v in out.items()}

@@ -7,9 +7,20 @@ both levels. The MLP of a level runs through K1 (kernels/fused_mlp.py) when
 its config is the flagship architecture and the precision mode is one K1
 has (bf16 matmuls with bf16 heads, or f32); every other config runs the
 `nn.Module` MLP. The choice is made from the config alone.
+
+A stacked model (`ViPNeRF(..., scenes=S)`, or `stack_models`) holds S
+scenes' MLPs with a leading scene axis, for batched multi-scene training
+(the counterpart of vmapping the JAX renderer over stacked params). Its
+`render_rays` takes S scenes' rays flattened scene-major, S*R of them with R
+per scene, and samples, encodes, resamples and composites them as one
+batch; the near/far planes are per ray, each scene's secondary-view origins
+come from its own `poses` (S, nf, 4, 4), and each MLP call runs every scene
+on its own weights at once (K1 with a scene axis, or batched products).
+`unstack_model` gives one scene's `ViPNeRF` back, for checkpoints and
+validation.
 """
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -22,19 +33,43 @@ from vipnerf_tpu_torch.models.mlp import NeRFMLP
 
 
 class ViPNeRF(nn.Module):
-    """Coarse (+ fine) MLPs per `configs['model']`."""
+    """Coarse (+ fine) MLPs per `configs['model']`; with `scenes`, S of each,
+    stacked, all starting from the weights one model draws."""
 
-    def __init__(self, configs: Dict[str, Any], generator: Optional[torch.Generator] = None):
+    def __init__(self, configs: Dict[str, Any], generator: Optional[torch.Generator] = None,
+                 scenes: Optional[int] = None):
         super().__init__()
         mcfg = configs["model"]
         if "fine_mlp" in mcfg and "coarse_mlp" not in mcfg:
             raise RuntimeError("fine_mlp requires coarse_mlp")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        self.configs = configs
+        self.scenes = scenes
         if "coarse_mlp" in mcfg:
-            self.coarse_model = NeRFMLP(mcfg["coarse_mlp"], generator)
+            self.coarse_model = NeRFMLP(mcfg["coarse_mlp"], generator, scenes)
         if "fine_mlp" in mcfg:
-            self.fine_model = NeRFMLP(mcfg["fine_mlp"], generator)
+            self.fine_model = NeRFMLP(mcfg["fine_mlp"], generator, scenes)
+
+
+@torch.no_grad()
+def stack_models(models: List[ViPNeRF], into: Optional[ViPNeRF] = None) -> ViPNeRF:
+    """S single-scene models -> one stacked model (`into`, in place, when
+    given: its parameters, and an optimizer's references to them, stay)."""
+    if into is None:
+        into = ViPNeRF(models[0].configs, scenes=len(models)).to(next(models[0].parameters()).device)
+    states = [m.state_dict() for m in models]
+    for name, p in into.named_parameters():
+        p.copy_(torch.stack([sd[name] for sd in states]))
+    return into
+
+
+@torch.no_grad()
+def unstack_model(stacked: ViPNeRF, scene: int) -> ViPNeRF:
+    """Scene `scene` of a stacked model as a single-scene model (a copy)."""
+    model = ViPNeRF(stacked.configs).to(next(stacked.parameters()).device)
+    model.load_state_dict({k: v[scene] for k, v in stacked.state_dict().items()})
+    return model
 
 
 def uses_fused_mlp(mlp_cfg: Dict[str, Any], bf16_matmuls: bool, f32_heads: bool) -> bool:
@@ -44,12 +79,19 @@ def uses_fused_mlp(mlp_cfg: Dict[str, Any], bf16_matmuls: bool, f32_heads: bool)
 
 
 def _gather_secondary_origins(poses: torch.Tensor, pixel_id: torch.Tensor) -> torch.Tensor:
-    """Per-ray other-view camera centres (nr, nf-1, 3); other_id = j + (j >= image_id)."""
-    nf = poses.shape[0]
+    """Per-ray other-view camera centres (nr, nf-1, 3); other_id = j + (j >= image_id).
+    With stacked poses (S, nf, 4, 4) the rays are S scenes' in order, and each
+    ray takes its own scene's poses."""
+    nf = poses.shape[-3]
     image_id = pixel_id[:, 0].long()
     j = torch.arange(nf - 1, device=poses.device)
     other_ids = j[None, :] + (j[None, :] >= image_id[:, None]).long()
-    return poses[:, :3, 3][other_ids]
+    centres = poses[..., :3, 3]
+    if poses.dim() == 3:
+        return centres[other_ids]
+    nr, scenes = pixel_id.shape[0], poses.shape[0]
+    scene = torch.arange(nr, device=poses.device) // (nr // scenes)
+    return centres[scene[:, None], other_ids]
 
 
 def _compute_other_view_dirs(
@@ -75,15 +117,17 @@ def _run_mlp_on_samples(
     bf16_matmuls: bool,
     f32_heads: bool,
 ) -> Dict[str, torch.Tensor]:
-    """Flatten (nr, ns, ...) samples, run the MLP (K1 or the module), reshape back."""
+    """Flatten (nr, ns, ...) samples, run the MLP (K1 or the module), reshape
+    back; a stacked MLP gets them as (S, nr * ns / S, ...), scene by scene."""
     nr, ns = pts.shape[0], pts.shape[1]
-    pts_flat = pts.reshape(nr * ns, 3)
+    lead = (nr * ns,) if mlp.scenes is None else (mlp.scenes, nr * ns // mlp.scenes)
+    pts_flat = pts.reshape(*lead, 3)
     vd_flat = None
     if view_dirs is not None:
-        vd_flat = view_dirs[:, None, :].expand(nr, ns, 3).reshape(nr * ns, 3)
+        vd_flat = view_dirs[:, None, :].expand(nr, ns, 3).reshape(*lead, 3)
     vd2_flat = None
     if view_dirs2 is not None:
-        vd2_flat = view_dirs2.reshape(nr * ns, view_dirs2.shape[2], 3)
+        vd2_flat = view_dirs2.reshape(*lead, view_dirs2.shape[2], 3)
 
     if uses_fused_mlp(mlp.cfg, bf16_matmuls, f32_heads):
         raw = k1.apply_fused_mlp(
@@ -97,7 +141,7 @@ def _run_mlp_on_samples(
             raw_noise_std=raw_noise_std, generator=generator,
             bf16_matmuls=bf16_matmuls, f32_heads=f32_heads,
         )
-    return {k: v.reshape((nr, ns) + v.shape[1:]) for k, v in raw.items()}
+    return {k: v.reshape((nr, ns) + v.shape[len(lead):]) for k, v in raw.items()}
 
 
 def render_rays(
@@ -114,7 +158,9 @@ def render_rays(
 
     `batch` fields (all (nr, ...)): rays_o, rays_d, view_dirs, near, far;
     NDC adds rays_o_ndc, rays_d_ndc, near_ndc, far_ndc. Secondary visibility
-    takes `rays_o2` (nr, nf-1, 3), or `pixel_id` + `poses` (nf, 4, 4).
+    takes `rays_o2` (nr, nf-1, 3), or `pixel_id` + `poses` (nf, 4, 4). A
+    stacked model takes S scenes' rays in order (nr = S * R) and poses
+    (S, nf, 4, 4).
     `generator` drives the perturbation and the sigma noise when training.
 
     Output: {rgb, acc, alpha, visibility, weights, depth, depth_var

@@ -5,7 +5,8 @@ saved_models/Model_Iter{N:06}.tar holds `torch.save` of
 {iteration_num, model_state_dict, optimizer_state_dict};
 saved_models/Model_Latest.tar is a relative symlink to the newest one.
 Files are written to a temporary name and renamed, so a crash never leaves
-half a checkpoint.
+half a checkpoint. In batched multi-scene training each scene has its own
+file: its unstacked model and, with `scene`, its row of the optimizer.
 """
 
 import os
@@ -20,7 +21,8 @@ def save_checkpoint(
     save_dir: Path,
     iteration_num: int,
     model: nn.Module,
-    optimizer: Optional[torch.optim.Optimizer] = None,
+    optimizer=None,
+    scene: Optional[int] = None,
 ) -> Path:
     """Write Model_Iter{iter:06}.tar and refresh the Model_Latest symlink."""
     save_dir = Path(save_dir)
@@ -28,7 +30,7 @@ def save_checkpoint(
     state = {
         "iteration_num": iteration_num,
         "model_state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-        "optimizer_state_dict": optimizer.state_dict() if optimizer is not None else {},
+        "optimizer_state_dict": optimizer.state_dict(scene) if optimizer is not None else {},
     }
     path = save_dir / f"Model_Iter{iteration_num:06}.tar"
     tmp = path.with_suffix(".tar.tmp")
@@ -56,10 +58,12 @@ def update_latest_symlink(save_dir: Path, path: Path) -> None:
 def load_checkpoint(
     path: Path,
     model: nn.Module,
-    optimizer: Optional[torch.optim.Optimizer] = None,
+    optimizer=None,
+    scene: Optional[int] = None,
 ) -> int:
-    """Load the weights (and optimizer state) of `path` into `model`
-    (and `optimizer`); returns the iteration number."""
+    """Load the weights (and optimizer state, into row `scene` of a
+    stacked optimizer) of `path` into `model` (and `optimizer`); returns the
+    iteration number."""
     device = next(model.parameters()).device
     state = torch.load(Path(path), map_location=device, weights_only=True)
     sd = state["model_state_dict"]
@@ -67,7 +71,7 @@ def load_checkpoint(
         sd = {k.removeprefix("module."): v for k, v in sd.items()}
     model.load_state_dict(sd)
     if optimizer is not None and state.get("optimizer_state_dict"):
-        optimizer.load_state_dict(state["optimizer_state_dict"])
+        optimizer.load_state_dict(state["optimizer_state_dict"], scene)
     return int(state["iteration_num"])
 
 

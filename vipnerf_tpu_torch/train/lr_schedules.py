@@ -2,7 +2,9 @@
 
 A schedule maps the 0-based update count to a learning rate, as optax's
 schedules do: update `it` (the optimizer's step count before the update,
-restored on resume) runs at `schedule(it)`.
+restored on resume) runs at `schedule(it)`. The count is a number (a float
+comes back) or a tensor of counts, one per scene, on the device (a tensor
+comes back, computed there in its dtype, as optax computes in f32).
 
 - NeRFLearningRateDecayer01: lr_initial * 0.1^(it / (lr_decay * 1000)).
 - MipNeRFLearningRateDecayer01: log-lerp lr_initial -> lr_final over the run,
@@ -11,6 +13,8 @@ restored on resume) runs at `schedule(it)`.
 
 import math
 from typing import Any, Callable, Dict
+
+import torch
 
 
 def nerf_lr_decayer(optimizer_configs: Dict[str, Any]) -> Callable[[int], float]:
@@ -36,14 +40,15 @@ def mip_nerf_lr_decayer(optimizer_configs: Dict[str, Any]) -> Callable[[int], fl
     )
 
     def schedule(step):
-        step = float(step)
+        if not torch.is_tensor(step):
+            return float(schedule(torch.tensor(float(step), dtype=torch.float64)))
         delay_rate = 1.0
         if lr_delay_steps > 0:
-            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * math.sin(
-                0.5 * math.pi * min(max(step / lr_delay_steps, 0.0), 1.0)
+            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+                0.5 * math.pi * torch.clamp(step / lr_delay_steps, 0.0, 1.0)
             )
-        t = min(max(step / max_steps, 0.0), 1.0)
-        return delay_rate * math.exp(math.log(lr_init) * (1 - t) + math.log(lr_final) * t)
+        t = torch.clamp(step / max_steps, 0.0, 1.0)
+        return delay_rate * torch.exp(math.log(lr_init) * (1 - t) + math.log(lr_final) * t)
 
     return schedule
 

@@ -18,11 +18,18 @@ read once per chunk. A checkpoint is written before a boundary's
 validation, and a resume whose boundary validation is incomplete renders it
 again. `scan_steps`, `remat`, `netchunk_map*` and `step_dispatch` (TPU
 dispatch knobs) change no result and are accepted as they are.
+
+`profiler: {start_iter, num_iters}` traces every chunk that overlaps those
+iterations with torch.profiler (host, and the card's kernels on CUDA) into
+{scene}/logs/profile/ as a Chrome trace, one file per chunk (the JAX
+trainer's jax.profiler hook). The validation helpers below serve the
+batched multi-scene trainer too (train/multi_scene.py).
 """
 
+import contextlib
 import time
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,6 +54,149 @@ def step_seed(seed: int, iteration: int) -> int:
     return (int(seed) << 32) + int(iteration)
 
 
+def chunk_boundary(it: int, configs: Dict[str, Any], total: int, scan_steps: int,
+                   validation_interval: int, model_save_interval: int) -> int:
+    """Iterations of the chunk starting at `it`: at most `scan_steps`, cut
+    at the next validation, checkpoint, end of precrop and end of the run."""
+    boundaries = [total]
+    for interval in (validation_interval, model_save_interval):
+        if interval:
+            boundaries.append((it // interval + 1) * interval)
+    precrop_end = configs["data_loader"].get("precrop_iterations", -1)
+    if it < precrop_end:
+        boundaries.append(precrop_end)
+    return min(min(boundaries) - it, scan_steps)
+
+
+@contextlib.contextmanager
+def profile_chunk(profiler_cfg: Optional[Dict[str, Any]], it: int, k: int, logs_dirpath: Path,
+                  device: torch.device):
+    """torch.profiler over the chunk [it, it + k) when it overlaps the
+    configured window, written to logs_dirpath/profile as a Chrome trace."""
+    if profiler_cfg is None or not (
+            it < profiler_cfg["start_iter"] + profiler_cfg.get("num_iters", 1)
+            and it + k > profiler_cfg["start_iter"]):
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    out = Path(logs_dirpath) / "profile"
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / f"chunk_{it:06}-{it + k:06}.json"))
+
+
+def validation_complete(configs: Dict[str, Any], preps: Sequence, it: int,
+                        sample_images_dirpath: Path) -> bool:
+    """Whether the iteration-`it` validation left every file it writes,
+    for every preprocessor (the PNG is written first, so its presence alone
+    proves nothing)."""
+    modes = ["coarse"] + (["fine"] if configs["model"].get("fine_mlp") else [])
+    ndc = configs["data_loader"].get("ndc", False)
+    predicts_vis = any(
+        configs["model"].get(m, {}).get("predict_visibility", False)
+        for m in ("coarse_mlp", "fine_mlp")
+    )
+    for prep in preps:
+        frame_nums = [int(f) for f in prep.frame_nums]
+        for f in frame_nums:
+            for mode in modes:
+                tag = f"{mode}_Iter{it:05}"
+                expected = [
+                    f"predicted_frames/{f:04}_{tag}.png",
+                    f"predicted_depths/{f:04}_{tag}.npy",
+                    f"predicted_depths_variance/{f:04}_{tag}.npy",
+                ]
+                if ndc:
+                    expected += [
+                        f"predicted_depths/{f:04}_{mode}_ndc_Iter{it:05}.npy",
+                        f"predicted_depths_variance/{f:04}_{mode}_ndc_Iter{it:05}.npy",
+                    ]
+                if predicts_vis and prep.mode == "train":
+                    expected += [f"predicted_visibilities/{f:04}_{sec:04}_{tag}.npy"
+                                 for sec in frame_nums if sec != f]
+                if not all((sample_images_dirpath / rel).exists() for rel in expected):
+                    return False
+    return True
+
+
+def run_validation(renderer: TiledRenderer, model: torch.nn.Module, configs: Dict[str, Any],
+                   iter_num: int, data_preprocessor, save_dirpath: Path,
+                   verbose_log: bool = True) -> Dict[str, float]:
+    """Full-image renders of every frame of `data_preprocessor`, with
+    losses (train frames with visibility towards the other train frames),
+    saved under `save_dirpath`; returns the losses averaged over frames.
+
+    Tiles: `validation_tile_size`, else the smaller of
+    `validation_chunk_size` and 8192 rays. The losses do not depend on
+    the tile size (pad rays excluded, tiles weighted by real rays)."""
+    chunk_size = configs.get("validation_tile_size") or min(configs["validation_chunk_size"], 8192)
+    save_loss_maps = configs.get("validation_save_loss_maps", False)
+    h, w = data_preprocessor.resolution
+    is_train_data = data_preprocessor.mode == "train"
+    frame_nums = [int(f) for f in data_preprocessor.frame_nums]
+    total: Dict[str, float] = {}
+    for frame_num in frame_nums:
+        if verbose_log:
+            print(f"  rendering frame {frame_num:04}...", flush=True)
+        batch = data_preprocessor.get_next_batch(iter_num, image_num=frame_num)
+        outputs, losses = renderer.render(
+            model, batch, chunk_size=chunk_size, sec_views_vis=is_train_data,
+            with_losses=True, return_loss_maps=save_loss_maps,
+        )
+        for name, val in losses.items():
+            total[name] = total.get(name, 0.0) + (val["loss_value"] if isinstance(val, dict) else val)
+
+        it_tag = f"Iter{iter_num + 1:05}"
+        for mode in ("coarse", "fine"):
+            if f"rgb_{mode}" not in outputs:
+                continue
+            tag = f"{mode}_{it_tag}"
+            save_image(save_dirpath / f"predicted_frames/{frame_num:04}_{tag}.png",
+                       np.clip(outputs[f"rgb_{mode}"].reshape(h, w, 3), 0, 1))
+            save_numpy_array(save_dirpath / f"predicted_depths/{frame_num:04}_{tag}.npy",
+                             outputs[f"depth_{mode}"].reshape(h, w), as_png=True)
+            save_numpy_array(save_dirpath / f"predicted_depths_variance/{frame_num:04}_{tag}.npy",
+                             outputs[f"depth_var_{mode}"].reshape(h, w), as_png=True)
+            if f"depth_ndc_{mode}" in outputs:
+                save_numpy_array(
+                    save_dirpath / f"predicted_depths/{frame_num:04}_{mode}_ndc_{it_tag}.npy",
+                    outputs[f"depth_ndc_{mode}"].reshape(h, w), as_png=True)
+                save_numpy_array(
+                    save_dirpath / f"predicted_depths_variance/{frame_num:04}_{mode}_ndc_{it_tag}.npy",
+                    outputs[f"depth_var_ndc_{mode}"].reshape(h, w), as_png=True)
+            if f"visibility2_{mode}" in outputs:
+                others = [x for x in frame_nums if x != frame_num]
+                for j, sec in enumerate(others):
+                    save_numpy_array(
+                        save_dirpath / f"predicted_visibilities/{frame_num:04}_{sec:04}_{tag}.npy",
+                        outputs[f"visibility2_{mode}"][:, j].reshape(h, w), as_png=True)
+        if save_loss_maps:
+            for val in losses.values():
+                for full_name, loss_map in (val.get("loss_maps", {}) if isinstance(val, dict) else {}).items():
+                    save_numpy_array(
+                        save_dirpath / f"Losses/{full_name}_{frame_num:04}_{it_tag}.npy",
+                        np.asarray(loss_map).reshape(h, w), as_png=True)
+    return {k: v / max(len(frame_nums), 1) for k, v in total.items()}
+
+
+def boundary_validation(renderer: TiledRenderer, model: torch.nn.Module, configs: Dict[str, Any],
+                        train_prep, val_prep, logger: ScalarLogger, it: int,
+                        sample_images_dirpath: Path, verbose_log: bool = True):
+    """The validation of boundary `it`: train and validation frames, their
+    mean losses logged at `it`."""
+    for tag, prep in (("train_images", train_prep), ("val_images", val_prep)):
+        if verbose_log:
+            print(f"validation/{tag} @ iter {it}...", flush=True)
+        t_val = time.time()
+        val_losses = run_validation(renderer, model, configs, it - 1, prep, sample_images_dirpath, verbose_log)
+        logger.add_scalars(f"validation/{tag}", val_losses, it)
+        if verbose_log:
+            print(f"validation/{tag} done in {time.time() - t_val:.0f}s", flush=True)
+
+
 class Trainer:
     def __init__(
         self,
@@ -59,11 +209,6 @@ class Trainer:
         output_dirpath: Path,
         verbose_log: bool = True,
     ):
-        if configs.get("profiler") is not None:
-            raise NotImplementedError(
-                "the profiler hook arrives with a later slice of the port; "
-                "chip_smoke.py profiles a training step with torch.profiler"
-            )
         self.configs = configs
         self.model_configs = model_configs
         self.train_data_preprocessor = train_data_preprocessor
@@ -81,6 +226,7 @@ class Trainer:
         self.seed = configs.get("seed", 0) or 0
         self.generator = torch.Generator(device=self.device)
         self.scan_steps = int(configs.get("scan_steps", 100))
+        self.profiler_cfg = configs.get("profiler")
 
     # --------------------------------------------------------------- training
 
@@ -95,7 +241,6 @@ class Trainer:
         validation_interval = self.configs["validation_interval"]
         model_save_interval = self.configs["model_save_interval"]
         total_num_iters = self.configs["num_iterations"]
-        precrop_end = self.configs["data_loader"].get("precrop_iterations", -1)
 
         start_iter = self.load_model(saved_models_dirpath)
         # a checkpoint is written before its boundary's validation: a run cut
@@ -104,29 +249,23 @@ class Trainer:
                 and not self._validation_complete(start_iter, sample_images_dirpath)):
             self._boundary_validation(start_iter, sample_images_dirpath)
 
-        def next_k(it: int) -> int:
-            boundaries = [total_num_iters]
-            for interval in (validation_interval, model_save_interval):
-                boundaries.append((it // interval + 1) * interval)
-            if it < precrop_end:
-                boundaries.append(precrop_end)
-            return min(min(boundaries) - it, self.scan_steps)
-
         prep = self.train_data_preprocessor
         it = start_iter
         t_start = time.time()
         rays_done = 0
         while it < total_num_iters:
-            k = next_k(it)
+            k = chunk_boundary(it, self.configs, total_num_iters, self.scan_steps,
+                               validation_interval, model_save_interval)
             nerf_idx, sd_idx = prep.get_index_chunk(it, k)
             nerf_dev = torch.from_numpy(nerf_idx).to(self.device)
             sd_dev = torch.from_numpy(sd_idx).to(self.device) if sd_idx is not None else None
-            chunk = []
-            for j in range(k):
-                batch = prep.gather_batch(nerf_dev[j], sd_dev[j] if sd_dev is not None else None, it + j)
-                self.generator.manual_seed(step_seed(self.seed, it + j))
-                chunk.append(self.train_step(self.model, batch, self.generator))
-            scalars = {name: torch.stack([s[name] for s in chunk]).cpu().numpy() for name in chunk[0]}
+            with profile_chunk(self.profiler_cfg, it, k, self.output_dirpath / "logs", self.device):
+                chunk = []
+                for j in range(k):
+                    batch = prep.gather_batch(nerf_dev[j], sd_dev[j] if sd_dev is not None else None, it + j)
+                    self.generator.manual_seed(step_seed(self.seed, it + j))
+                    chunk.append(self.train_step(self.model, batch, self.generator))
+                scalars = {name: torch.stack([s[name] for s in chunk]).cpu().numpy() for name in chunk[0]}
             rays_done += k * (nerf_idx.shape[1] + (sd_idx.shape[1] if sd_idx is not None else 0))
             for j in range(k):
                 for name, vals in scalars.items():
@@ -145,107 +284,12 @@ class Trainer:
         self.logger.flush()
 
     def _validation_complete(self, it: int, sample_images_dirpath: Path) -> bool:
-        """Whether the iteration-`it` validation left every file it writes,
-        for both preprocessors (the PNG is written first, so its presence
-        alone proves nothing)."""
-        modes = ["coarse"] + (["fine"] if self.configs["model"].get("fine_mlp") else [])
-        ndc = self.configs["data_loader"].get("ndc", False)
-        predicts_vis = any(
-            self.configs["model"].get(m, {}).get("predict_visibility", False)
-            for m in ("coarse_mlp", "fine_mlp")
-        )
-        for prep in (self.train_data_preprocessor, self.val_data_preprocessor):
-            frame_nums = [int(f) for f in prep.frame_nums]
-            for f in frame_nums:
-                for mode in modes:
-                    tag = f"{mode}_Iter{it:05}"
-                    expected = [
-                        f"predicted_frames/{f:04}_{tag}.png",
-                        f"predicted_depths/{f:04}_{tag}.npy",
-                        f"predicted_depths_variance/{f:04}_{tag}.npy",
-                    ]
-                    if ndc:
-                        expected += [
-                            f"predicted_depths/{f:04}_{mode}_ndc_Iter{it:05}.npy",
-                            f"predicted_depths_variance/{f:04}_{mode}_ndc_Iter{it:05}.npy",
-                        ]
-                    if predicts_vis and prep.mode == "train":
-                        expected += [f"predicted_visibilities/{f:04}_{sec:04}_{tag}.npy"
-                                     for sec in frame_nums if sec != f]
-                    if not all((sample_images_dirpath / rel).exists() for rel in expected):
-                        return False
-        return True
+        return validation_complete(self.configs, (self.train_data_preprocessor, self.val_data_preprocessor),
+                                   it, sample_images_dirpath)
 
     def _boundary_validation(self, it: int, sample_images_dirpath: Path):
-        for tag, prep in (("train_images", self.train_data_preprocessor),
-                          ("val_images", self.val_data_preprocessor)):
-            if self.verbose_log:
-                print(f"validation/{tag} @ iter {it}...", flush=True)
-            t_val = time.time()
-            val_losses = self.run_validation(it - 1, prep, sample_images_dirpath)
-            self.logger.add_scalars(f"validation/{tag}", val_losses, it)
-            if self.verbose_log:
-                print(f"validation/{tag} done in {time.time() - t_val:.0f}s", flush=True)
-
-    # ------------------------------------------------------------- validation
-
-    def run_validation(self, iter_num: int, data_preprocessor, save_dirpath: Path) -> Dict[str, float]:
-        """Full-image renders of every frame of `data_preprocessor`, with
-        losses (train frames with visibility towards the other train frames),
-        saved under `save_dirpath`; returns the losses averaged over frames.
-
-        Tiles: `validation_tile_size`, else the smaller of
-        `validation_chunk_size` and 8192 rays. The losses do not depend on
-        the tile size (pad rays excluded, tiles weighted by real rays)."""
-        chunk_size = self.configs.get("validation_tile_size") or min(
-            self.configs["validation_chunk_size"], 8192)
-        save_loss_maps = self.configs.get("validation_save_loss_maps", False)
-        h, w = data_preprocessor.resolution
-        is_train_data = data_preprocessor.mode == "train"
-        frame_nums = [int(f) for f in data_preprocessor.frame_nums]
-        total: Dict[str, float] = {}
-        for frame_num in frame_nums:
-            if self.verbose_log:
-                print(f"  rendering frame {frame_num:04}...", flush=True)
-            batch = data_preprocessor.get_next_batch(iter_num, image_num=frame_num)
-            outputs, losses = self.renderer.render(
-                self.model, batch, chunk_size=chunk_size, sec_views_vis=is_train_data,
-                with_losses=True, return_loss_maps=save_loss_maps,
-            )
-            for name, val in losses.items():
-                total[name] = total.get(name, 0.0) + (val["loss_value"] if isinstance(val, dict) else val)
-
-            it_tag = f"Iter{iter_num + 1:05}"
-            for mode in ("coarse", "fine"):
-                if f"rgb_{mode}" not in outputs:
-                    continue
-                tag = f"{mode}_{it_tag}"
-                save_image(save_dirpath / f"predicted_frames/{frame_num:04}_{tag}.png",
-                           np.clip(outputs[f"rgb_{mode}"].reshape(h, w, 3), 0, 1))
-                save_numpy_array(save_dirpath / f"predicted_depths/{frame_num:04}_{tag}.npy",
-                                 outputs[f"depth_{mode}"].reshape(h, w), as_png=True)
-                save_numpy_array(save_dirpath / f"predicted_depths_variance/{frame_num:04}_{tag}.npy",
-                                 outputs[f"depth_var_{mode}"].reshape(h, w), as_png=True)
-                if f"depth_ndc_{mode}" in outputs:
-                    save_numpy_array(
-                        save_dirpath / f"predicted_depths/{frame_num:04}_{mode}_ndc_{it_tag}.npy",
-                        outputs[f"depth_ndc_{mode}"].reshape(h, w), as_png=True)
-                    save_numpy_array(
-                        save_dirpath / f"predicted_depths_variance/{frame_num:04}_{mode}_ndc_{it_tag}.npy",
-                        outputs[f"depth_var_ndc_{mode}"].reshape(h, w), as_png=True)
-                if f"visibility2_{mode}" in outputs:
-                    others = [x for x in frame_nums if x != frame_num]
-                    for j, sec in enumerate(others):
-                        save_numpy_array(
-                            save_dirpath / f"predicted_visibilities/{frame_num:04}_{sec:04}_{tag}.npy",
-                            outputs[f"visibility2_{mode}"][:, j].reshape(h, w), as_png=True)
-            if save_loss_maps:
-                for val in losses.values():
-                    for full_name, loss_map in (val.get("loss_maps", {}) if isinstance(val, dict) else {}).items():
-                        save_numpy_array(
-                            save_dirpath / f"Losses/{full_name}_{frame_num:04}_{it_tag}.npy",
-                            np.asarray(loss_map).reshape(h, w), as_png=True)
-        return {k: v / max(len(frame_nums), 1) for k, v in total.items()}
+        boundary_validation(self.renderer, self.model, self.configs, self.train_data_preprocessor,
+                            self.val_data_preprocessor, self.logger, it, sample_images_dirpath, self.verbose_log)
 
     # ------------------------------------------------------------ checkpoints
 

@@ -8,9 +8,12 @@ import torch
 def resolve_device(device_sel: Any = "all") -> torch.device:
     """`test_configs['device']` -> torch.device.
 
-    "all", None or [0] -> cuda:0; [i] -> cuda:i; "cpu" -> the CPU. More than
-    one device is the multi-device slice, not yet ported. Without CUDA, any
-    choice but "cpu" raises: the port never falls back to the CPU quietly.
+    "all", None or [0] -> cuda:0; [i] -> cuda:i; "cpu" -> the CPU. The
+    counterpart of vipnerf_tpu/parallel/mesh.py `select_devices` for one
+    card: batched multi-scene training puts all its scenes on this device.
+    More than one GPU (scenes or rays sharded over several) is the last slice
+    of the port, not yet here. Without CUDA, any choice but "cpu" raises:
+    the port never falls back to the CPU quietly.
     """
     if device_sel == "cpu":
         return torch.device("cpu")
@@ -19,8 +22,8 @@ def resolve_device(device_sel: Any = "all") -> torch.device:
     elif isinstance(device_sel, (list, tuple)):
         if len(device_sel) != 1:
             raise NotImplementedError(
-                f"device {device_sel!r}: rendering on more than one GPU arrives "
-                "with the multi-device slice of the port"
+                f"device {device_sel!r}: sharding scenes or rays over more than one "
+                "GPU arrives with the last slice of the port; one GPU runs every scene"
             )
         index = int(device_sel[0])
     else:
