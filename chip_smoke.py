@@ -5,7 +5,8 @@
 Phases, each of which fails the run loudly:
 
 1. the card's name and power limit, then the build of every library under
-   csrc/ (the CUDA kernels with nvcc, the ray stream with g++);
+   csrc/ (the CUDA kernels with nvcc, the ray stream with g++, nvJPEG's
+   binding with g++ against the CUDA toolkit);
 2. K1 (the fused MLP forward) against its plain torch version on the card,
    both instances (bf16 and f32), n_sec 0..3, at N = 262,144 points, at
    ragged N = 1, 2,085 and 132 * 128 * 3 + 37 (the bf16 kernel's persistent
@@ -65,7 +66,22 @@ Phases, each of which fails the run loudly:
    value; the batched step's gradients against each scene's own step on
    the same batches; the warm step, rays/s and peak memory at S = 1, 2, 4;
    a step at S = 2 in each precision mode;
-7. a JSON line of each of phases 3-6 and of the kernels, and the device
+7. database and migration: nvJPEG's decode of the committed 4:2:0 JPEG
+   fixture against the JAX package's (libjpeg's) decode of it, at least 40
+   dB, with its ms per megapixel; a raw NeRF-LLFF scene forged in the
+   published layout (COLMAP model, poses_bounds.npy, the fixture as
+   images/*.JPG, 1008x756 and 504x378 pyramids), zipped and built by
+   `python -m vipnerf_tpu_torch.db_builders.nerf_llff` (nvJPEG decoding
+   images/ on the card), its files, split and spiral poses checked; its
+   priors (VW02 generated on the card, DE02 from the true depths); the
+   NeRF_LLFF app at the flagship width with bf16 heads for 100 steps
+   (checkpoint at 50), exactly 2 K1 launches per step; the checkpoint at 50
+   through the JAX-checkpoint bridge (export_checkpoint, import_checkpoint)
+   bit for bit, then 10 steps resumed from the original and from the round
+   trip, their parameters compared; a DataParallel model loading the .tar
+   strictly; fast_encoding's PE on the card against the CPU and a training
+   step with it; a train-mode preprocessor with spherify;
+8. a JSON line of each of phases 3-7 and of the kernels, and the device
    line last.
 
 It needs CUDA and the repository around it, and exits non-zero without a
@@ -79,10 +95,12 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -1405,6 +1423,284 @@ def phase_pipeline(k1):
             "qa_scores": scores, "k1_launches": launches}
 
 
+# ------------------------------------------------- database and migration
+
+FIXTURES = Path(__file__).resolve().parent / "tests/data"
+JPEG_MIN_PSNR = 40.0  # nvJPEG against libjpeg on the 4:2:0 fixture: the IDCT and the chroma upsampling differ
+DB_STEPS = 100  # the built database's run; checkpoints at half and at the end
+DB_RESUME_STEPS = 10
+DB_SCENE = "synth01"
+TOL_FAST_PE = 2.0 ** 10 * 1e-7  # fast_encoding at degree 10, card vs CPU: the recurrence amplifies an ulp ~2^10
+
+
+def phase_jpeg(dev):
+    """nvJPEG's decode of the committed fixture against the JAX package's
+    (libjpeg's) decode of it; host-clock ms per decode, host Huffman stage
+    included, synchronised."""
+    from vipnerf_tpu_torch.utils.io import read_png
+    from vipnerf_tpu_torch.utils.jpeg import decode_jpeg
+
+    data = (FIXTURES / "synth_1008x756.jpg").read_bytes()
+    want = read_png(FIXTURES / "synth_1008x756_decoded.png")
+    got = decode_jpeg(data, dev).cpu().numpy()
+    if got.shape != want.shape:
+        raise AssertionError(f"nvJPEG decoded {got.shape}, libjpeg {want.shape}")
+    max_diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+    db = psnr(got, want)
+    seconds = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_jpeg(data, dev)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    ms = 1e3 * float(np.median(seconds[2:]))
+    mpix = got.shape[0] * got.shape[1] / 1e6
+    log(f"nvJPEG: the {got.shape[1]}x{got.shape[0]} 4:2:0 fixture ({len(data)} bytes) against libjpeg's decode: "
+        f"max |diff| {max_diff}, PSNR {db:.2f} dB (must be >= {JPEG_MIN_PSNR}); median {ms:.3f} ms per decode "
+        f"over 10 after 2 warm-up, {ms / mpix:.3f} ms per megapixel")
+    if not db >= JPEG_MIN_PSNR:
+        raise AssertionError(f"nvJPEG's decode is {db:.2f} dB from libjpeg's")
+    return {"psnr_db": db, "max_abs_diff": max_diff, "ms_per_decode": ms, "ms_per_megapixel": ms / mpix,
+            "megapixels": mpix, "bytes": len(data)}
+
+
+def check_built_database(db_dir: Path, gt):
+    """The built scene's files, its split and its spiral poses."""
+    from vipnerf_tpu_torch.utils.io import read_csv_columns, read_png
+
+    scene = db_dir / f"all/database_data/{DB_SCENE}"
+    decoded = read_png(FIXTURES / "synth_1008x756_decoded.png")
+    for sub, shape in (("rgb", decoded.shape), ("rgb_down4", (H, W, 3)), ("rgb_down8", (H // 2, W // 2, 3))):
+        names = sorted(p.name for p in (scene / sub).iterdir())
+        if names != [f"{i:04}.png" for i in range(5)]:
+            raise AssertionError(f"{sub}: {names}")
+        for i in range(5):
+            img = read_png(scene / f"{sub}/{i:04}.png")
+            if img.shape != shape:
+                raise AssertionError(f"{sub}/{i:04}.png is {img.shape}, expected {shape}")
+            if sub == "rgb_down4" and not np.array_equal(img, gt["images"][i]):
+                raise AssertionError(f"rgb_down4/{i:04}.png differs from the frame it was built from")
+    rgb_db = psnr(read_png(scene / "rgb/0000.png"), decoded)
+    if not rgb_db >= JPEG_MIN_PSNR:
+        raise AssertionError(f"rgb/0000.png (nvJPEG) is {rgb_db:.2f} dB from libjpeg's decode")
+    extr = np.loadtxt(scene / "CameraExtrinsics.csv", delimiter=",").reshape(-1, 4, 4)
+    intr = np.loadtxt(scene / "CameraIntrinsics_down4.csv", delimiter=",").reshape(-1, 3, 3)
+    bounds = np.loadtxt(scene / "DepthBounds.csv", delimiter=",")
+    errs = {"extrinsics": float(np.abs(extr - gt["extrinsics"]).max()),
+            "intrinsics_down4": float(np.abs(intr - gt["intrinsics"]).max()),
+            "bounds": float(np.abs(bounds - gt["bounds"]).max())}
+    if max(errs.values()) > 1e-9:
+        raise AssertionError(f"the built cameras differ from the forged ones: {errs}")
+    names = read_csv_columns(scene / "FrameNamesMapping.csv")
+    if list(names["OldFrameName"]) != [f"IMG_{i:04}" for i in range(5)]:
+        raise AssertionError(f"FrameNamesMapping.csv: {names}")
+    sets = db_dir / "train_test_sets/set02"
+    split = {name: [int(f) for f in read_csv_columns(sets / f"{name}VideosData.csv")["pred_frame_num"]]
+             for name in ("Train", "Validation", "Test")}
+    if split != {"Train": [2, 3], "Validation": [0], "Test": [0]}:
+        raise AssertionError(f"the set02 split is {split}")
+    spiral = np.loadtxt(sets / f"video_poses01/{DB_SCENE}.csv", delimiter=",").reshape(-1, 4, 4)
+    det_err = float(np.abs(np.linalg.det(spiral[:, :3, :3]) - 1).max())
+    if spiral.shape != (121, 4, 4) or det_err > 1e-6 or not np.allclose(spiral[:, 3], [0, 0, 0, 1]):
+        raise AssertionError(f"spiral poses {spiral.shape}, max |det(R) - 1| {det_err:.2e}")
+    log(f"built database checked: rgb (nvJPEG, {rgb_db:.2f} dB from libjpeg), rgb_down4 equal to the forged frames, "
+        f"rgb_down8 at {W // 2}x{H // 2}; cameras within {max(errs.values()):.1e} of the forged ones; set02 {split}; "
+        f"121 spiral poses, max |det(R) - 1| {det_err:.1e}")
+    return {"camera_max_err": max(errs.values()), "spiral_det_err": det_err, "split": split, "rgb_psnr_db": rgb_db}
+
+
+def tar_states_equal(a: Path, b: Path) -> bool:
+    sa, sb = (torch.load(p, map_location="cpu", weights_only=True) for p in (a, b))
+    same = sa["iteration_num"] == sb["iteration_num"] and sa["model_state_dict"].keys() == sb["model_state_dict"].keys()
+    same = same and all(torch.equal(v, sb["model_state_dict"][k]) for k, v in sa["model_state_dict"].items())
+    oa, ob = sa["optimizer_state_dict"], sb["optimizer_state_dict"]
+    same = same and oa["param_groups"] == ob["param_groups"] and oa.get("loss_guard") == ob.get("loss_guard")
+    return same and oa["state"].keys() == ob["state"].keys() and all(
+        torch.equal(e[key], ob["state"][i][key]) for i, e in oa["state"].items()
+        for key in ("step", "exp_avg", "exp_avg_sq"))
+
+
+def phase_database(k1, dev):
+    """Database and migration: nvJPEG against libjpeg; a raw NeRF-LLFF scene
+    forged in the published layout (COLMAP model, poses_bounds.npy, the
+    JPEG fixture as images/, 1008x756 and 504x378 pyramids) zipped and built
+    by the builder's CLI (nvJPEG decoding images/ on the card); its files,
+    split and spiral poses checked; its priors (VW02 generated on the card,
+    DE02 written from the true depths); the NeRF_LLFF app at the flagship
+    width with bf16 heads for DB_STEPS steps (exactly 2 K1 launches per
+    step); checkpoint DB_STEPS / 2 through export_checkpoint and
+    import_checkpoint, bit for bit; a resume from the original and one from
+    the round trip; a DataParallel model loading the .tar strictly; a step
+    with fast_encoding (PE on the card against the CPU) and a train-mode
+    preprocessor with spherify."""
+    from vipnerf_tpu_torch.apps import nerf_llff as app_llff
+    from vipnerf_tpu_torch.apps.common import DatasetApp
+    from vipnerf_tpu_torch.core.encoding import positional_encoding
+    from vipnerf_tpu_torch.data.loaders import get_data_loader
+    from vipnerf_tpu_torch.data.preprocessor import get_data_preprocessor
+    from vipnerf_tpu_torch.data.synthetic import write_raw_llff_scene, write_sparse_depths
+    from vipnerf_tpu_torch.db_builders import nerf_llff
+    from vipnerf_tpu_torch.models.vip_nerf import ViPNeRF, uses_fused_mlp
+    from vipnerf_tpu_torch.priors.cli import main_visibility
+    from vipnerf_tpu_torch.utils import jax_ckpt
+    from vipnerf_tpu_torch.utils.jpeg import decode_jpeg
+
+    t_phase = time.perf_counter()
+    device_arg = "cpu" if dev.type == "cpu" else "all"
+    jpeg = phase_jpeg(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        gt = write_raw_llff_scene(root / "raw", scene_name=DB_SCENE, num_frames=5, height=H, width=W,
+                                  source_jpeg=FIXTURES / "synth_1008x756.jpg")
+        zip_path = root / "raw/nerf_llff_data.zip"
+        with zipfile.ZipFile(zip_path, "w") as zf:
+            for p in sorted((root / "raw/nerf_llff_data").rglob("*")):
+                zf.write(p, p.relative_to(root / "raw"))
+        forge_s = time.perf_counter() - t0
+        db_dir = root / "data/databases/NeRF_LLFF/data"
+        decodes = decode_jpeg.launches
+        t0 = time.perf_counter()
+        nerf_llff.main(["--database_dirpath", str(db_dir), "--zip_filepath", str(zip_path),
+                        "--set_nums", "2", "--num_train_frames", "2", "--video_poses", "--device", device_arg])
+        build_s = time.perf_counter() - t0
+        decodes = decode_jpeg.launches - decodes
+        log(f"raw NeRF-LLFF scene forged (5 frames, COLMAP model, images/ JPEG fixture, images_4 {W}x{H}, images_8) "
+            f"and zipped in {forge_s:.2f} s; `python -m vipnerf_tpu_torch.db_builders.nerf_llff --zip_filepath ... "
+            f"--set_nums 2 --num_train_frames 2 --video_poses` built it in {build_s:.2f} s with {decodes} nvJPEG "
+            f"decodes")
+        if decodes != 5:
+            raise AssertionError(f"the build decoded {decodes} JPEGs on the card, expected 5")
+        built = check_built_database(db_dir, gt)
+
+        write_sparse_depths(db_dir / f"all/estimated_depths/DE02/{DB_SCENE}/estimated_depths_down4",
+                            gt["depths"], built["split"]["Train"])
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main_visibility(["--database", "NeRF_LLFF", "--gen_nums", "2", "--root_dirpath", str(root),
+                             "--device", device_arg])
+        prior_s = time.perf_counter() - t0
+        if f"on {dev}" not in out.getvalue():
+            raise AssertionError("the visibility prior did not run on the card")
+        check_prior_outputs(db_dir / "all/visibility_prior/VW02", [(2, 3)])
+        log(f"priors of the built scene: VW02 generated on the card in {prior_s:.2f} s, DE02 from the true depths")
+
+        app = DatasetApp("NeRF_LLFF", "scene_name", "all", root_dirpath=root)
+        train_configs, _ = app_llff.demo_configs(21, 2, DB_SCENE, sparse_depth=True, num_rays=2048,
+                                                 num_iterations=DB_STEPS)
+        train_configs["model"].update(bf16_matmuls=True, f32_heads=False)
+        train_configs.update(model_save_interval=DB_STEPS // 2, validation_interval=10 * DB_STEPS, device=device_arg)
+        if not uses_fused_mlp(train_configs["model"]["fine_mlp"], True, False):
+            raise AssertionError("the built database's training does not take K1")
+        k1.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        app.start_training(copy.deepcopy(train_configs))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches_train = dict(k1.fused_mlp_raw.launches_by_instance)
+        run = root / "runs/training/train0021"
+        saved = run / f"{DB_SCENE}/saved_models"
+        losses = [v for _, v in sorted(read_scalars(run / DB_SCENE)["train/TotalLoss"])]
+        log(f"app start_training on the built database (flagship width, bf16 heads, 2048 + 2048 rays): {DB_STEPS} "
+            f"steps in {train_s:.2f} s with set-up and 2 checkpoints; K1 launches {launches_train}; mean TotalLoss "
+            f"first 10 {np.mean(losses[:10]):.5f}, last 10 {np.mean(losses[-10:]):.5f}")
+        if launches_train != {"fused_mlp_bf16": 2 * DB_STEPS, "fused_mlp_f32": 0}:
+            raise AssertionError(f"training the built database launched K1 {launches_train}")
+        if len(losses) != DB_STEPS or not np.isfinite(losses).all():
+            raise AssertionError("the built database's training logged no finite loss per step")
+
+        configs = json.loads((run / "Configs.json").read_text())
+        tar = saved / f"Model_Iter{DB_STEPS // 2:06}.tar"
+        t0 = time.perf_counter()
+        ckpt = jax_ckpt.export_checkpoint(tar, configs, root / "jax")
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = jax_ckpt.import_checkpoint(ckpt, configs, root / "back")
+        import_s = time.perf_counter() - t0
+        if not tar_states_equal(tar, back):
+            raise AssertionError("the .tar -> .ckpt -> .tar round trip is not bit for bit")
+        log(f"migration: {tar.name} -> {ckpt.name} ({ckpt.stat().st_size} bytes) in {export_s:.2f} s -> .tar in "
+            f"{import_s:.2f} s: weights, moments, count and LR bit for bit")
+
+        wrapped = torch.nn.DataParallel(ViPNeRF(configs).to(dev))
+        wrapped.load_state_dict(torch.load(tar, map_location=dev, weights_only=True)["model_state_dict"], strict=True)
+        del wrapped
+
+        original = shutil.copyfile(tar, root / "original.tar")
+        resumed, launches_resume = {}, 0
+        for label, source in (("original", original), ("round trip", back)):
+            for p in saved.glob("Model_*"):
+                if p.name != tar.name:
+                    p.unlink()
+            shutil.copyfile(source, saved / tar.name)
+            (saved / "Model_Latest.tar").symlink_to(tar.name)
+            cfg = copy.deepcopy(train_configs)
+            cfg["num_iterations"] = DB_STEPS // 2 + DB_RESUME_STEPS
+            k1.reset_launch_counts()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                app.start_training(cfg)
+            launches = k1.fused_mlp_raw.launches
+            if f"Resuming Training from iteration {DB_STEPS // 2 + 1}" not in out.getvalue() \
+                    or launches != 2 * DB_RESUME_STEPS:
+                raise AssertionError(f"the resume from the {label} did not resume at {DB_STEPS // 2} "
+                                     f"or launched K1 {launches} times")
+            launches_resume += launches
+            end = torch.load(saved / f"Model_Iter{cfg['num_iterations']:06}.tar", map_location="cpu",
+                             weights_only=True)
+            resumed[label] = end["model_state_dict"]
+        resume_diff = max(float((resumed["original"][k] - resumed["round trip"][k]).abs().max())
+                          for k in resumed["original"])
+        log(f"resumed {DB_RESUME_STEPS} steps from the original checkpoint and from the round trip: max parameter "
+            f"difference {resume_diff:.3e} (the card's nondeterminism alone); a DataParallel model loaded "
+            f"{tar.name} strictly")
+
+        x = torch.rand((TRAIN_N["fine"], 3), generator=torch.Generator().manual_seed(7)) * (2 * math.pi) - math.pi
+        pe_err = float((positional_encoding(x.to(dev), 10, fast=True).cpu() - positional_encoding(x, 10, fast=True))
+                       .abs().max())
+        fast_cfg = copy.deepcopy(configs)
+        for level in ("coarse_mlp", "fine_mlp"):
+            fast_cfg["model"][level]["fast_encoding"] = True
+        rig = TrainRig(root, fast_cfg, dev)
+        k1.reset_launch_counts()
+        scalars = rig.step_fn(True, False)(rig.batch(0))
+        fast_launches = k1.fused_mlp_raw.launches
+        fast_loss = float(scalars["TotalLoss"])
+        log(f"fast_encoding: PE at degree 10 of {x.shape[0]} points on the card vs the CPU max |diff| {pe_err:.2e} "
+            f"(tolerance {TOL_FAST_PE:.2e}); one training step with it: TotalLoss {fast_loss:.5f}, "
+            f"{fast_launches} K1 launches")
+        if not pe_err <= TOL_FAST_PE or not math.isfinite(fast_loss) or fast_launches != 2:
+            raise AssertionError("fast_encoding on the card failed its checks")
+        del rig
+
+        sph_cfg = copy.deepcopy(configs)
+        sph_cfg["data_loader"].update(scene_id=DB_SCENE, spherify=True, ndc=False)
+        raw = get_data_loader(sph_cfg, root / "data" / sph_cfg["database_dirpath"], "train").load_data()
+        prep = get_data_preprocessor(sph_cfg, "train", raw_data_dict=raw, device=dev)
+        batch = prep.get_next_batch(0)
+        finite = all(bool(torch.isfinite(v).all()) for v in batch.values()
+                     if torch.is_tensor(v) and v.is_floating_point())
+        radius = float(np.sqrt((prep.poses[:, :3, 3] ** 2).sum(-1).mean()))
+        log(f"spherify: a train-mode preprocessor of the built scene on the card, poses {tuple(prep.poses.shape)} at "
+            f"RMS radius {radius:.6f}, bounds {np.round(prep.bounds, 4).tolist()}, a batch of "
+            f"{batch['rays_o'].shape[0]} rays, finite {finite}")
+        if not finite or abs(radius - 1) > 1e-5:
+            raise AssertionError("the spherified preprocessor failed its checks")
+    phase_s = time.perf_counter() - t_phase
+    log(f"database and migration phase: {phase_s:.1f} s")
+    return {"seconds": phase_s, "jpeg": jpeg, "forge_s": forge_s, "build_s": build_s, "nvjpeg_decodes": decodes,
+            "built": built, "prior_s": prior_s, "train_s": train_s, "train_steps": DB_STEPS,
+            "k1_launches": launches_train["fused_mlp_bf16"] + launches_resume + fast_launches,
+            "k1_launches_per_step": launches_train["fused_mlp_bf16"] / DB_STEPS,
+            "loss_first10": float(np.mean(losses[:10])), "loss_last10": float(np.mean(losses[-10:])),
+            "export_s": export_s, "import_s": import_s, "round_trip_bitwise": True,
+            "resume_steps": DB_RESUME_STEPS, "resume_max_param_diff": resume_diff,
+            "fast_pe_max_diff": pe_err, "fast_step_loss": fast_loss, "spherify_rms_radius": radius}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -1440,6 +1736,7 @@ def main() -> int:
     train = phase_train(k1, dev, timings)
     pipeline = phase_pipeline(k1)
     multi = phase_multi_scene(k1, dev)
+    database = phase_database(k1, dev)
 
     log(json.dumps({"slice": {
         "resolution": [H, W], "chunk_size": CHUNK, "k1_timing_shape": {"points": MAIN_N, "n_sec": 0},
@@ -1452,10 +1749,12 @@ def main() -> int:
                                     "steps": MS_STEPS + MS_RESUME_STEPS, **multi, "card": card}}))
     log(json.dumps({"pipeline": {"resolution": [H, W], "prior_planes": 64, "app_steps": PIPE_STEPS,
                                  **pipeline, "card": card}}))
+    log(json.dumps({"database": {"resolution": [H, W], **database, "card": card}}))
     # each instance's launches come from its own path: the bf16 one from
-    # start_testing, start_training and the batched app run, the f32 one from
-    # the f32 frame of phase_modes
-    path_launches = {"fused_mlp_bf16": launches["fused_mlp_bf16"] + train["run"]["launches"] + multi["launches"],
+    # start_testing, start_training, the batched app run and the built
+    # database's runs, the f32 one from the f32 frame of phase_modes
+    path_launches = {"fused_mlp_bf16": launches["fused_mlp_bf16"] + train["run"]["launches"] + multi["launches"]
+                     + database["k1_launches"],
                      "fused_mlp_f32": modes["f32"]["launches"]["fused_mlp_f32"]}
     kernels = []
     for dtype in (torch.bfloat16, torch.float32):

@@ -14,6 +14,9 @@ against the plain version looped over the scenes with the same tolerances,
 and against each scene's single-scene launch bit for bit. K1's backward on
 the card is held against autograd through its recompute there; one training
 step on the card against the same step on the CPU (tolerances at each test).
+nvJPEG's decode of the committed 4:2:0 fixture against the JAX package's
+(libjpeg's) decode of it: at least chip_smoke.py's `JPEG_MIN_PSNR` dB, since
+the two differ in the IDCT and the chroma upsampling.
 """
 
 import itertools
@@ -24,7 +27,7 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import TOL_REL_MAX, TOL_REL_RMS  # noqa: E402
+from chip_smoke import JPEG_MIN_PSNR, TOL_REL_MAX, TOL_REL_RMS  # noqa: E402
 from vipnerf_tpu_torch.kernels import fused_mlp as k1  # noqa: E402
 from vipnerf_tpu_torch.models.mlp import NeRFMLP
 
@@ -272,3 +275,21 @@ def test_train_step_on_the_card_matches_the_cpu(device, monkeypatch):
         if name == "the CPU's ReLU pattern" or sum(flipped) == 0:
             for k, g in g_cpu.items():
                 assert (g_gpu[k] - g).norm() <= 1e-3 * g.norm(), (name, k)
+
+
+@pytest.mark.cuda
+def test_nvjpeg_decodes_the_fixture_as_libjpeg_does(device):
+    import numpy as np
+
+    from vipnerf_tpu_torch.utils.io import read_image, read_png
+    from vipnerf_tpu_torch.utils.jpeg import decode_jpeg
+
+    data = Path(__file__).resolve().parent / "data"
+    before = decode_jpeg.launches
+    got = read_image(data / "synth_1008x756.jpg", device).astype(np.float64)
+    want = read_png(data / "synth_1008x756_decoded.png").astype(np.float64)
+    assert decode_jpeg.launches == before + 1
+    assert got.shape == want.shape == (756, 1008, 3)
+    psnr = 10 * np.log10(255.0 ** 2 / np.mean((got - want) ** 2))
+    print(f"nvJPEG vs libjpeg: max |diff| {np.abs(got - want).max():.0f}, PSNR {psnr:.2f} dB")
+    assert psnr >= JPEG_MIN_PSNR

@@ -326,10 +326,12 @@ def test_checkpoint_contract(tmp_path):
     assert checkpoints.load_checkpoint(latest, other) == 9
     for k, v in model.state_dict().items():
         assert torch.equal(other.state_dict()[k], v)
-    # a DataParallel-wrapped reference checkpoint loads too
-    wrapped = dict(state, iteration_num=11,
-                   model_state_dict={f"module.{k}": v for k, v in state["model_state_dict"].items()})
-    torch.save(wrapped, d / "Model_Iter000011.tar")
+    # the port writes the DataParallel prefix of the reference's checkpoints;
+    # a checkpoint with bare keys loads too
+    assert all(k.startswith("module.") for k in state["model_state_dict"])
+    bare = dict(state, iteration_num=11,
+                model_state_dict={k.removeprefix("module."): v for k, v in state["model_state_dict"].items()})
+    torch.save(bare, d / "Model_Iter000011.tar")
     assert checkpoints.load_checkpoint(d / "Model_Iter000011.tar", other) == 11
 
 

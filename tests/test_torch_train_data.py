@@ -285,8 +285,14 @@ def test_downsampled_caches_match_jax(databases):
 
 
 def test_unported_options_raise(databases):
+    """spherify, the one option that raised, is ported now: the train
+    preprocessor with `spherify: True` gives the JAX preprocessor's poses,
+    bounds, near/far and batches (metric rays: NDC needs the forward-facing
+    near plane that a spherified scene lacks)."""
     db_dir, _ = databases["jax"]
-    cfg = train_configs(spherify=True)
-    raw = get_data_loader(cfg, db_dir, "train").load_data()
-    with pytest.raises(NotImplementedError):
-        get_data_preprocessor(cfg, "train", raw)
+    cfg = train_configs(spherify=True, ndc=False)
+    jp, tp, _, _ = both_preprocessors(db_dir, cfg)
+    np.testing.assert_allclose(tp.poses, jp.poses, atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(tp.bounds, jp.bounds, rtol=1e-12)
+    assert (tp.near, tp.far) == pytest.approx((jp.near, jp.far), rel=1e-12)
+    assert_batches_equal(tp.get_next_batch(9), jp.get_next_batch(9))

@@ -6,8 +6,10 @@ compositing), `models/` (MLP and renderer), `kernels/` (the hand-written
 Hopper kernels, their plain versions and K1's autograd), `losses/`, `infer/`
 (tiled renderer with losses, tester), `data/` (loaders, the synthetic
 database, the preprocessor in train, validation and test mode), `train/`
-(LR schedules, Adam step, checkpoints, logging, `start_training`) and
-`utils/`.
+(LR schedules, Adam step, checkpoints, logging, `start_training`,
+batched multi-scene training), `priors/`, `qa/`, `apps/`, `db_builders/`
+(the three database builders) and `utils/` (I/O with nvJPEG for JPEGs,
+the weight converter, the bridge to the JAX package's checkpoints).
 
 Entry points run on the card unless the caller asks for the CPU
 (`utils.device.resolve_device`). Kernels build at first use, never at import.

@@ -130,11 +130,9 @@ class DataPreprocessor:
         bounds = np.asarray(nerf_raw["bounds"], dtype=np.float64)
         if self.mode == "train":
             dl = self.configs["data_loader"]
-            if dl.get("spherify"):
-                raise NotImplementedError("spherify is not ported (no shipped config sets it)")
             pp = pose_ops.preprocess_poses(
                 np.asarray(nerf_raw["extrinsics"]), train_mode=True, bounds=bounds,
-                bd_factor=self.bd_factor, recenter=dl["recenter_camera_poses"],
+                bd_factor=self.bd_factor, recenter=dl["recenter_camera_poses"], spherify=dl["spherify"],
             )
             self.sc = float(pp.get("sc", 1.0))
             self.average_pose = pp["average_pose"]

@@ -5,14 +5,19 @@ encoder): coloured spheres inside a textured shell, ray-traced exactly, on a
 forward-facing arc of cameras, with sparse depths and visibility priors.
 The output is byte for byte what the JAX package writes for the same
 arguments, up to the PNG encoding, and both packages' loaders read it.
+
+`write_raw_llff_scene` writes the same scene as a raw NeRF-LLFF download
+(nerf_llff_data/<scene>/ with its COLMAP model), for the database builders.
 """
 
+import shutil
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 
-from vipnerf_tpu_torch.utils.io import save_image
+from vipnerf_tpu_torch.priors import colmap_io
+from vipnerf_tpu_torch.utils.io import rescale_image, save_image
 from vipnerf_tpu_torch.utils.naming import scene_dirname
 
 
@@ -177,19 +182,9 @@ def write_synthetic_database(
     write_split("Test", [f for f in range(num_frames) if f not in train_frames and f not in val_frames])
 
     if with_sparse_depth:
-        rng = np.random.default_rng(seed + 1)
-        sd_dir = data_dir / (f"{split_dir}/estimated_depths/{sparse_depth_dirname}/"
-                             f"{scene_dir_name}/estimated_depths{resolution_suffix}")
-        sd_dir.mkdir(parents=True, exist_ok=True)
-        for f in train_frames:
-            ys, xs = np.where(depths[f] > 0)
-            # a realistic feature count: a tiny pool repeats points in every batch
-            k = min(max(200, height * width // 25), len(xs))
-            sel = rng.choice(len(xs), size=k, replace=False)
-            rows = ["x,y,depth,reprojection_error"]
-            for j in sel:
-                rows.append(f"{xs[j]},{ys[j]},{depths[f][ys[j], xs[j]]:.6f},{rng.uniform(0.1, 1.0):.4f}")
-            (sd_dir / f"{f:04}.csv").write_text("\n".join(rows) + "\n")
+        write_sparse_depths(data_dir / (f"{split_dir}/estimated_depths/{sparse_depth_dirname}/"
+                                        f"{scene_dir_name}/estimated_depths{resolution_suffix}"),
+                            depths, train_frames, seed)
 
     if with_visibility_prior:
         vis_dir = data_dir / f"{split_dir}/visibility_prior/{visibility_dirname}/{scene_dir_name}"
@@ -213,3 +208,79 @@ def write_synthetic_database(
         "bounds": bounds,
         "scene": scene,
     }
+
+
+def write_sparse_depths(sd_dir: Path, depths: np.ndarray, frames, seed: int = 0):
+    """Sparse depths of `frames` drawn from the true depths (t, h, w), as the
+    sparse-depth prior writes them: {frame:04}.csv of x, y, depth and a
+    reprojection error."""
+    rng = np.random.default_rng(seed + 1)
+    sd_dir = Path(sd_dir)
+    sd_dir.mkdir(parents=True, exist_ok=True)
+    height, width = depths.shape[1:]
+    for f in frames:
+        ys, xs = np.where(depths[f] > 0)
+        # a realistic feature count: a tiny pool repeats points in every batch
+        k = min(max(200, height * width // 25), len(xs))
+        sel = rng.choice(len(xs), size=k, replace=False)
+        rows = ["x,y,depth,reprojection_error"]
+        for j in sel:
+            rows.append(f"{xs[j]},{ys[j]},{depths[f][ys[j], xs[j]]:.6f},{rng.uniform(0.1, 1.0):.4f}")
+        (sd_dir / f"{f:04}.csv").write_text("\n".join(rows) + "\n")
+
+
+def write_raw_llff_scene(
+    root: Path,
+    *,
+    scene_name: str = "synth01",
+    num_frames: int = 5,
+    height: int = 48,
+    width: int = 64,
+    seed: int = 0,
+    source_jpeg: Optional[Path] = None,
+) -> Dict[str, np.ndarray]:
+    """Write root/nerf_llff_data/<scene>/ as the published NeRF-LLFF archive
+    lays a scene out, with the scene at `height` x `width` as its quarter
+    resolution: sparse/0/{cameras,images}.bin (one SIMPLE_RADIAL camera of
+    the full resolution, 4x, and each frame's w2c), poses_bounds.npy (LLFF's
+    3x5 pose and the near/far bounds), images_4/*.png and images_8/*.png
+    (INTER_AREA halves), and images/IMG_{i:04}: copies of `source_jpeg`
+    when given (.JPG), else the quarter-resolution frames (.png). Returns
+    the ground truth: images and depths (quarter resolution), extrinsics,
+    intrinsics (quarter resolution), bounds."""
+    scene_dir = Path(root) / "nerf_llff_data" / scene_name
+    for sub in ("sparse/0", "images", "images_4", "images_8"):
+        (scene_dir / sub).mkdir(parents=True, exist_ok=True)
+    scene = SphereScene(seed=seed)
+    focal = 0.9 * width
+    intrinsic = np.array([[focal, 0, width / 2.0], [0, focal, height / 2.0], [0, 0, 1.0]])
+    extrinsics = make_camera_ring(num_frames)
+    images, depths, bounds, images_meta = [], [], [], {}
+    for i, w2c in enumerate(extrinsics):
+        rgb, depth = scene.render(w2c, intrinsic, height, width)
+        img8 = np.round(np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+        images.append(img8)
+        depths.append(depth)
+        name = f"IMG_{i:04}"
+        save_image(scene_dir / f"images_4/{name}.png", img8)
+        save_image(scene_dir / f"images_8/{name}.png",
+                   np.clip(np.round(rescale_image(img8, 2)), 0, 255).astype(np.uint8))
+        if source_jpeg is not None:
+            shutil.copyfile(source_jpeg, scene_dir / f"images/{name}.JPG")
+        else:
+            save_image(scene_dir / f"images/{name}.png", img8)
+        bounds.append([depth.min() * 0.8, depth.max() * 1.2 + 1.0])
+        images_meta[i + 1] = colmap_io.ColmapImage(
+            i + 1, colmap_io.rotmat2qvec(w2c[:3, :3]), w2c[:3, 3].copy(), 1,
+            f"{name}.JPG" if source_jpeg is not None else f"{name}.png", np.zeros((0, 2)), np.zeros(0, np.int64))
+    camera = colmap_io.ColmapCamera(1, "SIMPLE_RADIAL", 4 * width, 4 * height,
+                                    np.array([4 * focal, 2.0 * width, 2.0 * height, 0.0]))
+    colmap_io.write_cameras_binary(scene_dir / "sparse/0/cameras.bin", {1: camera})
+    colmap_io.write_images_binary(scene_dir / "sparse/0/images.bin", images_meta)
+    c2w = np.linalg.inv(extrinsics)[:, :3, :4]
+    hwf = np.tile(np.array([4 * height, 4 * width, 4 * focal])[None, :, None], (num_frames, 1, 1))
+    llff = np.concatenate([c2w[:, :, 1:2], c2w[:, :, 0:1], -c2w[:, :, 2:3], c2w[:, :, 3:4], hwf], axis=2)
+    bounds = np.asarray(bounds)
+    np.save(scene_dir / "poses_bounds.npy", np.concatenate([llff.reshape(num_frames, 15), bounds], axis=1))
+    return {"images": np.stack(images), "depths": np.stack(depths), "extrinsics": extrinsics,
+            "intrinsics": np.tile(intrinsic[None], (num_frames, 1, 1)), "bounds": bounds}

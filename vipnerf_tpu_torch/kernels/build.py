@@ -3,7 +3,9 @@
 Each source compiles on its own into a shared library with a plain C
 interface, under `vipnerf_tpu_torch/build/` (ignored by git), named after a
 hash of the source so an edited source rebuilds: CUDA sources (`.cu`) with
-nvcc for sm_90a, host C++ sources (`.cpp`) with g++. Nothing builds at
+nvcc for sm_90a, host C++ sources (`.cpp`) with g++, those that call a
+library of the CUDA toolkit (nvJPEG) against the toolkit's headers and
+library, which must be there: a missing one raises, naming it. Nothing builds at
 import: a wrapper calls `load` at its first use, and `build_all` starts one
 compiler per source at once, so several libraries build in parallel. A
 failed build raises with the compiler's output; nothing falls back.
@@ -16,14 +18,16 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 
 # library name -> source file under csrc/
-SOURCES = {"fused_mlp": "fused_mlp.cu", "raystream": "raystream.cpp"}
+SOURCES = {"fused_mlp": "fused_mlp.cu", "raystream": "raystream.cpp", "jpeg_decode": "jpeg_decode.cpp"}
+# library name -> (header, library) of the CUDA toolkit it is built against
+TOOLKIT_LIBS = {"jpeg_decode": ("nvjpeg.h", "nvjpeg")}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,16 +40,39 @@ build_seconds: Dict[str, float] = {}
 ptxas_reports: Dict[str, str] = {}
 
 
-def _compiler(source: str) -> List[str]:
+def _nvcc() -> str:
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def _toolkit_flags(name: str) -> Tuple[List[str], List[str]]:
+    """Include and link flags for a source that calls a toolkit library;
+    raises naming what the toolkit lacks."""
+    header, lib = TOOLKIT_LIBS[name]
+    home = Path(_nvcc()).resolve().parent.parent
+    includes = [d for d in (home / "include", home / "targets/x86_64-linux/include") if (d / header).exists()]
+    libdirs = [d for d in (home / "lib64", home / "targets/x86_64-linux/lib") if list(d.glob(f"lib{lib}.so*"))]
+    missing = ([header] if not includes else []) + ([f"lib{lib}.so"] if not libdirs else [])
+    if missing:
+        raise RuntimeError(f"{lib} not found: the CUDA toolkit at {home} has no {' and no '.join(missing)}, "
+                           f"which {SOURCES[name]} needs")
+    return [f"-I{includes[0]}", "-L" + str(libdirs[0]), f"-Wl,-rpath,{libdirs[0]}"], [f"-l{lib}"]
+
+
+def _command(name: str, out: Path) -> List[str]:
+    source = SOURCES[name]
+    src = str(CSRC_DIR / source)
     if source.endswith(".cpp"):
         gxx = shutil.which("g++")
         if gxx is None:
             raise RuntimeError("g++ not found: the host C++ sources cannot be built")
-        return [gxx, *GXX_FLAGS]
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if name in TOOLKIT_LIBS:
+            flags, libs = _toolkit_flags(name)
+            return [gxx, *GXX_FLAGS, *flags, "-o", str(out), src, *libs]
+        return [gxx, *GXX_FLAGS, "-o", str(out), src]
+    nvcc = _nvcc()
     if not Path(nvcc).exists():
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
-    return [nvcc, *NVCC_FLAGS]
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), src]
 
 
 def library_path(name: str) -> Path:
@@ -60,17 +87,17 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     compiler's output if one fails."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    jobs = {}  # every command first: a missing tool raises before any compiler starts
     for name in names:
         out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [*_compiler(SOURCES[name]), "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
-        procs[name] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
-            tmp, out, time.perf_counter(),
-        )
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            jobs[name] = (_command(name, tmp), tmp, out)
+    procs = {
+        name: (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, out,
+               time.perf_counter())
+        for name, (cmd, tmp, out) in jobs.items()
+    }
     failures = []
     for name, (proc, tmp, out, t0) in procs.items():
         log = proc.communicate()[0].decode(errors="replace")

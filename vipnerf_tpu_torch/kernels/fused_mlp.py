@@ -228,15 +228,17 @@ def encode_inputs(
     view_dirs: torch.Tensor,
     view_dirs2: Optional[torch.Tensor],
     dtype: torch.dtype,
+    fast: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
-    """PE and zero-padding of the kernel's inputs: (xe, ve, ve2, n_sec).
-    With no secondary view, K1 reads no ve2: `ve` stands in for it."""
+    """PE (the double-angle recurrence with `fast`, the config's
+    `fast_encoding`) and zero-padding of the kernel's inputs: (xe, ve, ve2,
+    n_sec). With no secondary view, K1 reads no ve2: `ve` stands in for it."""
     npts = pts.shape[0]
     n_sec = view_dirs2.shape[1] if view_dirs2 is not None else 0
-    xe = F.pad(positional_encoding(pts, 10), (0, PTS_IN - 63)).to(dtype)
-    ve = F.pad(positional_encoding(view_dirs, 4), (0, VIEW_IN - 27)).to(dtype)
+    xe = F.pad(positional_encoding(pts, 10, fast), (0, PTS_IN - 63)).to(dtype)
+    ve = F.pad(positional_encoding(view_dirs, 4, fast), (0, VIEW_IN - 27)).to(dtype)
     if n_sec:
-        enc2 = positional_encoding(view_dirs2.reshape(npts * n_sec, 3), 4)
+        enc2 = positional_encoding(view_dirs2.reshape(npts * n_sec, 3), 4, fast)
         ve2 = F.pad(enc2, (0, VIEW_IN - 27)).reshape(npts, n_sec * VIEW_IN).to(dtype)
     else:
         ve2 = ve
@@ -469,7 +471,8 @@ def apply_fused_mlp(
     lead = pts.shape[:-1]
     xe, ve, ve2, n_sec = encode_inputs(
         pts.reshape(-1, 3), view_dirs.reshape(-1, 3),
-        None if view_dirs2 is None else view_dirs2.reshape(-1, *view_dirs2.shape[-2:]), dtype)
+        None if view_dirs2 is None else view_dirs2.reshape(-1, *view_dirs2.shape[-2:]), dtype,
+        mlp.cfg.get("fast_encoding", False))
     weights = prepare_weights(mlp, dtype)
     raw = FusedRaw.apply(weights, n_sec, xe, ve, ve2, *module_params(mlp)).float()
     sigma = raw[:, 0:1]

@@ -164,7 +164,8 @@ class NeRFMLP(nn.Module):
         view_dep_rgb = cfg["view_dependent_rgb"]
         predict_visibility = cfg["predict_visibility"]
 
-        enc_pts = positional_encoding(pts, cfg["points_positional_encoding_degree"])
+        fast = cfg.get("fast_encoding", False)
+        enc_pts = positional_encoding(pts, cfg["points_positional_encoding_degree"], fast)
         h = enc_pts
         for i, layer in enumerate(self.pts_linears):
             h = torch.relu(_dense(h, layer, bf16_matmuls))
@@ -209,14 +210,14 @@ class NeRFMLP(nn.Module):
                     branch["visibility"] = torch.sigmoid(view_out[..., ch:ch + 1])
                 return branch
 
-            primary = view_branch(positional_encoding(view_dirs, degree), feature)
+            primary = view_branch(positional_encoding(view_dirs, degree, fast), feature)
             out.update(primary)
             if view_dep_rgb:
                 rgb = primary["rgb_view_dependent"]
 
             if predict_visibility and view_dirs2 is not None:
                 lead, (npts, nf_m1) = view_dirs2.shape[:-3], view_dirs2.shape[-3:-1]
-                enc2 = positional_encoding(view_dirs2.reshape(*lead, npts * nf_m1, 3), degree)
+                enc2 = positional_encoding(view_dirs2.reshape(*lead, npts * nf_m1, 3), degree, fast)
                 feat2 = feature.repeat_interleave(nf_m1, dim=-2) if nf_m1 > 1 else feature
                 vis2 = view_branch(enc2, feat2)["visibility"]
                 out["visibility2"] = vis2.reshape(*lead, npts, nf_m1, 1)

@@ -1,7 +1,9 @@
 """COLMAP model I/O (a copy of vipnerf_tpu/priors/colmap_io.py, which
 imports no JAX): readers of the binary model formats (cameras, images,
 points3D), quaternion <-> rotation, and the two SQLite operations the
-sparse-depth pipeline needs (set a camera's parameters, look up an image id).
+sparse-depth pipeline needs (set a camera's parameters, look up an image id);
+and writers of the cameras and images formats, which forge a raw scene for
+the database builders' checks (`data/synthetic.py` `write_raw_llff_scene`).
 """
 
 import sqlite3
@@ -152,6 +154,27 @@ def read_images_binary(path) -> Dict[int, ColmapImage]:
                 ids,
             )
     return images
+
+
+def write_cameras_binary(path, cameras: Dict[int, ColmapCamera]):
+    model_ids = {name: i for i, (name, _) in _CAMERA_MODELS.items()}
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(cameras)))
+        for cam in cameras.values():
+            fh.write(struct.pack("<iiQQ", cam.id, model_ids[cam.model], cam.width, cam.height))
+            fh.write(struct.pack(f"<{len(cam.params)}d", *cam.params))
+
+
+def write_images_binary(path, images: Dict[int, ColmapImage]):
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(images)))
+        for im in images.values():
+            fh.write(struct.pack("<idddddddi", im.id, *im.qvec, *im.tvec, im.camera_id))
+            fh.write(im.name.encode("utf-8") + b"\x00")
+            fh.write(struct.pack("<Q", len(im.xys)))
+            points = np.zeros(len(im.xys), dtype=np.dtype([("x", "<f8"), ("y", "<f8"), ("id", "<i8")]))
+            points["x"], points["y"], points["id"] = im.xys[:, 0], im.xys[:, 1], im.point3d_ids
+            fh.write(points.tobytes())
 
 
 def read_points3d_binary(path) -> Dict[int, ColmapPoint3D]:

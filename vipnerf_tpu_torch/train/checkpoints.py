@@ -4,6 +4,9 @@ vipnerf_tpu/train/checkpoints.py, whose naming and symlink contract it keeps).
 saved_models/Model_Iter{N:06}.tar holds `torch.save` of
 {iteration_num, model_state_dict, optimizer_state_dict};
 saved_models/Model_Latest.tar is a relative symlink to the newest one.
+The weights' keys carry the `module.` prefix of a DataParallel-wrapped
+model, which both of the reference's load paths need (they wrap the model
+before `load_state_dict`); loading strips it.
 Files are written to a temporary name and renamed, so a crash never leaves
 half a checkpoint. In batched multi-scene training each scene has its own
 file: its unstacked model and, with `scene`, its row of the optimizer.
@@ -29,7 +32,7 @@ def save_checkpoint(
     save_dir.mkdir(parents=True, exist_ok=True)
     state = {
         "iteration_num": iteration_num,
-        "model_state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "model_state_dict": {f"module.{k}": v.detach().cpu() for k, v in model.state_dict().items()},
         "optimizer_state_dict": optimizer.state_dict(scene) if optimizer is not None else {},
     }
     path = save_dir / f"Model_Iter{iteration_num:06}.tar"
@@ -41,9 +44,10 @@ def save_checkpoint(
 
 
 def update_latest_symlink(save_dir: Path, path: Path) -> None:
-    """Point Model_Latest.tar at `path` unless it already points at a newer
+    """Point Model_Latest (with `path`'s suffix: .tar, or .ckpt for the JAX
+    package's files) at `path` unless it already points at a newer
     iteration; a dangling or unparseable Latest is replaced."""
-    latest = Path(save_dir) / "Model_Latest.tar"
+    latest = Path(save_dir) / f"Model_Latest{Path(path).suffix}"
     if latest.is_symlink() or latest.exists():
         if latest.exists():
             try:
@@ -63,16 +67,18 @@ def load_checkpoint(
 ) -> int:
     """Load the weights (and optimizer state, into row `scene` of a
     stacked optimizer) of `path` into `model` (and `optimizer`); returns the
-    iteration number."""
+    iteration number. The optimizer is given the iteration number too: a
+    state with no entries resumes its count there."""
     device = next(model.parameters()).device
     state = torch.load(Path(path), map_location=device, weights_only=True)
     sd = state["model_state_dict"]
     if any(k.startswith("module.") for k in sd):  # DataParallel-wrapped reference
         sd = {k.removeprefix("module."): v for k, v in sd.items()}
     model.load_state_dict(sd)
-    if optimizer is not None and state.get("optimizer_state_dict"):
-        optimizer.load_state_dict(state["optimizer_state_dict"], scene)
-    return int(state["iteration_num"])
+    iteration_num = int(state["iteration_num"])
+    if optimizer is not None:
+        optimizer.load_state_dict(state.get("optimizer_state_dict") or {}, scene, iteration_num)
+    return iteration_num
 
 
 def latest_checkpoint(save_dir: Path) -> Optional[Path]:

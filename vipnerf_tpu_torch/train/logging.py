@@ -1,10 +1,13 @@
-"""Training scalars as JSON lines (counterpart of vipnerf_tpu/train/logging.py
-`ScalarLogger`, without TensorBoard): one record
-{"tag": ..., "value": ..., "step": ...} per scalar in logs/scalars.jsonl, and
-`export_plots`, which draws each series to a PNG where matplotlib is
-installed."""
+"""Training scalars (counterpart of vipnerf_tpu/train/logging.py
+`ScalarLogger`): one record {"tag": ..., "value": ..., "step": ...} per
+scalar in logs/scalars.jsonl, always; and, as the JAX package does, the same
+scalars and a wall-time text tag per group as TensorBoard events in logs/
+where `torch.utils.tensorboard` imports (it needs the tensorboard package;
+where that is missing, the JSON lines are the record).
+`export_plots` draws each series to a PNG where matplotlib is installed."""
 
 import collections
+import datetime
 import json
 from pathlib import Path
 from typing import Dict, Optional
@@ -15,19 +18,35 @@ class ScalarLogger:
         self.logs_dirpath = Path(logs_dirpath)
         self.logs_dirpath.mkdir(parents=True, exist_ok=True)
         self._jsonl = open(self.logs_dirpath / "scalars.jsonl", "a")
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            self._tb = None
+        else:
+            self._tb = SummaryWriter(self.logs_dirpath.as_posix())
 
     def add_scalar(self, tag: str, value: float, step: int):
         self._jsonl.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
 
     def add_scalars(self, prefix: str, scalars: Dict[str, float], step: int):
+        if self._tb is not None:
+            now = datetime.datetime.now().strftime("%d/%m/%Y %I:%M:%S %p")
+            self._tb.add_text(f"{prefix}/Time", now, step)
         for key, value in scalars.items():
             self.add_scalar(f"{prefix}/{key}", value, step)
 
     def flush(self):
         self._jsonl.flush()
+        if self._tb is not None:
+            self._tb.flush()
 
     def close(self):
+        self.flush()
         self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 def export_plots(logs_dirpath: Path, save_dirpath: Optional[Path] = None):

@@ -122,15 +122,36 @@ class Adam:
         return out
 
     @torch.no_grad()
-    def load_state_dict(self, state_dict: Dict[str, Any], scene: Optional[int] = None):
+    def load_state_dict(self, state_dict: Dict[str, Any], scene: Optional[int] = None,
+                        iteration_num: Optional[int] = None):
+        """Load one scene's state, as the JAX package's migration of a
+        reference checkpoint reads it (vipnerf_tpu/utils/reference_ckpt.py
+        `convert_adam_moments`, `convert_checkpoint`): `state` is indexed by
+        parameter position, as an integer or a string; a parameter with no
+        entry gets zero moments; the count is the largest `step` of the
+        entries, or `iteration_num` when there is none."""
         row = scene or 0
-        state = state_dict["state"]
-        if not state:  # an optimizer that never stepped
-            return
-        entries = [state[i] for i in range(len(self.params))]
-        self.count[row] = int(entries[0]["step"])
-        self.exp_avg[row] = torch.cat([e["exp_avg"].reshape(-1) for e in entries]).to(self.exp_avg.device)
-        self.exp_avg_sq[row] = torch.cat([e["exp_avg_sq"].reshape(-1) for e in entries]).to(self.exp_avg.device)
+        state = state_dict.get("state") or {}
+        device = self.exp_avg.device
+        m, v, count = [], [], 0
+        for i, shape in enumerate(self.shapes):
+            entry = state.get(i, state.get(str(i)))
+            if entry is None:
+                m.append(torch.zeros(shape.numel(), device=device))
+                v.append(torch.zeros(shape.numel(), device=device))
+                continue
+            for key, out in (("exp_avg", m), ("exp_avg_sq", v)):
+                moment = torch.as_tensor(entry[key], dtype=torch.float32, device=device)
+                if moment.shape != shape:
+                    raise ValueError(f"optimizer state {i}: {key} of shape {tuple(moment.shape)}, "
+                                     f"parameter of shape {tuple(shape)}")
+                out.append(moment.reshape(-1))
+            count = max(count, int(entry["step"]))
+        if not count and iteration_num is not None:
+            count = iteration_num
+        self.exp_avg[row] = torch.cat(m)
+        self.exp_avg_sq[row] = torch.cat(v)
+        self.count[row] = count
         if self.guard is not None and "loss_guard" in state_dict:
             self.guard.load(row, state_dict["loss_guard"])
 

@@ -7,7 +7,8 @@ normalised by the array's max; a mask is a PNG == 255), `rescale_image`
 matrices) and `save_video` (always its no-codec branch: a directory of
 frames). PNGs are written by `write_png`, an 8-bit grayscale/RGB/RGBA
 encoder on zlib, and read by `read_png`, which decodes 8-bit non-interlaced
-grayscale, grey+alpha, RGB and RGBA with all five row filters. CSVs with a
+grayscale, grey+alpha, RGB and RGBA with all five row filters. `read_image`
+also reads JPEGs, through nvJPEG on the card (`utils/jpeg.py`). CSVs with a
 header are read by `read_csv_columns` and written by `write_csv_columns`,
 with pandas' number and NaN conventions.
 """
@@ -20,6 +21,8 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 import numpy as np
+
+from vipnerf_tpu_torch.utils.jpeg import JPEG_SIGNATURE, decode_jpeg
 
 _PNG_COLOR_TYPE = {1: 0, 3: 2, 4: 6}  # channels -> PNG colour type
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> channels
@@ -97,7 +100,14 @@ def read_png(path) -> np.ndarray:
     return image.reshape(h, w) if c == 1 else image.reshape(h, w, c)
 
 
-def read_image(path) -> np.ndarray:
+def read_image(path, device="cuda") -> np.ndarray:
+    """A PNG (the port's own decoder, on the host) or a JPEG (nvJPEG on the
+    CUDA `device`; on the CPU, or without CUDA or nvJPEG, it raises) as a
+    uint8 array."""
+    with open(path, "rb") as f:
+        head = f.read(3)
+    if head == JPEG_SIGNATURE:
+        return decode_jpeg(Path(path).read_bytes(), device).cpu().numpy()
     return read_png(path)
 
 
@@ -254,7 +264,18 @@ def rescale_image(
     if downsampling_factor < 1:
         raise ValueError(f"rescale_image downscales; got factor {downsampling_factor}")
     h, w = image.shape[:2]
-    new_h, new_w = int(h / downsampling_factor), int(w / downsampling_factor)
+    return resize_image(image, (int(h / downsampling_factor), int(w / downsampling_factor)),
+                        anti_aliasing=anti_aliasing)
+
+
+def resize_image(image: np.ndarray, size, *, anti_aliasing: bool = True) -> np.ndarray:
+    """Downscale an (h, w) or (h, w, c) image to `size` (new_h, new_w) in
+    f32, as `cv2.resize(image, (new_w, new_h))` with INTER_AREA (or
+    INTER_LINEAR without anti-aliasing) computes it before its rounding."""
+    h, w = image.shape[:2]
+    new_h, new_w = size
+    if new_h > h or new_w > w:
+        raise ValueError(f"resize_image downscales; asked for {size} from {(h, w)}")
     # OpenCV's scale: the inverse of dsize / ssize, in double precision
     scale_y, scale_x = 1.0 / (new_h / h), 1.0 / (new_w / w)
     one_axis = _area_weights if anti_aliasing else _linear_weights
