@@ -81,7 +81,20 @@ Phases, each of which fails the run loudly:
    trip, their parameters compared; a DataParallel model loading the .tar
    strictly; fast_encoding's PE on the card against the CPU and a training
    step with it; a train-mode preprocessor with spherify;
-8. a JSON line of each of phases 3-7 and of the kernels, and the device
+8. the protocol: the DTU quality control's driver
+   (`python -m vipnerf_tpu_torch.protocol.run_dtu_control`) at 300x400:
+   its database with object masks and VW03 generated on the card (DTU's
+   policy, 128 linear planes), the masks checked and one direction held
+   against the CPU; a 200-step leg in the shipped mode (bf16 with f32
+   heads, the module MLP) with its loss falling and its masked QA written,
+   train/MSE01 at 100 and 200 printed beside the JAX run's; a checkpoint at
+   29,950 written from those weights with Adam's count set to match, and
+   the driver resumed to 30,050 with bf16 heads (K1 on metric-space rays):
+   TotalLoss against its terms on both sides of the visibility prior's
+   switch at iter_num 30,000, the LR there, exactly 2 K1 launches per step;
+   both K1 instances against their plain versions on this scene's
+   2048 + 2048-ray batch;
+9. a JSON line of each of phases 3-8 and of the kernels, and the device
    line last.
 
 It needs CUDA and the repository around it, and exits non-zero without a
@@ -253,13 +266,15 @@ def phase_k1(k1, mlp, dev):
     return worst, timings
 
 
-def check_png(path: Path):
+def check_png(path: Path, shape=None):
+    """A PNG of `shape` (H, W by default)."""
+    want_h, want_w = shape or (H, W)
     blob = path.read_bytes()
     if blob[:8] != b"\x89PNG\r\n\x1a\n" or blob[12:16] != b"IHDR":
         raise AssertionError(f"{path} is not a PNG")
     w, h = int.from_bytes(blob[16:20], "big"), int.from_bytes(blob[20:24], "big")
-    if (h, w) != (H, W):
-        raise AssertionError(f"{path} is {w}x{h}, expected {W}x{H}")
+    if (h, w) != (want_h, want_w):
+        raise AssertionError(f"{path} is {w}x{h}, expected {want_w}x{want_h}")
 
 
 @contextlib.contextmanager
@@ -1217,46 +1232,58 @@ TOL_PRIOR_W = 1e-3  # max |w_card - w_cpu|
 TOL_PRIOR_MASK_FRAC = 1e-4  # share of pixels whose mask (w > 0.5) differs
 
 
-def check_prior_outputs(out_dir: Path, pairs):
-    """6 directions: weights .npy + .png, masks .npy + .png equal to w > 0.5."""
+def check_prior_outputs(out_dir: Path, pairs, scene: str = "synth01", shape=None):
+    """Both directions of each pair: weights .npy + .png in [0, 1] at
+    `shape` (H, W by default), masks .npy + .png equal to w > 0.5."""
     from vipnerf_tpu_torch.utils.io import read_mask
 
+    shape = shape or (H, W)
     if not (out_dir / "Configs.json").exists():
         raise AssertionError("the visibility prior wrote no Configs.json")
     for a, b in pairs:
         for f1, f2 in ((a, b), (b, a)):
             name = f"{f1:04}_{f2:04}"
-            w = np.load(out_dir / f"synth01/visibility_weights/{name}.npy")
-            m = np.load(out_dir / f"synth01/visibility_masks/{name}.npy")
-            check_png(out_dir / f"synth01/visibility_weights/{name}.png")
-            if w.shape != (H, W) or w.dtype != np.float32 or not np.isfinite(w).all() or w.min() < 0 or w.max() > 1:
+            w = np.load(out_dir / f"{scene}/visibility_weights/{name}.npy")
+            m = np.load(out_dir / f"{scene}/visibility_masks/{name}.npy")
+            check_png(out_dir / f"{scene}/visibility_weights/{name}.png", shape)
+            if w.shape != shape or w.dtype != np.float32 or not np.isfinite(w).all() or w.min() < 0 or w.max() > 1:
                 raise AssertionError(f"visibility weights {name}: shape {w.shape}, dtype {w.dtype}, out of [0, 1]")
             if m.dtype != bool or not np.array_equal(m, w > 0.5) \
-                    or not np.array_equal(read_mask(out_dir / f"synth01/visibility_masks/{name}.png"), m):
+                    or not np.array_equal(read_mask(out_dir / f"{scene}/visibility_masks/{name}.png"), m):
                 raise AssertionError(f"visibility mask {name} is not weights > 0.5")
 
 
 def phase_prior_vs_cpu(root: Path, out_dir: Path, f1: int, f2: int):
-    """One direction of the card's prior against compute_visibility_weights
-    on the CPU at full size, from the same frames, poses and planes."""
-    from vipnerf_tpu_torch.priors.visibility import compute_visibility_weights, get_depth_planes
-    from vipnerf_tpu_torch.utils.io import read_image
+    """One direction of the card's LLFF prior against the CPU (64 planes
+    from the train frames' depth bounds)."""
+    from vipnerf_tpu_torch.priors.visibility import get_depth_planes
 
     base = root / "data/databases/NeRF_LLFF/data/all/database_data/synth01"
-    extr = np.loadtxt(base / "CameraExtrinsics.csv", delimiter=",").reshape(-1, 4, 4).astype(np.float32)
-    intr = np.loadtxt(base / "CameraIntrinsics_down4.csv", delimiter=",").reshape(-1, 3, 3).astype(np.float32)
     bds = np.loadtxt(base / "DepthBounds.csv", delimiter=",")[list(PIPE_TRAIN)]
-    planes = torch.as_tensor(get_depth_planes(bds.min(), bds.max(), 64), dtype=torch.float32)
-    frame = {f: torch.as_tensor(read_image(base / f"rgb_down4/{f:04}.png")[..., :3], dtype=torch.float32)
+    return prior_direction_vs_cpu(base, "_down4", get_depth_planes(bds.min(), bds.max(), 64),
+                                  out_dir / "synth01", f1, f2)
+
+
+def prior_direction_vs_cpu(base: Path, suffix: str, planes: np.ndarray, out_scene: Path, f1: int, f2: int):
+    """One direction of the card's prior against compute_visibility_weights
+    on the CPU at full size, from the same frames, poses and planes."""
+    from vipnerf_tpu_torch.priors.visibility import compute_visibility_weights
+    from vipnerf_tpu_torch.utils.io import read_image
+
+    extr = np.loadtxt(base / "CameraExtrinsics.csv", delimiter=",").reshape(-1, 4, 4).astype(np.float32)
+    intr = np.loadtxt(base / f"CameraIntrinsics{suffix}.csv", delimiter=",").reshape(-1, 3, 3).astype(np.float32)
+    planes = torch.as_tensor(planes, dtype=torch.float32)
+    frame = {f: torch.as_tensor(read_image(base / f"rgb{suffix}/{f:04}.png")[..., :3], dtype=torch.float32)
              for f in (f1, f2)}
     t0 = time.perf_counter()
     cpu = compute_visibility_weights(frame[f1], frame[f2], extr[f1], extr[f2], intr[f1], intr[f2],
                                      planes, 10).numpy()
     cpu_s = time.perf_counter() - t0
-    card = np.load(out_dir / f"synth01/visibility_weights/{f1:04}_{f2:04}.npy")
+    card = np.load(out_scene / f"visibility_weights/{f1:04}_{f2:04}.npy")
     max_dw = float(np.abs(card - cpu).max())
     mask_frac = float(np.mean((card > 0.5) != (cpu > 0.5)))
-    log(f"visibility prior {f1:04}->{f2:04}, card vs CPU at {W}x{H} x 64 planes: max|dw| {max_dw:.3g} "
+    h, w = card.shape
+    log(f"visibility prior {f1:04}->{f2:04}, card vs CPU at {w}x{h} x {len(planes)} planes: max|dw| {max_dw:.3g} "
         f"(tol {TOL_PRIOR_W}), masks differ at {mask_frac:.3g} of the pixels (tol {TOL_PRIOR_MASK_FRAC}); "
         f"mean weight {card.mean():.4f}, visible {np.mean(card > 0.5):.4f}; the CPU took {cpu_s:.2f} s")
     if not (max_dw <= TOL_PRIOR_W and mask_frac <= TOL_PRIOR_MASK_FRAC):
@@ -1701,6 +1728,269 @@ def phase_database(k1, dev):
             "fast_pe_max_diff": pe_err, "fast_step_loss": fast_loss, "spherify_rms_radius": radius}
 
 
+# ------------------------------------------------------------- protocol
+
+PROTO_H, PROTO_W = 300, 400  # the DTU protocol's size
+PROTO_STEPS = 200  # the shipped-mode leg of demo1b's 50k iterations
+PROTO_VIDEO_FRAMES = 4  # the driver's 20-frame ring, cut
+SEAM_START, SEAM_END = 29950, 30050  # the resumed leg around the visibility prior's switch
+PRIOR_SWITCH = 30000  # the JAX package's threshold: the prior's weight from iter_num >= 30000
+PRIOR_WEIGHT = 0.001
+TOL_LOSS_ULPS = 8  # TotalLoss against its terms: f32 sums, a few ulps of the terms' magnitude
+
+
+def loss_composition(series, step: int):
+    """TotalLoss - (MSE01 + 0.1 VisibilityLoss01 + 0.1 SparseDepthMSE01) at
+    a logged step, and the f32 rounding allowed there."""
+    terms = {"MSE01": 1.0, "VisibilityLoss01": 0.1, "SparseDepthMSE01": 0.1}
+    base = sum(w * series[f"train/{name}"][step] for name, w in terms.items())
+    scale = sum(abs(w * series[f"train/{name}"][step]) for name, w in terms.items()) \
+        + PRIOR_WEIGHT * abs(series["train/VisibilityPriorLoss01"][step])
+    return series["train/TotalLoss"][step] - base, TOL_LOSS_ULPS * 2.0 ** -24 * scale
+
+
+@contextlib.contextmanager
+def dtu_configs_edit(edit):
+    """Within the block, `apps.dtu.demo_configs` returns configs that `edit`
+    has changed in place: the driver's own call, in another precision mode."""
+    from vipnerf_tpu_torch.apps import dtu
+
+    original = dtu.demo_configs
+
+    def edited(*args, **kwargs):
+        train_configs, test_configs = original(*args, **kwargs)
+        edit(train_configs)
+        return train_configs, test_configs
+
+    dtu.demo_configs = edited
+    try:
+        yield
+    finally:
+        dtu.demo_configs = original
+
+
+def run_driver(driver, argv):
+    """One call of the protocol driver, its output shown and kept."""
+    from vipnerf_tpu_torch.protocol.common import Tee
+
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        driver.main(argv)
+    return tee.text(), time.perf_counter() - t0
+
+
+def phase_protocol(k1, dev):
+    """The DTU quality control's driver (`protocol.run_dtu_control`) at the
+    protocol's 300x400: (1) its database and VW03 on the card, the masks
+    checked and one direction held against the CPU; (2) a PROTO_STEPS leg in
+    the shipped mode (bf16 with f32 heads: the module MLP), its loss falling
+    and its masked QA written; (3) from those weights a checkpoint at
+    SEAM_START written by `train.checkpoints.save_checkpoint` with Adam's
+    count set to match, and the driver resumed to SEAM_END with bf16 heads
+    (K1 on metric-space rays): the loss composition on both sides of the
+    prior's switch, the LR at the switch and exactly 2 K1 launches per step;
+    (4) both K1 instances against their plain versions on this scene's
+    2048 + 2048-ray batch, coarse and fine; (5) the phase's figures."""
+    from vipnerf_tpu_torch.apps import dtu
+    from vipnerf_tpu_torch.data.loaders import get_data_loader
+    from vipnerf_tpu_torch.data.preprocessor import get_data_preprocessor
+    from vipnerf_tpu_torch.models.vip_nerf import ViPNeRF, render_rays
+    from vipnerf_tpu_torch.priors.visibility import get_depth_planes
+    from vipnerf_tpu_torch.protocol import run_dtu_control as driver
+    from vipnerf_tpu_torch.train import checkpoints
+    from vipnerf_tpu_torch.train.step import make_optimizer
+    from vipnerf_tpu_torch.utils.io import read_csv_columns, read_mask
+
+    t_phase = time.perf_counter()
+    device_arg = "cpu" if dev.type == "cpu" else "all"
+    parts = {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(os.getcwd()):
+        work = Path(tmp) / "dtu_control"
+        argv = ["--workdir", str(work), "--height", str(PROTO_H), "--width", str(PROTO_W),
+                "--video_frames", str(PROTO_VIDEO_FRAMES), "--device", device_arg]
+        db_dir = work / "data/databases/DTU/data"
+        scene = db_dir / "all/database_data/00021"
+        run = work / "runs/training/train0042/00021"
+
+        # (1) + (2): the database, VW03 and the shipped-mode leg
+        k1.reset_launch_counts()
+        torch.cuda.synchronize()
+        text, leg_s = run_driver(driver, argv + ["--iters", str(PROTO_STEPS)])
+        shipped_launches = dict(k1.fused_mlp_raw.launches_by_instance)
+        directions = [float(x) for pair in re.findall(r"([\d.]+) s and ([\d.]+) s per direction", text)
+                      for x in pair]
+        pairs = [(a, b) for i, a in enumerate(driver.TRAIN_FRAMES) for b in driver.TRAIN_FRAMES[i + 1:]]
+        if len(directions) != 2 * len(pairs) or f"on {dev}" not in text:
+            raise AssertionError(f"VW03 ran {len(directions)} directions on {dev}, expected {2 * len(pairs)}")
+        out_dir = db_dir / "all/visibility_prior/VW03"
+        check_prior_outputs(out_dir, pairs, scene="00021", shape=(PROTO_H, PROTO_W))
+        gen_cfg = json.loads((out_dir / "Configs.json").read_text())
+        if (gen_cfg["num_depth_planes"], gen_cfg.get("depth_planes_linear"), gen_cfg.get("fixed_bounds")) \
+                != (128, True, [0.1, 5.0]):
+            raise AssertionError(f"VW03 was not generated with DTU's policy: {gen_cfg}")
+        prior_cmp = prior_direction_vs_cpu(scene, "", get_depth_planes(0.1, 5.0, 128, linear=True),
+                                           out_dir / "00021", 0, 2)
+        masks = [read_mask(scene / f"ObjectMasks/{f:04}.png") for f in range(6)]
+        mask_share = [float(np.mean(m > 0)) for m in masks]
+        if any(m.shape[:2] != (PROTO_H, PROTO_W) for m in masks) or not all(0.02 < x < 0.98 for x in mask_share):
+            raise AssertionError(f"ObjectMasks: shapes {[m.shape for m in masks]}, object share {mask_share}")
+        log(f"protocol: DTU database at {PROTO_W}x{PROTO_H} (train {driver.TRAIN_FRAMES}, validation "
+            f"{driver.VAL_FRAMES}), ObjectMasks covering {min(mask_share):.3f}-{max(mask_share):.3f} of each view; "
+            f"VW03 on {dev} with DTU's policy (128 linear planes over [0.1, 5]): {len(directions)} directions, "
+            f"seconds {', '.join(f'{x:.4f}' for x in directions)}")
+
+        series = read_scalars(run)
+        losses = [v for _, v in sorted(series["train/TotalLoss"])]
+        window = max(PROTO_STEPS // 10, 1)
+        first, last = float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
+        if len(losses) != PROTO_STEPS or not np.isfinite(losses).all() or not last < first:
+            raise AssertionError(f"the shipped-mode leg logged {len(losses)} losses, first {first}, last {last}")
+        if any(shipped_launches.values()):
+            raise AssertionError(f"the shipped mode (f32 heads, the module MLP) launched K1 {shipped_launches}")
+        test_dir = work / "runs/testing/test0042"
+        scores = json.loads((test_dir / "QA_Scores.json").read_text())["predicted_frames"]
+        framewise = read_csv_columns(test_dir / "QA_Scores/predicted_frames/MaskedPSNR05_FrameWise.csv")
+        test_frames = sorted(int(f) for f in framewise["pred_frame_num"])
+        want_frames = [f for f in range(6) if f not in driver.TRAIN_FRAMES + driver.VAL_FRAMES]
+        if scores.get("MaskedPSNR05") is None or test_frames != want_frames \
+                or scores["MaskedPSNR05"] == scores["PSNR05"]:
+            raise AssertionError(f"masked QA: {scores}, frames {test_frames} (expected {want_frames})")
+        mse = dict(series["train/MSE01"])
+        mse_vs_jax = {s: {"port": mse.get(s), "jax": ref} for s, ref in driver.JAX_MSE_AT.items()}
+        summary = json.loads(text.split("SUMMARY:")[-1].strip().splitlines()[0])
+        parts["database_prior_and_leg_s"] = leg_s
+        log(f"protocol: the shipped-mode leg, {PROTO_STEPS} steps (module MLP, 0 K1 launches): TotalLoss "
+            f"mean of the first {window} {first:.5f}, of the last {window} {last:.5f}; median chunk "
+            f"{summary['ms_per_step_median']} ms per step; masked QA of test frames {test_frames} against "
+            f"ObjectMasks: {json.dumps(scores)}; train/MSE01 beside the JAX run's (information, not a gate): "
+            f"{json.dumps(mse_vs_jax)}; the driver took {leg_s:.1f} s")
+
+        # (3): the seam, with bf16 heads
+        t0 = time.perf_counter()
+        configs = json.loads((work / "runs/training/train0042/Configs.json").read_text())
+        configs["data_loader"]["scene_id"] = "00021"
+        model = ViPNeRF(configs).to(dev)
+        optimizer = make_optimizer(configs, model.parameters())
+        saved = run / "saved_models"
+        checkpoints.load_checkpoint(saved / f"Model_Iter{PROTO_STEPS:06}.tar", model, optimizer)
+        optimizer.count.fill_(SEAM_START)
+        checkpoints.save_checkpoint(saved, SEAM_START, model, optimizer)
+        if checkpoints.checkpoint_iteration(saved / "Model_Latest.tar") != SEAM_START:
+            raise AssertionError("Model_Latest.tar does not point at the seam's checkpoint")
+        del model, optimizer
+
+        seam_launches = {}
+        start_training = dtu.app.start_training
+
+        def counted_training(cfg):
+            before = k1.fused_mlp_raw.launches
+            start_training(cfg)
+            seam_launches["training"] = k1.fused_mlp_raw.launches - before
+
+        def bf16_heads(cfg):
+            cfg["model"].update(bf16_matmuls=True, f32_heads=False)
+
+        k1.reset_launch_counts()
+        dtu.app.start_training = counted_training
+        try:
+            with dtu_configs_edit(bf16_heads):
+                text, seam_s = run_driver(driver, argv + ["--iters", str(SEAM_END)])
+        finally:
+            dtu.app.start_training = start_training
+        seam_total = dict(k1.fused_mlp_raw.launches_by_instance)
+        parts["seam_s"] = time.perf_counter() - t0
+        if f"Resuming Training from iteration {SEAM_START + 1}" not in text:
+            raise AssertionError(f"the driver did not resume at {SEAM_START}")
+        series = {tag: dict(v) for tag, v in read_scalars(run).items()}
+        steps = list(range(SEAM_START + 1, SEAM_END + 1))
+        worst = {"before": 0.0, "after": 0.0}
+        for step in steps:
+            resid, tol = loss_composition(series, step)
+            expect = PRIOR_WEIGHT * series["train/VisibilityPriorLoss01"][step] if step - 1 >= PRIOR_SWITCH else 0.0
+            side = "after" if step - 1 >= PRIOR_SWITCH else "before"
+            worst[side] = max(worst[side], abs(resid - expect) / tol)
+            if abs(resid - expect) > tol:
+                raise AssertionError(f"step {step}: TotalLoss - weighted terms {resid:.3e}, expected {expect:.3e} "
+                                     f"within {tol:.1e}")
+        lr_at = series["train/lr"][PRIOR_SWITCH]
+        lr_want = 5e-4 * 0.1 ** ((PRIOR_SWITCH - 1) / 250000)  # logged at step s: the rate of iteration s - 1
+        lr_rel = abs(lr_at - driver.JAX_LR[PRIOR_SWITCH]) / driver.JAX_LR[PRIOR_SWITCH]
+        if abs(lr_at - lr_want) > 1e-12 or lr_rel > driver.BAND_LR_REL or f"{lr_at:.4e}" != "3.7929e-04":
+            raise AssertionError(f"train/lr at {PRIOR_SWITCH}: {lr_at!r}, expected {lr_want!r}")
+        end = torch.load(saved / f"Model_Iter{SEAM_END:06}.tar", map_location="cpu", weights_only=True)
+        count = max(int(e["step"]) for e in end["optimizer_state_dict"]["state"].values())
+        seam_steps = SEAM_END - SEAM_START
+        val_frames = len(driver.TRAIN_FRAMES) + len(driver.VAL_FRAMES)
+        tile = min(configs["validation_chunk_size"], 8192)
+        val_launches = 2 * val_frames * -(-(PROTO_H * PROTO_W) // tile)
+        log(f"protocol: the seam, {saved.name}/Model_Iter{SEAM_START:06}.tar (Adam count {SEAM_START}) resumed to "
+            f"{SEAM_END} with bf16 heads: TotalLoss - (MSE01 + 0.1 VisibilityLoss01 + 0.1 SparseDepthMSE01) is 0 "
+            f"through step {PRIOR_SWITCH} and 0.001 VisibilityPriorLoss01 from step {PRIOR_SWITCH + 1} (iter_num "
+            f">= {PRIOR_SWITCH}), worst {worst['before']:.3f} and {worst['after']:.3f} of the f32 tolerance; "
+            f"train/lr at {PRIOR_SWITCH} {lr_at!r} (the JAX run's {driver.JAX_LR[PRIOR_SWITCH]!r}, relative "
+            f"{lr_rel:.1e}); Adam's count at the end {count}; K1 launches in start_training "
+            f"{seam_launches['training']} = 2 x {seam_steps} steps + {val_launches} of the validation at "
+            f"{PRIOR_SWITCH}; over the whole leg {seam_total}; {parts['seam_s']:.1f} s")
+        if count != SEAM_END or seam_launches["training"] != 2 * seam_steps + val_launches:
+            raise AssertionError(f"the seam's Adam count {count} or K1 launches {seam_launches}")
+
+        # (4): K1 on this scene's metric-space inputs
+        t0 = time.perf_counter()
+        configs["model"].update(bf16_matmuls=True, f32_heads=False)
+        model = ViPNeRF(configs).to(dev)
+        checkpoints.load_checkpoint(saved / f"Model_Iter{SEAM_END:06}.tar", model)
+        raw = get_data_loader(configs, work / "data" / configs["database_dirpath"], "train").load_data()
+        prep = get_data_preprocessor(configs, "train", raw_data_dict=raw, device=dev)
+        batch = prep.get_next_batch(SEAM_END)
+        captured = []
+        apply = k1.apply_fused_mlp
+
+        def capture(mlp, pts, view_dirs, view_dirs2=None, **kw):
+            captured.append((mlp, pts.detach(), view_dirs.detach(),
+                             None if view_dirs2 is None else view_dirs2.detach()))
+            return apply(mlp, pts, view_dirs, view_dirs2, **kw)
+
+        k1.apply_fused_mlp = capture
+        try:
+            with torch.no_grad():
+                render_rays(model, configs, batch, train=True, generator=torch.Generator(device=dev).manual_seed(0))
+        finally:
+            k1.apply_fused_mlp = apply
+        k1_dtu = {}
+        for (mlp, pts, vd, vd2), level in zip(captured, ("coarse", "fine")):
+            for dtype in (torch.bfloat16, torch.float32):
+                weights = k1.prepare_weights(mlp, dtype)
+                xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype)
+                out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns).float()
+                torch.cuda.synchronize()
+                ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
+                err = (out - ref).abs().max().item()
+                rel_max = err / max(ref.abs().max().item(), 1e-30)
+                rel_rms = ((out - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+                k1_dtu[f"{level}_{k1.INSTANCE[dtype]}"] = {"points": pts.shape[0], "n_sec": ns, "max_abs_err": err,
+                                                           "rel_max": rel_max, "rel_rms": rel_rms}
+                log(f"K1 {k1.INSTANCE[dtype]} on DTU's {level} points ({pts.shape[0]}, n_sec {ns}, max |pts| "
+                    f"{pts.abs().max().item():.3f}): max|err| {err:.3g}, max|err|/max|plain| {rel_max:.3g} "
+                    f"(tol {TOL_REL_MAX[dtype]:.3g}), rms rel {rel_rms:.3g} (tol {TOL_REL_RMS[dtype]:.3g})")
+                if not (torch.isfinite(out).all() and rel_max <= TOL_REL_MAX[dtype]
+                        and rel_rms <= TOL_REL_RMS[dtype]):
+                    raise AssertionError(f"K1 disagrees with its plain version on DTU's {level} points ({dtype})")
+        if len(captured) != 2:
+            raise AssertionError(f"a training render captured {len(captured)} K1 calls, expected 2")
+        parts["k1_check_s"] = time.perf_counter() - t0
+    phase_s = time.perf_counter() - t_phase
+    log(f"protocol phase: {phase_s:.1f} s")
+    return {"seconds": phase_s, "parts_s": parts, "shipped_leg": summary, "qa": scores,
+            "loss_first": first, "loss_last": last, "mse_vs_jax": mse_vs_jax, "prior_vs_cpu": prior_cmp,
+            "prior_s_per_direction": directions, "seam": {
+                "start": SEAM_START, "end": SEAM_END, "lr_at_switch": lr_at, "lr_rel_to_jax": lr_rel,
+                "worst_of_tolerance": worst, "adam_count": count, "k1_launches_training": seam_launches["training"],
+                "k1_launches_per_step": (seam_launches["training"] - val_launches) / seam_steps},
+            "k1_dtu": k1_dtu, "k1_launches": seam_total["fused_mlp_bf16"]}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -1737,6 +2027,7 @@ def main() -> int:
     pipeline = phase_pipeline(k1)
     multi = phase_multi_scene(k1, dev)
     database = phase_database(k1, dev)
+    protocol = phase_protocol(k1, dev)
 
     log(json.dumps({"slice": {
         "resolution": [H, W], "chunk_size": CHUNK, "k1_timing_shape": {"points": MAIN_N, "n_sec": 0},
@@ -1750,11 +2041,12 @@ def main() -> int:
     log(json.dumps({"pipeline": {"resolution": [H, W], "prior_planes": 64, "app_steps": PIPE_STEPS,
                                  **pipeline, "card": card}}))
     log(json.dumps({"database": {"resolution": [H, W], **database, "card": card}}))
+    log(json.dumps({"protocol": {"resolution": [PROTO_H, PROTO_W], "steps": PROTO_STEPS, **protocol, "card": card}}))
     # each instance's launches come from its own path: the bf16 one from
     # start_testing, start_training, the batched app run and the built
     # database's runs, the f32 one from the f32 frame of phase_modes
     path_launches = {"fused_mlp_bf16": launches["fused_mlp_bf16"] + train["run"]["launches"] + multi["launches"]
-                     + database["k1_launches"],
+                     + database["k1_launches"] + protocol["k1_launches"],
                      "fused_mlp_f32": modes["f32"]["launches"]["fused_mlp_f32"]}
     kernels = []
     for dtype in (torch.bfloat16, torch.float32):

@@ -54,3 +54,46 @@ def test_run_tree_offsets_only_the_sigma_biases():
         if key.endswith("pts_output_linear.bias"):
             expect[0] += 0.5
         torch.testing.assert_close(value, expect, atol=0, rtol=0, msg=key)
+
+
+def test_phase_protocol_rehearses_on_the_cpu(tmp_path, monkeypatch):
+    """chip_smoke's phase 8 on the CPU: the DTU control's driver at 24x32
+    with 128 + 128 rays and 8 + 8 samples at the flagship width, a leg of
+    30 steps, the seam from 29,998 to 30,002 (the validation at 30,000 in
+    it), K1's plain version standing in for the kernel and counted where
+    the wrapper would count the kernel's launches."""
+    from vipnerf_tpu_torch.apps import dtu
+    from vipnerf_tpu_torch.kernels import fused_mlp as k1
+
+    ns = {"__name__": "chip_smoke_rehearsal", "__file__": str(ROOT / "chip_smoke.py")}
+    exec(compile((ROOT / "chip_smoke.py").read_text(), str(ROOT / "chip_smoke.py"), "exec"), ns)
+    ns.update(PROTO_H=24, PROTO_W=32, PROTO_STEPS=30, PROTO_VIDEO_FRAMES=2, SEAM_START=29998, SEAM_END=30002)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setenv("VIPNERF_LPIPS_WEIGHTS", str(tmp_path / "absent.npz"))
+    monkeypatch.chdir(tmp_path)
+    demo_configs = dtu.demo_configs
+
+    def narrow(*args, **kwargs):
+        train_configs, test_configs = demo_configs(*args, **kwargs)
+        train_configs["data_loader"]["num_rays"] = 128
+        train_configs["data_loader"]["sparse_depth"]["num_rays"] = 128
+        for level in ("coarse_mlp", "fine_mlp"):
+            train_configs["model"][level]["num_samples"] = 8
+        return train_configs, test_configs
+
+    monkeypatch.setattr(dtu, "demo_configs", narrow)
+    reference = k1.fused_mlp_reference
+
+    def counted(layers, xe, *args):
+        k1.fused_mlp_raw.launches += 1
+        k1.fused_mlp_raw.launches_by_instance[k1.INSTANCE[xe.dtype]] += 1
+        return reference(layers, xe, *args)
+
+    monkeypatch.setattr(k1, "fused_mlp_reference", counted)
+    torch.set_num_threads(2)
+    out = ns["phase_protocol"](k1, torch.device("cpu"))
+    seam = out["seam"]
+    assert seam["adam_count"] == 30002 and seam["k1_launches_per_step"] == 2
+    assert seam["lr_rel_to_jax"] <= 1e-6 and out["qa"]["MaskedPSNR05"] is not None
+    assert set(out["k1_dtu"]) == {f"{level}_fused_mlp_{d}" for level in ("coarse", "fine") for d in ("bf16", "f32")}
+    assert out["k1_launches"] >= 2 * 4

@@ -1,10 +1,10 @@
 """The port stands alone: no module of vipnerf_tpu_torch/, and not
-chip_smoke.py, imports jax, flax, optax, msgpack or the JAX package
-vipnerf_tpu, nor a library the GPU machine lacks (pandas, imageio, cv2,
-simplejson, skimage, PIL); and every module of the port (the database
-builders and the JAX-checkpoint bridge among them) imports with all of
-those blocked, and without building or loading any library (K1, the ray
-stream, nvJPEG's binding)."""
+chip_smoke.py, imports jax, flax, optax, msgpack, the JAX package
+vipnerf_tpu or its tools/ drivers, nor a library the GPU machine lacks
+(pandas, imageio, cv2, simplejson, skimage, PIL); and every module of the
+port (the database builders, the JAX-checkpoint bridge and the protocol
+drivers among them) imports with all of those blocked, and without
+building or loading any library (K1, the ray stream, nvJPEG's binding)."""
 
 import ast
 import subprocess
@@ -14,7 +14,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "vipnerf_tpu",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "vipnerf_tpu", "tools",
              "pandas", "imageio", "cv2", "simplejson", "skimage", "PIL")
 PORT_FILES = sorted((ROOT / "vipnerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -50,7 +50,10 @@ assert not any(m.split(".")[0] in {forbidden!r} for m in sys.modules), "a blocke
 from vipnerf_tpu_torch.kernels import build
 assert "jpeg_decode" in build.SOURCES  # nvJPEG's binding is one of the libraries that must not build
 assert not build._loaded and not build.build_seconds, "a library was built or loaded at import"
-for new in ("db_builders.nerf_llff", "db_builders.dtu", "db_builders.real_estate", "utils.jax_ckpt", "utils.jpeg"):
+for new in ("db_builders.nerf_llff", "db_builders.dtu", "db_builders.real_estate", "utils.jax_ckpt", "utils.jpeg",
+            "protocol.common", "protocol.evidence_snapshot", "protocol.run_dtu_control", "protocol.checkpoint_sweep",
+            "protocol.run_dtu_50k", "protocol.run_priorgen_50k", "protocol.run_realestate_50k",
+            "protocol.run_demo1a_200k"):
     assert "vipnerf_tpu_torch." + new in names, new
 print(len(names))
 """
@@ -62,4 +65,4 @@ def test_port_imports_with_jax_blocked():
                          cwd=ROOT, timeout=120)
     assert res.returncode == 0, res.stderr
     names = int(res.stdout.split()[-1])
-    assert names >= 63  # every module of the port was imported, the builders and the bridge too
+    assert names >= 72  # every module of the port was imported, the builders, the bridge and the drivers too

@@ -12,9 +12,13 @@ vipnerf_tpu/apps/common.py, without pandas):
   camera) rendered and written as a video, subsampled by VideoFrameNums.csv
   where it exists. The GPU machine has no video encoder, so a video is a
   directory of frames (`utils.io.save_video`).
+
+`stage_seconds` sums the wall clock of each stage over the app's calls:
+training, testing (the renders), qa, videos and static_videos.
 """
 
 import argparse
+import contextlib
 import datetime
 import subprocess
 import sys
@@ -53,6 +57,15 @@ class DatasetApp:
         self.scene_key = scene_key
         self.split_dir = split_dir
         self.root_dirpath = Path(root_dirpath) if root_dirpath else Path(".")
+        self.stage_seconds: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        t0 = time.time()
+        try:
+            yield
+        finally:
+            self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + time.time() - t0
 
     def _scene_dirname(self, scene_id) -> str:
         return scene_dirname(scene_id, self.scene_key)
@@ -73,10 +86,11 @@ class DatasetApp:
         `batch_scenes` all at once on one device."""
         train_configs = dict(train_configs)
         train_configs["root_dirpath"] = str(self.root_dirpath)
-        if train_configs.get("batch_scenes"):
-            multi_scene.start_training_batched(train_configs)
-        else:
-            trainer_mod.start_training(train_configs)
+        with self._stage("training"):
+            if train_configs.get("batch_scenes"):
+                multi_scene.start_training_batched(train_configs)
+            else:
+                trainer_mod.start_training(train_configs)
 
     # ---------------------------------------------------------------- testing
 
@@ -122,8 +136,9 @@ class DatasetApp:
         output_dirpath.mkdir(parents=True, exist_ok=True)
         tester_mod.save_test_configs(output_dirpath, test_configs)
 
-        tester_mod.start_testing(test_configs, self.build_scenes_data(test_configs),
-                                 save_depth=True, save_depth_var=True, save_visibility=True)
+        with self._stage("testing"):
+            tester_mod.start_testing(test_configs, self.build_scenes_data(test_configs),
+                                     save_depth=True, save_depth_var=True, save_visibility=True)
         if run_qa:
             if test_configs.get("preview"):
                 # preview frames go to {scene}_preview dirs, which QA does not read
@@ -147,7 +162,8 @@ class DatasetApp:
             "--resolution_suffix", test_configs.get("resolution_suffix", ""),
             "--device", _device_arg(test_configs.get("device", "all")),
         ]
-        subprocess.run(cmd, cwd=REPO_ROOT, check=False)
+        with self._stage("qa"):
+            subprocess.run(cmd, cwd=REPO_ROOT, check=False)
 
     # ----------------------------------------------------------------- videos
 
@@ -165,7 +181,8 @@ class DatasetApp:
 
         for video_num in (1,):
             frame_nums_path = sets_dir / f"video_poses{video_num:02}/VideoFrameNums.csv"
-            video_frame_nums = (np.loadtxt(frame_nums_path.as_posix(), delimiter=",").astype(int)
+            # at least 1-D: a file of one number would index one frame's rows
+            video_frame_nums = (np.atleast_1d(np.loadtxt(frame_nums_path.as_posix(), delimiter=",")).astype(int)
                                 if frame_nums_path.exists() else None)
             for scene_id in scene_ids:
                 scene_dir = self._scene_dirname(scene_id)
@@ -195,12 +212,14 @@ class DatasetApp:
                 save_video(scene_out / video_filename, frames)
 
     def start_testing_videos(self, test_configs: Dict[str, Any]):
-        self._video_track_testing(test_configs, False, "PredictedVideo.mp4", "_video{video_num:02}")
+        with self._stage("videos"):
+            self._video_track_testing(test_configs, False, "PredictedVideo.mp4", "_video{video_num:02}")
 
     def start_testing_static_videos(self, test_configs: Dict[str, Any]):
         """A fixed camera with the track's view directions."""
-        self._video_track_testing(test_configs, True, "StaticCameraVideo.mp4",
-                                  "_video{video_num:02}_static_camera")
+        with self._stage("static_videos"):
+            self._video_track_testing(test_configs, True, "StaticCameraVideo.mp4",
+                                      "_video{video_num:02}_static_camera")
 
 
 def run_main(demos: Dict[str, Callable], default: Optional[List[str]] = None,

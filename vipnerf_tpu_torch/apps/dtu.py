@@ -30,30 +30,41 @@ _COMMON = dict(
 )
 
 
+def demo_configs(train_num: int, set_num: int, scene_num: int, *, sparse_depth: bool,
+                 num_rays: int, num_iterations: int = 50000, device=None, seed: int = 0):
+    """The train and test configs of one scan of demo1a-1f."""
+    train_configs = build_train_configs(
+        train_num=train_num,
+        scene_ids=[scene_num],
+        set_num=set_num,
+        num_iterations=num_iterations,
+        num_rays=num_rays,
+        sparse_depth=sparse_depth,
+        device=device,
+        seed=seed,
+        **_COMMON,
+    )
+    test_configs = build_test_configs(
+        entry_name=ENTRY_NAME,
+        test_num=train_num,
+        train_num=train_num,
+        set_num=set_num,
+        database="DTU",
+        database_dirpath="DTU/data",
+        num_iterations=num_iterations,
+        scene_key="scene_nums",
+        scene_ids=[scene_num],
+        device=device,
+    )
+    return train_configs, test_configs
+
+
 def _run_full(train_num: int, set_num: int, *, sparse_depth: bool,
-              num_rays: int, scene_nums=None):
-    num_iterations = 50000
+              num_rays: int, scene_nums=None, num_iterations: int = 50000, device=None, seed: int = 0):
     for scene_num in scene_nums or SCENES:
-        train_configs = build_train_configs(
-            train_num=train_num,
-            scene_ids=[scene_num],
-            set_num=set_num,
-            num_iterations=num_iterations,
-            num_rays=num_rays,
-            sparse_depth=sparse_depth,
-            **_COMMON,
-        )
-        test_configs = build_test_configs(
-            entry_name=ENTRY_NAME,
-            test_num=train_num,
-            train_num=train_num,
-            set_num=set_num,
-            database="DTU",
-            database_dirpath="DTU/data",
-            num_iterations=num_iterations,
-            scene_key="scene_nums",
-            scene_ids=[scene_num],
-        )
+        train_configs, test_configs = demo_configs(train_num, set_num, scene_num, sparse_depth=sparse_depth,
+                                                   num_rays=num_rays, num_iterations=num_iterations,
+                                                   device=device, seed=seed)
         app.start_training(train_configs)
         app.start_testing(test_configs)
         app.start_testing_videos(test_configs)

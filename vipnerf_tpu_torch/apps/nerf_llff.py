@@ -33,7 +33,7 @@ _COMMON = dict(
 
 
 def demo_configs(train_num: int, set_num: int, scene_name: str, *, sparse_depth: bool,
-                 num_rays: int, num_iterations: int):
+                 num_rays: int, num_iterations: int, device=None):
     """The train and test configs of one scene of demo1a-1f."""
     train_configs = build_train_configs(
         train_num=train_num,
@@ -42,6 +42,7 @@ def demo_configs(train_num: int, set_num: int, scene_name: str, *, sparse_depth:
         num_iterations=num_iterations,
         num_rays=num_rays,
         sparse_depth=sparse_depth,
+        device=device,
         **_COMMON,
     )
     test_configs = build_test_configs(
@@ -55,15 +56,17 @@ def demo_configs(train_num: int, set_num: int, scene_name: str, *, sparse_depth:
         scene_key="scene_names",
         scene_ids=[scene_name],
         resolution_suffix="_down4",
+        device=device,
     )
     return train_configs, test_configs
 
 
 def _run_full(train_num: int, set_num: int, *, sparse_depth: bool,
-              num_rays: int, num_iterations: int, scene_names=None):
+              num_rays: int, num_iterations: int, scene_names=None, device=None):
     for scene_name in scene_names or SCENES:
         train_configs, test_configs = demo_configs(train_num, set_num, scene_name, sparse_depth=sparse_depth,
-                                                   num_rays=num_rays, num_iterations=num_iterations)
+                                                   num_rays=num_rays, num_iterations=num_iterations,
+                                                   device=device)
         app.start_training(train_configs)
         app.start_testing(test_configs)
         app.start_testing_videos(test_configs)

@@ -256,6 +256,7 @@ class Trainer:
         while it < total_num_iters:
             k = chunk_boundary(it, self.configs, total_num_iters, self.scan_steps,
                                validation_interval, model_save_interval)
+            t_chunk = time.time()
             nerf_idx, sd_idx = prep.get_index_chunk(it, k)
             nerf_dev = torch.from_numpy(nerf_idx).to(self.device)
             sd_dev = torch.from_numpy(sd_idx).to(self.device) if sd_idx is not None else None
@@ -266,6 +267,7 @@ class Trainer:
                     self.generator.manual_seed(step_seed(self.seed, it + j))
                     chunk.append(self.train_step(self.model, batch, self.generator))
                 scalars = {name: torch.stack([s[name] for s in chunk]).cpu().numpy() for name in chunk[0]}
+            chunk_s = time.time() - t_chunk  # the read of the scalars waited for the chunk's last step
             rays_done += k * (nerf_idx.shape[1] + (sd_idx.shape[1] if sd_idx is not None else 0))
             for j in range(k):
                 for name, vals in scalars.items():
@@ -275,7 +277,7 @@ class Trainer:
             if self.verbose_log:
                 elapsed = time.time() - t_start
                 print(f"iter {it}/{total_num_iters} TotalLoss {float(scalars['TotalLoss'][-1]):.5f} "
-                      f"({rays_done / max(elapsed, 1e-9):,.0f} rays/s)", flush=True)
+                      f"({rays_done / max(elapsed, 1e-9):,.0f} rays/s; {k} steps in {chunk_s:.3f} s)", flush=True)
             # saved also at the last iteration when it is off every boundary
             if it % model_save_interval == 0 or it == total_num_iters:
                 self.save_model(it, saved_models_dirpath)
