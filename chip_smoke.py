@@ -107,7 +107,6 @@ import io
 import json
 import math
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -611,20 +610,13 @@ def phase_grad_check(k1, rig):
     return worst
 
 
-def read_scalars(scene_dir: Path):
-    series = {}
-    for line in (scene_dir / "logs/scalars.jsonl").read_text().splitlines():
-        rec = json.loads(line)
-        series.setdefault(rec["tag"], []).append((rec["step"], rec["value"]))
-    return series
-
-
 def phase_training_run(k1, root, configs, gt, tiles):
     """start_training for TRAIN_STEPS steps (checkpoint at half, validation
     at the end), then again to TRAIN_STEPS + RESUME_STEPS, which must resume;
     checks the logs, checkpoints, K1 launches and the trained model's PSNR
     on the held-out test frame against the untrained model's."""
     from vipnerf_tpu_torch.infer.tester import NerfTester, start_testing
+    from vipnerf_tpu_torch.protocol.common import read_scalars
     from vipnerf_tpu_torch.train.trainer import start_training
 
     n = TRAIN_STEPS
@@ -669,14 +661,14 @@ def phase_training_run(k1, root, configs, gt, tiles):
             raise AssertionError(f"checkpoint of iteration {it} missing")
     if os.readlink(saved / "Model_Latest.tar") != f"Model_Iter{n + RESUME_STEPS:06}.tar":
         raise AssertionError("Model_Latest.tar does not point at the last checkpoint")
-    series = read_scalars(scene_dir)
-    total = [v for _, v in sorted(series["train/TotalLoss"])]
-    finite = all(np.isfinite(v) for tag, pts in series.items() if tag.startswith("train/") for _, v in pts)
+    series = read_scalars(scene_dir / "logs/scalars.jsonl")
+    total = [v for _, v in sorted(series["train/TotalLoss"].items())]
+    finite = all(np.isfinite(v) for tag, pts in series.items() if tag.startswith("train/") for v in pts.values())
     first, last = float(np.mean(total[:20])), float(np.mean(total[-20:]))
-    losses = {tag[6:]: [round(v, 5) for _, v in sorted(p)][::40] for tag, p in series.items()
+    losses = {tag[6:]: [round(v, 5) for _, v in sorted(p.items())][::40] for tag, p in series.items()
               if tag.startswith("train/") and tag != "train/lr"}
     log(f"train losses every 40 steps: {json.dumps(losses)}")
-    log(f"validation at {n}: " + json.dumps({t: round(p[0][1], 5) for t, p in series.items()
+    log(f"validation at {n}: " + json.dumps({t: round(p[min(p)], 5) for t, p in series.items()
                                               if t.startswith("validation/")}))
     log(f"{len(total)} logged steps, every loss finite {finite}; mean TotalLoss of the first 20 "
         f"steps {first:.5f}, of the last 20 {last:.5f}")
@@ -1077,6 +1069,7 @@ def phase_multi_scene(k1, dev):
     from vipnerf_tpu_torch.data.synthetic_rig import flagship_training_configs
     from vipnerf_tpu_torch.infer.tester import NerfTester, start_testing
     from vipnerf_tpu_torch.models.vip_nerf import render_rays, uses_fused_mlp
+    from vipnerf_tpu_torch.protocol.common import read_scalars
     from vipnerf_tpu_torch.train.multi_scene import MultiSceneTrainer
     from vipnerf_tpu_torch.train.step import make_optimizer, make_train_step
     from vipnerf_tpu_torch.utils.io import read_image
@@ -1144,7 +1137,7 @@ def phase_multi_scene(k1, dev):
                     raise AssertionError(f"{name}: checkpoint of iteration {it} missing")
             if os.readlink(saved / "Model_Latest.tar") != f"Model_Iter{end:06}.tar":
                 raise AssertionError(f"{name}: Model_Latest.tar does not point at the last checkpoint")
-            total = [v for _, v in sorted(read_scalars(run / name)["train/TotalLoss"])]
+            total = [v for _, v in sorted(read_scalars(run / name / "logs/scalars.jsonl")["train/TotalLoss"].items())]
             first, last = float(np.mean(total[:20])), float(np.mean(total[-20:]))
             if len(total) != end or not np.isfinite(total).all() or not last < first:
                 raise AssertionError(f"{name}: {len(total)} logged losses, not finite and falling")
@@ -1332,6 +1325,7 @@ def phase_pipeline(k1):
     from vipnerf_tpu_torch.models.vip_nerf import uses_fused_mlp
     from vipnerf_tpu_torch.priors.cli import main_sparse_depth, main_visibility
     from vipnerf_tpu_torch.priors.sparse_depth import ColmapNotFoundError
+    from vipnerf_tpu_torch.protocol.common import read_scalars
 
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
@@ -1345,19 +1339,15 @@ def phase_pipeline(k1):
         k1.reset_launch_counts()
         tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = True  # no matmul setting may reach the warp
-        out = io.StringIO()
         t0 = time.perf_counter()
         try:
-            with contextlib.redirect_stdout(out):
-                main_visibility(["--database", "NeRF_LLFF", "--gen_nums", "2", "--root_dirpath", str(root)])
+            records = main_visibility(["--database", "NeRF_LLFF", "--gen_nums", "2", "--root_dirpath", str(root)])
         finally:
             torch.backends.cuda.matmul.allow_tf32 = tf32
         prior_s = time.perf_counter() - t0
-        sys.stdout.write(out.getvalue())
-        directions = [float(s) for pair in re.findall(r"([\d.]+) s and ([\d.]+) s per direction", out.getvalue())
-                      for s in pair]
+        directions = [r["seconds"] for r in records]
         pairs = [(a, b) for i, a in enumerate(PIPE_TRAIN) for b in PIPE_TRAIN[i + 1:]]
-        if len(directions) != 2 * len(pairs) or "on cuda:0" not in out.getvalue():
+        if len(directions) != 2 * len(pairs) or {r["device"] for r in records} != {"cuda:0"}:
             raise AssertionError(f"main_visibility ran {len(directions)} directions on the card, expected {2 * len(pairs)}")
         out_dir = root / "data/databases/NeRF_LLFF/data/all/visibility_prior/VW02"
         check_prior_outputs(out_dir, pairs)
@@ -1384,7 +1374,7 @@ def phase_pipeline(k1):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         scene_train = root / "runs/training/train0011/synth01"
-        losses = [v for _, v in sorted(read_scalars(scene_train)["train/TotalLoss"])]
+        losses = [v for _, v in sorted(read_scalars(scene_train / "logs/scalars.jsonl")["train/TotalLoss"].items())]
         if len(losses) != PIPE_STEPS or not np.isfinite(losses).all() \
                 or not (scene_train / f"saved_models/Model_Iter{PIPE_STEPS:06}.tar").exists():
             raise AssertionError("the app's training logged no finite loss per step or wrote no checkpoint")
@@ -1570,6 +1560,7 @@ def phase_database(k1, dev):
     from vipnerf_tpu_torch.db_builders import nerf_llff
     from vipnerf_tpu_torch.models.vip_nerf import ViPNeRF, uses_fused_mlp
     from vipnerf_tpu_torch.priors.cli import main_visibility
+    from vipnerf_tpu_torch.protocol.common import read_scalars
     from vipnerf_tpu_torch.utils import jax_ckpt
     from vipnerf_tpu_torch.utils.jpeg import decode_jpeg
 
@@ -1630,7 +1621,7 @@ def phase_database(k1, dev):
         launches_train = dict(k1.fused_mlp_raw.launches_by_instance)
         run = root / "runs/training/train0021"
         saved = run / f"{DB_SCENE}/saved_models"
-        losses = [v for _, v in sorted(read_scalars(run / DB_SCENE)["train/TotalLoss"])]
+        losses = [v for _, v in sorted(read_scalars(run / DB_SCENE / "logs/scalars.jsonl")["train/TotalLoss"].items())]
         log(f"app start_training on the built database (flagship width, bf16 heads, 2048 + 2048 rays): {DB_STEPS} "
             f"steps in {train_s:.2f} s with set-up and 2 checkpoints; K1 launches {launches_train}; mean TotalLoss "
             f"first 10 {np.mean(losses[:10]):.5f}, last 10 {np.mean(losses[-10:]):.5f}")
@@ -1770,14 +1761,10 @@ def dtu_configs_edit(edit):
 
 
 def run_driver(driver, argv):
-    """One call of the protocol driver, its output shown and kept."""
-    from vipnerf_tpu_torch.protocol.common import Tee
-
-    tee = Tee(sys.stdout)
+    """One call of the protocol driver: its summary and seconds."""
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(tee):
-        driver.main(argv)
-    return tee.text(), time.perf_counter() - t0
+    summary = driver.main(argv)
+    return summary, time.perf_counter() - t0
 
 
 def phase_protocol(k1, dev):
@@ -1798,6 +1785,7 @@ def phase_protocol(k1, dev):
     from vipnerf_tpu_torch.models.vip_nerf import ViPNeRF, render_rays
     from vipnerf_tpu_torch.priors.visibility import get_depth_planes
     from vipnerf_tpu_torch.protocol import run_dtu_control as driver
+    from vipnerf_tpu_torch.protocol.common import read_scalars
     from vipnerf_tpu_torch.train import checkpoints
     from vipnerf_tpu_torch.train.step import make_optimizer
     from vipnerf_tpu_torch.utils.io import read_csv_columns, read_mask
@@ -1816,13 +1804,13 @@ def phase_protocol(k1, dev):
         # (1) + (2): the database, VW03 and the shipped-mode leg
         k1.reset_launch_counts()
         torch.cuda.synchronize()
-        text, leg_s = run_driver(driver, argv + ["--iters", str(PROTO_STEPS)])
+        summary, leg_s = run_driver(driver, argv + ["--iters", str(PROTO_STEPS)])
         shipped_launches = dict(k1.fused_mlp_raw.launches_by_instance)
-        directions = [float(x) for pair in re.findall(r"([\d.]+) s and ([\d.]+) s per direction", text)
-                      for x in pair]
+        directions = summary["prior_s_per_direction"]
         pairs = [(a, b) for i, a in enumerate(driver.TRAIN_FRAMES) for b in driver.TRAIN_FRAMES[i + 1:]]
-        if len(directions) != 2 * len(pairs) or f"on {dev}" not in text:
-            raise AssertionError(f"VW03 ran {len(directions)} directions on {dev}, expected {2 * len(pairs)}")
+        if len(directions) != 2 * len(pairs) or summary["prior_devices"] != [str(dev)]:
+            raise AssertionError(f"VW03 ran {len(directions)} directions on {summary['prior_devices']}, expected "
+                                 f"{2 * len(pairs)} on {dev}")
         out_dir = db_dir / "all/visibility_prior/VW03"
         check_prior_outputs(out_dir, pairs, scene="00021", shape=(PROTO_H, PROTO_W))
         gen_cfg = json.loads((out_dir / "Configs.json").read_text())
@@ -1840,8 +1828,8 @@ def phase_protocol(k1, dev):
             f"VW03 on {dev} with DTU's policy (128 linear planes over [0.1, 5]): {len(directions)} directions, "
             f"seconds {', '.join(f'{x:.4f}' for x in directions)}")
 
-        series = read_scalars(run)
-        losses = [v for _, v in sorted(series["train/TotalLoss"])]
+        series = read_scalars(run / "logs/scalars.jsonl")
+        losses = [v for _, v in sorted(series["train/TotalLoss"].items())]
         window = max(PROTO_STEPS // 10, 1)
         first, last = float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
         if len(losses) != PROTO_STEPS or not np.isfinite(losses).all() or not last < first:
@@ -1856,9 +1844,8 @@ def phase_protocol(k1, dev):
         if scores.get("MaskedPSNR05") is None or test_frames != want_frames \
                 or scores["MaskedPSNR05"] == scores["PSNR05"]:
             raise AssertionError(f"masked QA: {scores}, frames {test_frames} (expected {want_frames})")
-        mse = dict(series["train/MSE01"])
+        mse = series["train/MSE01"]
         mse_vs_jax = {s: {"port": mse.get(s), "jax": ref} for s, ref in driver.JAX_MSE_AT.items()}
-        summary = json.loads(text.split("SUMMARY:")[-1].strip().splitlines()[0])
         parts["database_prior_and_leg_s"] = leg_s
         log(f"protocol: the shipped-mode leg, {PROTO_STEPS} steps (module MLP, 0 K1 launches): TotalLoss "
             f"mean of the first {window} {first:.5f}, of the last {window} {last:.5f}; median chunk "
@@ -1895,15 +1882,17 @@ def phase_protocol(k1, dev):
         dtu.app.start_training = counted_training
         try:
             with dtu_configs_edit(bf16_heads):
-                text, seam_s = run_driver(driver, argv + ["--iters", str(SEAM_END)])
+                seam_summary, seam_s = run_driver(driver, argv + ["--iters", str(SEAM_END)])
         finally:
             dtu.app.start_training = start_training
         seam_total = dict(k1.fused_mlp_raw.launches_by_instance)
         parts["seam_s"] = time.perf_counter() - t0
-        if f"Resuming Training from iteration {SEAM_START + 1}" not in text:
-            raise AssertionError(f"the driver did not resume at {SEAM_START}")
-        series = {tag: dict(v) for tag, v in read_scalars(run).items()}
+        series = read_scalars(run / "logs/scalars.jsonl")
         steps = list(range(SEAM_START + 1, SEAM_END + 1))
+        leg_steps = sorted(s for s in series["train/TotalLoss"] if s > PROTO_STEPS)
+        if leg_steps != steps or seam_summary["steps"] != len(steps):
+            raise AssertionError(f"the driver did not resume at {SEAM_START}: it logged steps "
+                                 f"{leg_steps[:1]}..{leg_steps[-1:]}, {seam_summary['steps']} in its summary")
         worst = {"before": 0.0, "after": 0.0}
         for step in steps:
             resid, tol = loss_composition(series, step)

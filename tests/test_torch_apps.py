@@ -94,7 +94,7 @@ def test_batch_scenes_names_the_multi_device_slice(tmp_path, monkeypatch):
     slice of the port."""
     calls = []
     monkeypatch.setattr(common.multi_scene, "start_training_batched", calls.append)
-    monkeypatch.setattr(common.trainer_mod, "start_training", lambda cfg: calls.append(None))
+    monkeypatch.setattr(common.trainer_mod, "start_training", lambda cfg: calls.append(None) or {})
     app = common.DatasetApp("NeRF_LLFF", "scene_name", "all", root_dirpath=tmp_path)
     app.start_training({"train_num": 1, "batch_scenes": True})
     assert calls == [{"train_num": 1, "batch_scenes": True, "root_dirpath": str(tmp_path)}]

@@ -97,3 +97,6 @@ def test_phase_protocol_rehearses_on_the_cpu(tmp_path, monkeypatch):
     assert seam["lr_rel_to_jax"] <= 1e-6 and out["qa"]["MaskedPSNR05"] is not None
     assert set(out["k1_dtu"]) == {f"{level}_fused_mlp_{d}" for level in ("coarse", "fine") for d in ("bf16", "f32")}
     assert out["k1_launches"] >= 2 * 4
+    leg = out["shipped_leg"]
+    assert leg["steps"] == 30 and leg["prior_devices"] == ["cpu"] and len(out["prior_s_per_direction"]) == 6
+    assert leg["steps_per_s_over_training"] == pytest.approx(30 / leg["stage_s"]["training"])

@@ -87,19 +87,36 @@ def two_threads():
     torch.set_num_threads(before)
 
 
+# the persistent compilation cache the tools/ drivers select when they are
+# imported: a directory of their own outside the checkout
+TOOLS_CACHE_KEYS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+TOOLS_CACHE_DIR = Path("/tmp/vipnerf_tpu_cache")
+
+
+def cache_entries() -> set:
+    return set(TOOLS_CACHE_DIR.iterdir()) if TOOLS_CACHE_DIR.exists() else set()
+
+
 def run_tool(monkeypatch, name, argv):
-    """A tools/ driver's main(), run from its file as a script; its stdout."""
+    """A tools/ driver's main(), run from its file as a script; its stdout.
+    The driver's updates of the compilation cache are dropped, so the tests'
+    own cache stays in effect and nothing is written to the tools' one."""
     monkeypatch.setattr(sys, "argv", [name, *argv])
     monkeypatch.setattr(sys, "path", list(sys.path))
-    cache = {k: getattr(jax.config, k) for k in ("jax_compilation_cache_dir",
-                                                  "jax_persistent_cache_min_compile_time_secs")}
+    update = jax.config.update
+
+    def update_all_but_the_cache(key, value):
+        if key not in TOOLS_CACHE_KEYS:
+            update(key, value)
+
+    monkeypatch.setattr(jax.config, "update", update_all_but_the_cache)
+    cache = {key: getattr(jax.config, key) for key in TOOLS_CACHE_KEYS}
+    entries = cache_entries()
     out = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(out):
-            runpy.run_path(str(TOOLS / name), run_name="__main__")
-    finally:
-        for key, value in cache.items():
-            jax.config.update(key, value)
+    with contextlib.redirect_stdout(out):
+        runpy.run_path(str(TOOLS / name), run_name="__main__")
+    assert {key: getattr(jax.config, key) for key in TOOLS_CACHE_KEYS} == cache
+    assert cache_entries() <= entries, f"{name} wrote to {TOOLS_CACHE_DIR}"
     return out.getvalue()
 
 
@@ -471,17 +488,49 @@ def test_comparison_bands(mse_ratio, lr_shift, masked_psnr, within):
 
 
 def test_leg_figures_read_the_trainer_lines():
-    text = "\n".join([
-        "iter 100/300 TotalLoss 0.1 (40,000 rays/s; 100 steps in 9.000 s)",
-        "iter 200/300 TotalLoss 0.1 (41,000 rays/s; 100 steps in 9.400 s)",
-        "iter 250/300 TotalLoss 0.1 (41,000 rays/s; 50 steps in 4.000 s)",
-        "  00021 pair 0000<->0002: 128 planes, 24x32, 0.100 s and 0.200 s per direction on cpu; 0.4 s",
-    ])
+    """The figures of a leg come from the trainer's chunk records and the
+    app's stage clocks: the median over full chunks only."""
     app = DatasetApp("DTU", "scene_num", "all")
+    app.chunk_seconds += [(100, 9.0), (100, 9.4), (50, 4.0)]
     app.stage_seconds["training"] = 30.0
-    leg = common.leg_figures(text, app, 300)
+    leg = common.leg_figures(app, 300)
     assert leg["ms_per_step_median"] == pytest.approx(92.0) and leg["full_chunks"] == 2
-    assert leg["steps_per_s_over_training"] == 10.0 and leg["prior_s_per_direction"] == [0.1, 0.2]
+    assert leg["ms_per_step_range"] == pytest.approx([90.0, 94.0])
+    assert leg["steps_per_s_over_training"] == 10.0 and leg["stage_s"] == {"training": 30.0}
+    app.reset_timings()
+    assert app.chunk_seconds == [] and app.stage_seconds == {}
+
+
+def test_each_leg_of_one_process_reports_its_own_rate(tmp_path, monkeypatch):
+    """Two legs of run_dtu_control in one process, as chip_smoke's phase 8
+    runs them: 200 steps, then a resume at 29,950 to 30,050. Each summary
+    counts its own leg's steps over its own training seconds; the prior's
+    directions are timed in the first leg and skipped in the second."""
+    legs = {200: (0, 20.0), 30050: (29950, 4.0)}  # iters: (first step - 1, training seconds)
+
+    def run_full(train_num, set_num, *, num_iterations, **kwargs):
+        start, seconds = legs[num_iterations]
+        logs = Path(f"runs/training/train{train_num:04}/00021/logs")  # the driver runs from its workdir
+        logs.mkdir(parents=True, exist_ok=True)
+        with (logs / "scalars.jsonl").open("a") as f:
+            for step in range(start + 1, num_iterations + 1):
+                f.write(json.dumps({"tag": "train/TotalLoss", "value": 0.1, "step": step}) + "\n")
+        dtu.app.stage_seconds["training"] = dtu.app.stage_seconds.get("training", 0.0) + seconds
+        dtu.app.chunk_seconds += [(100, seconds / ((num_iterations - start) / 100))] * ((num_iterations - start) // 100)
+
+    monkeypatch.setattr(dtu, "_run_full", run_full)
+    monkeypatch.chdir(tmp_path)
+    argv = ["--workdir", str(tmp_path / "w"), "--height", "24", "--width", "32", "--video_frames", "4",
+            "--device", "cpu"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        first = run_dtu_control.main(argv + ["--iters", "200"])
+        second = run_dtu_control.main(argv + ["--iters", "30050"])
+    assert first["steps"] == 200 and second["steps"] == 100
+    assert first["steps_per_s_over_training"] == 200 / 20.0 and second["steps_per_s_over_training"] == 100 / 4.0
+    assert first["ms_per_step_median"] == pytest.approx(100.0) and second["ms_per_step_median"] == pytest.approx(40.0)
+    assert first["full_chunks"] == 2 and second["full_chunks"] == 1
+    assert len(first["prior_s_per_direction"]) == 6 and first["prior_devices"] == ["cpu"]
+    assert second["prior_s_per_direction"] == [] and second["prior_devices"] == []
 
 
 def test_a_longer_leg_moves_the_earlier_tests_aside(tmp_path):

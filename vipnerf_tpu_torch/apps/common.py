@@ -13,8 +13,10 @@ vipnerf_tpu/apps/common.py, without pandas):
   where it exists. The GPU machine has no video encoder, so a video is a
   directory of frames (`utils.io.save_video`).
 
-`stage_seconds` sums the wall clock of each stage over the app's calls:
-training, testing (the renders), qa, videos and static_videos.
+`stage_seconds` sums the wall clock of each stage over the app's calls
+since `reset_timings`: training, testing (the renders), qa, videos and
+static_videos; `chunk_seconds` lists the (steps, seconds) of each chunk the
+trainer ran in that time (not kept for `batch_scenes`).
 """
 
 import argparse
@@ -25,7 +27,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -57,7 +59,11 @@ class DatasetApp:
         self.scene_key = scene_key
         self.split_dir = split_dir
         self.root_dirpath = Path(root_dirpath) if root_dirpath else Path(".")
+        self.reset_timings()
+
+    def reset_timings(self):
         self.stage_seconds: Dict[str, float] = {}
+        self.chunk_seconds: List[Tuple[int, float]] = []
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -90,7 +96,8 @@ class DatasetApp:
             if train_configs.get("batch_scenes"):
                 multi_scene.start_training_batched(train_configs)
             else:
-                trainer_mod.start_training(train_configs)
+                for chunks in trainer_mod.start_training(train_configs).values():
+                    self.chunk_seconds.extend(chunks)
 
     # ---------------------------------------------------------------- testing
 

@@ -103,10 +103,12 @@ def main_visibility(argv: Optional[List[str]] = None):
     parser.add_argument("--device", default="all",
                         help='"all" (the first GPU), a GPU index, or "cpu"')
     args = parser.parse_args(argv)
+    directions = []
     for gen_num in args.gen_nums:
         print(f"visibility prior: {args.database} VW{gen_num:02} (set{gen_num:02})", flush=True)
-        start_generation(build_visibility_configs(args.database, gen_num),
-                         root_dirpath=args.root_dirpath, device=device_from_arg(args.device))
+        directions += start_generation(build_visibility_configs(args.database, gen_num),
+                                       root_dirpath=args.root_dirpath, device=device_from_arg(args.device))
+    return directions
 
 
 def main_sparse_depth(argv: Optional[List[str]] = None):

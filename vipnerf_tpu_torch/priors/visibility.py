@@ -207,6 +207,8 @@ def start_generation(gen_configs: Dict, root_dirpath: Optional[Path] = None, dev
     database_dirpath, num_depth_planes, temperature[, scene_key][, split_dir]
     [, resolution_suffix][, depth_planes_linear][, fixed_bounds]}. A pair
     whose four .npy files exist is skipped; each frame is read once.
+    Returns one record per direction computed: {"direction": "f1_f2",
+    "seconds", "device"}.
     """
     device = resolve_device(device)
     root_dirpath = Path(root_dirpath) if root_dirpath else Path(".")
@@ -225,6 +227,7 @@ def start_generation(gen_configs: Dict, root_dirpath: Optional[Path] = None, dev
     fixed_bounds = gen_configs.get("fixed_bounds")
     temperature = gen_configs["temperature"]
     num_planes = gen_configs["num_depth_planes"]
+    directions = []
 
     for scene_id in np.unique(video_data[scene_key]):
         scene_dir = scene_dirname(scene_id, scene_key)
@@ -285,6 +288,9 @@ def start_generation(gen_configs: Dict, root_dirpath: Optional[Path] = None, dev
                     f"per direction on {device}; {time.perf_counter() - t_pair:.2f} s with reads and writes",
                     flush=True,
                 )
+                directions += [{"direction": name, "seconds": sec, "device": str(device)}
+                               for name, sec in ((f"{f1:04}_{f2:04}", seconds[0]), (f"{f2:04}_{f1:04}", seconds[1]))]
+    return directions
 
 
 if __name__ == "__main__":

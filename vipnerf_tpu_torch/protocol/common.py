@@ -1,5 +1,7 @@
-"""What the protocol drivers share: the workdir, the legs of a run, the
-synthetic DTU database of the two DTU drivers, and the lines they print.
+"""What the protocol drivers share: a database written once
+(`write_database_once`), the synthetic DTU database of the two DTU drivers,
+one leg of a dataset app's demo call (`run_demo_leg`) and the figures of a
+leg (`leg_figures`).
 
 A driver is restart-safe: the database is keyed on a completion marker
 written after it, the prior generator skips the pairs it has written, the
@@ -11,11 +13,11 @@ renders belong to its checkpoint, so those of an earlier, shorter leg are
 moved aside (`retire_stale_testing`) before the next leg tests.
 """
 
-import io
 import json
-import re
+import os
+import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -27,6 +29,7 @@ from vipnerf_tpu_torch.data.synthetic import (
     write_synthetic_database,
 )
 from vipnerf_tpu_torch.utils.io import save_image
+from vipnerf_tpu_torch.utils.naming import scene_dirname
 
 DB_MARKER = ".synthetic_db_complete"
 DTU_SCENE = "00021"
@@ -43,40 +46,39 @@ def write_dtu_database(db_root: Path, *, set_num: int, train_frames, val_frames,
     shell's), and a ring of `video_frames` + 1 poses with every second frame
     kept for the video, unless its completion marker is there already."""
     db_dir = Path(db_root) / "DTU/data"
-    marker = db_dir / DB_MARKER
-    if marker.exists():
-        return
-    print(f"generating synthetic DTU database (set{set_num:02})...", flush=True)
-    scene, ring_kwargs = make_dtu_scene()
-    gt = write_synthetic_database(
-        db_root,
-        dataset="DTU",
-        scene_name=DTU_SCENE,
-        num_frames=DTU_FRAMES,
-        set_num=set_num,
-        train_frames=train_frames,
-        val_frames=val_frames,
-        height=height,
-        width=width,
-        scene=scene,
-        sparse_depth_dirname=f"DE{set_num:02}",
-        with_visibility_prior=with_visibility_prior,
-        **ring_kwargs,
-    )
-    background = SphereScene(seed=0, num_spheres=0, shell_radius=scene.shell_radius)
-    masks_dir = db_dir / f"all/database_data/{DTU_SCENE}/ObjectMasks"
-    masks_dir.mkdir(exist_ok=True)
-    for f in range(DTU_FRAMES):
-        _, shell_depth = background.render(gt["extrinsics"][f], gt["intrinsics"][f], height, width)
-        mask = gt["depths"][f] < shell_depth - 1e-6
-        save_image(masks_dir / f"{f:04}.png", mask.astype(np.uint8) * 255)
-    poses_dir = db_dir / f"train_test_sets/set{set_num:02}/video_poses01"
-    poses_dir.mkdir(parents=True, exist_ok=True)
-    track = make_camera_ring(video_frames + 1, spread_deg=60.0, radius=ring_kwargs["ring_radius"],
-                             height=ring_kwargs["ring_height"])
-    np.savetxt(poses_dir / f"{DTU_SCENE}.csv", track.reshape(video_frames + 1, 16), delimiter=",")
-    np.savetxt(poses_dir / "VideoFrameNums.csv", np.arange(0, video_frames, 2), delimiter=",")
-    marker.touch()
+
+    def write():
+        scene, ring_kwargs = make_dtu_scene()
+        gt = write_synthetic_database(
+            db_root,
+            dataset="DTU",
+            scene_name=DTU_SCENE,
+            num_frames=DTU_FRAMES,
+            set_num=set_num,
+            train_frames=train_frames,
+            val_frames=val_frames,
+            height=height,
+            width=width,
+            scene=scene,
+            sparse_depth_dirname=f"DE{set_num:02}",
+            with_visibility_prior=with_visibility_prior,
+            **ring_kwargs,
+        )
+        background = SphereScene(seed=0, num_spheres=0, shell_radius=scene.shell_radius)
+        masks_dir = db_dir / f"all/database_data/{DTU_SCENE}/ObjectMasks"
+        masks_dir.mkdir(exist_ok=True)
+        for f in range(DTU_FRAMES):
+            _, shell_depth = background.render(gt["extrinsics"][f], gt["intrinsics"][f], height, width)
+            mask = gt["depths"][f] < shell_depth - 1e-6
+            save_image(masks_dir / f"{f:04}.png", mask.astype(np.uint8) * 255)
+        poses_dir = db_dir / f"train_test_sets/set{set_num:02}/video_poses01"
+        poses_dir.mkdir(parents=True, exist_ok=True)
+        track = make_camera_ring(video_frames + 1, spread_deg=60.0, radius=ring_kwargs["ring_radius"],
+                                 height=ring_kwargs["ring_height"])
+        np.savetxt(poses_dir / f"{DTU_SCENE}.csv", track.reshape(video_frames + 1, 16), delimiter=",")
+        np.savetxt(poses_dir / "VideoFrameNums.csv", np.arange(0, video_frames, 2), delimiter=",")
+
+    write_database_once(db_dir, f"synthetic DTU database (set{set_num:02})", write)
 
 
 def retire_stale_testing(workdir: Path, test_num: int, num_iterations: int) -> Optional[Path]:
@@ -115,38 +117,14 @@ def read_scalars(scalars_path: Path) -> dict:
     return series
 
 
-class Tee(io.TextIOBase):
-    """A stdout that writes through to `stream` and keeps what it wrote, so
-    that a driver can read back the lines of the stages it called."""
-
-    def __init__(self, stream):
-        self.stream = stream
-        self.kept = io.StringIO()
-
-    def write(self, text):
-        self.stream.write(text)
-        return self.kept.write(text)
-
-    def flush(self):
-        self.stream.flush()
-
-    def text(self) -> str:
-        return self.kept.getvalue()
-
-
-# the trainer's line after each chunk, and the visibility prior's per pair
-CHUNK_LINE = re.compile(r"^iter \d+/\d+ TotalLoss \S+ \(.*rays/s; (\d+) steps in ([\d.]+) s\)$", re.M)
-PRIOR_LINE = re.compile(r"([\d.]+) s and ([\d.]+) s per direction")
-
-
-def leg_figures(text: str, app, steps: int, scan_steps: int = 100) -> dict:
-    """What a leg's output says of its speed: the median of the trainer's
+def leg_figures(app, steps: int, scan_steps: int = 100) -> dict:
+    """What a leg's records say of its speed: the median of the trainer's
     full chunks' ms per step (a chunk's clock stops when its losses are read,
     before a checkpoint or validation), the steps per second over the whole
-    training stage (set-up, validation and checkpoints in it), the prior's
-    seconds per pair direction, each stage's seconds (`DatasetApp`) and the
-    card's peak memory."""
-    chunks = [1e3 * float(sec) / int(k) for k, sec in CHUNK_LINE.findall(text) if int(k) == scan_steps]
+    training stage (set-up, validation and checkpoints in it), each stage's
+    seconds (`DatasetApp`, since the leg's `reset_timings`) and the card's
+    peak memory."""
+    chunks = [1e3 * sec / k for k, sec in app.chunk_seconds if k == scan_steps]
     training_s = app.stage_seconds.get("training", 0.0)
     out = {
         "steps": steps,
@@ -154,10 +132,51 @@ def leg_figures(text: str, app, steps: int, scan_steps: int = 100) -> dict:
         "ms_per_step_range": [min(chunks), max(chunks)] if chunks else None,
         "full_chunks": len(chunks),
         "steps_per_s_over_training": steps / training_s if training_s and steps else None,
-        "prior_s_per_direction": [float(x) for pair in PRIOR_LINE.findall(text) for x in pair],
         "stage_s": dict(app.stage_seconds),
     }
     if torch.cuda.is_initialized():
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         out["card"] = torch.cuda.get_device_name()
     return out
+
+
+def write_database_once(db_dir: Path, label: str, write: Callable[[], None]) -> None:
+    """`write()` the synthetic database under `db_dir` unless its
+    completion marker is there, then mark it complete."""
+    t0 = time.time()
+    marker = Path(db_dir) / DB_MARKER
+    if not marker.exists():
+        print(f"generating {label}...", flush=True)
+        write()
+        marker.touch()
+    print(f"db ready in {time.time() - t0:.0f}s", flush=True)
+
+
+def run_demo_leg(workdir: Path, app_module, label: str, *, train_num: int, set_num: int, scene_ids: list,
+                 iters: int, device, **run_full_kwargs) -> dict:
+    """One leg of a dataset app's demo call (sparse depth, 2048 + 2048 rays,
+    the demo's scene list swapped for `scene_ids`) to iteration `iters`,
+    run from `workdir`: an earlier leg's test renders moved aside, training,
+    testing with QA and both video tracks. Prints the wall clock and the QA
+    scores; returns the leg's figures (`leg_figures`, over the steps this
+    leg trained) with its wall clock, seconds per tested frame and QA."""
+    workdir = Path(workdir)
+    app = app_module.app
+    os.chdir(workdir)
+    retire_stale_testing(workdir, train_num, iters)
+    scene_dir = scene_dirname(scene_ids[0], app.scene_key)
+    scalars_path = workdir / f"runs/training/train{train_num:04}/{scene_dir}/logs/scalars.jsonl"
+    before = set(read_scalars(scalars_path).get("train/TotalLoss", {}))
+    app.reset_timings()
+    t0 = time.time()
+    app_module._run_full(train_num, set_num, sparse_depth=True, num_rays=2048, num_iterations=iters,
+                         device=device, **{app.scene_key + "s": scene_ids}, **run_full_kwargs)
+    wall = time.time() - t0
+    print(f"{label} WALL CLOCK: {wall:.0f}s", flush=True)
+    steps = len(set(read_scalars(scalars_path).get("train/TotalLoss", {})) - before)
+    leg = {"iters": iters, "wall_s": round(wall, 1), **leg_figures(app, steps)}
+    tested = len(list((workdir / f"runs/testing/test{train_num:04}/{scene_dir}/predicted_frames").glob("*.png")))
+    if tested and "testing" in leg["stage_s"]:
+        leg["s_per_tested_frame"] = leg["stage_s"]["testing"] / tested
+    leg["qa"] = print_qa(workdir, train_num)
+    return leg

@@ -13,19 +13,18 @@ Restart-safe, and run in legs of growing `--iters` (protocol/common.py).
 
 import argparse
 import json
-import os
-import time
 from pathlib import Path
 
+from vipnerf_tpu_torch.apps import nerf_llff
 from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
 from vipnerf_tpu_torch.db_builders.nerf_llff import create_spiral_video_poses
-from vipnerf_tpu_torch.protocol.common import DB_MARKER, DEVICE_HELP, print_qa, retire_stale_testing
+from vipnerf_tpu_torch.protocol.common import DEVICE_HELP, run_demo_leg, write_database_once
 from vipnerf_tpu_torch.utils.device import device_from_arg
 
 TRAIN_NUM = 11  # demo1a's train and test number
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m vipnerf_tpu_torch.protocol.run_demo1a_200k",
                                  description="demo1a on a synthetic NeRF-LLFF scene")
     ap.add_argument("--workdir", default="protocol_runs/demo1a_200k")
@@ -39,28 +38,19 @@ def main(argv=None):
     workdir = Path(args.workdir).absolute()
     db_root = workdir / "data/databases"
     db_dir = db_root / "NeRF_LLFF/data"
-    t0 = time.time()
-    if not (db_dir / DB_MARKER).exists():
-        print("generating synthetic database...", flush=True)
+
+    def write():
         write_synthetic_database(db_root, scene_name="synth01", num_frames=6, train_frames=(0, 5),
                                  val_frames=(2,), height=args.height, width=args.width,
                                  resolution_suffix="_down4")
         create_spiral_video_poses(db_dir, set_num=2, num_frames=args.video_frames)
-        (db_dir / DB_MARKER).touch()
-    print(f"db ready in {time.time() - t0:.0f}s", flush=True)
 
-    os.chdir(workdir)
-    from vipnerf_tpu_torch.apps import nerf_llff
-
-    retire_stale_testing(workdir, TRAIN_NUM, args.iters)
-    t1 = time.time()
+    write_database_once(db_dir, "synthetic database", write)
     # demo1a's call, the scene list swapped for the synthetic scene
-    nerf_llff._run_full(TRAIN_NUM, 2, sparse_depth=True, num_rays=2048, num_iterations=args.iters,
-                        scene_names=["synth01"], device=device_from_arg(args.device))
-    wall = time.time() - t1
-    print(f"DEMO1A WALL CLOCK: {wall:.0f}s", flush=True)
-    print_qa(workdir, TRAIN_NUM)
-    print("SUMMARY:", json.dumps({"iters": args.iters, "wall_s": round(wall, 1)}), flush=True)
+    leg = run_demo_leg(workdir, nerf_llff, "DEMO1A", train_num=TRAIN_NUM, set_num=2, scene_ids=["synth01"],
+                       iters=args.iters, device=device_from_arg(args.device))
+    print("SUMMARY:", json.dumps(leg), flush=True)
+    return leg
 
 
 if __name__ == "__main__":

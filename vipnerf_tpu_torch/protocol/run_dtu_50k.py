@@ -13,18 +13,17 @@ Restart-safe, and run in legs of growing `--iters` (protocol/common.py).
 
 import argparse
 import json
-import os
-import time
 from pathlib import Path
 
-from vipnerf_tpu_torch.protocol.common import DEVICE_HELP, print_qa, retire_stale_testing, write_dtu_database
+from vipnerf_tpu_torch.apps import dtu
+from vipnerf_tpu_torch.protocol.common import DEVICE_HELP, run_demo_leg, write_dtu_database
 from vipnerf_tpu_torch.utils.device import device_from_arg
 
 SET_NUM = 2
 TRAIN_NUM = 41  # demo1a's train and test number
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m vipnerf_tpu_torch.protocol.run_dtu_50k",
                                  description="demo1a on the synthetic DTU scan")
     ap.add_argument("--workdir", default="protocol_runs/dtu_50k")
@@ -36,24 +35,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     workdir = Path(args.workdir).absolute()
-    t0 = time.time()
     write_dtu_database(workdir / "data/databases", set_num=SET_NUM, train_frames=(0, 5), val_frames=(2,),
                        height=args.height, width=args.width, video_frames=args.video_frames,
                        with_visibility_prior=True)
-    print(f"db ready in {time.time() - t0:.0f}s", flush=True)
-
-    os.chdir(workdir)
-    from vipnerf_tpu_torch.apps import dtu
-
-    retire_stale_testing(workdir, TRAIN_NUM, args.iters)
-    t1 = time.time()
     # demo1a's call, the scan list swapped for the synthetic scan
-    dtu._run_full(TRAIN_NUM, SET_NUM, sparse_depth=True, num_rays=2048, scene_nums=[21],
-                  num_iterations=args.iters, device=device_from_arg(args.device))
-    wall = time.time() - t1
-    print(f"DTU DEMO1A WALL CLOCK: {wall:.0f}s", flush=True)
-    print_qa(workdir, TRAIN_NUM)
-    print("SUMMARY:", json.dumps({"iters": args.iters, "wall_s": round(wall, 1)}), flush=True)
+    leg = run_demo_leg(workdir, dtu, "DTU DEMO1A", train_num=TRAIN_NUM, set_num=SET_NUM, scene_ids=[21],
+                       iters=args.iters, device=device_from_arg(args.device))
+    print("SUMMARY:", json.dumps(leg), flush=True)
+    return leg
 
 
 if __name__ == "__main__":

@@ -21,22 +21,19 @@ Stages, each restart-safe (protocol/common.py):
 """
 
 import argparse
-import contextlib
 import json
-import os
-import sys
 import time
 from pathlib import Path
 
 import numpy as np
 
+from vipnerf_tpu_torch.apps import dtu
+from vipnerf_tpu_torch.priors.cli import main_visibility
 from vipnerf_tpu_torch.protocol.common import (
     DEVICE_HELP,
-    Tee,
-    leg_figures,
-    print_qa,
+    DTU_SCENE,
     read_scalars,
-    retire_stale_testing,
+    run_demo_leg,
     write_dtu_database,
 )
 from vipnerf_tpu_torch.utils.device import device_from_arg
@@ -107,7 +104,7 @@ def compare_with_jax(scalars: dict, qa: dict, iters: int) -> dict:
     return out
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m vipnerf_tpu_torch.protocol.run_dtu_control",
                                  description="demo1b on the synthetic DTU scan, held against the JAX run")
     ap.add_argument("--workdir", default="protocol_runs/dtu_control")
@@ -120,45 +117,27 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     workdir = Path(args.workdir).absolute()
-    tee = Tee(sys.stdout)
-    with contextlib.redirect_stdout(tee):
-        t0 = time.time()
-        write_dtu_database(workdir / "data/databases", set_num=SET_NUM, train_frames=TRAIN_FRAMES,
-                           val_frames=VAL_FRAMES, height=args.height, width=args.width,
-                           video_frames=args.video_frames, with_visibility_prior=False)
-        print(f"db ready in {time.time() - t0:.0f}s", flush=True)
+    write_dtu_database(workdir / "data/databases", set_num=SET_NUM, train_frames=TRAIN_FRAMES,
+                       val_frames=VAL_FRAMES, height=args.height, width=args.width,
+                       video_frames=args.video_frames, with_visibility_prior=False)
 
-        from vipnerf_tpu_torch.priors.cli import main_visibility
+    t_gen = time.time()
+    directions = main_visibility(["--database", "DTU", "--gen_nums", str(SET_NUM), "--root_dirpath", str(workdir),
+                                  "--device", args.device])
+    gen_wall = time.time() - t_gen
+    print(f"DTU PRIOR GENERATION WALL CLOCK: {gen_wall:.1f}s ({len(TRAIN_FRAMES)} views)", flush=True)
 
-        t_gen = time.time()
-        main_visibility(["--database", "DTU", "--gen_nums", str(SET_NUM), "--root_dirpath", str(workdir),
-                         "--device", args.device])
-        gen_wall = time.time() - t_gen
-        print(f"DTU PRIOR GENERATION WALL CLOCK: {gen_wall:.1f}s ({len(TRAIN_FRAMES)} views)", flush=True)
+    # demo1b's call, the scan list swapped for the synthetic scan
+    leg = run_demo_leg(workdir, dtu, "DTU DEMO1B", train_num=TRAIN_NUM, set_num=SET_NUM, scene_ids=[21],
+                       iters=args.iters, device=device_from_arg(args.device), seed=args.seed)
+    scalars = read_scalars(workdir / f"runs/training/train{TRAIN_NUM:04}/{DTU_SCENE}/logs/scalars.jsonl")
+    print("REFERENCE_COMPARISON:", json.dumps(compare_with_jax(scalars, leg.pop("qa"), args.iters)), flush=True)
+    summary = {"seed": args.seed, "gen_wall_s": round(gen_wall, 1),
+               "prior_s_per_direction": [d["seconds"] for d in directions],
+               "prior_devices": sorted({d["device"] for d in directions}), **leg}
+    print("SUMMARY:", json.dumps(summary), flush=True)
+    return summary
 
-        os.chdir(workdir)
-        from vipnerf_tpu_torch.apps import dtu
-
-        retire_stale_testing(workdir, TRAIN_NUM, args.iters)
-        run_dir = workdir / f"runs/training/train{TRAIN_NUM:04}/00021"
-        start = read_scalars(run_dir / "logs/scalars.jsonl").get("train/TotalLoss", {})
-        t1 = time.time()
-        # demo1b's call, the scan list swapped for the synthetic scan
-        dtu._run_full(TRAIN_NUM, SET_NUM, sparse_depth=True, num_rays=2048, scene_nums=[21],
-                      num_iterations=args.iters, device=device_from_arg(args.device), seed=args.seed)
-        wall = time.time() - t1
-        print(f"DTU DEMO1B WALL CLOCK: {wall:.0f}s", flush=True)
-
-    qa = print_qa(workdir, TRAIN_NUM)
-    scalars = read_scalars(run_dir / "logs/scalars.jsonl")
-    print("REFERENCE_COMPARISON:", json.dumps(compare_with_jax(scalars, qa, args.iters)), flush=True)
-    steps = max(scalars.get("train/TotalLoss", {0: 0})) - max(start, default=0)
-    tested = len(list((workdir / f"runs/testing/test{TRAIN_NUM:04}/00021/predicted_frames").glob("*.png")))
-    leg = leg_figures(tee.text(), dtu.app, steps)
-    if tested and "testing" in leg["stage_s"]:
-        leg["s_per_tested_frame"] = leg["stage_s"]["testing"] / tested
-    print("SUMMARY:", json.dumps({"iters": args.iters, "seed": args.seed, "gen_wall_s": round(gen_wall, 1),
-                                  "wall_s": round(wall, 1), **leg}), flush=True)
 
 if __name__ == "__main__":
     main()

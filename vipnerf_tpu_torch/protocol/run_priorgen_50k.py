@@ -22,21 +22,16 @@ Stages, each restart-safe (protocol/common.py):
 
 import argparse
 import json
-import os
 import time
 from pathlib import Path
 
 import numpy as np
 
+from vipnerf_tpu_torch.apps import nerf_llff
 from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
 from vipnerf_tpu_torch.db_builders.nerf_llff import create_spiral_video_poses
-from vipnerf_tpu_torch.protocol.common import (
-    DB_MARKER,
-    DEVICE_HELP,
-    print_qa,
-    read_scalars,
-    retire_stale_testing,
-)
+from vipnerf_tpu_torch.priors.cli import main_visibility
+from vipnerf_tpu_torch.protocol.common import DEVICE_HELP, read_scalars, run_demo_leg, write_database_once
 from vipnerf_tpu_torch.utils.device import device_from_arg
 from vipnerf_tpu_torch.utils.io import read_mask
 
@@ -108,7 +103,7 @@ def check_masks(db_dir: Path, gt_path: Path, train_frames) -> dict:
     return stats
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m vipnerf_tpu_torch.protocol.run_priorgen_50k",
                                  description="generated visibility prior, checked, then demo1a on it")
     ap.add_argument("--workdir", default="protocol_runs/priorgen_50k")
@@ -127,24 +122,21 @@ def main(argv=None):
     gt_path = workdir / "gt_geometry.npz"
     device = device_from_arg(args.device)
 
-    t0 = time.time()
-    if not (db_dir / DB_MARKER).exists():
-        print("generating synthetic database (no hand-written priors)...", flush=True)
+    def write():
         gt = write_synthetic_database(db_root, scene_name="synth01", num_frames=6, train_frames=TRAIN_FRAMES,
                                       val_frames=(2,), height=args.height, width=args.width,
                                       resolution_suffix="_down4", with_visibility_prior=False)
         np.savez_compressed(gt_path, depths=gt["depths"], extrinsics=gt["extrinsics"],
                             intrinsics=gt["intrinsics"])
         create_spiral_video_poses(db_dir, set_num=2, num_frames=args.video_frames)
-        (db_dir / DB_MARKER).touch()
-    hand_dir = db_dir / "all/visibility_prior/VW02/synth01"
-    print(f"db ready in {time.time() - t0:.0f}s (hand-written priors present: {hand_dir.exists()})", flush=True)
 
-    from vipnerf_tpu_torch.priors.cli import main_visibility
+    write_database_once(db_dir, "synthetic database (no hand-written priors)", write)
+    hand_dir = db_dir / "all/visibility_prior/VW02/synth01"
+    print(f"hand-written priors present: {hand_dir.exists()}", flush=True)
 
     t1 = time.time()
-    main_visibility(["--database", "NeRF_LLFF", "--gen_nums", "2", "--root_dirpath", str(workdir),
-                     "--device", args.device])
+    directions = main_visibility(["--database", "NeRF_LLFF", "--gen_nums", "2", "--root_dirpath", str(workdir),
+                                  "--device", args.device])
     gen_wall = time.time() - t1
     n_pairs = len(TRAIN_FRAMES) * (len(TRAIN_FRAMES) - 1) // 2
     print(f"PRIOR GENERATION WALL CLOCK: {gen_wall:.1f}s ({n_pairs} unordered pairs, both directions each)",
@@ -153,16 +145,8 @@ def main(argv=None):
     stats = check_masks(db_dir, gt_path, TRAIN_FRAMES)
     print("MASK_GEOMETRY_STATS:", json.dumps(stats), flush=True)
 
-    os.chdir(workdir)
-    from vipnerf_tpu_torch.apps import nerf_llff
-
-    retire_stale_testing(workdir, args.train_num, args.iters)
-    t2 = time.time()
-    nerf_llff._run_full(args.train_num, 2, sparse_depth=True, num_rays=2048, num_iterations=args.iters,
-                        scene_names=["synth01"], device=device)
-    wall = time.time() - t2
-    print(f"PRIORGEN DEMO1A WALL CLOCK: {wall:.0f}s", flush=True)
-    print_qa(workdir, args.train_num)
+    leg = run_demo_leg(workdir, nerf_llff, "PRIORGEN DEMO1A", train_num=args.train_num, set_num=2,
+                       scene_ids=["synth01"], iters=args.iters, device=device)
 
     # the prior loss after 30k, against the generated masks
     vpl = read_scalars(workdir / f"runs/training/train{args.train_num:04}/synth01/logs/scalars.jsonl").get(
@@ -177,8 +161,10 @@ def main(argv=None):
         print_table(sweep(workdir, database="NeRF_LLFF", scene="synth01", train_num=args.train_num, set_num=2,
                           step=10000, max_iter=args.iters, device=device))
 
-    print("SUMMARY:", json.dumps({"iters": args.iters, "gen_wall_s": round(gen_wall, 1),
-                                  "train_wall_s": round(wall, 1)}), flush=True)
+    summary = {"gen_wall_s": round(gen_wall, 1), "prior_s_per_direction": [d["seconds"] for d in directions],
+               **leg}
+    print("SUMMARY:", json.dumps(summary), flush=True)
+    return summary
 
 
 if __name__ == "__main__":

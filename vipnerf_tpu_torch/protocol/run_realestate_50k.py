@@ -13,19 +13,18 @@ Restart-safe, and run in legs of growing `--iters` (protocol/common.py).
 
 import argparse
 import json
-import os
-import time
 from pathlib import Path
 
+from vipnerf_tpu_torch.apps import real_estate
 from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
 from vipnerf_tpu_torch.db_builders.real_estate import create_original_video_poses
-from vipnerf_tpu_torch.protocol.common import DB_MARKER, DEVICE_HELP, print_qa, retire_stale_testing
+from vipnerf_tpu_torch.protocol.common import DEVICE_HELP, run_demo_leg, write_database_once
 from vipnerf_tpu_torch.utils.device import device_from_arg
 
 TRAIN_NUM = 1  # demo1a's train and test number
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m vipnerf_tpu_torch.protocol.run_realestate_50k",
                                  description="demo1a on a synthetic RealEstate-10K scene")
     ap.add_argument("--workdir", default="protocol_runs/re10k_50k")
@@ -38,29 +37,20 @@ def main(argv=None):
     workdir = Path(args.workdir).absolute()
     db_root = workdir / "data/databases"
     db_dir = db_root / "RealEstate10K/data"
-    t0 = time.time()
-    if not (db_dir / DB_MARKER).exists():
-        print("generating synthetic RealEstate database...", flush=True)
+
+    def write():
         # the default rig (cameras at radius 3 inside a shell of radius 6,
         # z-depths ~2-9) lies inside the loader's fixed bounds [1, 100]
         write_synthetic_database(db_root, dataset="RealEstate10K", scene_name="00000", num_frames=6,
                                  train_frames=(0, 5), val_frames=(2,), height=args.height, width=args.width)
         create_original_video_poses(db_dir, set_num=2)
-        (db_dir / DB_MARKER).touch()
-    print(f"db ready in {time.time() - t0:.0f}s", flush=True)
 
-    os.chdir(workdir)
-    from vipnerf_tpu_torch.apps import real_estate
-
-    retire_stale_testing(workdir, TRAIN_NUM, args.iters)
-    t1 = time.time()
+    write_database_once(db_dir, "synthetic RealEstate database", write)
     # demo1a's call, the scene list swapped for the synthetic scene
-    real_estate._run_full(TRAIN_NUM, 2, sparse_depth=True, num_rays=2048, scene_nums=[0],
-                          num_iterations=args.iters, device=device_from_arg(args.device))
-    wall = time.time() - t1
-    print(f"REALESTATE DEMO1A WALL CLOCK: {wall:.0f}s", flush=True)
-    print_qa(workdir, TRAIN_NUM)
-    print("SUMMARY:", json.dumps({"iters": args.iters, "wall_s": round(wall, 1)}), flush=True)
+    leg = run_demo_leg(workdir, real_estate, "REALESTATE DEMO1A", train_num=TRAIN_NUM, set_num=2, scene_ids=[0],
+                       iters=args.iters, device=device_from_arg(args.device))
+    print("SUMMARY:", json.dumps(leg), flush=True)
+    return leg
 
 
 if __name__ == "__main__":

@@ -29,7 +29,7 @@ batched multi-scene trainer too (train/multi_scene.py).
 import contextlib
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -227,6 +227,7 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.scan_steps = int(configs.get("scan_steps", 100))
         self.profiler_cfg = configs.get("profiler")
+        self.chunk_seconds: List[Tuple[int, float]] = []  # (steps, seconds) of each chunk trained
 
     # --------------------------------------------------------------- training
 
@@ -267,7 +268,8 @@ class Trainer:
                     self.generator.manual_seed(step_seed(self.seed, it + j))
                     chunk.append(self.train_step(self.model, batch, self.generator))
                 scalars = {name: torch.stack([s[name] for s in chunk]).cpu().numpy() for name in chunk[0]}
-            chunk_s = time.time() - t_chunk  # the read of the scalars waited for the chunk's last step
+            # the read of the scalars waited for the chunk's last step
+            self.chunk_seconds.append((k, time.time() - t_chunk))
             rays_done += k * (nerf_idx.shape[1] + (sd_idx.shape[1] if sd_idx is not None else 0))
             for j in range(k):
                 for name, vals in scalars.items():
@@ -277,7 +279,7 @@ class Trainer:
             if self.verbose_log:
                 elapsed = time.time() - t_start
                 print(f"iter {it}/{total_num_iters} TotalLoss {float(scalars['TotalLoss'][-1]):.5f} "
-                      f"({rays_done / max(elapsed, 1e-9):,.0f} rays/s; {k} steps in {chunk_s:.3f} s)", flush=True)
+                      f"({rays_done / max(elapsed, 1e-9):,.0f} rays/s)", flush=True)
             # saved also at the last iteration when it is off every boundary
             if it % model_save_interval == 0 or it == total_num_iters:
                 self.save_model(it, saved_models_dirpath)
@@ -324,10 +326,11 @@ def resolve_scene_ids(configs: Dict[str, Any], database_dirpath: Path):
     return [scene_dirname(n, "scene_num") for n in np.unique(data["scene_num"])]
 
 
-def start_training(configs: Dict[str, Any]):
+def start_training(configs: Dict[str, Any]) -> Dict[str, List[Tuple[int, float]]]:
     """Train every scene of `configs` into
     {root_dirpath}/runs/training/train{train_num:04}/{scene}/. On resume the
-    saved Configs.json is merged into `configs` first."""
+    saved Configs.json is merged into `configs` first. Returns each scene's
+    (steps, seconds) of every chunk it trained (`Trainer.chunk_seconds`)."""
     root_dirpath = Path(configs.get("root_dirpath", "."))
     output_dirpath = root_dirpath / f"runs/training/train{configs['train_num']:04}"
     output_dirpath.mkdir(parents=True, exist_ok=True)
@@ -335,6 +338,7 @@ def start_training(configs: Dict[str, Any]):
     database_dirpath = root_dirpath / "data" / configs["database_dirpath"]
     device = resolve_device(configs.get("device", "all"))
 
+    chunk_seconds = {}
     for scene_id in resolve_scene_ids(configs, database_dirpath):
         init_seeds(configs.get("seed", 0))
         scene_output_dirpath = output_dirpath / f"{scene_id}"
@@ -359,3 +363,5 @@ def start_training(configs: Dict[str, Any]):
             trainer.train()
         finally:
             trainer.logger.close()
+        chunk_seconds[scene_id] = trainer.chunk_seconds
+    return chunk_seconds
