@@ -94,7 +94,20 @@ Phases, each of which fails the run loudly:
    switch at iter_num 30,000, the LR there, exactly 2 K1 launches per step;
    both K1 instances against their plain versions on this scene's
    2048 + 2048-ray batch;
-9. a JSON line of each of phases 3-8 and of the kernels, and the device
+9. more than one device, as far as one card shows it (the script needs
+   one card): a synthetic two-scene LLFF database at 1008x756 and
+   the flagship config with bf16 heads at 2048 + 2048 rays; (a) 10 steps of
+   the port's Trainer through the distributed step code on NCCL at world
+   size 1, bit for bit against the single-process Trainer; (b) two gloo
+   ranks sharing the card, spawned by the port's launcher, 10 steps from
+   the same weights: the ranks' parameters bit for bit equal, TotalLoss
+   per step and the parameters' distance within their limits of the
+   one-rank run, K1 exactly 2 launches per step per rank; (c) a held-out frame by
+   `start_testing` on the two ranks against one rank (bitwise or not,
+   printed); (d) `batch_scenes` with S = 2 over the two ranks against S = 2
+   in one process, the scenes in both orders; the seconds of two ranks sharing one card (not a
+   scaling figure);
+10. a JSON line of each of phases 3-9 and of the kernels, and the device
    line last.
 
 It needs CUDA and the repository around it, and exits non-zero without a
@@ -1980,6 +1993,371 @@ def phase_protocol(k1, dev):
 
 
 
+# ----------------------------------------------------------- multi-device
+
+PAR_STEPS = 10
+PAR_SCENES = ["synth01", "synth02"]
+PAR_TRAIN_NUM, PAR_BATCHED_NUM = 21, 22  # train{N}: the one-rank runs, under root/one and root/two
+# Two ranks against one: the ranks' sums of their halves' gradients round apart from one sum over
+# the batch. The JAX package holds its mesh to TotalLoss within rtol 1e-5 and parameters within
+# atol 2e-6 / rtol 1e-5 (tests/test_parallel.py, a narrow model). At the flagship width the two
+# trajectories part further with every step: each step's rounding-level differences feed the
+# next gradients, and Adam's normalisation turns a relative difference of a small gradient into
+# an update difference of the learning rate's order. Measured in f32 on an H100 80GB HBM3 at
+# 700 W (the f32 twin writes a checkpoint after every step, read by `par_f32_drift`): 1 entry of
+# 1.19M outside the mesh's tolerance after step 1, no gradient sign changed there, then 4.5e-5,
+# 7.7e-4, 3.4e-3, ... 6.4e-2 of the entries by step 10. So the parameters are held by their
+# distance over how far they moved, and the share outside the mesh's tolerance is printed. In
+# bf16 the weights are rounded to bf16 for every forward, so a rounding-level difference in a
+# weight near a bf16 rounding boundary moves it by a bf16 step (2^-8 relative), and the losses
+# part by far more than in f32. Measured there: the first step's TotalLoss equal to 8.5e-8 in
+# both modes, then within 1.2e-6 in f32 and 5.6e-4 in bf16 over 10 steps; ||d|| / ||moved||
+# 1.4e-3 (f32) and 1.0e-2 (bf16).
+TOL_PAR_LOSS_RTOL = {"f32": 1e-5, "bf16": 2e-3}
+TOL_PAR_PARAM_ATOL, TOL_PAR_PARAM_RTOL = 2e-6, 1e-5
+TOL_PAR_REL_DIST = {"f32": 1e-2, "bf16": 5e-2}
+# batch_scenes over two ranks: the step has no collective (each rank trains its own scene at
+# S = 1), so the runs differ only where the one process's S = 2 step rounds a scene's sums apart
+# from an S = 1 step. The scenes are trained in both orders, so each is seen on each rank.
+# Measured on an H100 80GB HBM3 at 700 W: ||d|| / ||moved|| 1.85e-7 for synth01 and 2.29e-4 for
+# synth02, the same to every printed digit on rank 0 and on rank 1: the difference follows the
+# scene's trajectory, not the rank.
+TOL_PAR_BATCHED_REL_DIST = 2e-3
+# The frame: each rank renders whole rays, but a kernel over half a tile's rays may sum in another
+# order. The NDC depth (in [0, 1]) is compared; the metric depth, 1 / (1 - ndc) near the far plane,
+# magnifies an ulp there and is printed only.
+TOL_PAR_PNG = 1  # grey levels
+TOL_PAR_DEPTH_NDC = 2e-3  # measured 6.7e-4 on an H100 80GB HBM3 at 700 W
+
+
+def par_configs(root: Path, train_num: int, device, scenes=("synth01",), precision: str = "bf16") -> dict:
+    """The flagship training config for PAR_STEPS steps through K1, with
+    bf16 heads (one checkpoint, at the end) or in f32 (a checkpoint after
+    every step), no validation."""
+    from vipnerf_tpu_torch.data.synthetic_rig import flagship_training_configs
+
+    cfg = flagship_training_configs(root, PAR_STEPS)
+    cfg["data_loader"]["scene_names"] = list(scenes)
+    cfg["model"]["bf16_matmuls"] = precision == "bf16"
+    cfg.update(train_num=train_num, device=device, model_save_interval=PAR_STEPS if precision == "bf16" else 1,
+               validation_interval=10 * PAR_STEPS)
+    return cfg
+
+
+def par_train(cfg: dict) -> dict:
+    """PAR_STEPS steps of the port's `Trainer` on this process's group (or
+    alone), from the seed's weights, into the run tree of
+    cfg['configs']: each step's TotalLoss (rank 0's log), the final
+    parameters on the host and K1's launches in this process."""
+    from vipnerf_tpu_torch.data.loaders import get_data_loader
+    from vipnerf_tpu_torch.data.preprocessor import get_data_preprocessor
+    from vipnerf_tpu_torch.kernels import fused_mlp as k1
+    from vipnerf_tpu_torch.losses import LossComputer
+    from vipnerf_tpu_torch.models.vip_nerf import ViPNeRF
+    from vipnerf_tpu_torch.parallel.mesh import current_group
+    from vipnerf_tpu_torch.protocol.common import read_scalars
+    from vipnerf_tpu_torch.train.trainer import Trainer
+    from vipnerf_tpu_torch.utils.config import save_configs, save_model_configs
+    from vipnerf_tpu_torch.utils.device import resolve_device
+
+    configs = copy.deepcopy(cfg["configs"])
+    group = current_group(configs["device"])
+    writes = group is None or group.is_writer
+    dev = resolve_device(configs["device"])
+    run = Path(configs["root_dirpath"]) / f"runs/training/train{configs['train_num']:04}"
+    db = Path(configs["root_dirpath"]) / "data" / configs["database_dirpath"]
+    if writes:  # the tree the tester reads
+        (run / "synth01").mkdir(parents=True, exist_ok=True)
+        save_configs(run, copy.deepcopy(configs))
+    configs["data_loader"]["scene_id"] = "synth01"
+    prep = get_data_preprocessor(configs, "train", device=dev,
+                                 raw_data_dict=get_data_loader(configs, db, "train").load_data())
+    val = get_data_preprocessor(configs, "validation", model_configs=prep.get_model_configs(), device=dev,
+                                raw_data_dict=get_data_loader(configs, db, "validation").load_data())
+    if writes:
+        save_model_configs(run / "synth01", prep.get_model_configs())
+    model = ViPNeRF(configs, torch.Generator().manual_seed(0)).to(dev)
+    trainer = Trainer(configs, prep.get_model_configs(), prep, val, model, LossComputer(configs), run / "synth01",
+                      verbose_log=False, group=group)
+    k1.reset_launch_counts()
+    try:
+        trainer.train()
+    finally:
+        trainer.logger.close()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    losses = None
+    if writes:
+        series = read_scalars(run / "synth01/logs/scalars.jsonl")["train/TotalLoss"]
+        losses = [series[i] for i in range(1, PAR_STEPS + 1)]
+    return {"losses": losses, "params": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "launches": k1.fused_mlp_raw.launches, "sharded": trainer.shard is not None}
+
+
+def par_start(configs: dict) -> dict:
+    """The seed's weights every run of the phase starts from."""
+    from vipnerf_tpu_torch.models.vip_nerf import ViPNeRF
+
+    return ViPNeRF(configs, torch.Generator().manual_seed(0)).state_dict()
+
+
+def par_rank(cfg: dict) -> None:
+    """One of the two ranks: `par_train` (bf16, then f32), then a held-out
+    frame through `start_testing` and the two scenes, in both orders,
+    through `start_training_batched`, each joining this rank's group; its
+    results to cfg['out']."""
+    from vipnerf_tpu_torch.infer.tester import start_testing
+    from vipnerf_tpu_torch.parallel.mesh import current_group
+    from vipnerf_tpu_torch.train.multi_scene import start_training_batched
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = current_group(cfg["configs"]["device"]).rank
+    t0 = time.perf_counter()
+    result = par_train(cfg)
+    result["train_s"] = time.perf_counter() - t0
+    result["f32"] = par_train({"configs": cfg["configs_f32"]})
+    t0 = time.perf_counter()
+    start_testing(cfg["test_configs"], cfg["scenes_data"], save_depth=True)
+    result["test_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for batched in cfg["batched"]:
+        start_training_batched(batched)
+    result["batched_s"] = time.perf_counter() - t0
+    torch.save(result, Path(cfg["out"]) / f"par_rank{rank}.pt")
+
+
+def par_compare(label: str, got: dict, want: dict, start: dict, tol_rel_dist: float) -> dict:
+    """Parameter dicts after the same steps from `start`: bitwise or not,
+    the largest absolute difference, its share of the JAX mesh's tolerance
+    and the share of entries outside it, and the distance between the two
+    over the distance `want` moved from `start`."""
+    atol, rtol = TOL_PAR_PARAM_ATOL, TOL_PAR_PARAM_RTOL
+    worst_abs, worst_share, outside, count, dist2, moved2, bitwise = 0.0, 0.0, 0, 0, 0.0, 0.0, True
+    for k, w in want.items():
+        g, w, w0 = (x.detach().cpu().double() for x in (got[k], w, start[k]))
+        bitwise &= torch.equal(g, w)
+        d = (g - w).abs()
+        share = d / (atol + rtol * w.abs())
+        worst_abs, worst_share = max(worst_abs, float(d.max())), max(worst_share, float(share.max()))
+        outside, count = outside + int((share > 1).sum()), count + d.numel()
+        dist2, moved2 = dist2 + float((d ** 2).sum()), moved2 + float(((w - w0) ** 2).sum())
+    out = {"bitwise": bitwise, "max_abs": worst_abs, "share_of_tol": worst_share, "outside_tol": outside / count,
+           "rel_dist": math.sqrt(dist2 / moved2)}
+    log(f"{label}: parameters bitwise {bitwise}, max|d| {worst_abs:.3g}, worst share of the JAX mesh's tolerance "
+        f"(atol {atol:g}, rtol {rtol:g}) {worst_share:.3g}, entries outside it {outside} of {count}, "
+        f"||d|| / ||moved|| {out['rel_dist']:.3g} (tol {tol_rel_dist:g})")
+    return out
+
+
+def par_f32_drift(one: Path, two: Path) -> dict:
+    """The f32 twin's checkpoints after every step, one rank's (`one`) and
+    two ranks' (`two`): the share of parameter entries outside the JAX
+    mesh's tolerance after each step; and after step 1, where Adam's update
+    is lr * g / (|g| + eps) with g = exp_avg / (1 - beta1) (so where the two
+    gradients differ in sign the parameters part by about 2 lr), the share
+    whose gradient changed sign, the share of the entries outside the
+    tolerance that are such, and the largest |g| of a changed sign over the
+    RMS |g| of its tensor."""
+    atol, rtol = TOL_PAR_PARAM_ATOL, TOL_PAR_PARAM_RTOL
+    per_step = []
+    for step in range(1, PAR_STEPS + 1):
+        a, b = (torch.load(d / f"Model_Iter{step:06}.tar", weights_only=True) for d in (one, two))
+        beta1 = a["optimizer_state_dict"]["param_groups"][0]["betas"][0]
+        outside = flipped = both = count = 0
+        worst_rel_g = 0.0
+        for i, (k, wa) in enumerate(a["model_state_dict"].items()):
+            wa, wb = wa.double(), b["model_state_dict"][k].double()
+            out = (wa - wb).abs() > atol + rtol * wa.abs()
+            outside, count = outside + int(out.sum()), count + wa.numel()
+            if step > 1:
+                continue
+            ga, gb = (x["optimizer_state_dict"]["state"][i]["exp_avg"].double() / (1 - beta1) for x in (a, b))
+            if ga.shape != wa.shape:
+                raise AssertionError(f"optimizer state {i} of shape {tuple(ga.shape)} does not belong to {k}")
+            flip = torch.sign(ga) != torch.sign(gb)
+            flipped, both = flipped + int(flip.sum()), both + int((out & flip).sum())
+            if flip.any():
+                worst_rel_g = max(worst_rel_g, float(ga[flip].abs().max() / ga.pow(2).mean().sqrt()))
+        per_step.append(outside / count)
+        if step == 1:
+            first = {"sign_changed": flipped / count, "outside_with_sign_changed": both / max(outside, 1),
+                     "max_rel_grad_sign_changed": worst_rel_g}
+    return {"outside_tol_per_step": per_step, "first_step": first}
+
+
+def phase_parallel(k1, dev):
+    """More than one device, as far as one card shows it: (a) the
+    distributed step code on NCCL at world size 1, PAR_STEPS steps of the
+    Trainer bit for bit against the single-process Trainer; (b) two gloo
+    ranks sharing the card (NCCL refuses two ranks on one device), spawned
+    by the port's launcher: their parameters bit for bit equal to each
+    other, within the mesh tolerances of the one-rank run, K1 exactly 2
+    launches per step per rank; (c) a held-out frame by `start_testing` on
+    the two ranks against one rank; (d) `batch_scenes`' S = 2 over the two
+    ranks against S = 2 in one process, with the scenes in both orders. The
+    phase's seconds are those of two ranks sharing one card: no scaling
+    figure."""
+    import torch.distributed as dist
+
+    from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
+    from vipnerf_tpu_torch.infer.tester import start_testing
+    from vipnerf_tpu_torch.parallel.mesh import backend_for, run_on_devices, select_devices
+    from vipnerf_tpu_torch.train.multi_scene import start_training_batched
+    from vipnerf_tpu_torch.utils.io import read_image
+
+    cuda = dev.type == "cuda"
+    one = [dev.index or 0] if cuda else "cpu"
+    two = [dev.index or 0] * 2 if cuda else ["cpu", "cpu"]
+    t_phase = time.perf_counter()
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        roots = {"one": tmp / "one", "world1": tmp / "world1", "two": tmp / "two"}
+        t0 = time.perf_counter()
+        gts = [write_synthetic_database(roots["one"] / "data/databases", scene_name=name, num_frames=5,
+                                        train_frames=(0, 2, 4), val_frames=(1,), height=H, width=W, seed=i)
+               for i, name in enumerate(PAR_SCENES)]
+        for key in ("world1", "two"):
+            shutil.copytree(roots["one"], roots[key])
+        log(f"multi-device: scenes {PAR_SCENES} of 5 frames at {W}x{H} written in {time.perf_counter() - t0:.2f} s")
+
+        # (a) the single-process Trainer, then the distributed step code on a group of one
+        t0 = time.perf_counter()
+        single = par_train({"configs": par_configs(roots["one"], PAR_TRAIN_NUM, one)})
+        single_f32 = par_train({"configs": par_configs(roots["one"], PAR_TRAIN_NUM + 10, one, precision="f32")})
+        backend = backend_for(select_devices(one))
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+        try:
+            world1 = par_train({"configs": par_configs(roots["world1"], PAR_TRAIN_NUM, one)})
+        finally:
+            dist.destroy_process_group()
+        a_s = time.perf_counter() - t0
+        same = single["losses"] == world1["losses"] and all(
+            torch.equal(world1["params"][k], v) for k, v in single["params"].items())
+        log(f"(a) {PAR_STEPS} Trainer steps, one process vs {backend} at world size 1 (sharded step: "
+            f"{world1['sharded']}): TotalLoss {single['losses'][0]:.6f} -> {single['losses'][-1]:.6f}, bit for bit "
+            f"{same}; K1 launches {single['launches']} and {world1['launches']} ({a_s:.1f} s)")
+        if not (same and world1["sharded"] and backend == ("nccl" if cuda else "gloo")):
+            raise AssertionError("the distributed step at world size 1 is not the single-process step")
+        if cuda and not single["launches"] == world1["launches"] == 2 * PAR_STEPS:
+            raise AssertionError(f"K1 launches {single['launches']}, {world1['launches']}, expected {2 * PAR_STEPS}")
+
+        # (b)-(d): one spawn of two ranks sharing the card
+        db = roots["one"] / "data/databases/NeRF_LLFF/data/all/database_data/synth01"
+        extr = np.loadtxt(db / "CameraExtrinsics.csv", delimiter=",").reshape(-1, 4, 4)
+        intr = np.loadtxt(db / "CameraIntrinsics.csv", delimiter=",").reshape(-1, 3, 3)
+        scenes_data = {"synth01": {"output_dirname": "synth01", "frames_data": {
+            3: {"extrinsic": extr[3], "intrinsic": intr[3], "is_train_frame": False}}}}
+
+        def test_configs(root, device):
+            return {"test_num": PAR_TRAIN_NUM, "train_num": PAR_TRAIN_NUM, "model_name": "Model_Latest.tar",
+                    "root_dirpath": str(root), "device": device, "chunk_size": CHUNK}
+
+        def batched(root, device):  # the scenes in both orders: each trained on each rank
+            return [par_configs(root, PAR_BATCHED_NUM + i, device, order)
+                    for i, order in enumerate((PAR_SCENES, PAR_SCENES[::-1]))]
+
+        t0 = time.perf_counter()
+        run_on_devices(par_rank, {"configs": par_configs(roots["two"], PAR_TRAIN_NUM, two), "out": str(tmp),
+                                  "configs_f32": par_configs(roots["two"], PAR_TRAIN_NUM + 10, two, precision="f32"),
+                                  "test_configs": test_configs(roots["two"], two), "scenes_data": scenes_data,
+                                  "batched": batched(roots["two"], two)}, two)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"par_rank{r}.pt", weights_only=False) for r in (0, 1)]
+        log(f"two {'gloo ranks sharing cuda:%d' % two[0] if cuda else 'CPU ranks'}: {spawn_s:.1f} s for the spawn, "
+            f"the steps, the frame and the batched run (rank 0: train {ranks[0]['train_s']:.1f} s, test "
+            f"{ranks[0]['test_s']:.1f} s, batched {ranks[0]['batched_s']:.1f} s); two ranks sharing one card, "
+            "not a scaling figure")
+
+        # (b), in bf16 (the phase's mode) and in f32
+        start = par_start(par_configs(roots["one"], PAR_TRAIN_NUM, one))
+        b_out = {}
+        for precision, mine, ref in (("bf16", ranks, single), ("f32", [r["f32"] for r in ranks], single_f32)):
+            ranks_equal = all(torch.equal(mine[0]["params"][k], v) for k, v in mine[1]["params"].items())
+            rel = [abs(a - b) / abs(b) for a, b in zip(mine[0]["losses"], ref["losses"])]
+            cmp = par_compare(f"(b) {precision}, two ranks vs one", mine[0]["params"], ref["params"], start,
+                              TOL_PAR_REL_DIST[precision])
+            launches = [r["launches"] for r in mine]
+            log(f"(b) {precision}: {PAR_STEPS} steps on two ranks (sharded {mine[0]['sharded']}): the ranks' "
+                f"parameters bit for bit {ranks_equal}; TotalLoss relative difference from one rank per step "
+                f"{[float(f'{x:.3g}') for x in rel]} (tol {TOL_PAR_LOSS_RTOL[precision]:g}); K1 launches per rank "
+                f"{launches} (expected {2 * PAR_STEPS} each)")
+            if not (ranks_equal and mine[0]["sharded"] and max(rel) <= TOL_PAR_LOSS_RTOL[precision]
+                    and cmp["rel_dist"] <= TOL_PAR_REL_DIST[precision]):
+                raise AssertionError(f"two ranks do not match one ({precision})")
+            if cuda and any(n != 2 * PAR_STEPS for n in launches):
+                raise AssertionError(f"K1 launched {launches} times on the ranks ({precision})")
+            b_out[precision] = {"ranks_bitwise": ranks_equal, "loss_rel": rel, **cmp, "launches_per_rank": launches}
+        run_f32 = f"runs/training/train{PAR_TRAIN_NUM + 10:04}/synth01/saved_models"
+        drift = par_f32_drift(roots["one"] / run_f32, roots["two"] / run_f32)
+        first = drift["first_step"]
+        log(f"(b) f32, two ranks vs one: share of entries outside the JAX mesh's tolerance after steps 1-{PAR_STEPS} "
+            f"{[float(f'{x:.3g}') for x in drift['outside_tol_per_step']]}; after step 1, gradient sign changed in "
+            f"{first['sign_changed']:.3g} of the entries, {first['outside_with_sign_changed']:.3g} of those outside "
+            f"the tolerance; largest |g| with a changed sign over its tensor's RMS |g| "
+            f"{first['max_rel_grad_sign_changed']:.3g}")
+        b_out["f32"]["drift"] = drift
+
+        # (c)
+        t0 = time.perf_counter()
+        start_testing(test_configs(roots["one"], one), scenes_data, save_depth=True)
+        c_s = time.perf_counter() - t0
+        frames = {}
+        for key in ("one", "two"):
+            scene_out = roots[key] / f"runs/testing/test{PAR_TRAIN_NUM:04}/synth01"
+            frames[key] = (read_image(scene_out / "predicted_frames/0003.png"),
+                           np.load(scene_out / "predicted_depths/0003_ndc.npy"),
+                           np.load(scene_out / "predicted_depths/0003.npy"))
+        bitwise = [np.array_equal(a, b) for a, b in zip(frames["one"], frames["two"])]
+        png_diff = int(np.abs(frames["one"][0].astype(int) - frames["two"][0].astype(int)).max())
+        ndc_diff, depth_diff = (float(np.abs(a - b).max()) for a, b in zip(frames["one"][1:], frames["two"][1:]))
+        frame_psnr = psnr(frames["two"][0], gts[0]["images"][3])
+        log(f"(c) held-out frame 3 at {W}x{H} (train{PAR_TRAIN_NUM:04}'s weights after {PAR_STEPS} steps, PSNR "
+            f"{frame_psnr:.3f} dB) by two ranks vs one rank ({c_s:.1f} s): bit for bit: PNG {bitwise[0]}, NDC depth "
+            f"{bitwise[1]}, depth {bitwise[2]}; max difference: {png_diff} grey levels (tol {TOL_PAR_PNG}), NDC depth "
+            f"{ndc_diff:.3g} (tol {TOL_PAR_DEPTH_NDC:g}), depth {depth_diff:.3g}")
+        if png_diff > TOL_PAR_PNG or ndc_diff > TOL_PAR_DEPTH_NDC:
+            raise AssertionError("the two ranks' frame differs from the one rank's")
+
+        # (d)
+        t0 = time.perf_counter()
+        for cfg in batched(roots["one"], one):
+            start_training_batched(cfg)
+        d_s = time.perf_counter() - t0
+        d_cmp = {}
+        for i, order in enumerate((PAR_SCENES, PAR_SCENES[::-1])):
+            for rank, name in enumerate(order):
+                path = f"runs/training/train{PAR_BATCHED_NUM + i:04}/{name}/saved_models/Model_Iter{PAR_STEPS:06}.tar"
+                got, want = ({k.removeprefix("module."): v for k, v in
+                              torch.load(roots[key] / path, weights_only=True)["model_state_dict"].items()}
+                             for key in ("two", "one"))
+                d_cmp[f"{name}_rank{rank}"] = par_compare(
+                    f"(d) batch_scenes S = 2, {name} on rank {rank}: two ranks (one scene each) vs one process",
+                    got, want, start, TOL_PAR_BATCHED_REL_DIST)
+        if any(c["rel_dist"] > TOL_PAR_BATCHED_REL_DIST for c in d_cmp.values()):
+            raise AssertionError("batched training over two ranks does not match one process")
+        out.update(a={"bitwise": same, "backend": backend, "seconds": a_s},
+                   b=b_out,
+                   c={"bitwise": dict(zip(("png", "depth_ndc", "depth"), bitwise)), "png_max_diff": png_diff,
+                      "depth_ndc_max_diff": ndc_diff, "depth_max_diff": depth_diff, "psnr": frame_psnr,
+                      "one_rank_s": c_s},
+                   d={**d_cmp, "one_process_s": d_s}, spawn_s=spawn_s,
+                   rank0_s={k: ranks[0][k] for k in ("train_s", "test_s", "batched_s")},
+                   k1_launches=single["launches"] + world1["launches"] + sum(r["launches"] for r in ranks),
+                   k1_launches_f32=single_f32["launches"] + sum(r["f32"]["launches"] for r in ranks))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"multi-device phase: {out['seconds']:.1f} s (two ranks sharing one card)")
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -2017,6 +2395,7 @@ def main() -> int:
     multi = phase_multi_scene(k1, dev)
     database = phase_database(k1, dev)
     protocol = phase_protocol(k1, dev)
+    parallel = phase_parallel(k1, dev)
 
     log(json.dumps({"slice": {
         "resolution": [H, W], "chunk_size": CHUNK, "k1_timing_shape": {"points": MAIN_N, "n_sec": 0},
@@ -2031,12 +2410,16 @@ def main() -> int:
                                  **pipeline, "card": card}}))
     log(json.dumps({"database": {"resolution": [H, W], **database, "card": card}}))
     log(json.dumps({"protocol": {"resolution": [PROTO_H, PROTO_W], "steps": PROTO_STEPS, **protocol, "card": card}}))
+    log(json.dumps({"multi_device": {"resolution": [H, W], "steps": PAR_STEPS, "rays_per_step": TRAIN_RAYS,
+                                     **parallel, "card": card}}))
     # each instance's launches come from its own path: the bf16 one from
-    # start_testing, start_training, the batched app run and the built
-    # database's runs, the f32 one from the f32 frame of phase_modes
+    # start_testing, start_training, the batched app run, the built
+    # database's runs, the protocol's seam and the multi-device phase's
+    # Trainer runs (both ranks' too), the f32 one from the f32 frame of
+    # phase_modes and the multi-device phase's f32 Trainer runs
     path_launches = {"fused_mlp_bf16": launches["fused_mlp_bf16"] + train["run"]["launches"] + multi["launches"]
-                     + database["k1_launches"] + protocol["k1_launches"],
-                     "fused_mlp_f32": modes["f32"]["launches"]["fused_mlp_f32"]}
+                     + database["k1_launches"] + protocol["k1_launches"] + parallel["k1_launches"],
+                     "fused_mlp_f32": modes["f32"]["launches"]["fused_mlp_f32"] + parallel["k1_launches_f32"]}
     kernels = []
     for dtype in (torch.bfloat16, torch.float32):
         name = k1.INSTANCE[dtype]

@@ -89,21 +89,28 @@ def test_apps_run_as_modules(module, tmp_path):
 
 
 def test_batch_scenes_names_the_multi_device_slice(tmp_path, monkeypatch):
-    """`batch_scenes` goes to the batched trainer on one device (trained end
-    to end in tests/test_torch_multi_scene.py); more than one GPU is the last
-    slice of the port."""
+    """`batch_scenes` goes to the batched trainer (trained end to end in
+    tests/test_torch_multi_scene.py, over two CPU ranks in
+    tests/test_torch_parallel.py), with the device list as given: two CPU
+    ranks pass through, and the QA subprocess gets them as "cpu,cpu";
+    [0, 1] without CUDA raises instead of falling back to the CPU."""
     calls = []
     monkeypatch.setattr(common.multi_scene, "start_training_batched", calls.append)
     monkeypatch.setattr(common.trainer_mod, "start_training", lambda cfg: calls.append(None) or {})
     app = common.DatasetApp("NeRF_LLFF", "scene_name", "all", root_dirpath=tmp_path)
-    app.start_training({"train_num": 1, "batch_scenes": True})
-    assert calls == [{"train_num": 1, "batch_scenes": True, "root_dirpath": str(tmp_path)}]
+    app.start_training({"train_num": 1, "batch_scenes": True, "device": ["cpu", "cpu"]})
+    assert calls == [{"train_num": 1, "batch_scenes": True, "device": ["cpu", "cpu"],
+                      "root_dirpath": str(tmp_path)}]
     app.start_training({"train_num": 1})
     assert calls[-1] is None
-    from vipnerf_tpu_torch.utils.device import resolve_device
+    assert common._device_arg(["cpu", "cpu"]) == "cpu,cpu" and common._device_arg([0, 1]) == "0,1"
+    from vipnerf_tpu_torch.utils.device import device_from_arg, resolve_device
 
-    with pytest.raises(NotImplementedError, match="last slice"):
-        resolve_device([0, 1])
+    assert device_from_arg("cpu,cpu") == ["cpu", "cpu"] and device_from_arg("0,1") == [0, 1]
+    assert resolve_device(["cpu", "cpu"]) == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device([0, 1])
 
 
 @pytest.mark.parametrize("dataset", ["NeRF_LLFF", "DTU"])

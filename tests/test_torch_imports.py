@@ -3,8 +3,9 @@ chip_smoke.py, imports jax, flax, optax, msgpack, the JAX package
 vipnerf_tpu or its tools/ drivers, nor a library the GPU machine lacks
 (pandas, imageio, cv2, simplejson, skimage, PIL); and every module of the
 port (the database builders, the JAX-checkpoint bridge and the protocol
-drivers among them) imports with all of those blocked, and without
-building or loading any library (K1, the ray stream, nvJPEG's binding)."""
+drivers among them, and parallel.mesh, the data parallelism over devices)
+imports with all of those blocked, and without building or loading any
+library (K1, the ray stream, nvJPEG's binding)."""
 
 import ast
 import subprocess
@@ -53,7 +54,7 @@ assert not build._loaded and not build.build_seconds, "a library was built or lo
 for new in ("db_builders.nerf_llff", "db_builders.dtu", "db_builders.real_estate", "utils.jax_ckpt", "utils.jpeg",
             "protocol.common", "protocol.evidence_snapshot", "protocol.run_dtu_control", "protocol.checkpoint_sweep",
             "protocol.run_dtu_50k", "protocol.run_priorgen_50k", "protocol.run_realestate_50k",
-            "protocol.run_demo1a_200k"):
+            "protocol.run_demo1a_200k", "parallel.mesh"):
     assert "vipnerf_tpu_torch." + new in names, new
 print(len(names))
 """

@@ -16,7 +16,12 @@ the card is held against autograd through its recompute there; one training
 step on the card against the same step on the CPU (tolerances at each test).
 nvJPEG's decode of the committed 4:2:0 fixture against the JAX package's
 (libjpeg's) decode of it: at least chip_smoke.py's `JPEG_MIN_PSNR` dB, since
-the two differ in the IDCT and the chroma upsampling.
+the two differ in the IDCT and the chroma upsampling. chip_smoke's
+multi-device pair at a narrow width: two gloo ranks sharing the card
+against one process on it, with the JAX mesh's tolerances (f32); and why
+that pair runs gloo: two ranks on one card run the port's collectives
+(all_reduce, all_gather, barrier) on CUDA tensors through gloo, while NCCL
+refuses them.
 """
 
 import itertools
@@ -293,3 +298,101 @@ def test_nvjpeg_decodes_the_fixture_as_libjpeg_does(device):
     psnr = 10 * np.log10(255.0 ** 2 / np.mean((got - want) ** 2))
     print(f"nvJPEG vs libjpeg: max |diff| {np.abs(got - want).max():.0f}, PSNR {psnr:.2f} dB")
     assert psnr >= JPEG_MIN_PSNR
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_sharing_the_card_match_one_process(device, tmp_path):
+    """10 steps of tests/test_train_step.py's narrow model (perturbation on)
+    on two gloo ranks sharing the card, spawned by the port's launcher:
+    the ranks' parameters bit for bit equal; TotalLoss within rtol 1e-5 per
+    step and the parameters within atol 2e-6 / rtol 1e-5 of one process's
+    on the card (the JAX package's tolerances for its mesh)."""
+    import numpy as np
+
+    # by file, not as tests.torch_parallel_ranks: a `tests` package installed
+    # on the GPU machine shadows this directory
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_parallel_ranks as ranks
+
+    from vipnerf_tpu_torch.models.vip_nerf import ViPNeRF
+    from vipnerf_tpu_torch.parallel.mesh import run_on_devices
+
+    cfg = ranks.step_configs()
+    state = {k: v.detach().numpy() for k, v in ViPNeRF(cfg, torch.Generator().manual_seed(0)).state_dict().items()}
+    idx = np.random.default_rng(1).integers(0, 512, (10, 64)).astype(np.int32)
+    steps = (cfg, state, ranks.step_cache(), idx)
+    index = device.index or 0
+    run_on_devices(ranks.joined, {"device": [index, index], "workdir": str(tmp_path), "steps": steps})
+    ref_loss, ref_params = ranks.run_steps(*steps, device=device)
+    (l0, p0), (l1, p1) = (ranks.load(tmp_path, "joined", r) for r in (0, 1))
+    np.testing.assert_array_equal(l0, l1)
+    for k in ref_params:
+        np.testing.assert_array_equal(p0[k], p1[k], err_msg=k)
+        np.testing.assert_allclose(p0[k], ref_params[k], atol=2e-6, rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(l0, ref_loss, rtol=1e-5)
+
+
+def _collectives_on_one_card(rank: int, backend: str, address: str, index: int, queue) -> None:
+    """One of two ranks on cuda:index: each collective the port uses, "ok"
+    or the error it raised, to `queue`."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", index)
+    torch.cuda.set_device(dev)
+    results = {}
+    try:
+        dist.init_process_group(backend, init_method=address, rank=rank, world_size=2)
+    except (RuntimeError, ValueError) as e:  # what the backend refuses is the result
+        queue.put((rank, {"init": str(e).splitlines()[0]}))
+        return
+    x = torch.ones(4, device=dev)
+    for name, run in (("all_reduce", lambda: dist.all_reduce(x)),
+                      ("all_gather", lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x)),
+                      ("barrier", dist.barrier)):
+        try:
+            run()
+            torch.cuda.synchronize(dev)
+            results[name] = "ok"
+        except (RuntimeError, ValueError) as e:
+            results[name] = str(e).splitlines()[0] if str(e) else type(e).__name__
+    queue.put((rank, results))
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_two_ranks_on_one_card_need_gloo(device, backend):
+    """Two ranks on one card: gloo runs all_reduce, all_gather and the
+    barrier on CUDA tensors; NCCL refuses two ranks on one device (an error
+    on each rank, or no result within the time given)."""
+    import multiprocessing
+    import socket
+    from queue import Empty
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_collectives_on_one_card, args=(r, backend, address, device.index or 0, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:
+            rank, res = queue.get(timeout=120)
+            results[rank] = res
+    except Empty:  # a rank hung in the backend
+        pass
+    finally:
+        for p in procs:
+            p.join(timeout=5)
+            if p.is_alive():
+                p.kill()
+    print(backend, results)
+    ok = {"all_reduce": "ok", "all_gather": "ok", "barrier": "ok"}
+    if backend == "gloo":
+        assert results == {0: ok, 1: ok}
+    else:
+        assert all(results.get(r) != ok for r in (0, 1))

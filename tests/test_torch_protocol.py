@@ -30,6 +30,7 @@ package's tools/ drivers they copy, on the CPU at a small size.
 import contextlib
 import io
 import json
+import math
 import re
 import runpy
 import shutil
@@ -564,3 +565,93 @@ def test_a_one_frame_video_list_writes_one_frame(tmp_path, monkeypatch):
     app.start_testing_videos({"test_num": 1, "test_set_num": 2, "database_dirpath": "DTU/data",
                               "scene_nums": [21], "train_num": 1, "model_name": "Model_Iter000001.tar"})
     assert written == {"PredictedVideo.mp4": (1, 6, 8, 3)}
+
+
+# ------------------------------------------------------------ trajectory
+
+TRAJ_STEPS = 100
+TRAJ_LOSSES = ("MSE01", "VisibilityLoss01", "SparseDepthMSE01", "VisibilityPriorLoss01")
+TRAJ_MODES = {"shipped": (True, True), "f32": (False, False)}  # (bf16_matmuls, f32_heads)
+# Measured on the CPU at two threads: the first step's loss terms within 1.1e-7 (f32) and 1.0e-5 (shipped: the
+# bf16 trunk rounds apart from XLA's), growing with the steps to at most 7.7e-4 (f32) and 3.6e-4; the parameters'
+# distance from the JAX run's, over their change from the start, 1.5e-2 (f32) and 7.7e-3 (Adam scales the
+# rounding noise of near-zero gradients up to the learning rate).
+TRAJ_TOL_FIRST = {"shipped": 1e-4, "f32": 1e-6}
+TRAJ_TOL_STEP = 5e-3
+TRAJ_TOL_PARAMS = 5e-2
+
+
+@pytest.fixture(scope="module")
+def dtu_scan(tmp_path_factory):
+    """The DTU control's database at 24x32: set03, train views (0, 2, 5),
+    validation view 3, object masks, sparse depths DE03 and VW03 from the
+    port's generator (DTU's policy)."""
+    from vipnerf_tpu_torch.priors.cli import main_visibility
+
+    root = tmp_path_factory.mktemp("dtu_traj")
+    with contextlib.redirect_stdout(io.StringIO()):
+        common.write_dtu_database(root / "data/databases", set_num=3, train_frames=(0, 2, 5), val_frames=(3,),
+                                  height=24, width=32, video_frames=4, with_visibility_prior=False)
+        main_visibility(["--database", "DTU", "--gen_nums", "3", "--root_dirpath", str(root), "--device", "cpu"])
+    return root
+
+
+@pytest.mark.parametrize("mode", sorted(TRAJ_MODES))
+def test_dtu_control_trajectory_matches_jax(dtu_scan, mode):
+    """The DTU control's seed-0 miss at 10k, held against the step:
+    demo1b's configs (metric space, 3 views, sparse depth, VW03) at
+    width 32 and 128 + 128 rays, perturbation and sigma noise off, 100
+    steps of the port's train step against the JAX package's from the same
+    weights on the same native-raystream batches, in the shipped mode (bf16
+    trunk, f32 heads) and in f32. Every step's four loss terms and the
+    final parameters agree to rounding (the tolerances above)."""
+    from vipnerf_tpu.apps.configs import build_train_configs as j_build_train_configs
+    from vipnerf_tpu.data.loaders import get_data_loader as j_get_data_loader
+    from vipnerf_tpu.data.preprocessor import get_data_preprocessor as j_get_data_preprocessor
+    from vipnerf_tpu.models import vip_nerf as j_vn
+    from vipnerf_tpu_torch.data.loaders import get_data_loader
+    from vipnerf_tpu_torch.data.preprocessor import get_data_preprocessor
+
+    cfg = j_build_train_configs(train_num=42, scene_ids=[21], set_num=3, num_iterations=TRAJ_STEPS, num_rays=128,
+                                sparse_depth=True, sparse_depth_rays=128, **j_dtu._COMMON)
+    assert cfg["data_loader"]["visibility_prior"]["masks_dirname"] == "VW03" and not cfg["data_loader"]["ndc"]
+    for level in ("coarse_mlp", "fine_mlp"):
+        cfg["model"][level]["netwidth"] = 32
+    cfg["model"]["coarse_mlp"]["num_samples"], cfg["model"]["fine_mlp"]["num_samples"] = 16, 32
+    bf16, f32_heads = TRAJ_MODES[mode]
+    cfg["model"].update(perturb=False, raw_noise_std=0.0, bf16_matmuls=bf16, f32_heads=f32_heads)
+    cfg["root_dirpath"], cfg["device"] = str(dtu_scan), "cpu"
+    cfg["data_loader"]["scene_id"] = "00021"
+    db = dtu_scan / "data" / cfg["database_dirpath"]
+
+    jprep = j_get_data_preprocessor(cfg, mode="train", raw_data_dict=j_get_data_loader(cfg, db, mode="train").load_data())
+    tprep = get_data_preprocessor(cfg, mode="train", device=torch.device("cpu"),
+                                  raw_data_dict=get_data_loader(cfg, db, mode="train").load_data())
+    nerf, sd = tprep.get_index_chunk(0, TRAJ_STEPS)
+    j_nerf, j_sd = jprep.get_index_chunk(0, TRAJ_STEPS)
+    np.testing.assert_array_equal(nerf, j_nerf)
+    np.testing.assert_array_equal(sd, j_sd)
+
+    side = JaxSide(cfg)
+    params = init = j_vn.init_params(jax.random.PRNGKey(0), cfg)
+    opt_state = side.tx.init(params)
+    model = t_vn.ViPNeRF(cfg)
+    model.load_state_dict(state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, params)))
+    step = make_train_step(cfg, t_vn.render_rays, LossComputer(cfg), make_optimizer(cfg, model.parameters()))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        for it in range(TRAJ_STEPS):
+            jb = jprep.gather_batch(jax.numpy.asarray(nerf[it]), jax.numpy.asarray(sd[it]), it)
+            params, opt_state, sj = side.step(params, opt_state, jb, jax.random.PRNGKey(0))
+            st = step(model, tprep.gather_batch(torch.from_numpy(nerf[it]), torch.from_numpy(sd[it]), it), None)
+            for name in TRAJ_LOSSES:
+                np.testing.assert_allclose(st[name].item(), float(sj[name]), err_msg=f"{name} at step {it}",
+                                           rtol=TRAJ_TOL_FIRST[mode] if it == 0 else TRAJ_TOL_STEP)
+    finally:
+        torch.set_num_threads(threads)
+    want, start = (state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, p)) for p in (params, init))
+    got = model.state_dict()
+    dist = math.sqrt(sum(float(((got[k] - want[k]) ** 2).sum()) for k in want))
+    moved = math.sqrt(sum(float(((want[k] - start[k]) ** 2).sum()) for k in want))
+    assert dist <= TRAJ_TOL_PARAMS * moved, (dist, moved)

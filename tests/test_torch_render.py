@@ -27,6 +27,7 @@ from vipnerf_tpu_torch.infer.renderer import TiledRenderer
 from vipnerf_tpu_torch.models import vip_nerf as t_vn
 from vipnerf_tpu_torch.train import checkpoints
 from vipnerf_tpu_torch.utils.convert import state_dict_from_jax_params
+from vipnerf_tpu_torch.parallel.mesh import select_devices
 from vipnerf_tpu_torch.utils.device import resolve_device
 from vipnerf_tpu_torch.utils.io import write_png
 
@@ -345,9 +346,15 @@ def test_png_writer_round_trips(tmp_path, shape):
 
 
 def test_device_resolution_never_falls_back_quietly():
+    """More than one device is a selection of ranks now: two CPU ranks
+    resolve, and a process outside a group takes the first device; [0, 1]
+    without CUDA raises instead of falling back to the CPU."""
     assert resolve_device("cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError):
-        resolve_device([0, 1])
+    assert resolve_device(["cpu", "cpu"]) == torch.device("cpu")
+    assert select_devices(["cpu", "cpu"]) == [torch.device("cpu")] * 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device([0, 1])
     if torch.cuda.is_available():
         assert resolve_device("all") == torch.device("cuda", 0)
     else:

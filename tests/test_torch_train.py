@@ -172,8 +172,17 @@ def test_validation_complete_requires_all_artifacts(tmp_path):
 
 
 def test_unported_options_raise(trained):
-    """More than one GPU is the last slice of the port (the profiler hook
-    is ported now: tests/test_torch_guards.py)."""
+    """More than one device is ported (the profiler hook too:
+    tests/test_torch_guards.py): [0, 1] without CUDA raises instead of
+    falling back to the CPU, and two CPU ranks train, rank 0 writing the
+    run tree (held against one rank in tests/test_torch_parallel.py)."""
     root, _ = trained
-    with pytest.raises(NotImplementedError, match="last slice"):  # more than one device
-        start_training(port_configs(root, 20, train_num=9, device=[0, 1]))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            start_training(port_configs(root, 20, train_num=9, device=[0, 1]))
+    out = start_training(port_configs(root, 20, train_num=9, device=["cpu", "cpu"], model_save_interval=20,
+                                      validation_interval=20))
+    assert sum(k for k, _ in out["synth01"]) == 20
+    scene = root / "runs/training/train0009/synth01"
+    assert (scene / "saved_models/Model_Iter000020.tar").exists()
+    assert max(r["step"] for r in scalars(scene) if r["tag"] == "train/TotalLoss") == 20

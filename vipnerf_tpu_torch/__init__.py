@@ -8,8 +8,10 @@ Hopper kernels, their plain versions and K1's autograd), `losses/`, `infer/`
 database, the preprocessor in train, validation and test mode), `train/`
 (LR schedules, Adam step, checkpoints, logging, `start_training`,
 batched multi-scene training), `priors/`, `qa/`, `apps/`, `db_builders/`
-(the three database builders) and `utils/` (I/O with nvJPEG for JPEGs,
-the weight converter, the bridge to the JAX package's checkpoints).
+(the three database builders), `parallel/` (one process per device over
+torch.distributed, the JAX package's mesh) and `utils/` (I/O with nvJPEG
+for JPEGs, the weight converter, the bridge to the JAX package's
+checkpoints).
 
 Entry points run on the card unless the caller asks for the CPU
 (`utils.device.resolve_device`). Kernels build at first use, never at import.

@@ -3,7 +3,9 @@ vipnerf_tpu/apps/common.py, without pandas):
 
 - `start_training`: the run-level configs and every scene of them through
   `train.trainer.start_training`, or all scenes at once through
-  `train.multi_scene.start_training_batched` with `batch_scenes: true`;
+  `train.multi_scene.start_training_batched` with `batch_scenes: true`; both
+  run one rank per device that `device` selects (and so does the tester),
+  while QA and the videos run in the app's process;
 - `start_testing`: scenes_data from the split CSVs and camera CSVs, the
   tester with depth, depth variance and visibility outputs, then QA as a
   subprocess of `python -m vipnerf_tpu_torch.qa.runner`;
@@ -43,7 +45,7 @@ REPO_ROOT = Path(__file__).resolve().parents[2]
 def _device_arg(device: Any) -> str:
     """A configs' device selection as the QA runner's --device value."""
     if isinstance(device, (list, tuple)):
-        return ",".join(str(int(d)) for d in device)
+        return ",".join(str(d) for d in device)
     return str(device or "all")
 
 
@@ -89,7 +91,7 @@ class DatasetApp:
 
     def start_training(self, train_configs: Dict[str, Any]):
         """Train the scenes of `train_configs` one after another, or with
-        `batch_scenes` all at once on one device."""
+        `batch_scenes` all at once, over the selected devices."""
         train_configs = dict(train_configs)
         train_configs["root_dirpath"] = str(self.root_dirpath)
         with self._stage("training"):

@@ -124,7 +124,7 @@ def build_train_configs(
         "model_save_interval": model_save_interval,
         "mixed_precision_training": bf16_matmuls,
         "seed": seed,
-        # "all": the first GPU; "cpu"; or a one-element list of a GPU index
+        # "all": every GPU (one rank each); a list of GPU indices; "cpu" or a list of "cpu" (CPU ranks)
         "device": device or "all",
     }
 

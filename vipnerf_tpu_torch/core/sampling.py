@@ -1,13 +1,34 @@
 """Depth sampling along rays: stratified coarse samples and inverse-CDF fine
 resampling (counterpart of vipnerf_tpu/core/sampling.py).
 
-Randomness comes from an explicit `torch.Generator`; the deterministic path
-(generator None, perturb off) is what inference runs.
+Randomness comes from an explicit `torch.Generator`, through `ray_draw`;
+the deterministic path (generator None, perturb off) is what inference runs.
 """
 
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import torch
+
+
+def ray_draw(shape: Sequence[int], generator: torch.Generator, device: torch.device, *,
+             normal: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """torch.rand (randn with `normal`) of `shape`, whose elements are laid
+    out ray by ray (rays on the leading axes, the same count per ray).
+
+    A generator with `ray_rows` set (a `parallel.mesh.ShardGenerator`, set
+    by the training step of a rank) draws for all of its `ray_total` rays
+    and keeps its rows: a draw depends only on its count of elements, so
+    each rank gets the numbers one process draws for the same rays."""
+    draw = torch.randn if normal else torch.rand
+    rows = getattr(generator, "ray_rows", None)
+    if rows is None:
+        return draw(tuple(shape), generator=generator, dtype=dtype, device=device)
+    per_ray, rest = divmod(math.prod(shape), rows.numel())
+    if rest:
+        raise ValueError(f"a draw of shape {tuple(shape)} is not laid out over {rows.numel()} rays")
+    full = draw((generator.ray_total, per_ray), generator=generator, dtype=dtype, device=device)
+    return full.index_select(0, rows).reshape(tuple(shape))
 
 
 def coarse_z_vals(
@@ -32,7 +53,7 @@ def coarse_z_vals(
         mids = 0.5 * (z[..., 1:] + z[..., :-1])
         upper = torch.cat([mids, z[..., -1:]], dim=-1)
         lower = torch.cat([z[..., :1], mids], dim=-1)
-        t_rand = torch.rand(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+        t_rand = ray_draw(z.shape, generator, z.device, dtype=z.dtype)
         z = lower + (upper - lower) * t_rand
     return z
 
@@ -63,7 +84,7 @@ def sample_pdf(
     else:
         if generator is None:
             raise ValueError("stochastic sample_pdf requires a torch.Generator")
-        u = torch.rand(shape, generator=generator, dtype=cdf.dtype, device=cdf.device)
+        u = ray_draw(shape, generator, cdf.device, dtype=cdf.dtype)
 
     # index of the first cdf entry > u; clamp both neighbours into range
     n_bins = cdf.shape[-1]

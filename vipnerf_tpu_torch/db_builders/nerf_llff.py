@@ -209,7 +209,8 @@ def main(argv=None):
     parser.add_argument("--num_train_frames", type=int, nargs="*", default=[-1, 2, 3, 4])
     parser.add_argument("--video_poses", action="store_true")
     parser.add_argument("--device", default="all",
-                        help='where the JPEG source frames decode: "all" (the first GPU), a GPU index, or "cpu"')
+                        help='where the JPEG source frames decode: "all" (the first GPU), a GPU index or a list '
+                             'of them (the first), or "cpu"')
     args = parser.parse_args(argv)
 
     db = Path(args.database_dirpath)

@@ -4,6 +4,13 @@ Rays are cut into tiles of `chunk_size`; the last tile is padded by
 repeating its last ray, so every tile has the same shape. Each tile renders
 eagerly on the model's device, the kept outputs stay there, and one copy at
 the end brings the frame to the host. Outputs do not depend on the tile size.
+
+With a `group` (`parallel.mesh.RayGroup`, every rank calling `render` with
+the same batch), each tile's rays are sharded over the ranks (the tile
+rounded down to a multiple of the world size, at least one ray per rank,
+as the JAX package's `_tile_multiple` rounds it), each rank renders its
+contiguous share, and the shares are gathered, so that every rank holds
+the whole tile's outputs and computes its losses as one rank would.
 """
 
 import copy
@@ -60,16 +67,16 @@ def preview_configs(
 _LOSS_MASK_KEYS = ("indices_mask_nerf", "indices_mask_sparse_depth", "ray_valid")
 
 
-def _split_batch(batch: Dict[str, Any], num_rays: int, tile: int):
+def _ray_keys(batch: Dict[str, Any], num_rays: int) -> set:
+    return {k for k, v in batch.items() if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == num_rays}
+
+
+def _split_batch(batch: Dict[str, Any], num_rays: int, tile: int, ray_keys: set):
     """Pad ray-axis fields to a multiple of `tile` (loss masks with False,
     the rest by edge repetition) and yield the tiles; other fields go to
     every tile unchanged."""
     num_tiles = (num_rays + tile - 1) // tile
     pad = num_tiles * tile - num_rays
-    ray_keys = {
-        k for k, v in batch.items()
-        if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == num_rays
-    }
     padded = {}
     for k, v in batch.items():
         if k in ray_keys and pad:
@@ -87,10 +94,21 @@ class TiledRenderer:
     """Renders arbitrary-size ray batches in fixed-size tiles; with a
     `loss_computer`, also the losses of the batch."""
 
-    def __init__(self, render_fn: Callable, configs: Dict[str, Any], loss_computer=None):
+    def __init__(self, render_fn: Callable, configs: Dict[str, Any], loss_computer=None, group=None):
         self.render_fn = render_fn
         self.configs = configs
         self.loss_computer = loss_computer
+        self.group = group
+
+    def _render_tile(self, model, tile_batch: Dict[str, Any], ray_keys: set, **kwargs) -> Dict[str, Any]:
+        """One tile's outputs; with a group, this rank's share rendered and
+        every share gathered."""
+        if self.group is None:
+            return self.render_fn(model, self.configs, tile_batch, **kwargs)
+        rows = self.group.shard(int(tile_batch["rays_o"].shape[0]))
+        share = {k: v[rows] if k in ray_keys else v for k, v in tile_batch.items()}
+        out = self.render_fn(model, self.configs, share, **kwargs)
+        return {k: self.group.gather(v.contiguous()) for k, v in out.items()}
 
     @torch.no_grad()
     def render(
@@ -114,14 +132,14 @@ class TiledRenderer:
         if with_losses and "ray_valid" not in batch:
             batch = {**batch, "ray_valid": torch.ones(nr, dtype=torch.bool,
                                                       device=batch["rays_o"].device)}
-        tile = min(chunk_size, nr)
+        world = 1 if self.group is None else self.group.world
+        tile = max(world, min(chunk_size, nr) // world * world)
         parts: Dict[str, List[torch.Tensor]] = {}
         tile_losses: List[Dict[str, Any]] = []
-        for tile_batch in _split_batch(batch, nr, tile):
-            out = self.render_fn(
-                model, self.configs, tile_batch, train=False, sec_views_vis=sec_views_vis,
-                retraw=with_losses,
-            )
+        ray_keys = _ray_keys(batch, nr)
+        for tile_batch in _split_batch(batch, nr, tile, ray_keys):
+            out = self._render_tile(model, tile_batch, ray_keys, train=False, sec_views_vis=sec_views_vis,
+                                    retraw=with_losses)
             for k in _KEEP_KEYS:
                 if k in out:
                     parts.setdefault(k, []).append(out[k])

@@ -4,9 +4,15 @@ skip-if-exists, output saving (counterpart of vipnerf_tpu/infer/tester.py).
 Output tree: runs/testing/test{NNNN:04}/{scene}{suffix}/ with
 predicted_frames/{f:04}.png, predicted_depths/{f:04}[_ndc].npy (+png),
 predicted_depths_variance/ and predicted_visibilities/{f1:04}_{f2:04}.npy.
+
+Over several devices (`test_configs['device']`), `start_testing` runs one
+rank per device (`parallel.mesh.run_on_devices`): every rank renders each
+frame's tiles sharded over the ranks (`TiledRenderer` with the group, the
+JAX tester's mesh), and rank 0 alone writes.
 """
 
 import copy
+import functools
 import json
 from pathlib import Path
 from typing import Any, Dict, List, Optional
@@ -21,6 +27,7 @@ from vipnerf_tpu_torch.infer.renderer import (
     preview_configs,
 )
 from vipnerf_tpu_torch.models.factory import get_model
+from vipnerf_tpu_torch.parallel.mesh import current_group, run_on_devices
 from vipnerf_tpu_torch.train import checkpoints
 from vipnerf_tpu_torch.utils.config import dict_diff
 from vipnerf_tpu_torch.utils.device import resolve_device
@@ -40,6 +47,8 @@ class NerfTester:
         self.test_configs = test_configs
         self.root_dirpath = Path(root_dirpath)
         self.model_configs = model_configs
+        self.group = current_group(test_configs.get("device", "all"))
+        self.writes = self.group is None or self.group.is_writer
         self.device = resolve_device(test_configs.get("device", "all"))
 
         # `preview: true` renders the 32+8 budget through both levels; an
@@ -69,7 +78,7 @@ class NerfTester:
         seed = train_configs.get("seed", 0) or 0
         self.model = model_cls(train_configs, torch.Generator().manual_seed(seed))
         self.model = self.model.to(self.device).eval()
-        self.renderer = TiledRenderer(self.render_fn, render_configs)
+        self.renderer = TiledRenderer(self.render_fn, render_configs, group=self.group)
         self.chunk_size = test_configs.get("chunk_size", 8192)
 
     def load_model(self, model_path: Path):
@@ -182,8 +191,22 @@ def start_testing(
     {frame_num: {'extrinsic', 'is_train_frame'[, 'intrinsic',
     'extrinsic_viewcam', 'intrinsic_viewcam']}}}}. A frame whose outputs all
     exist is skipped. Train frames also render their visibility towards the
-    other train frames when `save_visibility` is on.
+    other train frames when `save_visibility` is on. Runs on every device
+    `test_configs['device']` selects (see the module docstring).
     """
+    return run_on_devices(functools.partial(
+        _start_testing, scenes_data=scenes_data, output_dir_suffix=output_dir_suffix, save_depth=save_depth,
+        save_depth_var=save_depth_var, save_visibility=save_visibility), test_configs)
+
+
+def _start_testing(
+    test_configs: Dict[str, Any],
+    scenes_data: Dict[str, Any],
+    output_dir_suffix: str,
+    save_depth: bool,
+    save_depth_var: bool,
+    save_visibility: bool,
+) -> Optional[Path]:
     root_dirpath = Path(test_configs.get("root_dirpath", "."))
     output_dirpath = root_dirpath / f"runs/testing/test{test_configs['test_num']:04}"
     output_dir_suffix = effective_output_suffix(test_configs, output_dir_suffix)
@@ -260,6 +283,8 @@ def start_testing(
                 frame_data.get("intrinsic_viewcam"),
                 secondary_intrinsics,
             )
+            if not tester.writes:
+                continue
 
             tester.save_image(frame_path, predictions["image"])
             if save_depth:
@@ -282,4 +307,7 @@ def start_testing(
                         scene_dir / f"predicted_visibilities/{frame_num:04}_{sec:04}.npy",
                         predictions["visibility2"][i], as_png=True,
                     )
+    group = current_group(test_configs.get("device", "all"))
+    if group is not None:  # every rank returns once rank 0's files are written
+        group.barrier()
     return output_dirpath

@@ -8,7 +8,10 @@ library of the CUDA toolkit (nvJPEG) against the toolkit's headers and
 library, which must be there: a missing one raises, naming it. Nothing builds at
 import: a wrapper calls `load` at its first use, and `build_all` starts one
 compiler per source at once, so several libraries build in parallel. A
-failed build raises with the compiler's output; nothing falls back.
+failed build raises with the compiler's output; nothing falls back. The
+ranks of a multi-device run only load: the launching process builds every
+library before it spawns them (`parallel.mesh.run_on_devices`), and a rank
+that finds one missing raises instead of compiling its own copy.
 """
 
 import ctypes
@@ -36,6 +39,7 @@ NVCC_FLAGS = (
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_builds_forbidden = False
 build_seconds: Dict[str, float] = {}
 ptxas_reports: Dict[str, str] = {}
 
@@ -112,11 +116,21 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return dict(build_seconds)
 
 
+def forbid_builds():
+    """From now on `load` raises for a library that is not built (a rank of
+    a multi-device run, whose launcher built them all)."""
+    global _builds_forbidden
+    _builds_forbidden = True
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library `name`, building it first if needed."""
     if name not in _loaded:
         path = library_path(name)
         if not path.exists():
+            if _builds_forbidden:
+                raise RuntimeError(f"{path.name} is not built: the launching process builds every library "
+                                   "before it spawns the ranks")
             build_all([name])
         _loaded[name] = ctypes.CDLL(str(path))
     return _loaded[name]

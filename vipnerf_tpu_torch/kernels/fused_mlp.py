@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from vipnerf_tpu_torch.core.encoding import positional_encoding
+from vipnerf_tpu_torch.core.sampling import ray_draw
 from vipnerf_tpu_torch.core.scene_linear import scene_matmul
 from vipnerf_tpu_torch.kernels import build
 
@@ -477,9 +478,7 @@ def apply_fused_mlp(
     raw = FusedRaw.apply(weights, n_sec, xe, ve, ve2, *module_params(mlp)).float()
     sigma = raw[:, 0:1]
     if raw_noise_std > 0.0 and generator is not None:
-        sigma = sigma + raw_noise_std * torch.randn(
-            sigma.shape, generator=generator, device=sigma.device
-        )
+        sigma = sigma + raw_noise_std * ray_draw(sigma.shape, generator, sigma.device, normal=True)
     out = {
         "sigma": torch.relu(sigma),
         "rgb_view_dependent": torch.sigmoid(raw[:, 1:4]),

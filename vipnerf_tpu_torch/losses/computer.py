@@ -9,6 +9,12 @@ is a Python float.
 
 `scene_losses` views a batch of S scenes' rays and its render (flat, S*R
 rays scene-major) as (S, R, ...), so that every loss comes out per scene.
+
+With a `group` (`parallel.mesh.RayGroup`), the batch is this rank's shard
+of a batch sharded over the ranks: the counts of its masks are summed over
+the ranks in one all_reduce, and every value is this rank's share of the
+whole batch's (functions.py); the shares sum to the values one process
+computes.
 """
 
 from typing import Any, Callable, Dict
@@ -16,6 +22,20 @@ from typing import Any, Callable, Dict
 import torch
 
 from vipnerf_tpu_torch.losses import functions
+
+# the masks a loss selects rays with; "rays" counts every ray
+MASK_KEYS = ("indices_mask_nerf", "indices_mask_sparse_depth", "ray_valid")
+
+
+def ray_totals(batch: Dict[str, Any], group) -> Dict[str, torch.Tensor]:
+    """Each mask's count, and the ray count, summed over the ranks' shards."""
+    keys = [k for k in MASK_KEYS if k in batch]
+    rays = batch["rays_o"]
+    counts = torch.stack([torch.sum(batch[k].to(rays.dtype)) for k in keys]
+                         + [torch.tensor(float(rays.shape[0]), device=rays.device)])
+    group.all_reduce_sum(counts)
+    return dict(zip(keys + ["rays"], counts))
+
 
 _REGISTRY: Dict[str, Callable] = {
     "MSE01": functions.mse,
@@ -54,10 +74,13 @@ class LossComputer:
         raise RuntimeError(f"loss weight is unspecified for {name}")
 
     def compute_losses(
-        self, batch: Dict[str, Any], outputs: Dict[str, Any], *, return_loss_maps: bool = False
+        self, batch: Dict[str, Any], outputs: Dict[str, Any], *, return_loss_maps: bool = False,
+        group=None,
     ) -> Dict[str, Any]:
         """{loss_name: {'loss_value': ...[, 'loss_maps': ...]}, 'TotalLoss': x};
         `batch['iter_num']` selects staged weights."""
+        if group is not None:
+            batch = {**batch, "ray_totals": ray_totals(batch, group)}
         iter_num = int(batch["iter_num"])
         loss_values: Dict[str, Any] = {}
         total = torch.zeros((), device=batch["rays_o"].device)

@@ -16,6 +16,15 @@ vipnerf_tpu/losses/functions.py, same semantics):
 
 Masked means are sum(x * mask) / max(count, 1): 0 on an empty mask.
 
+A batch sharded over ranks (`LossComputer.compute_losses` with a group)
+carries `ray_totals`, each mask's count (and "rays", the ray count) over
+every rank's shard: each mean is then this rank's share of the whole
+batch's mean, sum(x * mask) over its rays / the global count, so that the
+shares sum to the mean one process computes over the whole batch, and the
+gradients of the shares sum to its gradient. A mean of per-rank means
+(what averaging gradients over ranks gives) is wrong wherever the shards'
+mask counts differ.
+
 Every mean runs over the last ray axis, so a batch of S scenes shaped
 (S, R, ...) (batched multi-scene training) gives each loss per scene, (S,),
 as vmapping the JAX losses over the scenes does; a flat batch gives ().
@@ -26,11 +35,23 @@ from typing import Any, Dict
 import torch
 
 
-def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor, total=None) -> torch.Tensor:
     """Mean of values[mask] over the last axis; 0 when the mask is empty.
-    values, mask: ([S,] nr)."""
+    values, mask: ([S,] nr). `total`: the mask's count over the whole
+    sharded batch, which divides instead of this batch's count."""
     mask = mask.to(values.dtype)
-    return torch.sum(values * mask, dim=-1) / torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+    count = torch.sum(mask, dim=-1) if total is None else total
+    return torch.sum(values * mask, dim=-1) / torch.clamp(count, min=1.0)
+
+
+def _batch_mean(batch: Dict[str, Any], values: torch.Tensor, key=None) -> torch.Tensor:
+    """Mean of `values` over the rays that `batch[key]` selects (every ray
+    for key None), or this rank's share of it under `ray_totals`."""
+    total = batch.get("ray_totals", {}).get(key or "rays")
+    if key is not None:
+        return _masked_mean(values, batch[key], total)
+    mean = torch.mean(values, dim=-1)
+    return mean if total is None else mean * (values.shape[-1] / total)
 
 
 def _levels(configs: Dict[str, Any]):
@@ -42,13 +63,12 @@ def mse(configs: Dict[str, Any], loss_configs: Dict[str, Any]):
     levels = _levels(configs)
 
     def compute(batch, outputs, return_loss_maps=False):
-        mask = batch["indices_mask_nerf"]
         target = batch["target_rgb"]
         total = 0.0
         loss_maps = {}
         for suffix in levels:
             per_ray = torch.mean(torch.square(outputs[f"rgb_{suffix}"] - target), dim=-1)
-            total = total + _masked_mean(per_ray, mask)
+            total = total + _batch_mean(batch, per_ray, "indices_mask_nerf")
             if return_loss_maps:
                 loss_maps[f"MSE01_{suffix}"] = per_ray
         out = {"loss_value": total}
@@ -70,11 +90,8 @@ def visibility_loss(configs: Dict[str, Any], loss_configs: Dict[str, Any]):
             target = outputs[f"visibility_{suffix}"]  # (nr, ns) transmittance
             map1 = torch.mean(torch.abs(pred - target.detach()), dim=-1)
             map2 = torch.mean(torch.abs(pred.detach() - target), dim=-1)
-            if "ray_valid" in batch:
-                total = (total + _masked_mean(map1, batch["ray_valid"])
-                         + _masked_mean(map2, batch["ray_valid"]))
-            else:
-                total = total + torch.mean(map1, dim=-1) + torch.mean(map2, dim=-1)
+            valid = "ray_valid" if "ray_valid" in batch else None
+            total = total + _batch_mean(batch, map1, valid) + _batch_mean(batch, map2, valid)
             if return_loss_maps:
                 loss_maps[f"VisibilityLoss01_{suffix}"] = map1 + map2
         out = {"loss_value": total}
@@ -91,7 +108,6 @@ def visibility_prior_loss(configs: Dict[str, Any], loss_configs: Dict[str, Any])
     def compute(batch, outputs, return_loss_maps=False):
         if any(f"raw_visibility2_{s}" not in outputs for s in levels):
             return None
-        mask = batch["indices_mask_nerf"]
         if "visibility_prior_masks" in batch:
             prior = batch["visibility_prior_masks"]
         elif "visibility_prior_weights" in batch:
@@ -104,7 +120,7 @@ def visibility_prior_loss(configs: Dict[str, Any], loss_configs: Dict[str, Any])
         loss_maps = {}
         for suffix in levels:
             per_ray = torch.sum(prior * (1.0 - outputs[f"visibility2_{suffix}"]), dim=-1)
-            total = total + _masked_mean(per_ray, mask)
+            total = total + _batch_mean(batch, per_ray, "indices_mask_nerf")
             if return_loss_maps:
                 loss_maps[f"VisibilityPriorLoss01_{suffix}"] = per_ray
         out = {"loss_value": total}
@@ -123,7 +139,7 @@ def sparse_depth_mse(configs: Dict[str, Any], loss_configs: Dict[str, Any]):
             rays_o = batch["rays_o"]
             return {"loss_value": torch.zeros(rays_o.shape[:-2], device=rays_o.device)}
         per_ray = torch.square(outputs[f"depth_{suffix}"] - batch["sparse_depth_values"][..., 0])
-        out = {"loss_value": _masked_mean(per_ray, batch["indices_mask_sparse_depth"])}
+        out = {"loss_value": _batch_mean(batch, per_ray, "indices_mask_sparse_depth")}
         if return_loss_maps:
             out["loss_maps"] = {}
         return out
@@ -135,13 +151,12 @@ def dense_depth_mse(configs: Dict[str, Any], loss_configs: Dict[str, Any]):
     levels = _levels(configs)
 
     def compute(batch, outputs, return_loss_maps=False):
-        mask = batch["indices_mask_nerf"]
         gt = batch["dense_depth_values"][..., 0]
         total = 0.0
         loss_maps = {}
         for suffix in levels:
             per_ray = torch.square(outputs[f"depth_{suffix}"] - gt)
-            total = total + _masked_mean(per_ray, mask)
+            total = total + _batch_mean(batch, per_ray, "indices_mask_nerf")
             if return_loss_maps:
                 loss_maps[f"DenseDepthMSE01_{suffix}"] = per_ray
         out = {"loss_value": total}

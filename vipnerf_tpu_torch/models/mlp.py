@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vipnerf_tpu_torch.core.encoding import encoding_dim, positional_encoding
+from vipnerf_tpu_torch.core.sampling import ray_draw
 from vipnerf_tpu_torch.core.scene_linear import scene_matmul
 
 SKIPS = (4,)
@@ -180,10 +181,7 @@ class NeRFMLP(nn.Module):
         pts_output = _dense(h, self.pts_output_linear, head_bf16)
         sigma = pts_output[..., 0:1]
         if raw_noise_std > 0.0 and generator is not None:
-            noise = torch.randn(
-                sigma.shape, generator=generator, device=sigma.device,
-                dtype=torch.float32,
-            )
+            noise = ray_draw(sigma.shape, generator, sigma.device, normal=True)
             sigma = sigma + (raw_noise_std * noise).to(sigma.dtype)
         out["sigma"] = torch.relu(sigma)
         if not view_dep_rgb:

@@ -101,7 +101,7 @@ def main_visibility(argv: Optional[List[str]] = None):
 
     parser = _parser("visibility")
     parser.add_argument("--device", default="all",
-                        help='"all" (the first GPU), a GPU index, or "cpu"')
+                        help='"all" (the first GPU), a GPU index or a list of them (the first), or "cpu"')
     args = parser.parse_args(argv)
     directions = []
     for gen_num in args.gen_nums:

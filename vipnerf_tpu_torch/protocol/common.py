@@ -34,7 +34,8 @@ from vipnerf_tpu_torch.utils.naming import scene_dirname
 DB_MARKER = ".synthetic_db_complete"
 DTU_SCENE = "00021"
 DTU_FRAMES = 6
-DEVICE_HELP = '"all" (the first GPU), a GPU index, or "cpu"'
+DEVICE_HELP = ('"all" (every GPU: training and testing run one rank on each, the rest on the first), a GPU '
+               'index or a comma-separated list of them ("0,1"), "cpu", or "cpu,cpu" (two CPU ranks)')
 
 
 def write_dtu_database(db_root: Path, *, set_num: int, train_frames, val_frames, height: int, width: int,

@@ -196,7 +196,8 @@ def main(argv=None):
     # the reference QA CLIs take --demo_function_name demo2; this runner
     # always scores a prediction dir against the database's frames
     parser.add_argument("--demo_function_name", default="demo2", choices=["demo2"])
-    parser.add_argument("--device", default="all", help='LPIPS device: "all" (the first GPU), a GPU index, or "cpu"')
+    parser.add_argument("--device", default="all", help='LPIPS device: "all" (the first GPU), a GPU index or a '
+                        'list of them (the first), or "cpu"')
     args = parser.parse_args(argv)
     run_all_qa(
         args.database,

@@ -49,6 +49,23 @@ class ScalarLogger:
             self._tb.close()
 
 
+class NullLogger:
+    """The logger of a rank that does not write (rank 0 writes the run's
+    scalars)."""
+
+    def add_scalar(self, tag: str, value: float, step: int):
+        pass
+
+    def add_scalars(self, prefix: str, scalars: Dict[str, float], step: int):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
 def export_plots(logs_dirpath: Path, save_dirpath: Optional[Path] = None):
     """Plot every series of logs/scalars.jsonl to {prefix}_{name}.png in
     `save_dirpath` (default: the logs dir). Needs matplotlib, which the GPU

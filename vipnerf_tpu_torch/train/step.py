@@ -24,6 +24,17 @@ vipnerf_tpu/train/guards.py `loss_guard`).
   gradients are summed before one step; the loss scalars are summed too.
 - The loss scalars stay on the device, (S,) per name for a stacked model:
   the caller reads them when it needs them, not every step.
+- A `shard` (`parallel.mesh.StepShard`): the batch is this rank's part of
+  the step, cut into the shard's sub-batches; before each, the generator (a
+  `ShardGenerator`) is given this rank's rows of that global sub-batch, so
+  it draws what one process draws. Where the shard's `group` shares the ray
+  axis, each rank's losses are its shares of the global sub-batch's (global
+  masked means, `LossComputer.compute_losses`), and one all_reduce (sum)
+  per step of the flat gradient with those shares gives every rank the
+  whole batch's gradient and loss scalars. Clipping then sees the reduced
+  gradient, the loss guard the global loss, and Adam runs the same update
+  on every rank, so the parameters stay identical across ranks. Where the
+  scenes are sharded, the step needs no collective.
 
 The JAX package's TPU dispatch (`make_scan_train`, `make_host_loop_train`,
 `default_step_dispatch`) has no counterpart: PyTorch runs eagerly.
@@ -179,22 +190,39 @@ def _sub_batches(batch: Dict[str, Any], size: int, scenes: Optional[int]):
         yield sub
 
 
+def all_reduce_grads(params: List[torch.Tensor], scalars: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Sum every parameter's gradient and the loss scalars over the ranks,
+    in one all_reduce of a flat buffer; the gradients are written back."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    names = list(scalars)
+    flat = torch.cat([g.reshape(-1) for g in grads] + [scalars[k].reshape(1) for k in names])
+    group.all_reduce_sum(flat)
+    sizes = [g.numel() for g in grads]
+    pieces = flat.split(sizes + [1] * len(names))
+    for p, g, piece in zip(params, grads, pieces):
+        p.grad = piece.view_as(g)
+    return {k: piece.reshape(()) for k, piece in zip(names, pieces[len(grads):])}
+
+
 def make_train_step(
     configs: Dict[str, Any],
     render_fn: Callable,
     loss_computer: LossComputer,
     optimizer: Adam,
+    shard=None,
 ) -> Callable:
     """train_step(model, batch, generator) -> {loss name: device tensor},
     after one optimizer step; a stacked model's losses are per scene, (S,),
     and backward runs on their sum, which gives each scene its own gradient
-    (the scenes share no parameter)."""
-    sub_batch_size = configs.get("sub_batch_size")
+    (the scenes share no parameter). With a `shard`, `batch` is this rank's
+    part of the step (see the module docstring)."""
+    sub_batch_size = configs.get("sub_batch_size") if shard is None else shard.sub_batch_size
+    group = None if shard is None else shard.group
 
     def loss_and_backward(model, batch, generator):
         outputs = render_fn(model, configs, batch, train=True, generator=generator)
         if model.scenes is None:
-            losses = loss_computer.compute_losses(batch, outputs)
+            losses = loss_computer.compute_losses(batch, outputs, group=group)
         else:
             losses = loss_computer.scene_losses(batch, outputs, model.scenes)
         losses["TotalLoss"].sum().backward()
@@ -203,13 +231,15 @@ def make_train_step(
 
     def train_step(model, batch, generator):
         optimizer.zero_grad()
-        if sub_batch_size is None:
-            scalars = loss_and_backward(model, batch, generator)
-        else:
-            scalars = None
-            for sub in _sub_batches(batch, sub_batch_size, model.scenes):
-                part = loss_and_backward(model, sub, generator)
-                scalars = part if scalars is None else {k: scalars[k] + part[k] for k in part}
+        subs = [batch] if sub_batch_size is None else _sub_batches(batch, sub_batch_size, model.scenes)
+        scalars = None
+        for i, sub in enumerate(subs):
+            if shard is not None and generator is not None:
+                generator.shard(*shard.draws[i])
+            part = loss_and_backward(model, sub, generator)
+            scalars = part if scalars is None else {k: scalars[k] + part[k] for k in part}
+        if group is not None:
+            scalars = all_reduce_grads(optimizer.params, scalars, group)
         optimizer.step(loss=scalars["TotalLoss"])
         return scalars
 

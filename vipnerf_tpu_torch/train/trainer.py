@@ -24,9 +24,29 @@ iterations with torch.profiler (host, and the card's kernels on CUDA) into
 {scene}/logs/profile/ as a Chrome trace, one file per chunk (the JAX
 trainer's jax.profiler hook). The validation helpers below serve the
 batched multi-scene trainer too (train/multi_scene.py).
+
+More than one device (`configs['device']` a list, or "all" on a host with
+several GPUs): `start_training` runs one rank per device
+(`parallel.mesh.run_on_devices`), and the `Trainer` of each takes the
+`group` (the JAX trainer's ray-sharded mesh):
+
+- every rank draws the same index blocks from its own copy of the ray
+  cache and streams, and trains on its columns of them
+  (`parallel.mesh.ray_shard`): its contiguous share of each stream's piece
+  of each global sub-batch (of `sub_batch_size` rays, or the whole batch),
+  so the ranks' sub-batches together are one process's; where a piece does
+  not divide by the world size, every rank computes the whole batch
+  without a collective, as the JAX trainer's `_place_indices` replicates it;
+- the step (train/step.py) sums the gradient over the ranks, so the
+  parameters stay identical on every rank;
+- validation renders shard each tile's rays over the ranks;
+- rank 0 alone writes the run tree (configs, scalars, samples,
+  checkpoints, profiles); the other ranks wait for its checkpoints at a
+  barrier, and on resume every rank loads the checkpoint rank 0 wrote.
 """
 
 import contextlib
+import copy
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -39,11 +59,18 @@ from vipnerf_tpu_torch.data.preprocessor import get_data_preprocessor
 from vipnerf_tpu_torch.infer.renderer import TiledRenderer
 from vipnerf_tpu_torch.losses import LossComputer
 from vipnerf_tpu_torch.models.factory import get_model
+from vipnerf_tpu_torch.parallel.mesh import ShardGenerator, current_group, ray_shard, run_on_devices
 from vipnerf_tpu_torch.train import checkpoints
-from vipnerf_tpu_torch.train.logging import ScalarLogger
+from vipnerf_tpu_torch.train.logging import NullLogger, ScalarLogger
 from vipnerf_tpu_torch.train.lr_schedules import get_lr_schedule
 from vipnerf_tpu_torch.train.step import make_optimizer, make_train_step
-from vipnerf_tpu_torch.utils.config import init_seeds, save_configs, save_model_configs
+from vipnerf_tpu_torch.utils.config import (
+    init_seeds,
+    merge_configs,
+    read_configs,
+    save_configs,
+    save_model_configs,
+)
 from vipnerf_tpu_torch.utils.device import resolve_device
 from vipnerf_tpu_torch.utils.io import read_csv_columns, save_image, save_numpy_array
 from vipnerf_tpu_torch.utils.naming import scene_dirname
@@ -131,7 +158,9 @@ def run_validation(renderer: TiledRenderer, model: torch.nn.Module, configs: Dic
 
     Tiles: `validation_tile_size`, else the smaller of
     `validation_chunk_size` and 8192 rays. The losses do not depend on
-    the tile size (pad rays excluded, tiles weighted by real rays)."""
+    the tile size (pad rays excluded, tiles weighted by real rays). With a
+    sharded renderer every rank renders and rank 0 alone saves."""
+    writes = renderer.group is None or renderer.group.is_writer
     chunk_size = configs.get("validation_tile_size") or min(configs["validation_chunk_size"], 8192)
     save_loss_maps = configs.get("validation_save_loss_maps", False)
     h, w = data_preprocessor.resolution
@@ -148,6 +177,8 @@ def run_validation(renderer: TiledRenderer, model: torch.nn.Module, configs: Dic
         )
         for name, val in losses.items():
             total[name] = total.get(name, 0.0) + (val["loss_value"] if isinstance(val, dict) else val)
+        if not writes:
+            continue
 
         it_tag = f"Iter{iter_num + 1:05}"
         for mode in ("coarse", "fine"):
@@ -208,6 +239,7 @@ class Trainer:
         loss_computer: LossComputer,
         output_dirpath: Path,
         verbose_log: bool = True,
+        group=None,
     ):
         self.configs = configs
         self.model_configs = model_configs
@@ -218,13 +250,20 @@ class Trainer:
         self.output_dirpath = Path(output_dirpath)
         self.verbose_log = verbose_log
         _, self.render_fn = get_model(configs)
+        self.group = group
+        self.writes = group is None or group.is_writer
+        self.verbose_log = verbose_log and self.writes
+        self.generator = ShardGenerator(self.device)
+        # the streams' rays per step, sharded when every piece of every sub-batch divides
+        prep = train_data_preprocessor
+        streams = [prep.num_rays] + ([prep.num_rays_sparse_depth] if prep.sparse_depth_needed else [])
+        self.shard = None if group is None else ray_shard(group, streams, configs.get("sub_batch_size"))
         self.optimizer = make_optimizer(configs, model.parameters())
-        self.train_step = make_train_step(configs, self.render_fn, loss_computer, self.optimizer)
+        self.train_step = make_train_step(configs, self.render_fn, loss_computer, self.optimizer, self.shard)
         self.lr_schedule = get_lr_schedule(configs)
-        self.renderer = TiledRenderer(self.render_fn, configs, loss_computer=loss_computer)
-        self.logger = ScalarLogger(self.output_dirpath / "logs")
+        self.renderer = TiledRenderer(self.render_fn, configs, loss_computer=loss_computer, group=group)
+        self.logger = ScalarLogger(self.output_dirpath / "logs") if self.writes else NullLogger()
         self.seed = configs.get("seed", 0) or 0
-        self.generator = torch.Generator(device=self.device)
         self.scan_steps = int(configs.get("scan_steps", 100))
         self.profiler_cfg = configs.get("profiler")
         self.chunk_seconds: List[Tuple[int, float]] = []  # (steps, seconds) of each chunk trained
@@ -236,8 +275,9 @@ class Trainer:
         print(f"Training {self.configs['train_num']}/{scene_id} begins...")
         sample_images_dirpath = self.output_dirpath / "samples"
         saved_models_dirpath = self.output_dirpath / "saved_models"
-        sample_images_dirpath.mkdir(parents=True, exist_ok=True)
-        saved_models_dirpath.mkdir(parents=True, exist_ok=True)
+        if self.writes:
+            sample_images_dirpath.mkdir(parents=True, exist_ok=True)
+            saved_models_dirpath.mkdir(parents=True, exist_ok=True)
 
         validation_interval = self.configs["validation_interval"]
         model_save_interval = self.configs["model_save_interval"]
@@ -259,9 +299,14 @@ class Trainer:
                                validation_interval, model_save_interval)
             t_chunk = time.time()
             nerf_idx, sd_idx = prep.get_index_chunk(it, k)
+            rays_done += k * (nerf_idx.shape[1] + (sd_idx.shape[1] if sd_idx is not None else 0))
+            if self.shard is not None:  # this rank's columns of every stream's block
+                nerf_idx = nerf_idx[:, self.shard.columns[0]]
+                sd_idx = None if sd_idx is None else sd_idx[:, self.shard.columns[1]]
             nerf_dev = torch.from_numpy(nerf_idx).to(self.device)
             sd_dev = torch.from_numpy(sd_idx).to(self.device) if sd_idx is not None else None
-            with profile_chunk(self.profiler_cfg, it, k, self.output_dirpath / "logs", self.device):
+            profiler_cfg = self.profiler_cfg if self.writes else None
+            with profile_chunk(profiler_cfg, it, k, self.output_dirpath / "logs", self.device):
                 chunk = []
                 for j in range(k):
                     batch = prep.gather_batch(nerf_dev[j], sd_dev[j] if sd_dev is not None else None, it + j)
@@ -270,7 +315,6 @@ class Trainer:
                 scalars = {name: torch.stack([s[name] for s in chunk]).cpu().numpy() for name in chunk[0]}
             # the read of the scalars waited for the chunk's last step
             self.chunk_seconds.append((k, time.time() - t_chunk))
-            rays_done += k * (nerf_idx.shape[1] + (sd_idx.shape[1] if sd_idx is not None else 0))
             for j in range(k):
                 for name, vals in scalars.items():
                     self.logger.add_scalar(f"train/{name}", float(vals[j]), it + j + 1)
@@ -298,7 +342,11 @@ class Trainer:
     # ------------------------------------------------------------ checkpoints
 
     def save_model(self, iter_num: int, save_dirpath: Path):
-        checkpoints.save_checkpoint(save_dirpath, iter_num, self.model, self.optimizer)
+        """Rank 0 writes; the other ranks wait until the file is there."""
+        if self.writes:
+            checkpoints.save_checkpoint(save_dirpath, iter_num, self.model, self.optimizer)
+        if self.group is not None:
+            self.group.barrier()
 
     def load_model(self, saved_models_dirpath: Path) -> int:
         latest = checkpoints.latest_checkpoint(saved_models_dirpath)
@@ -328,21 +376,57 @@ def resolve_scene_ids(configs: Dict[str, Any], database_dirpath: Path):
 
 def start_training(configs: Dict[str, Any]) -> Dict[str, List[Tuple[int, float]]]:
     """Train every scene of `configs` into
-    {root_dirpath}/runs/training/train{train_num:04}/{scene}/. On resume the
-    saved Configs.json is merged into `configs` first. Returns each scene's
-    (steps, seconds) of every chunk it trained (`Trainer.chunk_seconds`)."""
+    {root_dirpath}/runs/training/train{train_num:04}/{scene}/, on every
+    device `configs['device']` selects (one rank each). On resume the saved
+    Configs.json is merged into `configs` first. Returns each scene's
+    (steps, seconds) of every chunk it trained (`Trainer.chunk_seconds`, of
+    rank 0)."""
+    output_dirpath, _ = run_dirs(configs)
+    return run_on_devices(_start_training, configs, run_device(output_dirpath, configs))
+
+
+def run_dirs(configs: Dict[str, Any]) -> Tuple[Path, Path]:
+    """The run's output directory and the data directory."""
     root_dirpath = Path(configs.get("root_dirpath", "."))
-    output_dirpath = root_dirpath / f"runs/training/train{configs['train_num']:04}"
-    output_dirpath.mkdir(parents=True, exist_ok=True)
-    configs = save_configs(output_dirpath, configs)
-    database_dirpath = root_dirpath / "data" / configs["database_dirpath"]
+    return root_dirpath / f"runs/training/train{configs['train_num']:04}", root_dirpath / "data"
+
+
+def run_device(output_dirpath: Path, configs: Dict[str, Any]) -> Any:
+    """The device selection of a run: the live configs', else (a resume from
+    a minimal config) the saved Configs.json's."""
+    return merge_configs(output_dirpath, copy.deepcopy(configs), quiet=True).get("device", "all")
+
+
+def save_run_configs(output_dirpath: Path, configs: Dict[str, Any], group) -> Dict[str, Any]:
+    """`save_configs`; in a group rank 0 writes, and every rank takes the
+    merged configs from the file once it is there, so all ranks hold the
+    same."""
+    if group is None:
+        output_dirpath.mkdir(parents=True, exist_ok=True)
+        return save_configs(output_dirpath, configs)
+    group.barrier()  # every rank has read the saved configs (`run_device`) before rank 0 rewrites them
+    if group.is_writer:
+        output_dirpath.mkdir(parents=True, exist_ok=True)
+        save_configs(output_dirpath, configs)
+    group.barrier()
+    merged = read_configs(output_dirpath / "Configs.json")
+    return {**merged, **{k: configs[k] for k in ("root_dirpath", "output_dirpath") if k in configs}}
+
+
+def _start_training(configs: Dict[str, Any]) -> Dict[str, List[Tuple[int, float]]]:
+    output_dirpath, data_dirpath = run_dirs(configs)
+    group = current_group(run_device(output_dirpath, configs))
+    writes = group is None or group.is_writer
+    configs = save_run_configs(output_dirpath, configs, group)
+    database_dirpath = data_dirpath / configs["database_dirpath"]
     device = resolve_device(configs.get("device", "all"))
 
     chunk_seconds = {}
     for scene_id in resolve_scene_ids(configs, database_dirpath):
         init_seeds(configs.get("seed", 0))
         scene_output_dirpath = output_dirpath / f"{scene_id}"
-        scene_output_dirpath.mkdir(parents=True, exist_ok=configs.get("resume_training", False))
+        if writes:
+            scene_output_dirpath.mkdir(parents=True, exist_ok=configs.get("resume_training", False))
         configs["data_loader"]["scene_id"] = scene_id
 
         train_data_preprocessor = get_data_preprocessor(
@@ -356,12 +440,17 @@ def start_training(configs: Dict[str, Any]) -> Dict[str, List[Tuple[int, float]]
         )
         model_cls, _ = get_model(configs)
         model = model_cls(configs, torch.Generator().manual_seed(configs.get("seed", 0) or 0)).to(device)
-        save_model_configs(scene_output_dirpath, model_configs)
+        if writes:
+            save_model_configs(scene_output_dirpath, model_configs)
+        if group is not None:  # rank 0's directories and files first
+            group.barrier()
         trainer = Trainer(configs, model_configs, train_data_preprocessor, val_data_preprocessor,
-                          model, LossComputer(configs), scene_output_dirpath)
+                          model, LossComputer(configs), scene_output_dirpath, group=group)
         try:
             trainer.train()
         finally:
             trainer.logger.close()
+        if group is not None:  # rank 0's last files are written
+            group.barrier()
         chunk_seconds[scene_id] = trainer.chunk_seconds
     return chunk_seconds

@@ -39,6 +39,19 @@ def save_configs(
     """Write the run's configs, merged into the live dict from an existing
     file first (resume): a minimal {train_num, resume_training} config
     inherits the rest. The merged dict is returned (and is `configs`)."""
+    configs = merge_configs(output_dirpath, configs, filename)
+    with open(Path(output_dirpath) / filename, "w") as f:
+        json.dump({k: v for k, v in configs.items() if k not in _PATH_KEYS}, f,
+                  indent=4, default=str)
+    return configs
+
+
+def merge_configs(
+    output_dirpath: Path, configs: Dict[str, Any], filename: str = "Configs.json", quiet: bool = False
+) -> Dict[str, Any]:
+    """The merge of `save_configs`, in place in `configs`, without writing;
+    `quiet` keeps the mismatch to itself (a launcher reading ahead what the
+    run will be)."""
     configs_path = Path(output_dirpath) / filename
     if configs_path.exists():
         old_configs = read_configs(configs_path)
@@ -59,12 +72,9 @@ def save_configs(
         if "device" in configs:
             old_configs["device"] = configs["device"]
         live = {k: v for k, v in configs.items() if k not in _PATH_KEYS}
-        if live != old_configs:
+        if live != old_configs and not quiet:
             print("Configs mismatch while resuming training: "
                   + "; ".join(dict_diff(old_configs, live)))
-    with open(configs_path, "w") as f:
-        json.dump({k: v for k, v in configs.items() if k not in _PATH_KEYS}, f,
-                  indent=4, default=str)
     return configs
 
 
