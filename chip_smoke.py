@@ -8,22 +8,25 @@ Phases, each of which fails the run loudly:
    csrc/ (the CUDA kernels with nvcc, the ray stream with g++, nvJPEG's
    binding with g++ against the CUDA toolkit);
 2. K1 (the fused MLP forward) against its plain torch version on the card,
-   both instances (bf16 and f32), n_sec 0..3, at N = 262,144 points, at
+   every instance (bf16; f32; bf16_f32h, the shipped mode: bf16 trunk, f32
+   heads), n_sec 0..3, at N = 262,144 points, at
    ragged N = 1, 2,085 and 132 * 128 * 3 + 37 (the bf16 kernel's persistent
    loop runs several tiles per CTA and ends mid-tile), and at the two tile
    shapes the serving path launches (8192 rays x 64 coarse and x 192 fine
    samples) for n_sec 0 and 2, with the kernel's, the plain version's and a
    library yardstick's times at those shapes, and at the training step's
-   two launch shapes (4096 rays x 64 and x 192 samples, n_sec 2);
+   two launch shapes (4096 rays x 64 and x 192 samples, n_sec 2), each with
+   its bound (the trunk's and the heads' operations and the bytes apart);
 3. the serving path: a run tree at the flagship width (8x256 MLPs, 64+128
    samples, NDC, bf16 matmuls with bf16 heads) with seeded random weights,
    rendered by the port's `start_testing` at 1008x756 -- 3 train frames with
    visibility towards the 2 others, 2 held-out frames -- checking the
    outputs and that K1 ran on every tile; warm frame times; one warm
-   held-out frame in each precision mode the dispatch knows (bf16 with bf16
-   heads through the bf16 instance, the shipped default bf16 with f32 heads
-   through the module MLP, f32 through the f32 instance), counting each
-   instance's launches in each; then a 64x48
+   held-out frame in each precision mode (bf16 with bf16 heads through the
+   bf16 instance, the shipped default bf16 with f32 heads through
+   bf16_f32h, f32 through the f32 instance) and in the shipped mode through
+   the module MLP beside it, counting each instance's launches in each;
+   then a 64x48
    crop rendered through the kernel on the card and through the plain
    version on the CPU, and the same crop of the model without its density
    offset (a nearly empty scene) through K1 and the plain version on the
@@ -36,13 +39,14 @@ Phases, each of which fails the run loudly:
    flagship training config (2048 + 2048 rays, 64 + 128 samples, the four
    losses with the visibility prior staged in at half the run, Adam) with
    bf16 heads; K1's parameter gradients against the module MLP's on one
-   batch (both instances); `start_training` for 200 steps (checkpoint at
+   batch (every instance); `start_training` for 200 steps (checkpoint at
    100, validation at 200), then resumed to 220, checking finite and falling
    losses, the checkpoints, exactly 2 K1 launches per step and the
    validation's, and the trained model's PSNR on the test frame against the
-   untrained one's; the median warm step time with rays/s, K1's share and
-   peak memory; a torch.profiler table of one step split into forward,
-   backward and Adam; a warm step in each precision mode;
+   untrained one's; in the shipped mode (bf16_f32h) the median warm step
+   time with rays/s, K1's share and peak memory, and a torch.profiler table
+   of one step split into forward, backward and Adam; a warm step in each
+   precision mode, and in the shipped mode through the module MLP;
 5. the user's pipeline at 1008x756: a synthetic LLFF scene under the LLFF
    policy's _down4 suffix without a visibility prior; the prior generated
    by the entry point of `python -m vipnerf_tpu_torch.priors.visibility` on
@@ -50,13 +54,13 @@ Phases, each of which fails the run loudly:
    files checked and one direction held against the same function on the
    CPU; the sparse-depth CLI's ColmapNotFoundError (the card has no
    COLMAP); the NeRF_LLFF app with demo1a's shipped configs (bf16 with f32
-   heads, so the module MLP and no K1) cut to 200 steps: training on the
-   generated prior, testing with its QA subprocess (finite RMSE02, PSNR02,
-   SSIM02; LPIPS02 null without weights), and both video tracks as frame
-   directories;
+   heads, so K1's bf16_f32h instance, exactly 2 launches per training step)
+   cut to 200 steps: training on the generated prior, testing with its QA
+   subprocess (finite RMSE02, PSNR02, SSIM02; LPIPS02 null without
+   weights), and both video tracks as frame directories;
 6. batched multi-scene training: two seeded synthetic LLFF scenes at
    1008x756 (3 train views each) in one database; the scene-batched K1
-   (both instances, 2 and 4 scenes with their own weights, at the
+   (every instance, 2 and 4 scenes with their own weights, at the
    training step's launch shapes) against its plain version and bit for bit against
    single-scene launches, timed beside them, the plain version and a
    `torch.baddbmm` chain; the NeRF_LLFF app with `batch_scenes: true` at
@@ -86,13 +90,14 @@ Phases, each of which fails the run loudly:
    its database with object masks and VW03 generated on the card (DTU's
    policy, 128 linear planes), the masks checked and one direction held
    against the CPU; a 200-step leg in the shipped mode (bf16 with f32
-   heads, the module MLP) with its loss falling and its masked QA written,
+   heads, through bf16_f32h, exactly 2 launches per training step) with its
+   loss falling and its masked QA written,
    train/MSE01 at 100 and 200 printed beside the JAX run's; a checkpoint at
    29,950 written from those weights with Adam's count set to match, and
    the driver resumed to 30,050 with bf16 heads (K1 on metric-space rays):
    TotalLoss against its terms on both sides of the visibility prior's
    switch at iter_num 30,000, the LR there, exactly 2 K1 launches per step;
-   both K1 instances against their plain versions on this scene's
+   every K1 instance against its plain version on this scene's
    2048 + 2048-ray batch;
 9. more than one device, as far as one card shows it (the script needs
    one card): a synthetic two-scene LLFF database at 1008x756 and
@@ -136,13 +141,20 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
+# K1's instances: name -> (trunk dtype, f32 heads)
+K1_MODES = {"fused_mlp_bf16": (torch.bfloat16, False), "fused_mlp_f32": (torch.float32, False),
+            "fused_mlp_bf16_f32h": (torch.bfloat16, True)}
 # K1 against its plain version, relative to the plain outputs' own scale.
 # bf16: the two sum in different orders, so a rounding to bf16 can land one
 # step (2^-8 relative) apart and the step propagates; the max error may be a
 # few such steps at the largest output, the RMS error stays far below one
-# step. f32: summation order only.
-TOL_REL_MAX = {torch.bfloat16: 2.0 ** -5, torch.float32: 1e-5}  # max|err| / max|plain|
-TOL_REL_RMS = {torch.bfloat16: 2e-3, torch.float32: 1e-6}  # ||err|| / ||plain||
+# step. f32: summation order only. bf16_f32h: the bf16 trunk's steps, carried
+# through f32 heads that round nothing more (measured at most 9.3e-4 and
+# 3.0e-5 on an H100 80GB HBM3 at 700 W, so the bf16 limits tightened 8x and
+# 10x).
+TOL_REL_MAX = {"fused_mlp_bf16": 2.0 ** -5, "fused_mlp_f32": 1e-5,
+               "fused_mlp_bf16_f32h": 2.0 ** -8}  # max|err| / max|plain|
+TOL_REL_RMS = {"fused_mlp_bf16": 2e-3, "fused_mlp_f32": 1e-6, "fused_mlp_bf16_f32h": 2e-4}  # ||err|| / ||plain||
 TOL_CROP_RGB = 2.0 / 255  # K1 on the card vs its plain version on the CPU
 TOL_CROP_DEPTH = 5e-3  # of the NDC depth, in [0, 1]
 MIN_CROP_ACC = 0.1  # the crop check holds only where depth is well conditioned
@@ -156,13 +168,23 @@ TRAIN_RAYS = 2048 + 2048  # NeRF + sparse-depth rays per training step
 TRAIN_N = {"coarse": TRAIN_RAYS * 64, "fine": TRAIN_RAYS * 192}  # K1's points per training launch
 TRAIN_SEC = 2  # a training step sees the 2 other train views
 RAGGED_N = [1, 2048 + 37, 132 * 128 * 3 + 37]  # 132 SMs: 3 tiles of 128 per CTA, then 37 rows
-# precision modes of a flagship level: (bf16_matmuls, f32_heads) -> K1 instance or None
+# precision modes of a flagship level: (bf16_matmuls, f32_heads), each through its K1 instance
 MODES = {"bf16, bf16 heads": (True, False), "bf16, f32 heads (default)": (True, True),
          "f32": (False, False)}
+# (label, bf16_matmuls, f32_heads, through the nn.Module MLP): each mode through
+# its instance, and the shipped mode through the module MLP beside it, the
+# path that mode took before it had an instance
+MODE_RUNS = [(label, bf16, f32_heads, False) for label, (bf16, f32_heads) in MODES.items()] \
+    + [("bf16, f32 heads, module MLP", True, True, True)]
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def launch_counts(k1, **counts) -> dict:
+    """Every instance's launch count: `counts`, 0 for the others."""
+    return {name: counts.get(name, 0) for name in k1.INSTANCE.values()}
 
 
 def device_line() -> str:
@@ -187,11 +209,12 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 def library_raw(layers, xe, ve, ve2, n_sec):
     """Yardstick for K1: the same function as one torch.nn.functional.linear
-    (cuBLAS) per layer in the working dtype -- the module path's arithmetic.
-    It is a chain of ~12 calls, not one library call."""
+    (cuBLAS) per layer, each in its layer's dtype (with f32 heads: bf16 to
+    layer 7, then f32) -- the module path's arithmetic. It is a chain of ~12
+    calls, not one library call."""
     lin = torch.nn.functional.linear
     relu = torch.relu
-    b = [bb.to(xe.dtype) for _, bb in layers]
+    b = [bb.to(ww.dtype) for ww, bb in layers]
     w = [ww for ww, _ in layers]
     h = relu(lin(xe, w[0]) + b[0])
     for i in (1, 2, 3, 4):
@@ -199,6 +222,7 @@ def library_raw(layers, xe, ve, ve2, n_sec):
     h = relu(lin(torch.cat([xe, h], 1), w[5]) + b[5])
     for i in (6, 7):
         h = relu(lin(h, w[i]) + b[i])
+    h = h.to(ve.dtype)
     feature = lin(h, w[8]) + b[8]
     sigma = (lin(h, w[9]) + b[9])[:, :1]
     out = [sigma, (lin(relu(lin(torch.cat([feature, ve], 1), w[10]) + b[10]), w[11]) + b[11])[:, :4]]
@@ -208,73 +232,90 @@ def library_raw(layers, xe, ve, ve2, n_sec):
     return torch.cat(out, 1)
 
 
-def k1_bound_ms(k1, n, n_sec, dtype, scenes=1):
-    """Least time for K1 on n points (of `scenes` scenes, each with its own
-    weights): operations at the tensor-core (bf16) or CUDA-core (f32) peak,
-    or the bytes of its inputs, outputs and weights."""
-    macs = n * (k1.MACS_PER_POINT + n_sec * k1.MACS_PER_SEC_VIEW)
-    size = 2 if dtype == torch.bfloat16 else 4
-    cols_in = k1.PTS_IN + k1.VIEW_IN * (1 + n_sec)
-    nbytes = n * (cols_in + k1.NOUT) * size + scenes * (k1.W_NUMEL * size + k1.B_NUMEL * 4)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = 2 * macs / peak, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+def k1_bound_parts(k1, n, n_sec, name, scenes=1) -> dict:
+    """Least times (ms) of K1's parts on n points (of `scenes` scenes, each
+    with its own weights): the trunk's and the heads' operations, each at
+    the peak of its unit (bf16 tensor cores, f32 CUDA cores), and the bytes
+    of the inputs, the raw output and the packed weights."""
+    trunk, f32_heads = K1_MODES[name]
+    head = torch.float32 if f32_heads else trunk
+    peak = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float32: PEAK_F32_FLOPS}
+    trunk_macs = n * k1.TRUNK_MACS_PER_POINT
+    head_macs = n * (k1.MACS_PER_POINT - k1.TRUNK_MACS_PER_POINT + n_sec * k1.MACS_PER_SEC_VIEW)
+    nbytes = (n * (k1.PTS_IN * trunk.itemsize + (k1.VIEW_IN * (1 + n_sec) + k1.NOUT) * head.itemsize)
+              + scenes * (k1.PACK_BYTES[trunk, head] + k1.B_NUMEL * 4))
+    return {"trunk_ops": 2e3 * trunk_macs / peak[trunk], "heads_ops": 2e3 * head_macs / peak[head],
+            "bytes": 1e3 * nbytes / PEAK_BYTES}
 
 
-def k1_inputs(k1, n, n_sec, dtype, g, dev):
+def k1_bound_ms(k1, n, n_sec, name, scenes=1):
+    """Least time for K1: the larger of its operations' time and its bytes'
+    time (`k1_bound_parts`). One unit runs both parts of the bf16 and f32
+    instances, so their times add; bf16_f32h's trunk (tensor cores) and heads
+    (CUDA cores) can run at once on different tiles, so the larger counts."""
+    parts = k1_bound_parts(k1, n, n_sec, name, scenes)
+    ops = parts["trunk_ops"] + parts["heads_ops"] if name != "fused_mlp_bf16_f32h" \
+        else max(parts["trunk_ops"], parts["heads_ops"])
+    return max(ops, parts["bytes"]), ("operations" if ops >= parts["bytes"] else "bytes")
+
+
+def k1_inputs(k1, n, n_sec, name, g, dev):
     pts = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
     unit = lambda t: torch.nn.functional.normalize(t, dim=-1)  # noqa: E731
     vd = unit(torch.randn((n, 3), generator=g, device=dev))
     vd2 = unit(torch.randn((n, n_sec, 3), generator=g, device=dev)) if n_sec else None
-    return k1.encode_inputs(pts, vd, vd2, dtype)
+    dtype, f32_heads = K1_MODES[name]
+    return k1.encode_inputs(pts, vd, vd2, dtype, f32_heads=f32_heads)
 
 
 def phase_k1(k1, mlp, dev):
     """K1 against its plain version on the card at every checked shape, timed
     at the serving path's two tile shapes and the training step's two launch
-    shapes. Returns the worst max|err| of each
-    instance and the timings keyed by (dtype, n_sec, n)."""
+    shapes, each instance. Returns the worst max|err| of each instance and
+    the timings keyed by (instance, n_sec, n)."""
     g = torch.Generator(device=dev).manual_seed(1)
     worst = {}
     timings = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype)[6:]
-        weights = k1.prepare_weights(mlp, dtype)
-        worst[dtype] = 0.0
+    for name, (dtype, f32_heads) in K1_MODES.items():
+        weights = k1.prepare_weights(mlp, dtype, f32_heads)
+        worst[name] = 0.0
         for n_sec in range(4):
             timed = set(TILE_N.values()) if n_sec in (0, 2) else set()
             if n_sec == TRAIN_SEC:
                 timed |= set(TRAIN_N.values())
             for n in RAGGED_N + sorted({262144} | timed):
-                xe, ve, ve2, ns = k1_inputs(k1, n, n_sec, dtype, g, dev)
-                out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns).float()
+                xe, ve, ve2, ns = k1_inputs(k1, n, n_sec, name, g, dev)
+                out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
                 torch.cuda.synchronize()
                 ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
+                out_dtype, out = out.dtype, out.float()
                 err = (out - ref).abs().max().item()
                 rel_max = err / max(ref.abs().max().item(), 1e-30)
                 rel_rms = ((out - ref).norm() / ref.norm().clamp_min(1e-30)).item()
                 finite = bool(torch.isfinite(out).all())
                 pad_zero = not out[:, 5 + ns:].any()
                 log(f"K1 {name} n_sec={n_sec} N={n}: max|err| {err:.3g}, max|err|/max|plain| "
-                    f"{rel_max:.3g} (tol {TOL_REL_MAX[dtype]:.3g}), rms rel {rel_rms:.3g} "
-                    f"(tol {TOL_REL_RMS[dtype]:.3g}), finite {finite}, padding zero {pad_zero}")
-                if not (finite and pad_zero and rel_max <= TOL_REL_MAX[dtype]
-                        and rel_rms <= TOL_REL_RMS[dtype]):
-                    raise AssertionError(f"K1 disagrees with its plain version: {dtype} n_sec={n_sec} N={n}")
-                worst[dtype] = max(worst[dtype], err)
+                    f"{rel_max:.3g} (tol {TOL_REL_MAX[name]:.3g}), rms rel {rel_rms:.3g} "
+                    f"(tol {TOL_REL_RMS[name]:.3g}), finite {finite}, padding zero {pad_zero}")
+                if not (finite and pad_zero and out_dtype == ve.dtype and rel_max <= TOL_REL_MAX[name]
+                        and rel_rms <= TOL_REL_RMS[name]):
+                    raise AssertionError(f"K1 disagrees with its plain version: {name} n_sec={n_sec} N={n}")
+                worst[name] = max(worst[name], err)
                 if n not in timed:
                     continue
                 ms = cuda_ms(lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns))
                 plain_ms = cuda_ms(lambda: k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns), reps=3)
                 lib_ms = cuda_ms(lambda: library_raw(weights.layers, xe, ve, ve2, ns), reps=5)
-                bound, bound_by = k1_bound_ms(k1, n, ns, dtype)
+                bound, bound_by = k1_bound_ms(k1, n, ns, name)
+                parts = k1_bound_parts(k1, n, ns, name)
                 tflops = 2 * n * (k1.MACS_PER_POINT + ns * k1.MACS_PER_SEC_VIEW) / (ms * 1e-3) / 1e12
                 log(f"K1 timing {name} n_sec={n_sec} N={n}: kernel_ms {ms:.4f} "
                     f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (torch.nn.functional.linear "
-                    f"per layer, no single call) bound_ms {bound:.4f} ({bound_by}) "
-                    f"share of bound {bound / ms:.3f}, achieved {tflops:.1f} TFLOP/s")
-                timings[(dtype, n_sec, n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                                  bound_ms=bound, bound_by=bound_by)
+                    f"per layer, no single call) bound_ms {bound:.4f} ({bound_by}; trunk operations "
+                    f"{parts['trunk_ops']:.4f}, heads operations {parts['heads_ops']:.4f}, bytes "
+                    f"{parts['bytes']:.4f}) share of bound {bound / ms:.3f}, achieved {tflops:.1f} TFLOP/s")
+                timings[(name, n_sec, n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                                 bound_ms=bound, bound_by=bound_by, bound_parts_ms=parts)
     return worst, timings
 
 
@@ -431,7 +472,7 @@ def phase_slice(k1, dev, timings):
         launches = dict(k1.fused_mlp_raw.launches_by_instance)
 
         tiles = math.ceil(H * W / CHUNK)
-        expected = {"fused_mlp_bf16": 5 * 2 * tiles, "fused_mlp_f32": 0}
+        expected = launch_counts(k1, fused_mlp_bf16=5 * 2 * tiles)
         log(f"start_testing: 5 frames of {W}x{H} in {seconds:.3f} s "
             f"({seconds / 5:.3f} s per frame, tester set-up and checkpoint load included); "
             f"K1 launches {launches} (expected {expected}: 5 frames x 2 levels x {tiles} tiles)")
@@ -470,7 +511,7 @@ def phase_slice(k1, dev, timings):
                 torch.cuda.synchronize()
                 frame_s[label].append(time.perf_counter() - t0)
             n_sec = 2 if sec else 0
-            k1_ms = tiles * sum(timings[(torch.bfloat16, n_sec, n)]["ms"] for n in TILE_N.values())
+            k1_ms = tiles * sum(timings[("fused_mlp_bf16", n_sec, n)]["ms"] for n in TILE_N.values())
             log(f"predict_frame ({label}): {', '.join(f'{s:.4f}' for s in frame_s[label])} s per "
                 f"{W}x{H} frame; K1 {k1_ms:.1f} ms of it ({tiles} tiles x the coarse and fine "
                 f"launch times of phase 2)")
@@ -482,33 +523,31 @@ def phase_slice(k1, dev, timings):
 
 
 def phase_modes(k1, root, model_configs, test_configs, pose, tiles):
-    """One warm held-out frame in each precision mode, with each K1
+    """One warm held-out frame in each of `MODE_RUNS`, with each K1
     instance's launches counted over that frame alone: a mode runs through
-    the instance the dispatch picks (2 levels x `tiles` launches) or through
-    the module MLP (none)."""
+    the instance the dispatch picks, 2 levels x `tiles` launches, or, under
+    `module_mlp_path`, through the module MLP with none."""
     from vipnerf_tpu_torch.infer.tester import NerfTester
     from vipnerf_tpu_torch.models.vip_nerf import uses_fused_mlp
 
     train_configs = json.loads((root / "runs/training/train0001/Configs.json").read_text())
     modes = {}
-    for label, (bf16, f32_heads) in MODES.items():
+    for label, bf16, f32_heads, module in MODE_RUNS:
         cfg = copy.deepcopy(train_configs)
         cfg["model"].update(bf16_matmuls=bf16, f32_heads=f32_heads)
         tester = NerfTester(cfg, model_configs, test_configs, root)
         tester.load_model(root / "runs/training/train0001/rig/saved_models/Model_Latest.tar")
-        tester.predict_frame(pose)  # warm-up
-        k1.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frame = tester.predict_frame(pose)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        with module_mlp_path() if module else contextlib.nullcontext():
+            tester.predict_frame(pose)  # warm-up
+            k1.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = tester.predict_frame(pose)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
         launches = dict(k1.fused_mlp_raw.launches_by_instance)
-        expected = dict.fromkeys(launches, 0)
-        path = "module MLP"
-        if uses_fused_mlp(cfg["model"]["fine_mlp"], bf16, f32_heads):
-            path = "fused_mlp_bf16" if bf16 else "fused_mlp_f32"
-            expected[path] = 2 * tiles
+        path = "module MLP" if module else uses_fused_mlp(cfg["model"]["fine_mlp"], bf16, f32_heads)
+        expected = launch_counts(k1, **{path: 2 * tiles})
         finite = all(np.isfinite(np.asarray(v)).all() for v in frame.values())
         log(f"warm held-out frame, {label}: {seconds:.4f} s through the {path}; "
             f"K1 launches {launches} (expected {expected}); outputs finite {finite}")
@@ -530,8 +569,9 @@ TIMED_STEPS = 25
 # where a fine sample lands in the next bin of the inverse CDF. bf16: a
 # product rounded one bf16 step (2^-8) apart moves the coarse weights, hence
 # the fine samples, and the step propagates (0.6 % RMS measured on the CPU).
-TOL_GRAD_REL_MAX = {torch.bfloat16: 0.1, torch.float32: 1e-2}  # max|dg| / max|g|
-TOL_GRAD_REL_RMS = {torch.bfloat16: 3e-2, torch.float32: 1e-3}  # ||dg|| / ||g||
+# bf16_f32h: the bf16 trunk's steps, as in bf16.
+TOL_GRAD_REL_MAX = {"fused_mlp_bf16": 0.1, "fused_mlp_f32": 1e-2, "fused_mlp_bf16_f32h": 0.1}  # max|dg| / max|g|
+TOL_GRAD_REL_RMS = {"fused_mlp_bf16": 3e-2, "fused_mlp_f32": 1e-3, "fused_mlp_bf16_f32h": 3e-2}  # ||dg|| / ||g||
 MIN_PSNR_GAIN_DB = 1.0
 
 
@@ -597,29 +637,30 @@ class TrainRig:
 def phase_grad_check(k1, rig):
     """One gathered batch, one generator state: the parameters' gradients of
     a training render through K1 against the same render through the module
-    MLP, on the card, for the bf16 (bf16 heads) and f32 instances."""
+    MLP, on the card, for each instance: bf16 (bf16 heads), f32 and
+    bf16_f32h (the shipped mode, f32 heads)."""
     batch = rig.batch(0)
     worst = {}
-    for dtype, bf16 in ((torch.bfloat16, True), (torch.float32, False)):
+    for name, (dtype, f32_heads) in K1_MODES.items():
         cfg = copy.deepcopy(rig.configs)
-        cfg["model"].update(bf16_matmuls=bf16, f32_heads=False, raw_noise_std=0.0)
+        cfg["model"].update(bf16_matmuls=dtype == torch.bfloat16, f32_heads=f32_heads, raw_noise_std=0.0)
         k1.reset_launch_counts()
         g_k1 = rig.grads(cfg, batch, seed=7)
-        launches = k1.fused_mlp_raw.launches
+        launches = k1.fused_mlp_raw.launches_by_instance[name]
         with module_mlp_path():
             g_mod = rig.grads(cfg, batch, seed=7)
         rel_max = rel_rms = 0.0
-        for name, g in g_mod.items():
-            d = g_k1[name] - g
+        for tensor, g in g_mod.items():
+            d = g_k1[tensor] - g
             rel_max = max(rel_max, (d.abs().max() / g.abs().max().clamp_min(1e-30)).item())
             rel_rms = max(rel_rms, (d.norm() / g.norm().clamp_min(1e-30)).item())
-        log(f"K1 gradients, {k1.INSTANCE[dtype]} vs the module MLP, one batch of {TRAIN_RAYS} rays, "
+        log(f"K1 gradients, {name} vs the module MLP, one batch of {TRAIN_RAYS} rays, "
             f"{len(g_mod)} parameter tensors: worst max|dg|/max|g| {rel_max:.3g} "
-            f"(tol {TOL_GRAD_REL_MAX[dtype]}), worst ||dg||/||g|| {rel_rms:.3g} "
-            f"(tol {TOL_GRAD_REL_RMS[dtype]}); K1 launches in the K1 render {launches}")
-        if launches != 2 or rel_max > TOL_GRAD_REL_MAX[dtype] or rel_rms > TOL_GRAD_REL_RMS[dtype]:
-            raise AssertionError(f"K1's gradients disagree with the module MLP's ({dtype})")
-        worst[dtype] = (rel_max, rel_rms)
+            f"(tol {TOL_GRAD_REL_MAX[name]}), worst ||dg||/||g|| {rel_rms:.3g} "
+            f"(tol {TOL_GRAD_REL_RMS[name]}); {name} launches in the K1 render {launches}")
+        if launches != 2 or rel_max > TOL_GRAD_REL_MAX[name] or rel_rms > TOL_GRAD_REL_RMS[name]:
+            raise AssertionError(f"K1's gradients disagree with the module MLP's ({name})")
+        worst[name] = (rel_max, rel_rms)
     return worst
 
 
@@ -643,7 +684,7 @@ def phase_training_run(k1, root, configs, gt, tiles):
     run_s = time.perf_counter() - t0
     launches_run = dict(k1.fused_mlp_raw.launches_by_instance)
     val_frames = 3 + 1  # train frames (n_sec 2) + the validation frame
-    expected = {"fused_mlp_bf16": 2 * n + 2 * tiles * val_frames, "fused_mlp_f32": 0}
+    expected = launch_counts(k1, fused_mlp_bf16=2 * n + 2 * tiles * val_frames)
     log(f"start_training: {n} steps and one validation of {val_frames} frames in {run_s:.2f} s; "
         f"K1 launches {launches_run} (expected {expected}: 2 per step, 2 levels x {tiles} tiles "
         f"per validation frame)")
@@ -663,7 +704,7 @@ def phase_training_run(k1, root, configs, gt, tiles):
     launches_resume = dict(k1.fused_mlp_raw.launches_by_instance)
     if f"Resuming Training from iteration {n + 1}" not in text:
         raise AssertionError(f"the second start_training did not resume at {n}")
-    if launches_resume != {"fused_mlp_bf16": 2 * RESUME_STEPS, "fused_mlp_f32": 0}:
+    if launches_resume != launch_counts(k1, fused_mlp_bf16=2 * RESUME_STEPS):
         raise AssertionError(f"the resumed run launched K1 {launches_resume}")
     log(f"resumed at {n} and trained to {n + RESUME_STEPS} in {resume_s:.2f} s; K1 launches {launches_resume}")
 
@@ -729,12 +770,13 @@ def timed_steps(step, rig, start_it: int, count: int, warmup: int = 3):
     return seconds
 
 
-def phase_step_profile(rig, warm_ms):
-    """torch.profiler over one bf16 training step, split at synchronised
-    boundaries into forward (gather, render, losses), backward and Adam."""
+def phase_step_profile(rig, configs, warm_ms):
+    """torch.profiler over one training step in `configs`' precision mode,
+    split at synchronised boundaries into forward (gather, render, losses),
+    backward and Adam."""
     from vipnerf_tpu_torch.train.step import make_optimizer
 
-    optimizer = make_optimizer(rig.configs, rig.model.parameters())
+    optimizer = make_optimizer(configs, rig.model.parameters())
     batch = rig.batch(1000)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -744,7 +786,7 @@ def phase_step_profile(rig, warm_ms):
                 if phase == "forward":
                     optimizer.zero_grad()
                     rig.generator.manual_seed(3)
-                    out = rig.render_rays(rig.model, rig.configs, batch, train=True, generator=rig.generator)
+                    out = rig.render_rays(rig.model, configs, batch, train=True, generator=rig.generator)
                     total = rig.loss_computer.compute_losses(batch, out)["TotalLoss"]
                 elif phase == "backward":
                     total.backward()
@@ -784,8 +826,10 @@ def phase_step_profile(rig, warm_ms):
 
 def phase_train(k1, dev, timings):
     """The training slice at the flagship width: a synthetic LLFF scene at
-    1008x756, K1's gradient check, start_training with a resume, the warm
-    step time, the step profile and a step in each precision mode."""
+    1008x756, K1's gradient check, start_training with a resume (bf16
+    heads), the warm step time and the step profile in the shipped mode
+    (bf16 with f32 heads, through bf16_f32h) and a step in each of
+    `MODE_RUNS`."""
     from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
     from vipnerf_tpu_torch.data.synthetic_rig import flagship_training_configs
     from vipnerf_tpu_torch.models.vip_nerf import uses_fused_mlp
@@ -808,35 +852,35 @@ def phase_train(k1, dev, timings):
         grads = phase_grad_check(k1, rig)
         run = phase_training_run(k1, root, configs, gt, tiles)
 
-        step = rig.step_fn(bf16=True, f32_heads=False)
+        step = rig.step_fn(bf16=True, f32_heads=True)
         torch.cuda.reset_peak_memory_stats()
         k1.reset_launch_counts()
         seconds = timed_steps(step, rig, 2000, TIMED_STEPS)
-        launches = k1.fused_mlp_raw.launches
+        launches = k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"]
         peak = torch.cuda.max_memory_allocated()
         med_ms = 1e3 * float(np.median(seconds))
-        k1_ms = sum(timings[(torch.bfloat16, TRAIN_SEC, n)]["ms"] for n in TRAIN_N.values())
-        log(f"warm training step (bf16, bf16 heads, K1): median {med_ms:.2f} ms over {TIMED_STEPS} "
-            f"steps (min {1e3 * min(seconds):.2f}, max {1e3 * max(seconds):.2f}), "
+        k1_ms = sum(timings[("fused_mlp_bf16_f32h", TRAIN_SEC, n)]["ms"] for n in TRAIN_N.values())
+        log(f"warm training step (shipped mode: bf16, f32 heads, K1 fused_mlp_bf16_f32h): median {med_ms:.2f} ms "
+            f"over {TIMED_STEPS} steps (min {1e3 * min(seconds):.2f}, max {1e3 * max(seconds):.2f}), "
             f"{TRAIN_RAYS / (med_ms / 1e3):,.0f} rays/s; K1 forward {k1_ms:.3f} ms of it "
             f"({k1_ms / med_ms:.3f}, CUDA-event times at N {TRAIN_N['coarse']} and "
             f"{TRAIN_N['fine']}, n_sec {TRAIN_SEC}); K1 launches {launches} in {TIMED_STEPS + 3} "
             f"steps; peak memory {peak / 2**30:.2f} GiB")
         if launches != 2 * (TIMED_STEPS + 3):
             raise AssertionError(f"K1 ran {launches} times in {TIMED_STEPS + 3} steps")
-        profile = phase_step_profile(rig, med_ms)
+        shipped = copy.deepcopy(rig.configs)
+        shipped["model"].update(bf16_matmuls=True, f32_heads=True)
+        profile = phase_step_profile(rig, shipped, med_ms)
 
         modes = {}
-        for label, (bf16, f32_heads) in MODES.items():
+        for label, bf16, f32_heads, module in MODE_RUNS:
             step = rig.step_fn(bf16, f32_heads)
             k1.reset_launch_counts()
-            secs = timed_steps(step, rig, 3000, 5, warmup=2)
+            with module_mlp_path() if module else contextlib.nullcontext():
+                secs = timed_steps(step, rig, 3000, 5, warmup=2)
             launches_m = dict(k1.fused_mlp_raw.launches_by_instance)
-            path = "module MLP"
-            expected = dict.fromkeys(launches_m, 0)
-            if uses_fused_mlp(rig.configs["model"]["fine_mlp"], bf16, f32_heads):
-                path = "fused_mlp_bf16" if bf16 else "fused_mlp_f32"
-                expected[path] = 2 * 7
+            path = "module MLP" if module else uses_fused_mlp(rig.configs["model"]["fine_mlp"], bf16, f32_heads)
+            expected = launch_counts(k1, **{path: 2 * 7})
             ms = 1e3 * float(np.median(secs))
             log(f"warm training step, {label}: median {ms:.2f} ms over 5 steps through the {path}; "
                 f"K1 launches {launches_m} in 7 steps (expected {expected})")
@@ -845,7 +889,7 @@ def phase_train(k1, dev, timings):
             modes[label] = {"ms": ms, "path": path, "launches": launches_m}
     return {"run": run, "step_ms": med_ms, "step_ms_all": [1e3 * s for s in seconds],
             "rays_per_s": TRAIN_RAYS / (med_ms / 1e3), "k1_ms": k1_ms, "peak_bytes": peak,
-            "profile_ms": profile, "modes": modes, "grad_check": {str(k)[6:]: v for k, v in grads.items()}}
+            "profile_ms": profile, "modes": modes, "grad_check": grads}
 
 
 # --------------------------------------------------- batched multi-scene training
@@ -859,11 +903,11 @@ MS_SIZES = (1, 2, 4)  # scenes per step timed, from the seed's weights; 4 takes 
 
 def library_raw_batched(layers, xe, ve, ve2, n_sec):
     """Yardstick for the scene-batched K1: `library_raw` with one
-    `torch.baddbmm` over the scene axis per layer, in the working dtype."""
+    `torch.baddbmm` over the scene axis per layer, in its layer's dtype."""
     s = layers[0][0].shape[0]
     xe, ve, ve2 = (t.reshape(s, -1, t.shape[-1]) for t in (xe, ve, ve2))
     w = [ww.transpose(1, 2) for ww, _ in layers]
-    b = [bb.to(xe.dtype)[:, None] for _, bb in layers]
+    b = [bb.to(ww.dtype)[:, None] for ww, bb in layers]
     relu = torch.relu
 
     def lin(x, i):
@@ -875,6 +919,7 @@ def library_raw_batched(layers, xe, ve, ve2, n_sec):
     h = relu(lin(torch.cat([xe, h], -1), 5))
     for i in (6, 7):
         h = relu(lin(h, i))
+    h = h.to(ve.dtype)
     feature = lin(h, 8)
     out = [lin(h, 9)[..., :1], lin(relu(lin(torch.cat([feature, ve], -1), 10)), 11)[..., :4]]
     for j in range(n_sec):
@@ -883,7 +928,7 @@ def library_raw_batched(layers, xe, ve, ve2, n_sec):
 
 
 def phase_k1_scenes(k1, dev, scenes):
-    """The scene-batched K1, both instances, at the training step's two
+    """The scene-batched K1, every instance, at the training step's two
     launch shapes (S x 4096 rays x 64 and x 192 samples, n_sec 2) with
     different weights per scene: against its plain version (looped over the
     scenes, the forward tolerances) and bit for bit against S single-scene
@@ -900,13 +945,12 @@ def phase_k1_scenes(k1, dev, scenes):
             p.copy_(torch.stack([dict(m.named_parameters())[name] for m in singles]))
     g = torch.Generator(device=dev).manual_seed(2)
     out, worst = {}, {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = k1.INSTANCE[dtype]
-        weights = k1.prepare_weights(stacked, dtype)
-        single_w = [k1.prepare_weights(m, dtype) for m in singles]
+    for name, (dtype, f32_heads) in K1_MODES.items():
+        weights = k1.prepare_weights(stacked, dtype, f32_heads)
+        single_w = [k1.prepare_weights(m, dtype, f32_heads) for m in singles]
         worst[name] = 0.0
         for level, n in TRAIN_N.items():
-            xe, ve, ve2, ns = k1_inputs(k1, scenes * n, TRAIN_SEC, dtype, g, dev)
+            xe, ve, ve2, ns = k1_inputs(k1, scenes * n, TRAIN_SEC, name, g, dev)
             k1.reset_launch_counts()
             raw = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
             torch.cuda.synchronize()
@@ -921,16 +965,16 @@ def phase_k1_scenes(k1, dev, scenes):
             same = all(torch.equal(raw[r], k1.fused_mlp_raw(single_w[s], *parts[s], ns))
                        for s, r in enumerate(rows))
             log(f"K1 {name}, {scenes} scenes x {n} points ({level}, n_sec {ns}), one launch: max|err| {err:.3g}, "
-                f"max|err|/max|plain| {rel_max:.3g} (tol {TOL_REL_MAX[dtype]:.3g}), rms rel {rel_rms:.3g} "
-                f"(tol {TOL_REL_RMS[dtype]:.3g}); bit-identical to {scenes} single-scene launches: {same}")
-            if not (same and rel_max <= TOL_REL_MAX[dtype] and rel_rms <= TOL_REL_RMS[dtype]):
+                f"max|err|/max|plain| {rel_max:.3g} (tol {TOL_REL_MAX[name]:.3g}), rms rel {rel_rms:.3g} "
+                f"(tol {TOL_REL_RMS[name]:.3g}); bit-identical to {scenes} single-scene launches: {same}")
+            if not (same and rel_max <= TOL_REL_MAX[name] and rel_rms <= TOL_REL_RMS[name]):
                 raise AssertionError(f"the scene-batched K1 disagrees ({name}, {level})")
             worst[name] = max(worst[name], err)
             ms = cuda_ms(lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns))
             singles_ms = cuda_ms(lambda: [k1.fused_mlp_raw(single_w[s], *parts[s], ns) for s in range(scenes)])
             plain_ms = cuda_ms(lambda: k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns), reps=3)
             lib_ms = cuda_ms(lambda: library_raw_batched(weights.layers, xe, ve, ve2, ns), reps=5)
-            bound, bound_by = k1_bound_ms(k1, scenes * n, ns, dtype, scenes)
+            bound, bound_by = k1_bound_ms(k1, scenes * n, ns, name, scenes)
             log(f"K1 timing {name}, {scenes} scenes x {n} points: one launch {ms:.4f} ms, {scenes} single launches "
                 f"{singles_ms:.4f} ms, plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} (torch.baddbmm per layer), "
                 f"bound_ms {bound:.4f} ({bound_by}), share of bound {bound / ms:.3f}")
@@ -955,15 +999,16 @@ def ms_grad_check(k1, trainer):
     local = [p.gather_batch(nerf[i, 0] - i * rps, sd[i, 0] - i * rps, 0) for i, p in enumerate(trainer.preprocessors)]
     scenes = len(trainer.scene_ids)
     worst = {}
-    for dtype, bf16 in ((torch.bfloat16, True), (torch.float32, False)):
+    for name, (dtype, f32_heads) in K1_MODES.items():
         cfg = copy.deepcopy(trainer.configs)
-        cfg["model"].update(bf16_matmuls=bf16, f32_heads=False, perturb=False, raw_noise_std=0.0)
+        cfg["model"].update(bf16_matmuls=dtype == torch.bfloat16, f32_heads=f32_heads, perturb=False,
+                            raw_noise_std=0.0)
         losses = LossComputer(cfg)
         trainer.model.zero_grad(set_to_none=True)
         k1.reset_launch_counts()
         total = losses.scene_losses(batch, render_rays(trainer.model, cfg, batch, train=True), scenes)["TotalLoss"]
         total.sum().backward()
-        launches = k1.fused_mlp_raw.launches
+        launches = k1.fused_mlp_raw.launches_by_instance[name]
         stacked = {k: p.grad for k, p in trainer.model.named_parameters()}
         rel_max = rel_rms = 0.0
         worst_tensor = (0.0, "")
@@ -983,14 +1028,14 @@ def ms_grad_check(k1, trainer):
             for k, p in model.named_parameters():
                 r = ((stacked[k][i] - p.grad).norm() / p.grad.norm().clamp_min(1e-30)).item()
                 worst_tensor = max(worst_tensor, (r, f"scene {i} {k} ({p.numel()} entries)"))
-        log(f"batched step gradients, {k1.INSTANCE[dtype]}, {scenes} scenes x {TRAIN_RAYS} rays vs each scene's own "
+        log(f"batched step gradients, {name}, {scenes} scenes x {TRAIN_RAYS} rays vs each scene's own "
             f"step, over all of a scene's parameters: worst max|dg|/max|g| {rel_max:.3g} (tol "
-            f"{TOL_GRAD_REL_MAX[dtype]}), worst ||dg||/||g|| {rel_rms:.3g} (tol {TOL_GRAD_REL_RMS[dtype]}); worst "
-            f"tensor {worst_tensor[1]} at ||dg||/||g|| {worst_tensor[0]:.3g}; K1 launches in the batched render "
-            f"{launches}")
-        if launches != 2 or rel_max > TOL_GRAD_REL_MAX[dtype] or rel_rms > TOL_GRAD_REL_RMS[dtype]:
-            raise AssertionError(f"the batched step's gradients disagree with single-scene steps ({dtype})")
-        worst[k1.INSTANCE[dtype]] = {"rel_max": rel_max, "rel_rms": rel_rms, "worst_tensor": worst_tensor}
+            f"{TOL_GRAD_REL_MAX[name]}), worst ||dg||/||g|| {rel_rms:.3g} (tol {TOL_GRAD_REL_RMS[name]}); worst "
+            f"tensor {worst_tensor[1]} at ||dg||/||g|| {worst_tensor[0]:.3g}; {name} launches in the batched "
+            f"render {launches}")
+        if launches != 2 or rel_max > TOL_GRAD_REL_MAX[name] or rel_rms > TOL_GRAD_REL_RMS[name]:
+            raise AssertionError(f"the batched step's gradients disagree with single-scene steps ({name})")
+        worst[name] = {"rel_max": rel_max, "rel_rms": rel_rms, "worst_tensor": worst_tensor}
     trainer.model.zero_grad(set_to_none=True)
     return worst
 
@@ -1116,7 +1161,7 @@ def phase_multi_scene(k1, dev):
         run_s = time.perf_counter() - t0
         launches_run = dict(k1.fused_mlp_raw.launches_by_instance)
         val_frames = 3 + 1
-        expected = {"fused_mlp_bf16": 2 * MS_STEPS + 2 * tiles * val_frames * len(MS_SCENES), "fused_mlp_f32": 0}
+        expected = launch_counts(k1, fused_mlp_bf16=2 * MS_STEPS + 2 * tiles * val_frames * len(MS_SCENES))
         log(f"app start_training, batch_scenes, {len(MS_SCENES)} scenes: {MS_STEPS} steps and one validation of "
             f"{val_frames} frames per scene in {run_s:.2f} s; K1 launches {launches_run} (expected {expected}: 2 per "
             f"step for all scenes, 2 levels x {tiles} tiles per validation frame and scene)")
@@ -1135,7 +1180,7 @@ def phase_multi_scene(k1, dev):
         launches_resume = dict(k1.fused_mlp_raw.launches_by_instance)
         if f"Resuming multi-scene training from iteration {MS_STEPS + 1}" not in out.getvalue():
             raise AssertionError(f"the second batched run did not resume at {MS_STEPS}")
-        if launches_resume != {"fused_mlp_bf16": 2 * MS_RESUME_STEPS, "fused_mlp_f32": 0}:
+        if launches_resume != launch_counts(k1, fused_mlp_bf16=2 * MS_RESUME_STEPS):
             raise AssertionError(f"the resumed batched run launched K1 {launches_resume}")
         log(f"resumed at {MS_STEPS} and trained to {MS_STEPS + MS_RESUME_STEPS} in {resume_s:.2f} s; "
             f"K1 launches {launches_resume}")
@@ -1208,11 +1253,8 @@ def phase_multi_scene(k1, dev):
                     k1.reset_launch_counts()
                     secs, _ = ms_timed_steps(k1, trainer, 5, start_it=1000, warmup=2)
                     launches_m = dict(k1.fused_mlp_raw.launches_by_instance)
-                    path = "module MLP"
-                    expected = dict.fromkeys(launches_m, 0)
-                    if uses_fused_mlp(cfg["model"]["fine_mlp"], bf16, f32_heads):
-                        path = k1.INSTANCE[torch.bfloat16 if bf16 else torch.float32]
-                        expected[path] = 2 * 7
+                    path = uses_fused_mlp(cfg["model"]["fine_mlp"], bf16, f32_heads) or "module MLP"
+                    expected = launch_counts(k1, **{path: 2 * 7})
                     ms = 1e3 * float(np.median(secs))
                     log(f"warm batched step, S = 2, {label}: median {ms:.2f} ms over 5 steps through the {path}; "
                         f"K1 launches {launches_m} in 7 steps (expected {expected})")
@@ -1329,9 +1371,10 @@ def phase_pipeline(k1):
     (64 planes, 3 pairs x 2 directions) with TF32 matmuls allowed, its files
     checked and one direction held against the CPU; the sparse-depth CLI's
     ColmapNotFoundError; then the NeRF_LLFF app with demo1a's shipped configs
-    (bf16 with f32 heads: the module MLP) cut to PIPE_STEPS iterations:
-    start_training on the generated prior, start_testing with its QA
-    subprocess, and both video tracks of a 3-pose track."""
+    (bf16 with f32 heads: K1's bf16_f32h instance, 2 launches per step) cut
+    to PIPE_STEPS iterations: start_training on the generated prior,
+    start_testing with its QA subprocess, and both video tracks of a 3-pose
+    track."""
     from vipnerf_tpu_torch.apps import nerf_llff
     from vipnerf_tpu_torch.apps.common import DatasetApp
     from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
@@ -1381,11 +1424,18 @@ def phase_pipeline(k1):
                                                              num_iterations=PIPE_STEPS)
         model = train_configs["model"]
         path_k1 = uses_fused_mlp(model["fine_mlp"], model["bf16_matmuls"], model["f32_heads"])
+        if path_k1 != "fused_mlp_bf16_f32h":
+            raise AssertionError(f"demo1a's shipped configs run {path_k1}, not fused_mlp_bf16_f32h")
+        k1.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         app.start_training(train_configs)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+        launches_train = dict(k1.fused_mlp_raw.launches_by_instance)
+        if launches_train != launch_counts(k1, fused_mlp_bf16_f32h=2 * PIPE_STEPS):
+            raise AssertionError(f"the app's {PIPE_STEPS} steps launched K1 {launches_train}, expected 2 per step "
+                                 "of fused_mlp_bf16_f32h")
         scene_train = root / "runs/training/train0011/synth01"
         losses = [v for _, v in sorted(read_scalars(scene_train / "logs/scalars.jsonl")["train/TotalLoss"].items())]
         if len(losses) != PIPE_STEPS or not np.isfinite(losses).all() \
@@ -1393,7 +1443,8 @@ def phase_pipeline(k1):
             raise AssertionError("the app's training logged no finite loss per step or wrote no checkpoint")
         log(f"app start_training (demo1a configs: bf16, f32 heads, 2048 + 2048 rays, the generated VW02 prior): "
             f"{PIPE_STEPS} steps in {train_s:.2f} s with set-up and checkpoint, {PIPE_STEPS / train_s:.2f} steps/s; "
-            f"mean TotalLoss first 20 {np.mean(losses[:20]):.5f}, last 20 {np.mean(losses[-20:]):.5f}")
+            f"mean TotalLoss first 20 {np.mean(losses[:20]):.5f}, last 20 {np.mean(losses[-20:]):.5f}; K1 launches "
+            f"{launches_train}")
 
         qa_s = []
         run_qa = app.run_qa
@@ -1442,9 +1493,10 @@ def phase_pipeline(k1):
                 check_png(p)
         launches = dict(k1.fused_mlp_raw.launches_by_instance)
         log(f"app video tracks: 2 frames each, moving {video_s['moving']:.2f} s, static {video_s['static']:.2f} s, "
-            f"written as frame directories; K1 launches over the pipeline {launches} (the shipped f32 heads run "
-            f"the module MLP: {'K1' if path_k1 else 'no K1'} expected)")
-        if path_k1 or any(launches.values()):
+            f"written as frame directories; K1 launches over the app's training, testing and videos {launches} "
+            f"(the shipped f32 heads: fused_mlp_bf16_f32h only)")
+        if launches["fused_mlp_bf16_f32h"] <= launches_train["fused_mlp_bf16_f32h"] \
+                or any(n for name, n in launches.items() if name != "fused_mlp_bf16_f32h"):
             raise AssertionError(f"the pipeline launched K1 {launches}")
     return {"prior_s_per_direction": directions, "prior_vs_cpu": prior_cmp, "train_s": train_s,
             "steps_per_s": PIPE_STEPS / train_s, "test_s_per_frame": test_s / len(test_frames),
@@ -1638,7 +1690,7 @@ def phase_database(k1, dev):
         log(f"app start_training on the built database (flagship width, bf16 heads, 2048 + 2048 rays): {DB_STEPS} "
             f"steps in {train_s:.2f} s with set-up and 2 checkpoints; K1 launches {launches_train}; mean TotalLoss "
             f"first 10 {np.mean(losses[:10]):.5f}, last 10 {np.mean(losses[-10:]):.5f}")
-        if launches_train != {"fused_mlp_bf16": 2 * DB_STEPS, "fused_mlp_f32": 0}:
+        if launches_train != launch_counts(k1, fused_mlp_bf16=2 * DB_STEPS):
             raise AssertionError(f"training the built database launched K1 {launches_train}")
         if len(losses) != DB_STEPS or not np.isfinite(losses).all():
             raise AssertionError("the built database's training logged no finite loss per step")
@@ -1784,13 +1836,14 @@ def phase_protocol(k1, dev):
     """The DTU quality control's driver (`protocol.run_dtu_control`) at the
     protocol's 300x400: (1) its database and VW03 on the card, the masks
     checked and one direction held against the CPU; (2) a PROTO_STEPS leg in
-    the shipped mode (bf16 with f32 heads: the module MLP), its loss falling
-    and its masked QA written; (3) from those weights a checkpoint at
+    the shipped mode (bf16 with f32 heads: K1's bf16_f32h instance, exactly
+    2 launches per training step), its loss falling and its masked QA
+    written; (3) from those weights a checkpoint at
     SEAM_START written by `train.checkpoints.save_checkpoint` with Adam's
     count set to match, and the driver resumed to SEAM_END with bf16 heads
     (K1 on metric-space rays): the loss composition on both sides of the
     prior's switch, the LR at the switch and exactly 2 K1 launches per step;
-    (4) both K1 instances against their plain versions on this scene's
+    (4) every K1 instance against its plain version on this scene's
     2048 + 2048-ray batch, coarse and fine; (5) the phase's figures."""
     from vipnerf_tpu_torch.apps import dtu
     from vipnerf_tpu_torch.data.loaders import get_data_loader
@@ -1815,9 +1868,22 @@ def phase_protocol(k1, dev):
         run = work / "runs/training/train0042/00021"
 
         # (1) + (2): the database, VW03 and the shipped-mode leg
+        shipped_training = {}
+        start_training = dtu.app.start_training
+
+        def counted_shipped(cfg):
+            before = k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"]
+            start_training(cfg)
+            after = k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"]
+            shipped_training["fused_mlp_bf16_f32h"] = after - before
+
         k1.reset_launch_counts()
         torch.cuda.synchronize()
-        summary, leg_s = run_driver(driver, argv + ["--iters", str(PROTO_STEPS)])
+        dtu.app.start_training = counted_shipped
+        try:
+            summary, leg_s = run_driver(driver, argv + ["--iters", str(PROTO_STEPS)])
+        finally:
+            dtu.app.start_training = start_training
         shipped_launches = dict(k1.fused_mlp_raw.launches_by_instance)
         directions = summary["prior_s_per_direction"]
         pairs = [(a, b) for i, a in enumerate(driver.TRAIN_FRAMES) for b in driver.TRAIN_FRAMES[i + 1:]]
@@ -1847,8 +1913,10 @@ def phase_protocol(k1, dev):
         first, last = float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
         if len(losses) != PROTO_STEPS or not np.isfinite(losses).all() or not last < first:
             raise AssertionError(f"the shipped-mode leg logged {len(losses)} losses, first {first}, last {last}")
-        if any(shipped_launches.values()):
-            raise AssertionError(f"the shipped mode (f32 heads, the module MLP) launched K1 {shipped_launches}")
+        if shipped_training["fused_mlp_bf16_f32h"] != 2 * PROTO_STEPS \
+                or shipped_launches != launch_counts(k1, fused_mlp_bf16_f32h=shipped_launches["fused_mlp_bf16_f32h"]):
+            raise AssertionError(f"the shipped mode (f32 heads) launched K1 {shipped_launches}, "
+                                 f"{shipped_training} in start_training; expected bf16_f32h only, 2 per step")
         test_dir = work / "runs/testing/test0042"
         scores = json.loads((test_dir / "QA_Scores.json").read_text())["predicted_frames"]
         framewise = read_csv_columns(test_dir / "QA_Scores/predicted_frames/MaskedPSNR05_FrameWise.csv")
@@ -1860,7 +1928,9 @@ def phase_protocol(k1, dev):
         mse = series["train/MSE01"]
         mse_vs_jax = {s: {"port": mse.get(s), "jax": ref} for s, ref in driver.JAX_MSE_AT.items()}
         parts["database_prior_and_leg_s"] = leg_s
-        log(f"protocol: the shipped-mode leg, {PROTO_STEPS} steps (module MLP, 0 K1 launches): TotalLoss "
+        log(f"protocol: the shipped-mode leg, {PROTO_STEPS} steps (K1 fused_mlp_bf16_f32h: "
+            f"{shipped_training['fused_mlp_bf16_f32h']} launches in start_training, {shipped_launches} over the "
+            f"leg with its test and videos): TotalLoss "
             f"mean of the first {window} {first:.5f}, of the last {window} {last:.5f}; median chunk "
             f"{summary['ms_per_step_median']} ms per step; masked QA of test frames {test_frames} against "
             f"ObjectMasks: {json.dumps(scores)}; train/MSE01 beside the JAX run's (information, not a gate): "
@@ -1881,7 +1951,6 @@ def phase_protocol(k1, dev):
         del model, optimizer
 
         seam_launches = {}
-        start_training = dtu.app.start_training
 
         def counted_training(cfg):
             before = k1.fused_mlp_raw.launches
@@ -1961,23 +2030,23 @@ def phase_protocol(k1, dev):
             k1.apply_fused_mlp = apply
         k1_dtu = {}
         for (mlp, pts, vd, vd2), level in zip(captured, ("coarse", "fine")):
-            for dtype in (torch.bfloat16, torch.float32):
-                weights = k1.prepare_weights(mlp, dtype)
-                xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype)
+            for name, (dtype, f32_heads) in K1_MODES.items():
+                weights = k1.prepare_weights(mlp, dtype, f32_heads)
+                xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype, f32_heads=f32_heads)
                 out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns).float()
                 torch.cuda.synchronize()
                 ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
                 err = (out - ref).abs().max().item()
                 rel_max = err / max(ref.abs().max().item(), 1e-30)
                 rel_rms = ((out - ref).norm() / ref.norm().clamp_min(1e-30)).item()
-                k1_dtu[f"{level}_{k1.INSTANCE[dtype]}"] = {"points": pts.shape[0], "n_sec": ns, "max_abs_err": err,
-                                                           "rel_max": rel_max, "rel_rms": rel_rms}
-                log(f"K1 {k1.INSTANCE[dtype]} on DTU's {level} points ({pts.shape[0]}, n_sec {ns}, max |pts| "
+                k1_dtu[f"{level}_{name}"] = {"points": pts.shape[0], "n_sec": ns, "max_abs_err": err,
+                                             "rel_max": rel_max, "rel_rms": rel_rms}
+                log(f"K1 {name} on DTU's {level} points ({pts.shape[0]}, n_sec {ns}, max |pts| "
                     f"{pts.abs().max().item():.3f}): max|err| {err:.3g}, max|err|/max|plain| {rel_max:.3g} "
-                    f"(tol {TOL_REL_MAX[dtype]:.3g}), rms rel {rel_rms:.3g} (tol {TOL_REL_RMS[dtype]:.3g})")
-                if not (torch.isfinite(out).all() and rel_max <= TOL_REL_MAX[dtype]
-                        and rel_rms <= TOL_REL_RMS[dtype]):
-                    raise AssertionError(f"K1 disagrees with its plain version on DTU's {level} points ({dtype})")
+                    f"(tol {TOL_REL_MAX[name]:.3g}), rms rel {rel_rms:.3g} (tol {TOL_REL_RMS[name]:.3g})")
+                if not (torch.isfinite(out).all() and rel_max <= TOL_REL_MAX[name]
+                        and rel_rms <= TOL_REL_RMS[name]):
+                    raise AssertionError(f"K1 disagrees with its plain version on DTU's {level} points ({name})")
         if len(captured) != 2:
             raise AssertionError(f"a training render captured {len(captured)} K1 calls, expected 2")
         parts["k1_check_s"] = time.perf_counter() - t0
@@ -1989,7 +2058,8 @@ def phase_protocol(k1, dev):
                 "start": SEAM_START, "end": SEAM_END, "lr_at_switch": lr_at, "lr_rel_to_jax": lr_rel,
                 "worst_of_tolerance": worst, "adam_count": count, "k1_launches_training": seam_launches["training"],
                 "k1_launches_per_step": (seam_launches["training"] - val_launches) / seam_steps},
-            "k1_dtu": k1_dtu, "k1_launches": seam_total["fused_mlp_bf16"]}
+            "k1_dtu": k1_dtu, "k1_launches": seam_total["fused_mlp_bf16"],
+            "k1_launches_shipped": shipped_launches["fused_mlp_bf16_f32h"]}
 
 
 
@@ -2384,8 +2454,9 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    for dtype in (torch.bfloat16, torch.float32):
-        log(f"{k1.INSTANCE[dtype]}: {k1.smem_bytes(dtype)} bytes of dynamic shared memory per CTA")
+    for name, (dtype, f32_heads) in K1_MODES.items():
+        log(f"{name}: {' and '.join(map(str, k1.smem_bytes(dtype, f32_heads)))} bytes of dynamic shared memory "
+            f"per CTA")
 
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
     worst, timings = phase_k1(k1, mlp, dev)
@@ -2416,14 +2487,19 @@ def main() -> int:
     # start_testing, start_training, the batched app run, the built
     # database's runs, the protocol's seam and the multi-device phase's
     # Trainer runs (both ranks' too), the f32 one from the f32 frame of
-    # phase_modes and the multi-device phase's f32 Trainer runs
+    # phase_modes and the multi-device phase's f32 Trainer runs, the
+    # bf16_f32h one (the shipped mode) from the app's run of demo1a's configs
+    # (training, testing, videos), the protocol's shipped leg and the
+    # shipped frame of phase_modes
     path_launches = {"fused_mlp_bf16": launches["fused_mlp_bf16"] + train["run"]["launches"] + multi["launches"]
                      + database["k1_launches"] + protocol["k1_launches"] + parallel["k1_launches"],
-                     "fused_mlp_f32": modes["f32"]["launches"]["fused_mlp_f32"] + parallel["k1_launches_f32"]}
+                     "fused_mlp_f32": modes["f32"]["launches"]["fused_mlp_f32"] + parallel["k1_launches_f32"],
+                     "fused_mlp_bf16_f32h": pipeline["k1_launches"]["fused_mlp_bf16_f32h"]
+                     + protocol["k1_launches_shipped"]
+                     + modes["bf16, f32 heads (default)"]["launches"]["fused_mlp_bf16_f32h"]}
     kernels = []
-    for dtype in (torch.bfloat16, torch.float32):
-        name = k1.INSTANCE[dtype]
-        main_shape = timings[(dtype, 0, MAIN_N)]
+    for name in K1_MODES:
+        main_shape = timings[(name, 0, MAIN_N)]
         if not path_launches[name]:
             raise AssertionError(f"{name} was not launched on its path")
         kernels.append({
@@ -2432,11 +2508,12 @@ def main() -> int:
             "source": "vipnerf_tpu_torch/csrc/fused_mlp.cu",
             "replaces": "experiments/fused_mlp.py:130",
             "launches": path_launches[name],
-            "max_abs_err": worst[dtype],
+            "max_abs_err": worst[name],
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"],
+            "bound_parts_ms": main_shape["bound_parts_ms"],
             "library_ms": main_shape["library_ms"],
         })
     log(json.dumps({"kernels": kernels}))

@@ -84,10 +84,10 @@ def test_phase_protocol_rehearses_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(dtu, "demo_configs", narrow)
     reference = k1.fused_mlp_reference
 
-    def counted(layers, xe, *args):
+    def counted(layers, xe, ve, *args):
         k1.fused_mlp_raw.launches += 1
-        k1.fused_mlp_raw.launches_by_instance[k1.INSTANCE[xe.dtype]] += 1
-        return reference(layers, xe, *args)
+        k1.fused_mlp_raw.launches_by_instance[k1.INSTANCE[xe.dtype, ve.dtype]] += 1
+        return reference(layers, xe, ve, *args)
 
     monkeypatch.setattr(k1, "fused_mlp_reference", counted)
     torch.set_num_threads(2)
@@ -95,8 +95,10 @@ def test_phase_protocol_rehearses_on_the_cpu(tmp_path, monkeypatch):
     seam = out["seam"]
     assert seam["adam_count"] == 30002 and seam["k1_launches_per_step"] == 2
     assert seam["lr_rel_to_jax"] <= 1e-6 and out["qa"]["MaskedPSNR05"] is not None
-    assert set(out["k1_dtu"]) == {f"{level}_fused_mlp_{d}" for level in ("coarse", "fine") for d in ("bf16", "f32")}
+    assert set(out["k1_dtu"]) == {f"{level}_fused_mlp_{d}" for level in ("coarse", "fine")
+                                  for d in ("bf16", "f32", "bf16_f32h")}
     assert out["k1_launches"] >= 2 * 4
+    assert out["k1_launches_shipped"] >= 2 * 30  # the shipped leg's 30 steps, then its test and videos
     leg = out["shipped_leg"]
     assert leg["steps"] == 30 and leg["prior_devices"] == ["cpu"] and len(out["prior_s_per_direction"]) == 6
     assert leg["steps_per_s_over_training"] == pytest.approx(30 / leg["stage_s"]["training"])

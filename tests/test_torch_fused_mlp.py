@@ -9,9 +9,18 @@ bf16 step at |x| <= 1 (4e-3), since each product is rounded to bf16 after an
 f32 sum whose order may differ; 2e-5 after the sigmoids against the Pallas
 kernel, as tests/test_fused_mlp.py states for apply_mlp.
 
+The shipped mode (bf16 trunk, f32 heads: the bf16_f32h instance) has no
+Pallas kernel: its reference is `apply_mlp(bf16_matmuls=True,
+f32_heads=True)`, held at 1e-4 on the post-activation outputs (measured
+6e-8: both round the same f32 sums of the trunk to bf16 here; a trunk
+rounding that lands one bf16 step apart would move an output by ~1e-3).
+PE(dir) rounded to bf16 moves the outputs by less than that tolerance, so
+`test_f32_heads_view_encoding_is_never_rounded` pins it exactly.
+
 The kernel itself runs only on the card: tests/test_torch_kernels_cuda.py.
 """
 
+import itertools
 import sys
 from pathlib import Path
 
@@ -22,7 +31,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from vipnerf_tpu.models.mlp import init_mlp_params
+from vipnerf_tpu.models.mlp import apply_mlp, init_mlp_params
 from vipnerf_tpu_torch.kernels import fused_mlp as k1
 from vipnerf_tpu_torch.models.mlp import NeRFMLP
 from vipnerf_tpu_torch.utils.convert import state_dict_from_jax_params
@@ -89,18 +98,75 @@ def test_apply_fused_mlp_matches_pallas_interpret(models):
         np.testing.assert_allclose(out[k].detach().numpy(), np.asarray(ref[k]), atol=2e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, pytest.param("bf16_f32h", id="bf16_f32h")])
 def test_apply_fused_mlp_matches_module(models, dtype):
-    """K1's entry point and the nn.Module agree (f32: 1e-5; bf16: the
-    module's bf16 matmul rounds in another order, one bf16 step 8e-3)."""
+    """K1's entry point and the nn.Module agree in each precision mode (f32:
+    1e-5; bf16: the module's bf16 matmul rounds in another order, one bf16
+    step 8e-3; bf16 with f32 heads: the same trunk roundings, 8e-3)."""
     _, mlp = models
     pts, vd, vd2 = inputs(128, 1, seed=2)
+    f32_heads = dtype == "bf16_f32h"
+    dtype = torch.bfloat16 if f32_heads else dtype
     bf16 = dtype == torch.bfloat16
     with torch.no_grad():
-        ref = mlp(pts, vd, vd2, bf16_matmuls=bf16)
-    out = k1.apply_fused_mlp(mlp, pts, vd, vd2, dtype=dtype)
+        ref = mlp(pts, vd, vd2, bf16_matmuls=bf16, f32_heads=f32_heads)
+    out = k1.apply_fused_mlp(mlp, pts, vd, vd2, dtype=dtype, f32_heads=f32_heads)
     for k in out:
-        np.testing.assert_allclose(out[k].detach().numpy(), ref[k].numpy(), atol=8e-3 if bf16 else 1e-5)
+        np.testing.assert_allclose(out[k].detach().numpy(), ref[k].float().numpy(), atol=8e-3 if bf16 else 1e-5)
+
+
+@pytest.mark.parametrize("n_sec", [0, 1, 2, 3])
+def test_f32_heads_plain_and_entry_point_match_jax_apply_mlp(models, n_sec):
+    """The bf16_f32h instance's plain version (the wrapper on CPU tensors)
+    and `apply_fused_mlp(..., f32_heads=True)` against the JAX package's
+    `apply_mlp(bf16_matmuls=True, f32_heads=True)`, 8x256, 256 points, the
+    post-activation outputs: 1e-4 (see the module docstring)."""
+    params, mlp = models
+    pts, vd, vd2 = inputs(256, n_sec, seed=4)
+    ref = apply_mlp(params, CFG, jnp.asarray(pts.numpy()), jnp.asarray(vd.numpy()),
+                    None if vd2 is None else jnp.asarray(vd2.numpy()), bf16_matmuls=True, f32_heads=True)
+    out = k1.apply_fused_mlp(mlp, pts, vd, vd2, dtype=torch.bfloat16, f32_heads=True)
+    assert set(out) == set(ref)
+    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, torch.bfloat16, f32_heads=True)
+    weights = k1.prepare_weights(mlp, torch.bfloat16, f32_heads=True)
+    raw = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
+    assert raw.dtype == torch.float32 and raw.shape == (256, k1.NOUT) and not raw[:, 5 + ns:].any()
+    assert torch.equal(raw, k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns))
+    plain = {"sigma": torch.relu(raw[:, :1]), "rgb": torch.sigmoid(raw[:, 1:4]),
+             "visibility": torch.sigmoid(raw[:, 4:5])}
+    if n_sec:
+        plain["visibility2"] = torch.sigmoid(raw[:, 5:5 + n_sec])[..., None]
+    for k, v in plain.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(ref[k]), atol=1e-4, err_msg=k)
+    for k in ref:
+        np.testing.assert_allclose(out[k].detach().numpy(), np.asarray(ref[k]), atol=1e-4, err_msg=k)
+
+
+def test_f32_heads_scene_axis_equals_single_scenes():
+    """A stacked MLP of S = 2 scenes through the bf16_f32h instance's plain
+    version equals each scene's own call, exactly, and its packed weights
+    are the two scenes' packs one after the other."""
+    singles = [NeRFMLP(CFG, torch.Generator().manual_seed(20 + s)) for s in range(2)]
+    stacked = NeRFMLP(CFG, scenes=2)
+    with torch.no_grad():
+        for name, p in stacked.named_parameters():
+            p.copy_(torch.stack([dict(m.named_parameters())[name] for m in singles]))
+    weights = k1.prepare_weights(stacked, torch.bfloat16, f32_heads=True)
+    packs = [k1.prepare_weights(m, torch.bfloat16, f32_heads=True) for m in singles]
+    assert weights.scenes == 2 and torch.equal(weights.w_flat, torch.cat([w.w_flat for w in packs]))
+    pts, vd, vd2 = inputs(2 * 96, 2, seed=5)
+    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, torch.bfloat16, f32_heads=True)
+    out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
+    for s, r in enumerate((slice(0, 96), slice(96, 192))):
+        assert torch.equal(out[r], k1.fused_mlp_raw(packs[s], xe[r].contiguous(), ve[r].contiguous(),
+                                                    ve2[r].contiguous(), ns))
+    batched = k1.apply_fused_mlp(stacked, pts.reshape(2, 96, 3), vd.reshape(2, 96, 3),
+                                 vd2.reshape(2, 96, 2, 3), dtype=torch.bfloat16, f32_heads=True)
+    for s, mlp in enumerate(singles):
+        one = k1.apply_fused_mlp(mlp, pts[96 * s:96 * (s + 1)], vd[96 * s:96 * (s + 1)],
+                                 vd2[96 * s:96 * (s + 1)], dtype=torch.bfloat16, f32_heads=True)
+        for k, v in one.items():
+            assert torch.equal(batched[k][s], v), k
 
 
 def test_ragged_tail(models):
@@ -135,6 +201,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(models):
         k1.fused_mlp_raw(w16, xe, torch.zeros(32, 64, dtype=torch.bfloat16).t(), ve2, ns)
     with pytest.raises(ValueError):  # not the flagship
         k1.apply_fused_mlp(NeRFMLP(dict(CFG, netwidth=128)), *inputs(8, 0))
+    w_f32h = k1.prepare_weights(mlp, torch.bfloat16, f32_heads=True)
+    with pytest.raises(TypeError):  # bf16 PE(dir) for the f32 heads
+        k1.fused_mlp_raw(w_f32h, xe, ve, ve2, ns)
+    xe_h, ve_h, ve2_h, _ = k1.encode_inputs(*inputs(64, 2), torch.bfloat16, f32_heads=True)
+    with pytest.raises(TypeError):  # f32 PE(dir) for the bf16 heads
+        k1.fused_mlp_raw(w16, xe_h, ve_h, ve2_h, ns)
+    with pytest.raises(ValueError):  # a bf16 pack's bytes where bf16_f32h's belong
+        k1.fused_mlp_raw(w_f32h._replace(w_flat=w16.w_flat), xe_h, ve_h, ve2_h, ns)
 
 
 def test_packing_layout(models):
@@ -150,6 +224,41 @@ def test_packing_layout(models):
         w_flat, b_flat = k1.kernel_buffers(k1.pack_layers(mlp, dtype), dtype)
         assert w_flat.numel() == k1.W_NUMEL and b_flat.numel() == k1.B_NUMEL
         assert w_flat.numel() * size == sum(k1.LAYER_BYTES[dtype])
+        assert w_flat.numel() * size == k1.PACK_BYTES[dtype, dtype]
+
+
+def test_f32_heads_packing(models):
+    """bf16_f32h's pack: the trunk (layers 0-7) as bf16's swizzled slabs,
+    then the heads (8-11) as f32's W^T, byte for byte, 1,404,928 bytes; its
+    biases f32, bf16-rounded in the trunk only; cached apart from the bf16
+    pack of the same weights."""
+    _, mlp = models
+    w16 = k1.prepare_weights(mlp, torch.bfloat16)
+    w32 = k1.prepare_weights(mlp, torch.float32)
+    mixed = k1.prepare_weights(mlp, torch.bfloat16, f32_heads=True)
+    assert mixed is not w16 and mixed.mode == (torch.bfloat16, torch.float32)
+    assert k1.prepare_weights(mlp, torch.bfloat16, f32_heads=True) is mixed
+    assert k1.prepare_weights(mlp, torch.bfloat16) is w16 and w16.mode == (torch.bfloat16, torch.bfloat16)
+    assert k1.PACK_BYTES[mixed.mode] == 1404928 == mixed.w_flat.numel() and mixed.w_flat.dtype == torch.uint8
+    trunk = 2 * k1.TRUNK_NUMEL
+    assert torch.equal(mixed.w_flat[:trunk], w16.w_flat[:k1.TRUNK_NUMEL].view(torch.uint8))
+    assert torch.equal(mixed.w_flat[trunk:], w32.w_flat[k1.TRUNK_NUMEL:].view(torch.uint8))
+    bias_trunk = sum(n for n, _ in k1.LAYER_SHAPES[:k1.FEATURE])
+    assert torch.equal(mixed.b_flat[:bias_trunk], w16.b_flat[:bias_trunk])
+    assert torch.equal(mixed.b_flat[bias_trunk:], w32.b_flat[bias_trunk:])
+    assert [w.dtype for w, _ in mixed.layers] == [torch.bfloat16] * 8 + [torch.float32] * 4
+
+
+def test_f32_heads_view_encoding_is_never_rounded():
+    """With f32 heads, ve and ve2 are the f32 PE(dir) exactly (JAX's f32
+    concatenation): no bf16 step in the view branch's input; xe is bf16."""
+    pts, vd, vd2 = inputs(64, 3, seed=6)
+    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, torch.bfloat16, f32_heads=True)
+    xe32, ve32, ve2_32, _ = k1.encode_inputs(pts, vd, vd2, torch.float32)
+    assert xe.dtype == torch.bfloat16 and torch.equal(xe, xe32.to(torch.bfloat16))
+    assert ve.dtype == ve2.dtype == torch.float32 and ns == 3
+    assert torch.equal(ve, ve32) and torch.equal(ve2, ve2_32)
+    assert not torch.equal(ve, ve.to(torch.bfloat16).float())  # a bf16 cast would show
 
 
 def _inverse_bf16_image(flat, rows, cols):
@@ -202,26 +311,31 @@ def test_f32_slab_layout_round_trips(models):
 
 
 def test_dispatch_routes_each_precision_mode():
-    """The f32 instance beats the cuBLAS f32 chain on the card, so
-    `bf16_matmuls: False` stays on K1; bf16 with f32 heads (the shipped
-    default) has no instance and runs the module MLP."""
+    """Every precision mode of the flagship config runs K1, each through its
+    own instance: bf16 with f32 heads (the shipped default) through
+    bf16_f32h; f32 whatever f32_heads says (it matters only with bf16). A
+    config other than the flagship runs the module MLP in every mode."""
     from vipnerf_tpu_torch.models.vip_nerf import uses_fused_mlp
 
-    assert uses_fused_mlp(CFG, bf16_matmuls=True, f32_heads=False)
-    assert uses_fused_mlp(CFG, bf16_matmuls=False, f32_heads=False)
-    assert uses_fused_mlp(CFG, bf16_matmuls=False, f32_heads=True)
-    assert not uses_fused_mlp(CFG, bf16_matmuls=True, f32_heads=True)
-    assert not uses_fused_mlp(dict(CFG, netwidth=128), bf16_matmuls=False, f32_heads=False)
+    assert uses_fused_mlp(CFG, bf16_matmuls=True, f32_heads=True) == "fused_mlp_bf16_f32h"
+    assert uses_fused_mlp(CFG, bf16_matmuls=True, f32_heads=False) == "fused_mlp_bf16"
+    assert uses_fused_mlp(CFG, bf16_matmuls=False, f32_heads=False) == "fused_mlp_f32"
+    assert uses_fused_mlp(CFG, bf16_matmuls=False, f32_heads=True) == "fused_mlp_f32"
+    for bf16, f32_heads in itertools.product((False, True), repeat=2):
+        assert uses_fused_mlp(dict(CFG, netwidth=128), bf16_matmuls=bf16, f32_heads=f32_heads) is None
 
 
 def test_launch_counts_per_instance(models):
     _, mlp = models
     k1.reset_launch_counts()
     assert k1.fused_mlp_raw.launches == 0
-    assert k1.fused_mlp_raw.launches_by_instance == {"fused_mlp_bf16": 0, "fused_mlp_f32": 0}
+    zero = {"fused_mlp_bf16": 0, "fused_mlp_f32": 0, "fused_mlp_bf16_f32h": 0}
+    assert k1.fused_mlp_raw.launches_by_instance == zero
     xe, ve, ve2, ns = k1.encode_inputs(*inputs(16, 1), torch.float32)
     k1.fused_mlp_raw(k1.prepare_weights(mlp, torch.float32), xe, ve, ve2, ns)
-    assert k1.fused_mlp_raw.launches_by_instance == {"fused_mlp_bf16": 0, "fused_mlp_f32": 0}
+    xe, ve, ve2, ns = k1.encode_inputs(*inputs(16, 1), torch.bfloat16, f32_heads=True)
+    k1.fused_mlp_raw(k1.prepare_weights(mlp, torch.bfloat16, f32_heads=True), xe, ve, ve2, ns)
+    assert k1.fused_mlp_raw.launches_by_instance == zero  # CPU tensors launch nothing
 
 
 def test_prepare_weights_repacks_after_an_update(models):

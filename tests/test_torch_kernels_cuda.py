@@ -9,7 +9,8 @@ Tolerances of the forward are chip_smoke.py's, relative to the plain
 outputs' scale (`TOL_REL_MAX` on max|err| / max|plain|, `TOL_REL_RMS` on
 the RMS ratio): bf16 1/32 and 2e-3 (kernel and plain version sum in
 different orders, so a bf16 rounding can land one step apart and carry on);
-f32 1e-5 and 1e-6 (summation order only). The scene-batched launch is held
+f32 1e-5 and 1e-6 (summation order only); bf16_f32h (the shipped mode:
+bf16 trunk, f32 heads) 1/256 and 2e-4 (the trunk's bf16 steps only). The scene-batched launch is held
 against the plain version looped over the scenes with the same tolerances,
 and against each scene's single-scene launch bit for bit. K1's backward on
 the card is held against autograd through its recompute there; one training
@@ -51,50 +52,56 @@ def device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, pytest.param("bf16_f32h", id="bf16_f32h")])
 @pytest.mark.parametrize("n_sec", [0, 1, 2, 3])
 # a ragged last tile; with 132 SMs, 3 tiles of 128 per persistent CTA and 37
 # rows more, so the loop runs several tiles and ends mid-tile; one point
 @pytest.mark.parametrize("n", [2048 + 37, 132 * 128 * 3 + 37, 1])
 def test_fused_mlp_matches_plain(device, dtype, n_sec, n):
+    f32_heads = dtype == "bf16_f32h"
+    dtype = torch.bfloat16 if f32_heads else dtype
     mlp = NeRFMLP(CFG, torch.Generator().manual_seed(0)).to(device)
-    weights = k1.prepare_weights(mlp, dtype)
+    weights = k1.prepare_weights(mlp, dtype, f32_heads)
+    name = k1.INSTANCE[weights.mode]
     g = torch.Generator(device=device).manual_seed(n_sec)
     pts = torch.rand((n, 3), generator=g, device=device) * 2 - 1
     unit = lambda t: torch.nn.functional.normalize(t, dim=-1)  # noqa: E731
     vd = unit(torch.randn((n, 3), generator=g, device=device))
     vd2 = unit(torch.randn((n, n_sec, 3), generator=g, device=device)) if n_sec else None
-    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype)
-    before = k1.fused_mlp_raw.launches
+    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype, f32_heads=f32_heads)
+    before = k1.fused_mlp_raw.launches_by_instance[name]
     out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
     torch.cuda.synchronize()
-    assert k1.fused_mlp_raw.launches == before + 1
+    assert k1.fused_mlp_raw.launches_by_instance[name] == before + 1
+    assert out.dtype == ve.dtype
     ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
     err = out.float() - ref
-    assert err.abs().max().item() <= TOL_REL_MAX[dtype] * ref.abs().max().item()
-    assert err.norm().item() <= TOL_REL_RMS[dtype] * ref.norm().item()
+    assert err.abs().max().item() <= TOL_REL_MAX[name] * ref.abs().max().item()
+    assert err.norm().item() <= TOL_REL_RMS[name] * ref.norm().item()
     assert torch.isfinite(out).all() and not out[:, 5 + n_sec:].any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, pytest.param("bf16_f32h", id="bf16_f32h")])
 @pytest.mark.parametrize("n", [2048 + 37, 132 * 128 * 3 + 37])
 def test_fused_raw_backward_matches_the_recompute(device, dtype, n):
     """K1's autograd.Function on the card: one launch forward, and the
     gradients of autograd through `raw_recompute` on the card, for every
     parameter and for xe/ve/ve2 (the same function, so equal exactly)."""
+    f32_heads = dtype == "bf16_f32h"
+    dtype = torch.bfloat16 if f32_heads else dtype
     mlp = NeRFMLP(CFG, torch.Generator().manual_seed(1)).to(device)
     g = torch.Generator(device=device).manual_seed(2)
     pts = torch.rand((n, 3), generator=g, device=device) * 2 - 1
     unit = lambda t: torch.nn.functional.normalize(t, dim=-1)  # noqa: E731
     vd = unit(torch.randn((n, 3), generator=g, device=device))
     vd2 = unit(torch.randn((n, 2, 3), generator=g, device=device))
-    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype)
+    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype, f32_heads=f32_heads)
     inputs = [t.clone().requires_grad_() for t in (xe, ve, ve2)]
     params = k1.module_params(mlp)
-    upstream = torch.randn((n, k1.NOUT), generator=g, device=device).to(dtype)
+    upstream = torch.randn((n, k1.NOUT), generator=g, device=device).to(ve.dtype)
     before = k1.fused_mlp_raw.launches
-    out = k1.FusedRaw.apply(k1.prepare_weights(mlp, dtype), ns, *inputs, *params)
+    out = k1.FusedRaw.apply(k1.prepare_weights(mlp, dtype, f32_heads), ns, *inputs, *params)
     assert k1.fused_mlp_raw.launches == before + 1
     got = torch.autograd.grad(out, inputs + params, upstream)
     ref_in = [t.clone().requires_grad_() for t in (xe, ve, ve2)]
@@ -116,13 +123,15 @@ def _stacked_mlp(device, scenes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, pytest.param("bf16_f32h", id="bf16_f32h")])
 @pytest.mark.parametrize("scenes,n_per_scene,n_sec", [(1, 2048 + 37, 2), (2, 4096 * 64 + 37, 2),
                                                       (3, 132 * 128 + 5, 0), (4, 129, 3)])
 def test_scene_batched_launch(device, dtype, scenes, n_per_scene, n_sec):
     """One launch for S scenes, each on its own weights and its own ragged
     last tile: within the forward tolerances of the plain version looped over
     the scenes, and bit for bit each scene's own single-scene launch."""
+    f32_heads = dtype == "bf16_f32h"
+    dtype = torch.bfloat16 if f32_heads else dtype
     singles, stacked = _stacked_mlp(device, scenes)
     g = torch.Generator(device=device).manual_seed(scenes)
     n = scenes * n_per_scene
@@ -130,20 +139,21 @@ def test_scene_batched_launch(device, dtype, scenes, n_per_scene, n_sec):
     unit = lambda t: torch.nn.functional.normalize(t, dim=-1)  # noqa: E731
     vd = unit(torch.randn((n, 3), generator=g, device=device))
     vd2 = unit(torch.randn((n, n_sec, 3), generator=g, device=device)) if n_sec else None
-    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype)
-    weights = k1.prepare_weights(stacked, dtype)
+    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype, f32_heads=f32_heads)
+    weights = k1.prepare_weights(stacked, dtype, f32_heads)
+    name = k1.INSTANCE[weights.mode]
     before = k1.fused_mlp_raw.launches
     out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
     torch.cuda.synchronize()
     assert k1.fused_mlp_raw.launches == before + 1
     ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
     err = out.float() - ref
-    assert err.abs().max().item() <= TOL_REL_MAX[dtype] * ref.abs().max().item()
-    assert err.norm().item() <= TOL_REL_RMS[dtype] * ref.norm().item()
+    assert err.abs().max().item() <= TOL_REL_MAX[name] * ref.abs().max().item()
+    assert err.norm().item() <= TOL_REL_RMS[name] * ref.norm().item()
     rows = [slice(s * n_per_scene, (s + 1) * n_per_scene) for s in range(scenes)]
     for s, r in enumerate(rows):
-        one = k1.fused_mlp_raw(k1.prepare_weights(singles[s], dtype), xe[r].contiguous(), ve[r].contiguous(),
-                               ve2[r].contiguous(), ns)
+        one = k1.fused_mlp_raw(k1.prepare_weights(singles[s], dtype, f32_heads), xe[r].contiguous(),
+                               ve[r].contiguous(), ve2[r].contiguous(), ns)
         torch.testing.assert_close(out[r], one, rtol=0, atol=0)
 
 

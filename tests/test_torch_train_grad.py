@@ -16,6 +16,13 @@ gradients against the JAX package.
   off, no sigma noise): losses 1e-2 relative, gradients 5e-2 of each
   tensor's largest in RMS (bf16 products round one step apart and move the
   fine samples).
+- The shipped mode (bf16 trunk, f32 heads: the bf16_f32h instance), which
+  has no Pallas kernel: `FusedRaw` and `raw_recompute` against `jax.grad` of
+  `apply_mlp(bf16_matmuls=True, f32_heads=True)`, with the bf16 instance's
+  tolerances (both sides differentiate the same bf16 trunk products,
+  rounded at other places in the two frameworks; the heads' gradients are
+  f32 on both sides); and the full-width training render's twin, with the
+  same tolerances as the bf16-heads one.
 """
 
 import sys
@@ -30,7 +37,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from vipnerf_tpu.losses import LossComputer as JaxLossComputer
 from vipnerf_tpu.models import vip_nerf as j_vn
-from vipnerf_tpu.models.mlp import init_mlp_params
+from vipnerf_tpu.models.mlp import apply_mlp, init_mlp_params
 from vipnerf_tpu_torch.kernels import fused_mlp as k1
 from vipnerf_tpu_torch.losses import LossComputer
 from vipnerf_tpu_torch.models import vip_nerf as t_vn
@@ -103,6 +110,53 @@ def test_fused_raw_gradients_match_jax_pallas(models, dtype):
                            3e-4 if f32 else 4e-2, name)
     for t, g, name in zip(t_in, g_j[1:], ("pts", "view_dirs", "view_dirs2")):
         assert_grads_close(t.grad, np.asarray(g), 3e-4 if f32 else 1e-1, 3e-4 if f32 else 3e-2, name)
+
+
+def test_f32_heads_gradients_match_jax_apply_mlp(models):
+    """`FusedRaw` through `apply_fused_mlp(..., f32_heads=True)` (its
+    backward: `raw_recompute` with bf16 products to layer 7, then h in f32
+    and f32 products) against `jax.grad` of `apply_mlp(bf16_matmuls=True,
+    f32_heads=True)`: every parameter, pts and view dirs, at the bf16
+    instance's tolerances (module docstring)."""
+    params, mlp = models
+    pts, vd, vd2 = inputs(fm.TILE, 2, seed=1)
+
+    def loss_j(p, a, b, c):
+        return mlp_loss(apply_mlp(p, CFG, a, b, c, bf16_matmuls=True, f32_heads=True), jnp)
+
+    g_j = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2, 3)))(params, jnp.asarray(pts), jnp.asarray(vd),
+                                                           jnp.asarray(vd2))
+    t_in = [torch.from_numpy(a).requires_grad_() for a in (pts, vd, vd2)]
+    mlp.zero_grad(set_to_none=True)
+    before = k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"]
+    out = k1.apply_fused_mlp(mlp, *t_in, dtype=torch.bfloat16, f32_heads=True)
+    mlp_loss(out, torch).backward()
+    assert k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"] == before  # CPU: the plain version
+    want = state_dict_from_jax_params(to_np(g_j[0]))
+    for name, p in mlp.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+        assert_grads_close(p.grad, want[name].numpy(), 4e-2, 4e-2, name)
+    for t, g, name in zip(t_in, g_j[1:], ("pts", "view_dirs", "view_dirs2")):
+        assert_grads_close(t.grad, np.asarray(g), 1e-1, 3e-2, name)
+
+
+@pytest.mark.parametrize("n_sec", [0, 1, 2, 3])
+def test_f32_heads_raw_recompute_matches_the_plain_version(models, n_sec):
+    """The backward's recompute in the shipped mode is the bf16_f32h
+    instance's function: f32 output, equal to the plain version within
+    1e-5 (the trunk's bf16 roundings agree here; the heads' f32 sums are
+    in another order), and its f32 heads take f32 PE(dir)."""
+    _, mlp = models
+    pts, vd, vd2 = inputs(256, max(n_sec, 1), seed=2)
+    xe, ve, ve2, ns = k1.encode_inputs(torch.from_numpy(pts), torch.from_numpy(vd),
+                                       torch.from_numpy(vd2[:, :n_sec]) if n_sec else None,
+                                       torch.bfloat16, f32_heads=True)
+    with torch.no_grad():
+        out = k1.raw_recompute(k1.module_params(mlp), xe, ve, ve2, ns)
+    plain = k1.fused_mlp_reference(k1.prepare_weights(mlp, torch.bfloat16, f32_heads=True).layers,
+                                   xe, ve, ve2, ns)
+    assert out.dtype == plain.dtype == torch.float32 and out.shape == (256, k1.NOUT)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("n_sec", [0, 1, 2, 3])
@@ -237,11 +291,8 @@ def test_training_render_through_k1_gives_every_parameter_its_gradient(bf16):
             torch.testing.assert_close(g_k1[name], g, rtol=1e-5, atol=1e-5 * g.abs().max().item(), msg=name)
 
 
-def test_full_width_training_render_matches_jax_bf16_heads():
-    """8x256, bf16 matmuls with bf16 heads, the four losses: the port's
-    render runs K1 (its plain version here, and its recompute in the
-    backward); the JAX render runs apply_mlp in bf16."""
-    cfg = flagship_configs(True, perturb=False, raw_noise_std=0.0)
+def full_width_render_against_jax(f32_heads: bool):
+    cfg = flagship_configs(True, f32_heads, perturb=False, raw_noise_std=0.0)
     params = j_vn.init_params(jax.random.PRNGKey(0), cfg)
     model = t_vn.ViPNeRF(cfg)
     model.load_state_dict(state_dict_from_jax_params(to_np(params)))
@@ -264,3 +315,27 @@ def test_full_width_training_render_matches_jax_bf16_heads():
     for name, g in g_t.items():
         w = want[name].numpy()
         assert np.linalg.norm(g.numpy() - w) <= 5e-2 * np.linalg.norm(w) + 1e-12, name
+
+
+def test_full_width_training_render_matches_jax_bf16_heads():
+    """8x256, bf16 matmuls with bf16 heads, the four losses: the port's
+    render runs K1 (its plain version here, and its recompute in the
+    backward); the JAX render runs apply_mlp in bf16."""
+    full_width_render_against_jax(f32_heads=False)
+
+
+def test_full_width_training_render_matches_jax_f32_heads(monkeypatch):
+    """The same in the shipped mode, bf16 matmuls with f32 heads: the port's
+    render runs the bf16_f32h instance (its plain version here, its mixed
+    recompute in the backward); the JAX render runs apply_mlp with
+    f32_heads. Same tolerances."""
+    modes = []
+    plain = k1.fused_mlp_reference
+
+    def recorded(layers, xe, ve, ve2, n_sec):
+        modes.append((xe.dtype, ve.dtype))
+        return plain(layers, xe, ve, ve2, n_sec)
+
+    monkeypatch.setattr(k1, "fused_mlp_reference", recorded)
+    full_width_render_against_jax(f32_heads=True)
+    assert modes == [(torch.bfloat16, torch.float32)] * 2  # coarse and fine, through bf16_f32h

@@ -61,15 +61,30 @@
 // register tile (8 rows x 2 float4 column groups), reading one float4 of
 // activations (a broadcast) and two of weights per 4 k-steps and row block.
 //
-// Both mask the ragged last tile: rows past n load as zeros and are never
+// bf16_f32h instance (the shipped precision mode: bf16 trunk, f32 heads, as
+// models/mlp.py computes with bf16_matmuls and f32_heads): two launches. The
+// bf16 kernel's trunk (layers 0-7, TRUNK = true) writes h, bf16 (N, 256), to
+// global memory; the f32 kernel's heads (HEADS = true) read it, upcast, with
+// f32 PE(dir), and run the feature, sigma and view layers in FFMA with f32
+// weights, writing the raw output in f32. Why not one kernel: the bf16
+// kernel takes ~209 KB of shared memory, and the f32 heads of one
+// warpgroup's 64 points need 64 KB for the feature and 32 KB for the view
+// hidden layer besides, so a fused kernel would have to reuse the trunk's
+// slabs or cut the heads into sub-tiles. The round trip of h costs 1 KB per
+// point (about 0.48 ms at 1.57M points and 3.35 TB/s), a tenth of the heads'
+// own bound. Its packed weights are one byte buffer per scene: the trunk's
+// bf16 slabs, then the heads' f32 W^T (F32H_BYTES in all).
+//
+// All mask the ragged last tile: rows past n load as zeros and are never
 // stored. C entry points return cudaGetLastError() after the launch.
 //
 // Scene axis (the counterpart of vmap over the Pallas kernel in batched
 // multi-scene training): one launch runs `scenes` MLPs of the same shape,
 // each on its own n_per_scene consecutive rows, with its own packed weights
-// (scene s's at w + s * W_ELEMS, its biases at bias + s * B_ELEMS). A tile
-// never straddles two scenes: tile t is tile t % tps of scene t / tps, tps
-// the tiles per scene, so each scene's last tile is ragged on its own. Each
+// (scene s's at w + s * W_ELEMS elements, or s * F32H_BYTES bytes for bf16_f32h;
+// its biases at bias + s * B_ELEMS). A tile never straddles two scenes: tile
+// t is tile t % tps of scene t / tps, tps the tiles per scene, so each
+// scene's last tile is ragged on its own. Each
 // kernel is a template on SCENES: the host launches the <false> instance
 // for one scene, whose scene index is the constant 0, so it compiles to the
 // kernel without the axis (on an H100 the one-scene bf16 kernel ran ~14 %
@@ -110,6 +125,10 @@ constexpr int W_ELEMS = w_off(NLAYERS);  // packed weights of one scene
 constexpr int B_ELEMS = b_off(NLAYERS);  // biases of one scene
 static_assert(W_ELEMS == 596992, "weight table");
 static_assert(B_ELEMS == 2448, "bias table");
+constexpr int FEATURE = 8;                            // the first head layer
+constexpr int TRUNK_ELEMS = w_off(FEATURE);           // layers 0-7
+constexpr int F32H_BYTES = 2 * TRUNK_ELEMS + 4 * (W_ELEMS - TRUNK_ELEMS);  // one scene's bf16_f32h pack
+static_assert(TRUNK_ELEMS == 491520 && F32H_BYTES == 1404928 && F32H_BYTES % 16 == 0, "bf16_f32h pack");
 
 // ------------------------------------------------------------ PTX helpers
 
@@ -370,7 +389,9 @@ __device__ __forceinline__ void epilogue_to_out(const float (&d)[4], const float
     }
 }
 
-template <bool SCENES>
+// TRUNK: layers 0-7 only, `out` is h (N, WIDTH) bf16 and each scene's pack is
+// a bf16_f32h pack (F32H_BYTES); ve and ve2 are not read.
+template <bool SCENES, bool TRUNK>
 __global__ void __launch_bounds__(THREADS16, 1)
     fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ xe, const __nv_bfloat16* __restrict__ ve,
                           const __nv_bfloat16* __restrict__ ve2, const __nv_bfloat16* __restrict__ w,
@@ -417,9 +438,10 @@ __global__ void __launch_bounds__(THREADS16, 1)
         for (int k0 = 0; k0 < k; k0 += SLAB_K) push(off + 2 * nn * k0, 2 * nn * min(SLAB_K, k - k0));
       };
       for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        if (SCENES) wb = reinterpret_cast<const unsigned char*>(w + (size_t)(tile / tps) * W_ELEMS);
-        for (int l = 0; l < NLAYERS; ++l) push_layer(l);
-        for (int j = 0; j < n_sec; ++j) {
+        if (SCENES)
+          wb = reinterpret_cast<const unsigned char*>(w) + (size_t)(tile / tps) * (TRUNK ? F32H_BYTES : 2 * W_ELEMS);
+        for (int l = 0; l < (TRUNK ? FEATURE : NLAYERS); ++l) push_layer(l);
+        for (int j = 0; j < (TRUNK ? 0 : n_sec); ++j) {
           push_layer(10);
           push_layer(11);
         }
@@ -460,15 +482,17 @@ __global__ void __launch_bounds__(THREADS16, 1)
                                         : zero;
         *reinterpret_cast<uint4*>(mine + WG_XE + r * 128 + ((c ^ (r & 7)) << 4)) = v;
       }
-      for (int i = tid; i < ROWS_WG * vpieces; i += 128) {
-        const int r = i / vpieces, q = i % vpieces, v = q >> 2, c = q & 3;
-        uint4 val = zero;
-        if (lrow0 + r < nps)
-          val = v == 0 ? __ldg(reinterpret_cast<const uint4*>(ve + (size_t)(row0 + r) * VIEW_IN) + c)
-                       : __ldg(reinterpret_cast<const uint4*>(ve2 + (size_t)(row0 + r) * ve2_ld) + q - 4);
-        *reinterpret_cast<uint4*>(mine + WG_PE + v * PE_SLAB + r * 64 + ((c ^ ((r >> 1) & 3)) << 4)) = val;
+      if constexpr (!TRUNK) {
+        for (int i = tid; i < ROWS_WG * vpieces; i += 128) {
+          const int r = i / vpieces, q = i % vpieces, v = q >> 2, c = q & 3;
+          uint4 val = zero;
+          if (lrow0 + r < nps)
+            val = v == 0 ? __ldg(reinterpret_cast<const uint4*>(ve + (size_t)(row0 + r) * VIEW_IN) + c)
+                         : __ldg(reinterpret_cast<const uint4*>(ve2 + (size_t)(row0 + r) * ve2_ld) + q - 4);
+          *reinterpret_cast<uint4*>(mine + WG_PE + v * PE_SLAB + r * 64 + ((c ^ ((r >> 1) & 3)) << 4)) = val;
+        }
+        if (tid < ROWS_WG) reinterpret_cast<uint4*>(otile)[tid] = zero;
       }
-      if (tid < ROWS_WG) reinterpret_cast<uint4*>(otile)[tid] = zero;
       fence_proxy_async();
       bar_sync(bar_id, 128);
 
@@ -483,6 +507,19 @@ __global__ void __launch_bounds__(THREADS16, 1)
         epilogue_to_slabs<256, true>(d, sbias() + b_off(l), mine + WG_ACT, warp, lane);
         fence_proxy_async();
         bar_sync(bar_id, 128);
+      }
+      if constexpr (TRUNK) {
+        // h out of its four slabs, a 512-byte row per warp; the next tile's
+        // first bar_sync orders these reads before h is overwritten
+        const int oscene = tile_scene(), orow0 = (tile - oscene * tps) * TILE16 + wg * ROWS_WG;
+        __nv_bfloat16* hrows = out + ((size_t)oscene * nps + orow0) * WIDTH;
+        for (int i = tid; i < ROWS_WG * (WIDTH / 8); i += 128) {
+          const int r = i / (WIDTH / 8), c = i % (WIDTH / 8);
+          if (orow0 + r < nps)
+            reinterpret_cast<uint4*>(hrows + (size_t)r * WIDTH)[c] =
+                *reinterpret_cast<const uint4*>(mine + WG_ACT + swz128(r, 8 * c));
+        }
+        continue;
       }
       // heads from h: the feature (over h) and sigma (output column 0)
       mma_trunk(d, ring, xs, act, false, lane);
@@ -651,21 +688,29 @@ __device__ __forceinline__ void layer32(const float* a1, int lda1, int k1, const
   }
 }
 
-template <bool SCENES>
+// HEADS: the heads of the bf16_f32h instance. `xin` is then h (N, WIDTH) bf16,
+// the trunk's output, not xe (N, PTS_IN) f32, and `w` points at scene 0's
+// f32 head layers, F32H_BYTES / 4 floats from scene to scene.
+template <bool SCENES, bool HEADS>
 __global__ void __launch_bounds__(THREADS32, 1)
-    fused_mlp_f32_kernel(const float* __restrict__ xe, const float* __restrict__ ve,
+    fused_mlp_f32_kernel(const void* __restrict__ xin, const float* __restrict__ ve,
                          const float* __restrict__ ve2, const float* __restrict__ w,
                          const float* __restrict__ bias, float* __restrict__ out, int n, int n_sec) {
+  const float* xe = static_cast<const float*>(xin);
+  const __nv_bfloat16* hin = static_cast<const __nv_bfloat16*>(xin);
   // blockIdx.x is block t % tps of scene t / tps: move every pointer to the
   // scene's rows and weights, then n counts the scene's rows
   const int tps = (n + BM32 - 1) / BM32;
   const int scene = SCENES ? blockIdx.x / tps : 0;
   if (SCENES) {
-    xe += (size_t)scene * n * PTS_IN;
+    if (HEADS)
+      hin += (size_t)scene * n * WIDTH;
+    else
+      xe += (size_t)scene * n * PTS_IN;
     ve += (size_t)scene * n * VIEW_IN;
     ve2 += (size_t)scene * n * VIEW_IN * (n_sec > 0 ? n_sec : 1);
     out += (size_t)scene * n * NOUT;
-    w += (size_t)scene * W_ELEMS;
+    w += (size_t)scene * (HEADS ? F32H_BYTES / 4 : W_ELEMS);
     bias += (size_t)scene * B_ELEMS;
   }
   extern __shared__ __align__(16) float smem32[];
@@ -681,11 +726,26 @@ __global__ void __launch_bounds__(THREADS32, 1)
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const int ve2_ld = VIEW_IN * (n_sec > 0 ? n_sec : 1);
 
-  for (int i = tid; i < BM32 * (PTS_IN / 4); i += THREADS32) {
-    const int r = i / (PTS_IN / 4), c = i % (PTS_IN / 4);
-    const float4 v =
-        row0 + r < n ? __ldg(reinterpret_cast<const float4*>(xe + (size_t)(row0 + r) * PTS_IN) + c) : zero;
-    *reinterpret_cast<float4*>(sx + r * XE32_LD + c * 4) = v;
+  if constexpr (HEADS) {
+    // h, bf16 -> f32 into h1, where the trunk below would leave it
+    for (int i = tid; i < BM32 * (WIDTH / 8); i += THREADS32) {
+      const int r = i / (WIDTH / 8), c = i % (WIDTH / 8);
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (row0 + r < n) v = __ldg(reinterpret_cast<const uint4*>(hin + (size_t)(row0 + r) * WIDTH) + c);
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+      const float2 a = __bfloat1622float2(p[0]), b = __bfloat1622float2(p[1]);
+      const float2 e = __bfloat1622float2(p[2]), f = __bfloat1622float2(p[3]);
+      float* dst = h1 + r * H32_LD + c * 8;
+      *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(e.x, e.y, f.x, f.y);
+    }
+  } else {
+    for (int i = tid; i < BM32 * (PTS_IN / 4); i += THREADS32) {
+      const int r = i / (PTS_IN / 4), c = i % (PTS_IN / 4);
+      const float4 v =
+          row0 + r < n ? __ldg(reinterpret_cast<const float4*>(xe + (size_t)(row0 + r) * PTS_IN) + c) : zero;
+      *reinterpret_cast<float4*>(sx + r * XE32_LD + c * 4) = v;
+    }
   }
   const int vpieces = (VIEW_IN / 4) * (1 + n_sec);
   for (int i = tid; i < BM32 * vpieces; i += THREADS32) {
@@ -702,26 +762,28 @@ __global__ void __launch_bounds__(THREADS32, 1)
   __syncthreads();
 
   const Sink32 to_h0{h0, H32_LD, 0, 0, 0}, to_h1{h1, H32_LD, 0, 0, 0};
-#define W32(l) (w + w_off(l))
+#define W32(l) (w + w_off(l) - (HEADS ? TRUNK_ELEMS : 0))
 #define B32(l) (bias + b_off(l))
-  // trunk: activations ping-pong between h0 and h1
-  layer32<256, 64, true>(sx, XE32_LD, 64, sx, XE32_LD, W32(0), B32(0), wbuf, to_h0);
-  __syncthreads();
-  layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(1), B32(1), wbuf, to_h1);
-  __syncthreads();
-  layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(2), B32(2), wbuf, to_h0);
-  __syncthreads();
-  layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(3), B32(3), wbuf, to_h1);
-  __syncthreads();
-  layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(4), B32(4), wbuf, to_h0);
-  __syncthreads();
-  // skip layer: [xe, h] with no copy
-  layer32<256, 320, true>(sx, XE32_LD, 64, h0, H32_LD, W32(5), B32(5), wbuf, to_h1);
-  __syncthreads();
-  layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(6), B32(6), wbuf, to_h0);
-  __syncthreads();
-  layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(7), B32(7), wbuf, to_h1);
-  __syncthreads();
+  if constexpr (!HEADS) {
+    // trunk: activations ping-pong between h0 and h1
+    layer32<256, 64, true>(sx, XE32_LD, 64, sx, XE32_LD, W32(0), B32(0), wbuf, to_h0);
+    __syncthreads();
+    layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(1), B32(1), wbuf, to_h1);
+    __syncthreads();
+    layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(2), B32(2), wbuf, to_h0);
+    __syncthreads();
+    layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(3), B32(3), wbuf, to_h1);
+    __syncthreads();
+    layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(4), B32(4), wbuf, to_h0);
+    __syncthreads();
+    // skip layer: [xe, h] with no copy
+    layer32<256, 320, true>(sx, XE32_LD, 64, h0, H32_LD, W32(5), B32(5), wbuf, to_h1);
+    __syncthreads();
+    layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(6), B32(6), wbuf, to_h0);
+    __syncthreads();
+    layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(7), B32(7), wbuf, to_h1);
+    __syncthreads();
+  }
   // heads: feature -> h0, sigma -> output column 0
   layer32<256, 256, false>(h1, H32_LD, 256, h1, H32_LD, W32(8), B32(8), wbuf, to_h0);
   layer32<8, 256, false>(h1, H32_LD, 256, h1, H32_LD, W32(9), B32(9), wbuf, Sink32{so, NOUT, 0, 1, 0});
@@ -754,7 +816,8 @@ int sm_count() {
 
 }  // namespace
 
-// dynamic shared memory per CTA of each instance (ptxas reports static only)
+// dynamic shared memory per CTA of each kernel: the bf16 one (its trunk too)
+// for bf16 != 0, else the f32 one (its heads too); ptxas reports static only
 extern "C" int vipnerf_fused_mlp_smem_bytes(int bf16) { return bf16 ? SMEM16 : SMEM32; }
 
 // rows are indexed with int: all scenes' rows together must fit
@@ -762,13 +825,10 @@ static bool rows_fit(int scenes, int n_per_scene) {
   return scenes >= 1 && (long long)scenes * n_per_scene <= 0x7fffffffLL;
 }
 
-// xe, ve, ve2 and out hold `scenes` blocks of n_per_scene rows each; w and
-// bias hold `scenes` packs of weights and biases, in the same order.
-extern "C" int vipnerf_fused_mlp_bf16(const void* xe, const void* ve, const void* ve2, const void* w,
-                                      const void* bias, void* out, int scenes, int n_per_scene, int n_sec,
-                                      void* stream) {
-  if (n_sec < 0 || n_sec > MAX_SEC || !rows_fit(scenes, n_per_scene)) return (int)cudaErrorInvalidValue;
-  auto kernel = scenes > 1 ? fused_mlp_bf16_kernel<true> : fused_mlp_bf16_kernel<false>;
+template <bool TRUNK>
+static int launch16(const void* xe, const void* ve, const void* ve2, const void* w, const void* bias, void* out,
+                    int scenes, int n_per_scene, int n_sec, void* stream) {
+  auto kernel = scenes > 1 ? fused_mlp_bf16_kernel<true, TRUNK> : fused_mlp_bf16_kernel<false, TRUNK>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM16);
   if (e != cudaSuccess) return (int)e;
   if (n_per_scene <= 0) return 0;
@@ -780,16 +840,44 @@ extern "C" int vipnerf_fused_mlp_bf16(const void* xe, const void* ve, const void
   return (int)cudaGetLastError();
 }
 
-extern "C" int vipnerf_fused_mlp_f32(const void* xe, const void* ve, const void* ve2, const void* w,
-                                     const void* bias, void* out, int scenes, int n_per_scene, int n_sec,
-                                     void* stream) {
-  if (n_sec < 0 || n_sec > MAX_SEC || !rows_fit(scenes, n_per_scene)) return (int)cudaErrorInvalidValue;
-  auto kernel = scenes > 1 ? fused_mlp_f32_kernel<true> : fused_mlp_f32_kernel<false>;
+template <bool HEADS>
+static int launch32(const void* xin, const void* ve, const void* ve2, const void* w, const void* bias, void* out,
+                    int scenes, int n_per_scene, int n_sec, void* stream) {
+  auto kernel = scenes > 1 ? fused_mlp_f32_kernel<true, HEADS> : fused_mlp_f32_kernel<false, HEADS>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM32);
   if (e != cudaSuccess) return (int)e;
   if (n_per_scene <= 0) return 0;
   kernel<<<scenes * ((n_per_scene + BM32 - 1) / BM32), THREADS32, SMEM32, (cudaStream_t)stream>>>(
-      (const float*)xe, (const float*)ve, (const float*)ve2, (const float*)w, (const float*)bias, (float*)out,
-      n_per_scene, n_sec);
+      xin, (const float*)ve, (const float*)ve2, (const float*)w, (const float*)bias, (float*)out, n_per_scene,
+      n_sec);
   return (int)cudaGetLastError();
+}
+
+// xe, ve, ve2 and out hold `scenes` blocks of n_per_scene rows each; w and
+// bias hold `scenes` packs of weights and biases, in the same order.
+extern "C" int vipnerf_fused_mlp_bf16(const void* xe, const void* ve, const void* ve2, const void* w,
+                                      const void* bias, void* out, int scenes, int n_per_scene, int n_sec,
+                                      void* stream) {
+  if (n_sec < 0 || n_sec > MAX_SEC || !rows_fit(scenes, n_per_scene)) return (int)cudaErrorInvalidValue;
+  return launch16<false>(xe, ve, ve2, w, bias, out, scenes, n_per_scene, n_sec, stream);
+}
+
+extern "C" int vipnerf_fused_mlp_f32(const void* xe, const void* ve, const void* ve2, const void* w,
+                                     const void* bias, void* out, int scenes, int n_per_scene, int n_sec,
+                                     void* stream) {
+  if (n_sec < 0 || n_sec > MAX_SEC || !rows_fit(scenes, n_per_scene)) return (int)cudaErrorInvalidValue;
+  return launch32<false>(xe, ve, ve2, w, bias, out, scenes, n_per_scene, n_sec, stream);
+}
+
+// xe bf16; ve, ve2 and out f32; w the bf16_f32h packs (bytes); h scratch for
+// the trunk's output, (scenes * n_per_scene, WIDTH) bf16. Two launches on
+// the stream: the trunk, then the heads.
+extern "C" int vipnerf_fused_mlp_bf16_f32h(const void* xe, const void* ve, const void* ve2, const void* w,
+                                           const void* bias, void* h, void* out, int scenes, int n_per_scene,
+                                           int n_sec, void* stream) {
+  if (n_sec < 0 || n_sec > MAX_SEC || !rows_fit(scenes, n_per_scene)) return (int)cudaErrorInvalidValue;
+  const int e = launch16<true>(xe, nullptr, nullptr, w, bias, h, scenes, n_per_scene, 0, stream);
+  if (e != 0) return e;
+  const void* heads = static_cast<const unsigned char*>(w) + 2 * TRUNK_ELEMS;
+  return launch32<true>(h, ve, ve2, heads, bias, out, scenes, n_per_scene, n_sec, stream);
 }

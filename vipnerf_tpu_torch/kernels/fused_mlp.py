@@ -15,15 +15,20 @@ Layout contract, one row per point:
     out (N, 8)             [0] sigma, [1:4] rgb, [4] vis, [5:5+n_sec] vis2,
                            raw (before noise/ReLU/sigmoid), rest zero
 
-all in the working dtype: bf16 (f32 accumulation, each product rounded to
-bf16 before the bf16 bias add, then ReLU) or f32. The epilogues (sigma
-noise and ReLU, sigmoids) run outside, in f32.
+in one of three precision modes, each an instance of the kernel, named by
+the (trunk, heads) dtypes (`INSTANCE`): bf16 (f32 accumulation, each product
+rounded to bf16 before the bf16 bias add, then ReLU), f32, or bf16_f32h, the
+shipped mode (`bf16_matmuls` with `f32_heads`): the trunk, layers 0-7, in
+bf16, then h upcast to f32 and the feature, sigma and view layers in f32
+with f32 weights. xe is in the trunk's dtype; ve, ve2 and out in the
+heads'. The epilogues (sigma noise and ReLU, sigmoids) run outside, in f32.
 
 Weight layout (`kernel_buffers`): bf16 layers are K-slabs of 64 columns (the
 view layer's last one 32), each the 128-byte (64-byte) swizzled K-major image
 that the kernel's wgmma B descriptor reads, so the kernel copies a slab into
 shared memory with one bulk copy. f32 layers are W^T row-major, staged by
-the kernel in slabs of `f32_slab_rows` rows.
+the kernel in slabs of `f32_slab_rows` rows. A bf16_f32h pack is bytes: the
+trunk's bf16 images, then the heads' f32 ones (`PACK_BYTES`).
 
 `fused_mlp_raw` is the wrapper: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs `fused_mlp_reference`, the same function in
@@ -60,6 +65,7 @@ from vipnerf_tpu_torch.kernels import build
 PTS_IN = 64  # padded PE(pts) width (63 real)
 VIEW_IN = 32  # padded PE(view dir) width (27 real)
 NOUT = 8  # output columns
+WIDTH = 256  # the trunk's
 MAX_SEC = 3
 
 # (out, in) of each packed layer, in the kernel's order: trunk 0..7, feature,
@@ -72,20 +78,44 @@ LAYER_SHAPES: Tuple[Tuple[int, int], ...] = (
 W_NUMEL = sum(n * k for n, k in LAYER_SHAPES)
 B_NUMEL = sum(n for n, _ in LAYER_SHAPES)
 SIGMA, FEATURE, VIEW, VIEW_OUT = 9, 8, 10, 11
+TRUNK_NUMEL = sum(n * k for n, k in LAYER_SHAPES[:FEATURE])  # layers 0-7, before the heads
+
+# (trunk dtype, heads dtype) -> the instance of K1 that computes that mode
+INSTANCE = {
+    (torch.bfloat16, torch.bfloat16): "fused_mlp_bf16",
+    (torch.float32, torch.float32): "fused_mlp_f32",
+    (torch.bfloat16, torch.float32): "fused_mlp_bf16_f32h",
+}
+# bytes of one scene's packed weights, per instance
+PACK_BYTES = {(t, h): TRUNK_NUMEL * t.itemsize + (W_NUMEL - TRUNK_NUMEL) * h.itemsize for t, h in INSTANCE}
 
 # multiply-adds per point, real (unpadded) widths: trunk + heads + view branch
 MACS_PER_POINT = 63 * 256 + 4 * 256 * 256 + 319 * 256 + 2 * 256 * 256 + 256 * 257 + 283 * 128 + 128 * 4
 MACS_PER_SEC_VIEW = 283 * 128 + 128 * 4
+TRUNK_MACS_PER_POINT = 63 * 256 + 4 * 256 * 256 + 319 * 256 + 2 * 256 * 256  # layers 0-7
 
 
 class FusedWeights(NamedTuple):
     """Packed weights of one MLP for K1 and for its plain version."""
 
-    layers: List[Tuple[torch.Tensor, torch.Tensor]]  # (W ([S,] out, in) dtype, b ([S,] out) f32)
-    w_flat: torch.Tensor  # kernel layout, dtype; S packs one after the other
-    b_flat: torch.Tensor  # f32, bf16-rounded for the bf16 kernel
-    dtype: torch.dtype
+    layers: List[Tuple[torch.Tensor, torch.Tensor]]  # (W ([S,] out, in) its layer's dtype, b ([S,] out) f32)
+    w_flat: torch.Tensor  # kernel layout, dtype (bytes for bf16_f32h); S packs one after the other
+    b_flat: torch.Tensor  # f32, bf16-rounded for the bf16 layers
+    dtype: torch.dtype  # the trunk's
     scenes: int = 1
+    head_dtype: Optional[torch.dtype] = None  # the heads', when it is not the trunk's
+
+    @property
+    def mode(self) -> Tuple[torch.dtype, torch.dtype]:
+        """(trunk, heads) dtypes: the key of `INSTANCE`."""
+        return self.dtype, self.head_dtype or self.dtype
+
+
+def precision(bf16_matmuls: bool, f32_heads: bool) -> Tuple[torch.dtype, torch.dtype]:
+    """(trunk, heads) dtypes of a config's precision mode, as models/mlp.py
+    runs it: `f32_heads` matters only with `bf16_matmuls`."""
+    dtype = torch.bfloat16 if bf16_matmuls else torch.float32
+    return dtype, (torch.float32 if f32_heads else dtype)
 
 
 def supports_config(mlp_cfg: Dict[str, Any]) -> bool:
@@ -101,14 +131,17 @@ def supports_config(mlp_cfg: Dict[str, Any]) -> bool:
     )
 
 
-def pack_layers(mlp, dtype: torch.dtype) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Pad the module's weights to the kernel's (out, in) shapes.
+def pack_layers(mlp, dtype: torch.dtype, head_dtype: Optional[torch.dtype] = None
+                ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Pad the module's weights to the kernel's (out, in) shapes, the trunk's
+    in `dtype`, the heads' in `head_dtype` (default `dtype`).
 
     Zero columns go where the inputs are zero-padded (PE(pts) 63->64, in front
     of h in the skip layer; PE(view) 27->32 at the end of the view concat);
     zero rows pad the 1-wide sigma and 4-wide view outputs to 8. A stacked
     MLP's layers keep their leading scene axis.
     """
+    head_dtype = head_dtype or dtype
     with torch.no_grad():
         pl = mlp.pts_linears
         w5 = pl[5].weight
@@ -130,10 +163,11 @@ def pack_layers(mlp, dtype: torch.dtype) -> List[Tuple[torch.Tensor, torch.Tenso
             F.pad(mlp.views_output_linear.bias, (0, 4)),
         ))
         layers = []
-        for (w, b), shape in zip(pairs, LAYER_SHAPES):
+        for i, ((w, b), shape) in enumerate(zip(pairs, LAYER_SHAPES)):
             if tuple(w.shape[-2:]) != shape:
                 raise ValueError(f"layer shape {tuple(w.shape[-2:])} != {shape}")
-            layers.append((w.detach().to(dtype).contiguous(), b.detach().to(dtype).float()))
+            dt = dtype if i < FEATURE else head_dtype
+            layers.append((w.detach().to(dt).contiguous(), b.detach().to(dt).float()))
     return layers
 
 
@@ -199,29 +233,44 @@ def pack_index(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return _PACK_INDEX[key]
 
 
-def kernel_buffers(layers, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+def kernel_buffers(layers, dtype: torch.dtype, head_dtype: Optional[torch.dtype] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat weight and bias buffers in the kernel's layout (`_layer_image`
-    of each layer in turn); stacked layers give each scene's pack in turn."""
+    of each layer in turn); stacked layers give each scene's pack in turn.
+    With heads in another dtype than the trunk, each scene's pack is bytes:
+    the trunk's images in `dtype`, then the heads' in `head_dtype`."""
     lead = layers[0][0].shape[:-2]  # () or (S,)
-    flat = torch.cat([w.reshape(*lead, -1) for w, _ in layers], dim=-1)
-    w_flat = flat[..., pack_index(dtype, flat.device)].reshape(-1)
-    return w_flat, torch.cat([b for _, b in layers], dim=-1).reshape(-1)
+
+    def images(part, dt, lo):  # the packed layout's entries from lo on, for `part`'s layers
+        flat = torch.cat([w.reshape(*lead, -1) for w, _ in part], dim=-1)
+        return flat[..., pack_index(dt, flat.device)[lo:lo + flat.shape[-1]] - lo]
+
+    head_dtype = head_dtype or dtype
+    if head_dtype == dtype:
+        w_flat = images(layers, dtype, 0)
+    else:
+        w_flat = torch.cat([images(layers[:FEATURE], dtype, 0).view(torch.uint8),
+                            images(layers[FEATURE:], head_dtype, TRUNK_NUMEL).view(torch.uint8)], dim=-1)
+    return w_flat.reshape(-1), torch.cat([b for _, b in layers], dim=-1).reshape(-1)
 
 
-def prepare_weights(mlp, dtype: torch.dtype) -> FusedWeights:
-    """Packed weights of `mlp`, cached on it until a parameter changes."""
+def prepare_weights(mlp, dtype: torch.dtype, f32_heads: bool = False) -> FusedWeights:
+    """Packed weights of `mlp` for the instance of (`dtype`, `f32_heads`),
+    cached on it per instance until a parameter changes."""
+    head_dtype = torch.float32 if f32_heads else dtype
     params = list(mlp.parameters())
     # a tensor's _version counts its in-place updates (optimizer steps, loads)
-    key = (dtype, params[0].device, tuple(p._version for p in params),
-           tuple(p.data_ptr() for p in params))
+    state = (params[0].device, tuple(p._version for p in params), tuple(p.data_ptr() for p in params))
+    mode = (dtype, head_dtype)
     cache = getattr(mlp, "_fused_weights", None)
-    if cache is not None and cache[0] == key:
-        return cache[1]
-    layers = pack_layers(mlp, dtype)
-    w_flat, b_flat = kernel_buffers(layers, dtype)
-    packed = FusedWeights(layers, w_flat, b_flat, dtype, mlp.scenes or 1)
-    mlp._fused_weights = (key, packed)
-    return packed
+    if cache is None or cache[0] != state:
+        cache = mlp._fused_weights = (state, {})
+    if mode not in cache[1]:
+        layers = pack_layers(mlp, dtype, head_dtype)
+        w_flat, b_flat = kernel_buffers(layers, dtype, head_dtype)
+        cache[1][mode] = FusedWeights(layers, w_flat, b_flat, dtype, mlp.scenes or 1,
+                                      head_dtype if head_dtype != dtype else None)
+    return cache[1][mode]
 
 
 def encode_inputs(
@@ -230,17 +279,21 @@ def encode_inputs(
     view_dirs2: Optional[torch.Tensor],
     dtype: torch.dtype,
     fast: bool = False,
+    f32_heads: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """PE (the double-angle recurrence with `fast`, the config's
     `fast_encoding`) and zero-padding of the kernel's inputs: (xe, ve, ve2,
-    n_sec). With no secondary view, K1 reads no ve2: `ve` stands in for it."""
+    n_sec), xe in `dtype`, ve and ve2 in the heads' dtype: f32, never
+    rounded, with `f32_heads`. With no secondary view, K1 reads no ve2:
+    `ve` stands in for it."""
     npts = pts.shape[0]
     n_sec = view_dirs2.shape[1] if view_dirs2 is not None else 0
+    head_dtype = torch.float32 if f32_heads else dtype
     xe = F.pad(positional_encoding(pts, 10, fast), (0, PTS_IN - 63)).to(dtype)
-    ve = F.pad(positional_encoding(view_dirs, 4, fast), (0, VIEW_IN - 27)).to(dtype)
+    ve = F.pad(positional_encoding(view_dirs, 4, fast), (0, VIEW_IN - 27)).to(head_dtype)
     if n_sec:
         enc2 = positional_encoding(view_dirs2.reshape(npts * n_sec, 3), 4, fast)
-        ve2 = F.pad(enc2, (0, VIEW_IN - 27)).reshape(npts, n_sec * VIEW_IN).to(dtype)
+        ve2 = F.pad(enc2, (0, VIEW_IN - 27)).reshape(npts, n_sec * VIEW_IN).to(head_dtype)
     else:
         ve2 = ve
     return xe.contiguous(), ve.contiguous(), ve2.contiguous(), n_sec
@@ -250,21 +303,21 @@ def fused_mlp_reference(
     layers, xe: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor, n_sec: int
 ) -> torch.Tensor:
     """K1's function in plain torch: f32 matmuls of dtype-valued tensors; in
-    bf16 each product is rounded to bf16 before the bias add, as the kernel
-    does. Returns (N, 8) in the inputs' dtype. Stacked layers (S scenes) take
-    S blocks of N/S rows, each through its own scene's layers, in turn."""
+    a bf16 layer each product is rounded to bf16 before the bias add, as the
+    kernel does. Each layer runs in its packed weight's dtype: with f32 heads
+    the trunk's bf16 h enters the heads exactly, and PE(dir) is f32. Returns
+    (N, 8) in ve's dtype, the heads'. Stacked layers (S scenes) take S blocks
+    of N/S rows, each through its own scene's layers, in turn."""
     if layers[0][0].dim() == 3:
         scenes = layers[0][0].shape[0]
         blocks = zip(*(t.chunk(scenes) for t in (xe, ve, ve2)))
         return torch.cat([fused_mlp_reference([(w[s], b[s]) for w, b in layers], *block, n_sec)
                           for s, block in enumerate(blocks)])
-    dtype = xe.dtype
-    bf16 = dtype == torch.bfloat16
 
     def dense(x, i, relu):
         w, b = layers[i]
         y = x.float() @ w.float().t()
-        y = (y.to(dtype).float() + b).to(dtype) if bf16 else y + b
+        y = (y.to(w.dtype).float() + b).to(w.dtype) if w.dtype == torch.bfloat16 else y + b
         return torch.relu(y) if relu else y
 
     h = dense(xe, 0, True)
@@ -284,48 +337,52 @@ def fused_mlp_reference(
     for j in range(n_sec):
         cols.append(view_branch(ve2[:, j * VIEW_IN:(j + 1) * VIEW_IN])[:, 3:4])
     out = torch.cat(cols, dim=1)
-    return F.pad(out, (0, NOUT - out.shape[1])).to(dtype)
+    return F.pad(out, (0, NOUT - out.shape[1])).to(ve.dtype)
 
 
-_ENTRY = {torch.bfloat16: "vipnerf_fused_mlp_bf16", torch.float32: "vipnerf_fused_mlp_f32"}
-INSTANCE = {torch.bfloat16: "fused_mlp_bf16", torch.float32: "fused_mlp_f32"}
-
-
-def _entry(dtype: torch.dtype):
+def _entry(mode: Tuple[torch.dtype, torch.dtype]):
     lib = build.load("fused_mlp")
-    fn = getattr(lib, _ENTRY[dtype])
+    fn = getattr(lib, "vipnerf_" + INSTANCE[mode])
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        # bf16_f32h takes one more pointer: the scratch for the trunk's h
+        pointers = 7 if mode[0] != mode[1] else 6
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(dtype: torch.dtype) -> int:
-    """Dynamic shared memory per CTA of the instance (builds the kernel)."""
-    return build.load("fused_mlp").vipnerf_fused_mlp_smem_bytes(int(dtype == torch.bfloat16))
+def smem_bytes(dtype: torch.dtype, f32_heads: bool = False) -> Tuple[int, ...]:
+    """Dynamic shared memory per CTA of each kernel the instance launches
+    (builds them): bf16_f32h's trunk, then its heads."""
+    lib = build.load("fused_mlp")
+    if f32_heads and dtype == torch.bfloat16:
+        return lib.vipnerf_fused_mlp_smem_bytes(1), lib.vipnerf_fused_mlp_smem_bytes(0)
+    return (lib.vipnerf_fused_mlp_smem_bytes(int(dtype == torch.bfloat16)),)
 
 
 def _check(weights: FusedWeights, xe, ve, ve2, n_sec: int):
     n = xe.shape[0]
-    if weights.dtype not in _ENTRY:
-        raise TypeError(f"K1 takes bf16 or f32, not {weights.dtype}")
+    mode = weights.mode
+    if mode not in INSTANCE:
+        raise TypeError(f"K1 has no instance for a {mode[0]} trunk with {mode[1]} heads")
     if not 0 <= n_sec <= MAX_SEC:
         raise ValueError(f"n_sec must be in 0..{MAX_SEC}, got {n_sec}")
     expect = {
-        "xe": (xe, (n, PTS_IN)),
-        "ve": (ve, (n, VIEW_IN)),
-        "ve2": (ve2, (n, VIEW_IN * max(n_sec, 1))),
+        "xe": (xe, (n, PTS_IN), mode[0]),
+        "ve": (ve, (n, VIEW_IN), mode[1]),
+        "ve2": (ve2, (n, VIEW_IN * max(n_sec, 1)), mode[1]),
     }
-    for name, (t, shape) in expect.items():
+    for name, (t, shape, dtype) in expect.items():
         if t.dim() != 2 or tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != weights.dtype:
-            raise TypeError(f"{name} is {t.dtype}, weights are {weights.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, {INSTANCE[mode]} takes {dtype}")
         if t.device != xe.device:
             raise ValueError(f"{name} is on {t.device}, xe on {xe.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if weights.w_flat.numel() != weights.scenes * W_NUMEL or weights.b_flat.numel() != weights.scenes * B_NUMEL:
+    w_bytes = weights.w_flat.numel() * weights.w_flat.element_size()
+    if w_bytes != weights.scenes * PACK_BYTES[mode] or weights.b_flat.numel() != weights.scenes * B_NUMEL:
         raise ValueError("packed weights do not match the kernel's layer table")
     if n % weights.scenes:
         raise ValueError(f"{n} rows do not split into {weights.scenes} scenes")
@@ -337,28 +394,31 @@ def fused_mlp_raw(
     weights: FusedWeights, xe: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
     n_sec: int,
 ) -> torch.Tensor:
-    """K1 on (xe, ve, ve2) -> raw (N, 8) outputs; with stacked weights of S
-    scenes, N/S rows per scene, one launch for all. CPU tensors take the
-    plain version; CUDA tensors launch the kernel on the current stream."""
+    """K1 on (xe, ve, ve2) -> raw (N, 8) outputs, in the heads' dtype; with
+    stacked weights of S scenes, N/S rows per scene, one call for all. CPU
+    tensors take the plain version; CUDA tensors launch the instance on the
+    current stream (bf16_f32h: its trunk, then its heads, one count)."""
     _check(weights, xe, ve, ve2, n_sec)
     if xe.device.type == "cpu":
         return fused_mlp_reference(weights.layers, xe, ve, ve2, n_sec)
     if xe.device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {xe.device}")
     n = xe.shape[0]
-    out = torch.empty((n, NOUT), dtype=weights.dtype, device=xe.device)
+    mode = weights.mode
+    out = torch.empty((n, NOUT), dtype=mode[1], device=xe.device)
     if n == 0:
         return out
-    fn = _entry(weights.dtype)
+    fn = _entry(mode)
+    tensors = [xe, ve, ve2, weights.w_flat, weights.b_flat]
+    if mode[0] != mode[1]:  # bf16_f32h: scratch for the trunk's h, which its heads' kernel reads back
+        tensors.append(torch.empty((n, WIDTH), dtype=mode[0], device=xe.device))
     stream = torch.cuda.current_stream(xe.device).cuda_stream
     with torch.cuda.device(xe.device):
-        rc = fn(xe.data_ptr(), ve.data_ptr(), ve2.data_ptr(),
-                weights.w_flat.data_ptr(), weights.b_flat.data_ptr(),
-                out.data_ptr(), weights.scenes, n // weights.scenes, n_sec, stream)
+        rc = fn(*(t.data_ptr() for t in tensors + [out]), weights.scenes, n // weights.scenes, n_sec, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     fused_mlp_raw.launches += 1
-    fused_mlp_raw.launches_by_instance[INSTANCE[weights.dtype]] += 1
+    fused_mlp_raw.launches_by_instance[INSTANCE[mode]] += 1
     return out
 
 
@@ -384,16 +444,18 @@ def raw_recompute(
     params, xe: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor, n_sec: int
 ) -> torch.Tensor:
     """K1's raw (N, 8) output as a differentiable torch function of the
-    module's real parameters (`module_params` order), in the inputs' dtype;
-    the counterpart of `_raw_xla`. Zero padding is built from the real
-    weights with `F.pad`/`torch.cat`, so it takes no gradient; in bf16 each
-    product is rounded to bf16 before the bf16 bias add. Unlike
+    module's real parameters (`module_params` order); the counterpart of
+    `_raw_xla`. The trunk runs in xe's dtype, the heads in ve's (the
+    instance's mode), on h cast to it after layer 7 as models/mlp.py does
+    with f32 heads; the output is in ve's dtype. Zero padding is built from
+    the real weights with `F.pad`/`torch.cat`, so it takes no gradient; in
+    bf16 each product is rounded to bf16 before the bf16 bias add. Unlike
     `fused_mlp_reference`, the products run in the working dtype (cuBLAS on
     the card), as XLA's do. Stacked parameters (S scenes) take S blocks of
     N/S rows and run each layer as one batched product over the scenes."""
-    dt = xe.dtype
-    w = [p.to(dt) for p in params[0::2]]
-    b = [p.to(dt) for p in params[1::2]]
+    dts = [xe.dtype] * FEATURE + [ve.dtype] * (len(LAYER_SHAPES) - FEATURE)
+    w = [p.to(dt) for p, dt in zip(params[0::2], dts)]
+    b = [p.to(dt) for p, dt in zip(params[1::2], dts)]
     n = xe.shape[0]
     if w[0].dim() == 3:  # (S, N/S, cols): a product per scene
         xe, ve, ve2 = (t.reshape(w[0].shape[0], -1, t.shape[-1]) for t in (xe, ve, ve2))
@@ -417,6 +479,7 @@ def raw_recompute(
     h = dense(torch.cat([xe, h], dim=-1), 5, True)
     for i in (6, 7):
         h = dense(h, i, True)
+    h = h.to(ve.dtype)
     feature = dense(h, 8, False)
     sigma = dense(h, 9, False)
 
@@ -462,19 +525,21 @@ def apply_fused_mlp(
     raw_noise_std: float = 0.0,
     generator: Optional[torch.Generator] = None,
     dtype: torch.dtype = torch.bfloat16,
+    f32_heads: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """NeRFMLP.forward for the flagship config, through K1. Same output dict
-    (sigma, rgb, rgb_view_dependent, visibility[, visibility2]), f32, and
-    differentiable in the module's parameters (and pts/view dirs). A stacked
-    MLP takes and gives (S, n, ...), in one launch."""
+    """NeRFMLP.forward for the flagship config, through K1: the trunk in
+    `dtype`, the heads in f32 with `f32_heads` (the bf16_f32h instance).
+    Same output dict (sigma, rgb, rgb_view_dependent, visibility[,
+    visibility2]), f32, and differentiable in the module's parameters (and
+    pts/view dirs). A stacked MLP takes and gives (S, n, ...), in one call."""
     if not supports_config(mlp.cfg):
         raise ValueError("K1 implements the flagship 8x256 config only")
     lead = pts.shape[:-1]
     xe, ve, ve2, n_sec = encode_inputs(
         pts.reshape(-1, 3), view_dirs.reshape(-1, 3),
         None if view_dirs2 is None else view_dirs2.reshape(-1, *view_dirs2.shape[-2:]), dtype,
-        mlp.cfg.get("fast_encoding", False))
-    weights = prepare_weights(mlp, dtype)
+        mlp.cfg.get("fast_encoding", False), f32_heads)
+    weights = prepare_weights(mlp, dtype, f32_heads)
     raw = FusedRaw.apply(weights, n_sec, xe, ve, ve2, *module_params(mlp)).float()
     sigma = raw[:, 0:1]
     if raw_noise_std > 0.0 and generator is not None:

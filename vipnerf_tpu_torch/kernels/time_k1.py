@@ -6,8 +6,9 @@ in one process (an A/B of two trees on the same card).
 Each ROOT is a directory that holds a `vipnerf_tpu_torch/` (default: this
 repository); with several, each is timed in the order given, in a fresh
 subprocess, so "A B B A" gives two readings of each. For each tree: the
-build's ptxas lines (registers, spills) and, for both instances, the
-CUDA-event time of one launch (median of 5 rounds of 20) at the serving
+build's ptxas lines (registers, spills) and, for every instance (bf16,
+f32, bf16_f32h), the CUDA-event time of one call (median of 5 rounds of
+20; bf16_f32h's call is its two launches) at the serving
 tile shapes (8192 rays x 64 / x 192 points, n_sec 0) and the training
 step's (4096 x 64 / x 192, n_sec 2), with seed-0 flagship weights. Prints
 one JSON line per tree. Needs CUDA.
@@ -38,14 +39,14 @@ def time_tree(root: Path) -> dict:
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
     g = torch.Generator(device=dev).manual_seed(1)
     out = {"root": str(root), "ptxas": ptxas}
-    for dtype in (torch.bfloat16, torch.float32):
-        weights = k1.prepare_weights(mlp, dtype)
+    for dtype, f32_heads in ((torch.bfloat16, False), (torch.float32, False), (torch.bfloat16, True)):
+        weights = k1.prepare_weights(mlp, dtype, f32_heads)
         for label, n, n_sec in SHAPES:
             pts = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
             vd = torch.nn.functional.normalize(torch.randn((n, 3), generator=g, device=dev), dim=-1)
             vd2 = (torch.nn.functional.normalize(torch.randn((n, n_sec, 3), generator=g, device=dev), dim=-1)
                    if n_sec else None)
-            xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype)
+            xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype, f32_heads=f32_heads)
             for _ in range(3):
                 k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
             rounds = []
@@ -57,7 +58,7 @@ def time_tree(root: Path) -> dict:
                 end.record()
                 torch.cuda.synchronize()
                 rounds.append(start.elapsed_time(end) / 20)
-            out[f"{k1.INSTANCE[dtype]} {label}"] = sorted(rounds)[2]
+            out[f"{k1.INSTANCE[weights.mode]} {label}"] = sorted(rounds)[2]
     return out
 
 

@@ -4,9 +4,10 @@ head (counterpart of vipnerf_tpu/models/vip_nerf.py).
 `ViPNeRF` holds the `coarse_model` / `fine_model` MLPs, so its state_dict
 keys are the reference checkpoint's. `render_rays` runs a ray batch through
 both levels. The MLP of a level runs through K1 (kernels/fused_mlp.py) when
-its config is the flagship architecture and the precision mode is one K1
-has (bf16 matmuls with bf16 heads, or f32); every other config runs the
-`nn.Module` MLP. The choice is made from the config alone.
+its config is the flagship architecture, in every precision mode: bf16
+matmuls with f32 heads (the shipped one), with bf16 heads, or f32, each
+through its own instance; every other config runs the `nn.Module` MLP. The
+choice is made from the config alone.
 
 A stacked model (`ViPNeRF(..., scenes=S)`, or `stack_models`) holds S
 scenes' MLPs with a leading scene axis, for batched multi-scene training
@@ -72,10 +73,10 @@ def unstack_model(stacked: ViPNeRF, scene: int) -> ViPNeRF:
     return model
 
 
-def uses_fused_mlp(mlp_cfg: Dict[str, Any], bf16_matmuls: bool, f32_heads: bool) -> bool:
-    """Whether a level's MLP runs through K1: flagship config, and a precision
-    mode K1 has (bf16 with bf16 heads, or f32)."""
-    return k1.supports_config(mlp_cfg) and (not bf16_matmuls or not f32_heads)
+def uses_fused_mlp(mlp_cfg: Dict[str, Any], bf16_matmuls: bool, f32_heads: bool) -> Optional[str]:
+    """The K1 instance a level's MLP runs through in this precision mode, or
+    None (the nn.Module MLP) for a config other than the flagship."""
+    return k1.INSTANCE[k1.precision(bf16_matmuls, f32_heads)] if k1.supports_config(mlp_cfg) else None
 
 
 def _gather_secondary_origins(poses: torch.Tensor, pixel_id: torch.Tensor) -> torch.Tensor:
@@ -133,7 +134,7 @@ def _run_mlp_on_samples(
         raw = k1.apply_fused_mlp(
             mlp, pts_flat, vd_flat, vd2_flat,
             raw_noise_std=raw_noise_std, generator=generator,
-            dtype=torch.bfloat16 if bf16_matmuls else torch.float32,
+            dtype=torch.bfloat16 if bf16_matmuls else torch.float32, f32_heads=f32_heads,
         )
     else:
         raw = mlp(

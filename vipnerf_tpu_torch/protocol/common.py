@@ -28,6 +28,7 @@ from vipnerf_tpu_torch.data.synthetic import (
     make_dtu_scene,
     write_synthetic_database,
 )
+from vipnerf_tpu_torch.kernels import fused_mlp as k1
 from vipnerf_tpu_torch.utils.io import save_image
 from vipnerf_tpu_torch.utils.naming import scene_dirname
 
@@ -160,7 +161,8 @@ def run_demo_leg(workdir: Path, app_module, label: str, *, train_num: int, set_n
     run from `workdir`: an earlier leg's test renders moved aside, training,
     testing with QA and both video tracks. Prints the wall clock and the QA
     scores; returns the leg's figures (`leg_figures`, over the steps this
-    leg trained) with its wall clock, seconds per tested frame and QA."""
+    leg trained) with its wall clock, seconds per tested frame, QA and each
+    K1 instance's launches over the leg (training, validation, testing)."""
     workdir = Path(workdir)
     app = app_module.app
     os.chdir(workdir)
@@ -168,6 +170,7 @@ def run_demo_leg(workdir: Path, app_module, label: str, *, train_num: int, set_n
     scene_dir = scene_dirname(scene_ids[0], app.scene_key)
     scalars_path = workdir / f"runs/training/train{train_num:04}/{scene_dir}/logs/scalars.jsonl"
     before = set(read_scalars(scalars_path).get("train/TotalLoss", {}))
+    launches = dict(k1.fused_mlp_raw.launches_by_instance)
     app.reset_timings()
     t0 = time.time()
     app_module._run_full(train_num, set_num, sparse_depth=True, num_rays=2048, num_iterations=iters,
@@ -175,7 +178,8 @@ def run_demo_leg(workdir: Path, app_module, label: str, *, train_num: int, set_n
     wall = time.time() - t0
     print(f"{label} WALL CLOCK: {wall:.0f}s", flush=True)
     steps = len(set(read_scalars(scalars_path).get("train/TotalLoss", {})) - before)
-    leg = {"iters": iters, "wall_s": round(wall, 1), **leg_figures(app, steps)}
+    leg = {"iters": iters, "wall_s": round(wall, 1), **leg_figures(app, steps),
+           "k1_launches": {k: n - launches[k] for k, n in k1.fused_mlp_raw.launches_by_instance.items()}}
     tested = len(list((workdir / f"runs/testing/test{train_num:04}/{scene_dir}/predicted_frames").glob("*.png")))
     if tested and "testing" in leg["stage_s"]:
         leg["s_per_tested_frame"] = leg["stage_s"]["testing"] / tested
