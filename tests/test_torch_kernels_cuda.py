@@ -10,7 +10,11 @@ outputs' scale (`TOL_REL_MAX` on max|err| / max|plain|, `TOL_REL_RMS` on
 the RMS ratio): bf16 1/32 and 2e-3 (kernel and plain version sum in
 different orders, so a bf16 rounding can land one step apart and carry on);
 f32 1e-5 and 1e-6 (summation order only); bf16_f32h (the shipped mode:
-bf16 trunk, f32 heads) 1/256 and 2e-4 (the trunk's bf16 steps only). The scene-batched launch is held
+bf16 trunk, f32 heads) 1/256 and 2e-4 (the trunk's bf16 steps only); its
+tensor-core heads (split bf16 products) against its FFMA heads on the same
+trunk, chip_smoke's `TOL_HEADS_MAX` 3e-5 and `TOL_HEADS_RMS` 3e-6 (both
+f32-accurate, so only summation differs: the tensor cores round each k16
+step's sum toward zero). The scene-batched launch is held
 against the plain version looped over the scenes with the same tolerances,
 and against each scene's single-scene launch bit for bit. K1's backward on
 the card is held against autograd through its recompute there; one training
@@ -33,7 +37,7 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import JPEG_MIN_PSNR, TOL_REL_MAX, TOL_REL_RMS  # noqa: E402
+from chip_smoke import JPEG_MIN_PSNR, TOL_HEADS_MAX, TOL_HEADS_RMS, TOL_REL_MAX, TOL_REL_RMS  # noqa: E402
 from vipnerf_tpu_torch.kernels import fused_mlp as k1  # noqa: E402
 from vipnerf_tpu_torch.models.mlp import NeRFMLP
 
@@ -110,6 +114,35 @@ def test_fused_raw_backward_matches_the_recompute(device, dtype, n):
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes", [1, 2])
+@pytest.mark.parametrize("n_sec", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [2048 + 37, 132 * 128 * 3 + 37, 1])
+def test_f32h_tensor_core_heads_match_the_ffma_heads(device, scenes, n_sec, n):
+    """bf16_f32h's heads on tensor cores against the FFMA heads on the same
+    trunk (the same h): within the heads-only tolerances, for one scene and
+    for two stacked scenes (n rows each) in one launch."""
+    singles, stacked = _stacked_mlp(device, scenes)
+    mlp = singles[0] if scenes == 1 else stacked
+    g = torch.Generator(device=device).manual_seed(7 + n_sec)
+    rows = scenes * n
+    pts = torch.rand((rows, 3), generator=g, device=device) * 2 - 1
+    unit = lambda t: torch.nn.functional.normalize(t, dim=-1)  # noqa: E731
+    vd = unit(torch.randn((rows, 3), generator=g, device=device))
+    vd2 = unit(torch.randn((rows, n_sec, 3), generator=g, device=device)) if n_sec else None
+    xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, torch.bfloat16, f32_heads=True)
+    weights = k1.prepare_weights(mlp, torch.bfloat16, f32_heads=True)
+    before = k1.fused_mlp_raw_ffma.launches
+    out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
+    ffma = k1.fused_mlp_raw_ffma(weights, k1.ffma_heads(weights), xe, ve, ve2, ns)
+    torch.cuda.synchronize()
+    assert k1.fused_mlp_raw_ffma.launches == before + 1
+    assert torch.isfinite(out).all() and not out[:, 5 + n_sec:].any()
+    err = out - ffma
+    assert err.abs().max().item() <= TOL_HEADS_MAX * ffma.abs().max().item()
+    assert err.norm().item() <= TOL_HEADS_RMS * ffma.norm().item()
 
 
 def _stacked_mlp(device, scenes):

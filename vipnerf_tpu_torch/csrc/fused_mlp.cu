@@ -62,18 +62,53 @@
 // activations (a broadcast) and two of weights per 4 k-steps and row block.
 //
 // bf16_f32h instance (the shipped precision mode: bf16 trunk, f32 heads, as
-// models/mlp.py computes with bf16_matmuls and f32_heads): two launches. The
-// bf16 kernel's trunk (layers 0-7, TRUNK = true) writes h, bf16 (N, 256), to
-// global memory; the f32 kernel's heads (HEADS = true) read it, upcast, with
-// f32 PE(dir), and run the feature, sigma and view layers in FFMA with f32
-// weights, writing the raw output in f32. Why not one kernel: the bf16
-// kernel takes ~209 KB of shared memory, and the f32 heads of one
-// warpgroup's 64 points need 64 KB for the feature and 32 KB for the view
-// hidden layer besides, so a fused kernel would have to reuse the trunk's
-// slabs or cut the heads into sub-tiles. The round trip of h costs 1 KB per
-// point (about 0.48 ms at 1.57M points and 3.35 TB/s), a tenth of the heads'
-// own bound. Its packed weights are one byte buffer per scene: the trunk's
-// bf16 slabs, then the heads' f32 W^T (F32H_BYTES in all).
+// models/mlp.py computes with bf16_matmuls and f32_heads): two launches, both
+// on the bf16 tensor cores.
+// - The bf16 kernel's trunk (layers 0-7, TRUNK = true) writes h as the image
+//   it holds in shared memory: per 64 rows, its four 128-byte-swizzled 8 KB
+//   K-slabs (32 KB, block 2 * tile + warpgroup of a scratch buffer).
+// - The heads kernel (fused_mlp_heads_kernel) is shaped like the bf16 kernel:
+//   persistent, one producer thread streaming weight chunks into a 4 x 32 KB
+//   ring, two consumer warpgroups of 64 points each. A warpgroup fetches its
+//   h block with one bulk copy straight into wgmma A slabs.
+// - Numerics: f32-accurate products from bf16 ones. Every f32 head weight is
+//   packed as three bf16 parts, W = W1 + W2 + W3 exactly (round to nearest
+//   even, the remainders exact in f32). h is bf16-valued, so the feature and
+//   sigma layers are h W1 + h W2 + h W3: three wgmma chains into one f32
+//   accumulator, every product exact. The view layer and its output layer
+//   have an f32 operand on both sides (the feature, PE(dir), the view hidden
+//   layer), split the same way into a1 + a2 + a3, and take the six products
+//   a_i b_j with i + j <= 2 (parts counted from 0); the three dropped ones are
+//   below 2^-24 of the product. Six bf16 products cost what 3xTF32's three
+//   TF32 ones do (989 against 495 TFLOP/s), move 6 bytes per weight against
+//   TF32 hi/lo's 8, and reuse the bf16 layouts of the trunk. Bias in f32
+//   after the sum, then ReLU, as models/mlp.py. No operand is rounded once
+//   and used alone.
+// - The view layer's feature columns do not depend on the view: g = feature
+//   W10[:, :256]^T is computed once per point, and each view adds its PE(dir)
+//   columns and bias to a copy of g. Only the f32 summation order differs
+//   from the concatenated product.
+// - Registers, not shared memory, carry the f32 operands of the view and
+//   output layers: an m64nN accumulator's fragment is, register pair for
+//   register pair, the A fragment of a wgmma k16 step, so each k16 chunk is
+//   split into its three bf16 parts in registers and fed to wgmma with A from
+//   registers. The feature is computed in two halves of 128 columns (64
+//   registers), each folded into g (64 registers) before the next, so the
+//   peak is ~128 accumulator registers.
+// - Budgets (one CTA per SM): shared memory 2 x (h 32 KB + PE(dir) parts
+//   12 KB + f32 output tile 2 KB) + the 128 KB ring = 226,392 bytes with
+//   slack, under 232,448. Weights streamed from L2 per 128-point tile:
+//   618 KB (W8's parts 384, W10's feature columns' 192, sigma's 12 and the
+//   per-view chunk's 30, replayed per view), ~7.8 GB per launch of 1.57M
+//   points against the bf16 kernel's ~14.6 GB.
+// - Bound on an H100 (989 TFLOP/s bf16): the trunk's MACs x 2, plus the
+//   feature and sigma layers' x 2 x 3 and the view and output layers' x 2 x 6
+//   (the feature columns of the view layer once per point, the PE(dir)
+//   columns and the output layer once per view); 2.89 ms per 1.57M points at
+//   n_sec 0. The h round trip (1 KB per point) is not part of the function.
+// - The former FFMA heads (the f32 kernel with HEADS = true: CUDA cores,
+//   f32 W^T read from a buffer of their own) stay reachable through
+//   vipnerf_fused_mlp_bf16_f32h_ffma as a yardstick, on no path.
 //
 // All mask the ragged last tile: rows past n load as zeros and are never
 // stored. C entry points return cudaGetLastError() after the launch.
@@ -82,7 +117,8 @@
 // multi-scene training): one launch runs `scenes` MLPs of the same shape,
 // each on its own n_per_scene consecutive rows, with its own packed weights
 // (scene s's at w + s * W_ELEMS elements, or s * F32H_BYTES bytes for bf16_f32h;
-// its biases at bias + s * B_ELEMS). A tile never straddles two scenes: tile
+// its biases at bias + s * B_ELEMS; h block 2 * tile + warpgroup, tiles
+// counted over all scenes). A tile never straddles two scenes: tile
 // t is tile t % tps of scene t / tps, tps the tiles per scene, so each
 // scene's last tile is ragged on its own. Each
 // kernel is a template on SCENES: the host launches the <false> instance
@@ -93,6 +129,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -127,8 +165,25 @@ static_assert(W_ELEMS == 596992, "weight table");
 static_assert(B_ELEMS == 2448, "bias table");
 constexpr int FEATURE = 8;                            // the first head layer
 constexpr int TRUNK_ELEMS = w_off(FEATURE);           // layers 0-7
-constexpr int F32H_BYTES = 2 * TRUNK_ELEMS + 4 * (W_ELEMS - TRUNK_ELEMS);  // one scene's bf16_f32h pack
-static_assert(TRUNK_ELEMS == 491520 && F32H_BYTES == 1404928 && F32H_BYTES % 16 == 0, "bf16_f32h pack");
+constexpr int HEAD_ELEMS = W_ELEMS - TRUNK_ELEMS;     // layers 8-11
+
+// One scene's bf16_f32h pack: the trunk's bf16 slabs, then the heads' stream
+// of bulk copies in the order the heads kernel consumes them, each a bf16
+// image of the three parts of f32 weights (kernels/fused_mlp.py heads_image):
+constexpr int HCHUNK = 32768;                     // a ring stage of the heads kernel
+constexpr int HALF = 128;                         // feature columns per half
+constexpr int SIGMA_BYTES = 3 * NOUT * WIDTH * 2;  // W9's three parts, 4 K-slabs each
+// per half: W8's part p, K-columns [128 sp, 128 sp + 128) of the half's rows
+// (chunk 2p + sp), then W10's part p, the half's feature columns (chunk 6 + p)
+constexpr int HALF_CHUNKS = 9;
+constexpr int PEW_SLAB = 128 * VIEW_IN * 2;        // W10's PE(dir) columns, one part, 64-byte swizzle
+constexpr int W11_PART = NOUT * 128 * 2;           // W11, one part, 2 K-slabs
+constexpr int VIEW_BYTES = 3 * PEW_SLAB + 3 * W11_PART;  // the per-view chunk
+constexpr int HEADS_BYTES = SIGMA_BYTES + 2 * HALF_CHUNKS * HCHUNK + VIEW_BYTES;
+constexpr int F32H_BYTES = 2 * TRUNK_ELEMS + HEADS_BYTES;
+static_assert(TRUNK_ELEMS == 491520 && HEADS_BYTES == 3 * 2 * HEAD_ELEMS && F32H_BYTES == 1615872 &&
+                  F32H_BYTES % 16 == 0 && VIEW_BYTES <= HCHUNK,
+              "bf16_f32h pack");
 
 // ------------------------------------------------------------ PTX helpers
 
@@ -245,7 +300,9 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
 }
 
 // the same for N = 128 in d[0..63]
-__device__ __forceinline__ void wgmma_n128(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+template <int R>
+__device__ __forceinline__ void wgmma_n128(float (&d)[R], uint64_t da, uint64_t db, int acc) {
+  static_assert(R >= 64, "accumulator");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -264,6 +321,34 @@ __device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t da, uint64_t db
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(acc));
+}
+
+// A from registers: a[i] is fragment register i of the k16 step, a bf16
+// pair (lower column in the low half): rows r and r + 8 (r = 16 warp +
+// lane / 4) in registers (0, 1) and (2, 3), columns 2 (lane % 4) + {0, 1} in
+// registers 0 and 1, 8 more in 2 and 3 -- the order of an accumulator's
+// d[8c .. 8c + 7] for columns [16c, 16c + 16).
+template <int R>
+__device__ __forceinline__ void wgmma_n128_rs(float (&d)[R], const uint32_t (&a)[4], uint64_t db, int acc) {
+  static_assert(R >= 64, "accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_n8_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 #undef ACC8
@@ -304,18 +389,20 @@ __device__ __forceinline__ int swz128(int r, int c) {
 }
 
 // The weight ring as a consumer sees it: `it` counts the chunks consumed.
-struct Ring {
+template <int NSTAGES>
+struct RingN {
   uint32_t stages, full, empty, it;
   __device__ __forceinline__ uint32_t acquire() {
-    const uint32_t s = it % STAGES;
-    mbar_wait(full + 8 * s, (it / STAGES) & 1);
+    const uint32_t s = it % NSTAGES;
+    mbar_wait(full + 8 * s, (it / NSTAGES) & 1);
     return stages + s * STAGE_BYTES;
   }
   __device__ __forceinline__ void release(int lane) {
-    if (lane == 0) mbar_arrive(empty + 8 * (it % STAGES));
+    if (lane == 0) mbar_arrive(empty + 8 * (it % NSTAGES));
     ++it;
   }
 };
+using Ring = RingN<STAGES>;
 
 // wgmma over one K-slab: SW / 32 steps of k16 (32 bytes of each row)
 template <int N, int SW, int R>
@@ -389,8 +476,9 @@ __device__ __forceinline__ void epilogue_to_out(const float (&d)[4], const float
     }
 }
 
-// TRUNK: layers 0-7 only, `out` is h (N, WIDTH) bf16 and each scene's pack is
-// a bf16_f32h pack (F32H_BYTES); ve and ve2 are not read.
+// TRUNK: layers 0-7 only, `out` receives h as 32 KB slab images, one per 64
+// rows (2 per tile), and each scene's pack is a bf16_f32h pack (F32H_BYTES);
+// ve and ve2 are not read.
 template <bool SCENES, bool TRUNK>
 __global__ void __launch_bounds__(THREADS16, 1)
     fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ xe, const __nv_bfloat16* __restrict__ ve,
@@ -509,16 +597,12 @@ __global__ void __launch_bounds__(THREADS16, 1)
         bar_sync(bar_id, 128);
       }
       if constexpr (TRUNK) {
-        // h out of its four slabs, a 512-byte row per warp; the next tile's
-        // first bar_sync orders these reads before h is overwritten
-        const int oscene = tile_scene(), orow0 = (tile - oscene * tps) * TILE16 + wg * ROWS_WG;
-        __nv_bfloat16* hrows = out + ((size_t)oscene * nps + orow0) * WIDTH;
-        for (int i = tid; i < ROWS_WG * (WIDTH / 8); i += 128) {
-          const int r = i / (WIDTH / 8), c = i % (WIDTH / 8);
-          if (orow0 + r < nps)
-            reinterpret_cast<uint4*>(hrows + (size_t)r * WIDTH)[c] =
-                *reinterpret_cast<const uint4*>(mine + WG_ACT + swz128(r, 8 * c));
-        }
+        // h as its four swizzled slabs, 32 KB at block 2 * tile + wg (rows
+        // past the scene's end too); the next tile's first bar_sync orders
+        // these reads before h is overwritten
+        uint4* hblock = reinterpret_cast<uint4*>(out + (size_t)(2 * tile + wg) * (ROWS_WG * WIDTH));
+        for (int i = tid; i < 4 * A_SLAB / 16; i += 128)
+          hblock[i] = reinterpret_cast<const uint4*>(mine + WG_ACT)[i];
         continue;
       }
       // heads from h: the feature (over h) and sigma (output column 0)
@@ -548,6 +632,313 @@ __global__ void __launch_bounds__(THREADS16, 1)
       const int oscene = tile_scene(), orow0 = (tile - oscene * tps) * TILE16 + wg * ROWS_WG;
       if (tid < ROWS_WG && orow0 + tid < nps)
         reinterpret_cast<uint4*>(out)[oscene * nps + orow0 + tid] = reinterpret_cast<const uint4*>(otile)[tid];
+    }
+  }
+}
+
+// ------------------------------------------------------- bf16_f32h heads
+
+constexpr int HSTAGES = 4;
+static_assert(HCHUNK == STAGE_BYTES, "the heads' ring stages are the bf16 kernel's");
+// a consumer warpgroup's shared memory
+constexpr int HW_H = 0;                      // h: 4 slabs, 128-byte swizzle
+constexpr int HW_PE = HW_H + 4 * A_SLAB;     // PE(dir) of one view: 3 part slabs, 64-byte swizzle
+constexpr int HW_OUT = HW_PE + 3 * PE_SLAB;  // the raw output rows, [64][8] f32
+constexpr int HW_BYTES = HW_OUT + ROWS_WG * NOUT * 4;
+// the CTA's
+constexpr int HRING = CONSUMERS * HW_BYTES;
+constexpr int HBARS = HRING + HSTAGES * HCHUNK;  // full, empty, then one "h arrived" per warpgroup
+constexpr int HSCENE = HBARS + (2 * HSTAGES + CONSUMERS) * 8;
+constexpr int SMEMH = HSCENE + 4 * CONSUMERS + 1024;
+static_assert(HW_BYTES % 1024 == 0 && HRING % 1024 == 0, "swizzled slabs need 1 KB alignment");
+static_assert(SMEMH <= 232448, "shared memory");
+
+// x = part 0 + part 1 + part 2 exactly, each part the bf16 (round to nearest
+// even) of what the parts before it leave; x - part 0 and its remainder are
+// exact in f32. A pair of floats gives a bf16 pair per part.
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& p0, uint32_t& p1, uint32_t& p2) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x, y);
+  const float2 af = __bfloat1622float2(a);
+  const float rx = __fsub_rn(x, af.x), ry = __fsub_rn(y, af.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(rx, ry);
+  const float2 bf = __bfloat1622float2(b);
+  const __nv_bfloat162 c = __floats2bfloat162_rn(__fsub_rn(rx, bf.x), __fsub_rn(ry, bf.y));
+  p0 = *reinterpret_cast<const uint32_t*>(&a);
+  p1 = *reinterpret_cast<const uint32_t*>(&b);
+  p2 = *reinterpret_cast<const uint32_t*>(&c);
+}
+
+// f(std::integral_constant<int, C>{}) for C = 0 .. N - 1 in order: a loop
+// whose index stays a constant expression (a template argument) in f
+template <int... C, typename F>
+__device__ __forceinline__ void static_for(F&& f, std::integer_sequence<int, C...>) {
+  (f(std::integral_constant<int, C>{}), ...);
+}
+template <int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for(f, std::make_integer_sequence<int, N>{});
+}
+
+// the three parts' A fragments of the k16 step over columns [16C, 16C + 16)
+// of an f32 accumulator (see wgmma_n128_rs)
+template <int C, int R>
+__device__ __forceinline__ void split_frag(const float (&f)[R], uint32_t (&a)[3][4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) split_pair(f[8 * C + 2 * k], f[8 * C + 2 * k + 1], a[0][k], a[1][k], a[2][k]);
+}
+
+// keeps the compiler from reusing A fragment registers before the wgmma
+// that reads them has completed
+__device__ __forceinline__ void frag_fence(uint32_t (&a)[3][4]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[i][k])::"memory");
+}
+
+// g (+)= the half's feature f times W10's part p (two K-slabs at b, its
+// columns of the half): f's parts i <= 2 - p, A from registers, one k16 step
+// at a time
+template <int C>
+__device__ __forceinline__ void mma_g_step(float (&g)[64], const float (&f)[64], uint32_t b, int p, int first) {
+  uint32_t a[3][4];
+  split_frag<C>(f, a);
+  const uint64_t db = desc<128>(b + (C >> 2) * (HALF * SLAB_K * 2) + (C & 3) * 32);
+  acc_fence(g, 64);
+  wgmma_fence();
+  wgmma_n128_rs(g, a[0], db, !first);
+  if (p < 2) wgmma_n128_rs(g, a[1], db, 1);
+  if (p < 1) wgmma_n128_rs(g, a[2], db, 1);
+  wgmma_commit();
+  wgmma_wait0();
+  acc_fence(g, 64);
+  frag_fence(a);
+}
+
+// d8 (+)= hv W11^T from registers: the six part products of k16 step C,
+// W11's part j at w11 + j * W11_PART (two K-slabs)
+template <int C>
+__device__ __forceinline__ void mma_out_step(float (&d8)[4], const float (&hv)[64], uint32_t w11) {
+  uint32_t a[3][4];
+  split_frag<C>(hv, a);
+  acc_fence(d8, 4);
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; i + j < 3; ++j)
+      wgmma_n8_rs(d8, a[i], desc<128>(w11 + j * W11_PART + (C >> 2) * (NOUT * 128) + (C & 3) * 32),
+                  C > 0 || i > 0 || j > 0);
+  wgmma_commit();
+  wgmma_wait0();
+  acc_fence(d8, 4);
+  frag_fence(a);
+}
+
+// columns [lo, hi) of an 8-wide head plus bias into f32 output columns dst..
+__device__ __forceinline__ void epilogue_to_out32(const float (&d)[4], const float* __restrict__ bias, float* tile,
+                                                  int lo, int hi, int dst, int warp, int lane) {
+  const int r = warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 2 * (lane & 3) + e;
+      if (c >= lo && c < hi) tile[(r + 8 * h) * NOUT + dst + c - lo] = d[2 * h + e] + __ldg(bias + c);
+    }
+}
+
+// The heads of the bf16_f32h instance (layers 8-11) on h from the trunk:
+// `hblocks` holds its 32 KB slab images, block 2 * tile + warpgroup; `w` each
+// scene's bf16_f32h pack (its heads' stream after the trunk's slabs); ve, ve2
+// and out f32.
+template <bool SCENES>
+__global__ void __launch_bounds__(THREADS16, 1)
+    fused_mlp_heads_kernel(const unsigned char* __restrict__ hblocks, const float* __restrict__ ve,
+                           const float* __restrict__ ve2, const unsigned char* __restrict__ w,
+                           const float* __restrict__ bias, float* __restrict__ out, int scenes, int nps,
+                           int n_sec) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + HBARS, empty = full + 8 * HSTAGES, hfull = empty + 8 * HSTAGES;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int tps = (nps + TILE16 - 1) / TILE16;  // tiles per scene
+  const int ntiles = SCENES ? scenes * tps : tps;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < HSTAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    for (int c = 0; c < CONSUMERS; ++c) mbar_init(hfull + 8 * c, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // producer: one thread replays the heads' stream into the ring (the
+    // sigma chunk and the two halves' 18 chunks lie in order, then the view
+    // chunk, copied once per view)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      const unsigned char* wb = w + 2 * TRUNK_ELEMS;  // the tile's scene's heads
+      uint32_t it = 0;
+      auto push = [&](int off, int bytes) {
+        const uint32_t s = it % HSTAGES;
+        mbar_wait(empty + 8 * s, ((it / HSTAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, bytes);
+        bulk_g2s(base + HRING + s * HCHUNK, wb + off, bytes, full + 8 * s);
+        ++it;
+      };
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        if (SCENES) wb = w + (size_t)(tile / tps) * F32H_BYTES + 2 * TRUNK_ELEMS;
+        push(0, SIGMA_BYTES);
+        for (int c = 0; c < 2 * HALF_CHUNKS; ++c) push(SIGMA_BYTES + c * HCHUNK, HCHUNK);
+        for (int v = 0; v <= n_sec; ++v) push(SIGMA_BYTES + 2 * HALF_CHUNKS * HCHUNK, VIEW_BYTES);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int warp = tid / 32, lane = tid % 32, bar_id = 1 + wg;
+    const int q2 = 2 * (lane & 3);  // this thread's first accumulator column of each 8
+    unsigned char* mine = smem + wg * HW_BYTES;
+    const uint32_t hs = base + wg * HW_BYTES + HW_H, pe = hs - HW_H + HW_PE;
+    float* otile = reinterpret_cast<float*>(mine + HW_OUT);
+    const uint32_t hbar = hfull + 8 * wg;
+    RingN<HSTAGES> ring{base + HRING, full, empty, 0};
+    const int ve2_ld = VIEW_IN * (n_sec > 0 ? n_sec : 1);
+    // the tile's scene, in shared memory and read where it is needed, as in
+    // the bf16 kernel
+    const uint32_t scene_slot = base + HSCENE + 4 * wg;
+    auto sbias = [&]() { return bias + (SCENES ? lds_s32(scene_slot) : 0) * B_ELEMS; };
+    uint32_t hphase = 0;
+
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, hphase ^= 1) {
+      bar_sync(bar_id, 128);  // the previous tile's h, PE(dir) and output rows are read
+      const int scene = SCENES ? tile / tps : 0;
+      if (SCENES && tid == 0) sts_s32(scene_slot, scene);
+      if (tid == 0) {
+        mbar_expect_tx(hbar, 4 * A_SLAB);
+        bulk_g2s(hs, hblocks + (size_t)(2 * tile + wg) * (4 * A_SLAB), 4 * A_SLAB, hbar);
+      }
+      for (int i = tid; i < ROWS_WG * NOUT; i += 128) otile[i] = 0.f;
+      bar_sync(bar_id, 128);  // the scene and the zeroed rows
+      mbar_wait(hbar, hphase);
+
+      // sigma (output column 0): h W9^T, W9's three parts
+      float d8[4];
+      {
+        const uint32_t b = ring.acquire();
+        wgmma_fence();
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            mma_slab<8, 128>(d8, hs + s * A_SLAB, b + p * (NOUT * WIDTH * 2) + s * (NOUT * 128), (p | s) > 0);
+        wgmma_commit();
+        wgmma_wait0();
+        acc_fence(d8, 4);
+        ring.release(lane);
+      }
+      epilogue_to_out32(d8, sbias() + b_off(9), otile, 0, 1, 0, warp, lane);
+
+      // g = feature W10[:, :256]^T, one half of the feature at a time
+      float g[64];
+#pragma unroll 1
+      for (int hf = 0; hf < 2; ++hf) {
+        float f[64];
+#pragma unroll 1
+        for (int c = 0; c < 6; ++c) {  // W8's part c / 2 on h's K-slabs 2 (c % 2) and 2 (c % 2) + 1
+          const uint32_t b = ring.acquire();
+          acc_fence(f, 64);
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            mma_slab<128, 128>(f, hs + (2 * (c & 1) + s) * A_SLAB, b + s * (HALF * SLAB_K * 2), (c | s) > 0);
+          wgmma_commit();
+          wgmma_wait0();
+          acc_fence(f, 64);
+          ring.release(lane);
+        }
+        const float* b8 = sbias() + b_off(8) + hf * HALF;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(b8 + 8 * j + q2));
+          f[4 * j] += bb.x;
+          f[4 * j + 1] += bb.y;
+          f[4 * j + 2] += bb.x;
+          f[4 * j + 3] += bb.y;
+        }
+#pragma unroll 1
+        for (int p = 0; p < 3; ++p) {  // W10's part p of the half's feature columns
+          const uint32_t b = ring.acquire();
+          const int first = hf == 0 && p == 0;
+          static_for<8>([&](auto c) { mma_g_step<decltype(c)::value>(g, f, b, p, decltype(c)::value == 0 && first); });
+          ring.release(lane);
+        }
+      }
+
+      // the view branch: the primary view gives rgb + vis (output columns
+      // 1..4), secondary view v its vis (column 4 + v)
+      const int lrow0 = (tile - scene * tps) * TILE16 + wg * ROWS_WG;  // within the scene
+      const int row0 = scene * nps + lrow0;
+      for (int v = 0; v <= n_sec; ++v) {
+        // PE(dir) of view v as three bf16 part slabs; rows past the scene's end are zeros
+        for (int i = tid; i < ROWS_WG * (VIEW_IN / 4); i += 128) {
+          const int r = i >> 3, c4 = i & 7;
+          float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (lrow0 + r < nps)
+            x = v == 0 ? __ldg(reinterpret_cast<const float4*>(ve + (size_t)(row0 + r) * VIEW_IN) + c4)
+                       : __ldg(reinterpret_cast<const float4*>(ve2 + (size_t)(row0 + r) * ve2_ld + (v - 1) * VIEW_IN) +
+                               c4);
+          uint32_t lo[3], hi[3];
+          split_pair(x.x, x.y, lo[0], lo[1], lo[2]);
+          split_pair(x.z, x.w, hi[0], hi[1], hi[2]);
+          const int off = HW_PE + r * 64 + (((c4 >> 1) ^ ((r >> 1) & 3)) << 4) + (c4 & 1) * 8;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) *reinterpret_cast<uint2*>(mine + off + k * PE_SLAB) = make_uint2(lo[k], hi[k]);
+        }
+        fence_proxy_async();
+        bar_sync(bar_id, 128);
+        float hv[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) hv[i] = g[i];
+        const uint32_t b = ring.acquire();
+        acc_fence(hv, 64);
+        wgmma_fence();
+        // + PE(dir) W10[:, 256:]^T: the part products i + j <= 2, both from shared memory
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int j = 0; i + j < 3; ++j) mma_slab<128, 64>(hv, pe + i * PE_SLAB, b + j * PEW_SLAB, 1);
+        wgmma_commit();
+        wgmma_wait0();
+        acc_fence(hv, 64);
+        const float* b10 = sbias() + b_off(10);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(b10 + 8 * j + q2));
+          hv[4 * j] = fmaxf(hv[4 * j] + bb.x, 0.f);
+          hv[4 * j + 1] = fmaxf(hv[4 * j + 1] + bb.y, 0.f);
+          hv[4 * j + 2] = fmaxf(hv[4 * j + 2] + bb.x, 0.f);
+          hv[4 * j + 3] = fmaxf(hv[4 * j + 3] + bb.y, 0.f);
+        }
+        const uint32_t w11 = b + 3 * PEW_SLAB;
+        static_for<8>([&](auto c) { mma_out_step<decltype(c)::value>(d8, hv, w11); });
+        ring.release(lane);
+        if (v == 0)
+          epilogue_to_out32(d8, sbias() + b_off(11), otile, 0, 4, 1, warp, lane);
+        else
+          epilogue_to_out32(d8, sbias() + b_off(11), otile, 3, 4, 4 + v, warp, lane);
+        bar_sync(bar_id, 128);  // no wgmma of this warpgroup still reads the PE(dir) slabs
+      }
+      // the raw rows, 32 bytes each; the next tile's first bar_sync orders
+      // these reads before the rows are zeroed
+      const int r = tid >> 1;
+      if (lrow0 + r < nps)
+        reinterpret_cast<float4*>(out + (size_t)(row0 + r) * NOUT)[tid & 1] =
+            reinterpret_cast<const float4*>(otile + r * NOUT)[tid & 1];
     }
   }
 }
@@ -688,29 +1079,27 @@ __device__ __forceinline__ void layer32(const float* a1, int lda1, int k1, const
   }
 }
 
-// HEADS: the heads of the bf16_f32h instance. `xin` is then h (N, WIDTH) bf16,
-// the trunk's output, not xe (N, PTS_IN) f32, and `w` points at scene 0's
-// f32 head layers, F32H_BYTES / 4 floats from scene to scene.
+// HEADS: FFMA heads for the bf16_f32h mode, the yardstick of the tensor-core
+// heads kernel. `xin` is then h as the trunk's 32 KB slab images (one per 64
+// rows, the same blocks as this kernel's), not xe (N, PTS_IN) f32, and `w`
+// points at scene 0's f32 head layers (W^T), HEAD_ELEMS floats from scene
+// to scene.
 template <bool SCENES, bool HEADS>
 __global__ void __launch_bounds__(THREADS32, 1)
     fused_mlp_f32_kernel(const void* __restrict__ xin, const float* __restrict__ ve,
                          const float* __restrict__ ve2, const float* __restrict__ w,
                          const float* __restrict__ bias, float* __restrict__ out, int n, int n_sec) {
   const float* xe = static_cast<const float*>(xin);
-  const __nv_bfloat16* hin = static_cast<const __nv_bfloat16*>(xin);
   // blockIdx.x is block t % tps of scene t / tps: move every pointer to the
   // scene's rows and weights, then n counts the scene's rows
   const int tps = (n + BM32 - 1) / BM32;
   const int scene = SCENES ? blockIdx.x / tps : 0;
   if (SCENES) {
-    if (HEADS)
-      hin += (size_t)scene * n * WIDTH;
-    else
-      xe += (size_t)scene * n * PTS_IN;
+    if (!HEADS) xe += (size_t)scene * n * PTS_IN;
     ve += (size_t)scene * n * VIEW_IN;
     ve2 += (size_t)scene * n * VIEW_IN * (n_sec > 0 ? n_sec : 1);
     out += (size_t)scene * n * NOUT;
-    w += (size_t)scene * (HEADS ? F32H_BYTES / 4 : W_ELEMS);
+    w += (size_t)scene * (HEADS ? HEAD_ELEMS : W_ELEMS);
     bias += (size_t)scene * B_ELEMS;
   }
   extern __shared__ __align__(16) float smem32[];
@@ -727,11 +1116,14 @@ __global__ void __launch_bounds__(THREADS32, 1)
   const int ve2_ld = VIEW_IN * (n_sec > 0 ? n_sec : 1);
 
   if constexpr (HEADS) {
-    // h, bf16 -> f32 into h1, where the trunk below would leave it
+    // h, bf16 -> f32 into h1, where the trunk below would leave it; the
+    // scene's 64-row block b is the trunk's block 2 * tiles + b
+    const unsigned char* hb = static_cast<const unsigned char*>(xin) +
+                              ((size_t)scene * 2 * ((n + TILE16 - 1) / TILE16) + blockIdx.x - scene * tps) * (4 * A_SLAB);
     for (int i = tid; i < BM32 * (WIDTH / 8); i += THREADS32) {
       const int r = i / (WIDTH / 8), c = i % (WIDTH / 8);
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (row0 + r < n) v = __ldg(reinterpret_cast<const uint4*>(hin + (size_t)(row0 + r) * WIDTH) + c);
+      if (row0 + r < n) v = __ldg(reinterpret_cast<const uint4*>(hb + swz128(r, 8 * c)));
       const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
       const float2 a = __bfloat1622float2(p[0]), b = __bfloat1622float2(p[1]);
       const float2 e = __bfloat1622float2(p[2]), f = __bfloat1622float2(p[3]);
@@ -816,9 +1208,12 @@ int sm_count() {
 
 }  // namespace
 
-// dynamic shared memory per CTA of each kernel: the bf16 one (its trunk too)
-// for bf16 != 0, else the f32 one (its heads too); ptxas reports static only
-extern "C" int vipnerf_fused_mlp_smem_bytes(int bf16) { return bf16 ? SMEM16 : SMEM32; }
+// dynamic shared memory per CTA of each kernel: 0 the f32 one (its FFMA heads
+// too), 1 the bf16 one (its trunk too), 2 the bf16_f32h heads; ptxas reports
+// static only
+extern "C" int vipnerf_fused_mlp_smem_bytes(int kernel) {
+  return kernel == 2 ? SMEMH : (kernel == 1 ? SMEM16 : SMEM32);
+}
 
 // rows are indexed with int: all scenes' rows together must fit
 static bool rows_fit(int scenes, int n_per_scene) {
@@ -853,6 +1248,20 @@ static int launch32(const void* xin, const void* ve, const void* ve2, const void
   return (int)cudaGetLastError();
 }
 
+static int launch_heads(const void* h, const void* ve, const void* ve2, const void* w, const void* bias, void* out,
+                        int scenes, int n_per_scene, int n_sec, void* stream) {
+  auto kernel = scenes > 1 ? fused_mlp_heads_kernel<true> : fused_mlp_heads_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEMH);
+  if (e != cudaSuccess) return (int)e;
+  if (n_per_scene <= 0) return 0;
+  const int tiles = scenes * ((n_per_scene + TILE16 - 1) / TILE16), sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  kernel<<<tiles < sms ? tiles : sms, THREADS16, SMEMH, (cudaStream_t)stream>>>(
+      (const unsigned char*)h, (const float*)ve, (const float*)ve2, (const unsigned char*)w, (const float*)bias,
+      (float*)out, scenes, n_per_scene, n_sec);
+  return (int)cudaGetLastError();
+}
+
 // xe, ve, ve2 and out hold `scenes` blocks of n_per_scene rows each; w and
 // bias hold `scenes` packs of weights and biases, in the same order.
 extern "C" int vipnerf_fused_mlp_bf16(const void* xe, const void* ve, const void* ve2, const void* w,
@@ -870,14 +1279,24 @@ extern "C" int vipnerf_fused_mlp_f32(const void* xe, const void* ve, const void*
 }
 
 // xe bf16; ve, ve2 and out f32; w the bf16_f32h packs (bytes); h scratch for
-// the trunk's output, (scenes * n_per_scene, WIDTH) bf16. Two launches on
-// the stream: the trunk, then the heads.
+// the trunk's output, 32 KB per 64 rows: scenes * 2 * ceil(n_per_scene / 128)
+// blocks. Two launches on the stream: the trunk, then the heads.
 extern "C" int vipnerf_fused_mlp_bf16_f32h(const void* xe, const void* ve, const void* ve2, const void* w,
                                            const void* bias, void* h, void* out, int scenes, int n_per_scene,
                                            int n_sec, void* stream) {
   if (n_sec < 0 || n_sec > MAX_SEC || !rows_fit(scenes, n_per_scene)) return (int)cudaErrorInvalidValue;
   const int e = launch16<true>(xe, nullptr, nullptr, w, bias, h, scenes, n_per_scene, 0, stream);
   if (e != 0) return e;
-  const void* heads = static_cast<const unsigned char*>(w) + 2 * TRUNK_ELEMS;
-  return launch32<true>(h, ve, ve2, heads, bias, out, scenes, n_per_scene, n_sec, stream);
+  return launch_heads(h, ve, ve2, w, bias, out, scenes, n_per_scene, n_sec, stream);
+}
+
+// The same function with the FFMA heads, the tensor-core heads' yardstick:
+// heads32 holds each scene's f32 W^T of layers 8-11 (HEAD_ELEMS floats).
+extern "C" int vipnerf_fused_mlp_bf16_f32h_ffma(const void* xe, const void* ve, const void* ve2, const void* w,
+                                                const void* heads32, const void* bias, void* h, void* out,
+                                                int scenes, int n_per_scene, int n_sec, void* stream) {
+  if (n_sec < 0 || n_sec > MAX_SEC || !rows_fit(scenes, n_per_scene)) return (int)cudaErrorInvalidValue;
+  const int e = launch16<true>(xe, nullptr, nullptr, w, bias, h, scenes, n_per_scene, 0, stream);
+  if (e != 0) return e;
+  return launch32<true>(h, ve, ve2, heads32, bias, out, scenes, n_per_scene, n_sec, stream);
 }

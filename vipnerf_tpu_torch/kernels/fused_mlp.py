@@ -22,18 +22,23 @@ shipped mode (`bf16_matmuls` with `f32_heads`): the trunk, layers 0-7, in
 bf16, then h upcast to f32 and the feature, sigma and view layers in f32
 with f32 weights. xe is in the trunk's dtype; ve, ve2 and out in the
 heads'. The epilogues (sigma noise and ReLU, sigmoids) run outside, in f32.
+bf16_f32h computes its f32 heads on bf16 tensor cores from split products:
+each f32 operand is three bf16 parts that sum to it exactly (`split_bf16`).
 
 Weight layout (`kernel_buffers`): bf16 layers are K-slabs of 64 columns (the
 view layer's last one 32), each the 128-byte (64-byte) swizzled K-major image
 that the kernel's wgmma B descriptor reads, so the kernel copies a slab into
 shared memory with one bulk copy. f32 layers are W^T row-major, staged by
 the kernel in slabs of `f32_slab_rows` rows. A bf16_f32h pack is bytes: the
-trunk's bf16 images, then the heads' f32 ones (`PACK_BYTES`).
+trunk's bf16 images, then the heads' three bf16 parts as the stream of bulk
+copies the heads kernel consumes (`heads_image`; `PACK_BYTES`).
 
 `fused_mlp_raw` is the wrapper: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs `fused_mlp_reference`, the same function in
 plain torch. It counts its launches in `fused_mlp_raw.launches`, and per
-instance in `fused_mlp_raw.launches_by_instance`.
+instance in `fused_mlp_raw.launches_by_instance`. `fused_mlp_raw_ffma` runs
+the bf16_f32h function with FFMA heads on CUDA cores, the tensor-core heads'
+yardstick; nothing else calls it.
 
 Gradients: `FusedRaw` is the `torch.autograd.Function` around the wrapper
 (the counterpart of `_make_fused_raw`, a `jax.custom_vjp`). It takes the
@@ -86,13 +91,26 @@ INSTANCE = {
     (torch.float32, torch.float32): "fused_mlp_f32",
     (torch.bfloat16, torch.float32): "fused_mlp_bf16_f32h",
 }
+HEAD_NUMEL = W_NUMEL - TRUNK_NUMEL  # layers 8-11
+SPLIT_PARTS = 3  # bf16 parts of an f32 head weight in the bf16_f32h pack
 # bytes of one scene's packed weights, per instance
-PACK_BYTES = {(t, h): TRUNK_NUMEL * t.itemsize + (W_NUMEL - TRUNK_NUMEL) * h.itemsize for t, h in INSTANCE}
+PACK_BYTES = {
+    (torch.bfloat16, torch.bfloat16): 2 * W_NUMEL,
+    (torch.float32, torch.float32): 4 * W_NUMEL,
+    (torch.bfloat16, torch.float32): 2 * TRUNK_NUMEL + SPLIT_PARTS * 2 * HEAD_NUMEL,
+}
 
 # multiply-adds per point, real (unpadded) widths: trunk + heads + view branch
 MACS_PER_POINT = 63 * 256 + 4 * 256 * 256 + 319 * 256 + 2 * 256 * 256 + 256 * 257 + 283 * 128 + 128 * 4
 MACS_PER_SEC_VIEW = 283 * 128 + 128 * 4
 TRUNK_MACS_PER_POINT = 63 * 256 + 4 * 256 * 256 + 319 * 256 + 2 * 256 * 256  # layers 0-7
+# bf16 products per point of bf16_f32h's heads (real widths): 3 per MAC of
+# the feature and sigma layers (h times the weight's three parts), 6 per MAC
+# of the view and output layers (part pairs of two f32 operands); the view
+# layer's feature columns once per point, its PE(dir) columns and the output
+# layer per view (one output column for a secondary view)
+F32H_SPLIT_MACS = 3 * (256 * 256 + 256) + 6 * (256 * 128 + 27 * 128 + 128 * 4)
+F32H_SPLIT_MACS_PER_SEC_VIEW = 6 * (27 * 128 + 128)
 
 
 class FusedWeights(NamedTuple):
@@ -214,7 +232,17 @@ def _layer_image(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return pack_bf16(w) if dtype == torch.bfloat16 else w.t().contiguous().reshape(-1)
 
 
-_PACK_INDEX: Dict[Tuple[torch.dtype, torch.device], torch.Tensor] = {}
+_PACK_INDEX: Dict[Tuple[Any, torch.device], torch.Tensor] = {}
+
+
+def _positions(shapes, start: int = 0) -> List[torch.Tensor]:
+    """Each (n, k) of `shapes` as a matrix of its entries' positions in the
+    layers' flattened weights, one after the other from `start`."""
+    out = []
+    for n, k in shapes:
+        out.append(torch.arange(start, start + n * k).reshape(n, k))
+        start += n * k
+    return out
 
 
 def pack_index(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -225,33 +253,115 @@ def pack_index(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     slabs and scenes there are."""
     key = (dtype, torch.device(device))
     if key not in _PACK_INDEX:
-        images, start = [], 0
-        for n, k in LAYER_SHAPES:
-            images.append(_layer_image(torch.arange(start, start + n * k).reshape(n, k), dtype))
-            start += n * k
-        _PACK_INDEX[key] = torch.cat(images).to(device)
+        _PACK_INDEX[key] = torch.cat([_layer_image(pos, dtype) for pos in _positions(LAYER_SHAPES)]).to(device)
     return _PACK_INDEX[key]
+
+
+def split_bf16(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 -> three bf16 parts whose f32 sum is w exactly: each part rounds
+    (to nearest even) what the parts before it leave, and those remainders
+    are exact in f32. The bf16_f32h heads multiply parts (exact products in
+    f32) instead of rounding an f32 operand once."""
+    p0 = w.to(torch.bfloat16)
+    rest = w - p0.float()
+    p1 = rest.to(torch.bfloat16)
+    return p0, p1, (rest - p1.float()).to(torch.bfloat16)
+
+
+HEADS_HALF = 128  # feature columns per half in the heads kernel
+
+
+def heads_image(parts) -> torch.Tensor:
+    """The bf16_f32h heads' stream, flat bf16, from `parts[p]` = (W8, W9,
+    W10, W11) of part p, in the order the heads kernel's bulk copies take it:
+    W9's three parts (sigma, 4 K-slabs each); per half of the feature's rows,
+    W8's part p on K-columns [128 sp, 128 sp + 128) for p, sp in order (32 KB
+    chunks), then W10's part p on the half's feature columns (32 KB); last,
+    the per-view chunk: W10's three parts on the PE(dir) columns (64-byte
+    swizzle) and W11's three parts."""
+    chunks = [pack_bf16(part[1]) for part in parts]
+    for hf in range(WIDTH // HEADS_HALF):
+        rows = slice(hf * HEADS_HALF, (hf + 1) * HEADS_HALF)
+        chunks += [pack_bf16(part[0][rows, k0:k0 + HEADS_HALF])
+                   for part in parts for k0 in range(0, WIDTH, HEADS_HALF)]
+        chunks += [pack_bf16(part[2][:, rows]) for part in parts]
+    chunks += [swizzled_slab(part[2][:, WIDTH:].contiguous()) for part in parts]
+    chunks += [pack_bf16(part[3]) for part in parts]
+    return torch.cat(chunks)
+
+
+def heads_index(device: torch.device) -> torch.Tensor:
+    """`heads_image` as one gather from the three parts' flattened head
+    layers, part 0's four layers, then part 1's, then part 2's."""
+    key = ("heads", torch.device(device))
+    if key not in _PACK_INDEX:
+        shapes = LAYER_SHAPES[FEATURE:]
+        parts = [_positions(shapes, p * HEAD_NUMEL) for p in range(SPLIT_PARTS)]
+        _PACK_INDEX[key] = heads_image(parts).to(device)
+    return _PACK_INDEX[key]
+
+
+TILE_ROWS = 128  # points per tile of the bf16 kernel and of bf16_f32h's trunk and heads kernels
+BLOCK_ROWS_F32 = 64  # points per block of the f32 kernel (and of the FFMA heads)
+# bytes of `heads_image`'s per-view chunk: W10's PE(dir) columns and W11, each part
+HEADS_VIEW_BYTES = SPLIT_PARTS * 2 * (LAYER_SHAPES[VIEW][0] * (LAYER_SHAPES[VIEW][1] - WIDTH)
+                                      + LAYER_SHAPES[VIEW_OUT][0] * LAYER_SHAPES[VIEW_OUT][1])
+
+
+def stream_bytes(instance: str, n: int, n_sec: int, scenes: int = 1) -> int:
+    """Bytes one launch of `instance` (or of "fused_mlp_bf16_f32h_ffma", the
+    FFMA yardstick) on n points of `scenes` scenes streams from L2 by its
+    design, beyond its inputs and outputs: each tile's (f32: each block's)
+    pass over the packed weights, the view layers again per secondary view
+    (bf16_f32h: the heads' per-view chunk), and bf16_f32h's h round trip
+    through `h_scratch` (written, then read back). Counted from the pack's
+    sizes, not measured."""
+    tiles = scenes * -(-(n // scenes) // TILE_ROWS)
+    blocks = scenes * -(-(n // scenes) // BLOCK_ROWS_F32)
+    view = {dt: b[VIEW] + b[VIEW_OUT] for dt, b in LAYER_BYTES.items()}  # the view layers, whole
+    if instance == "fused_mlp_bf16":
+        return tiles * (PACK_BYTES[torch.bfloat16, torch.bfloat16] + n_sec * view[torch.bfloat16])
+    if instance == "fused_mlp_f32":
+        return blocks * (PACK_BYTES[torch.float32, torch.float32] + n_sec * view[torch.float32])
+    trunk = tiles * 2 * TRUNK_NUMEL + 2 * h_scratch_bytes(n, scenes)
+    if instance == "fused_mlp_bf16_f32h":
+        return trunk + tiles * (SPLIT_PARTS * 2 * HEAD_NUMEL + n_sec * HEADS_VIEW_BYTES)
+    if instance == "fused_mlp_bf16_f32h_ffma":
+        return trunk + blocks * (4 * HEAD_NUMEL + n_sec * view[torch.float32])
+    raise ValueError(f"no K1 instance {instance}")
+
+
+def _images(part, dtype: torch.dtype, lo: int) -> torch.Tensor:
+    """The packed layout's entries from lo on, for `part`'s layers (with
+    their leading scene axis, if any)."""
+    lead = part[0][0].shape[:-2]
+    flat = torch.cat([w.reshape(*lead, -1) for w, _ in part], dim=-1)
+    return flat[..., pack_index(dtype, flat.device)[lo:lo + flat.shape[-1]] - lo]
 
 
 def kernel_buffers(layers, dtype: torch.dtype, head_dtype: Optional[torch.dtype] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat weight and bias buffers in the kernel's layout (`_layer_image`
     of each layer in turn); stacked layers give each scene's pack in turn.
-    With heads in another dtype than the trunk, each scene's pack is bytes:
-    the trunk's images in `dtype`, then the heads' in `head_dtype`."""
+    With f32 heads on a bf16 trunk, each scene's pack is bytes: the trunk's
+    bf16 images, then `heads_image` of the heads' `split_bf16` parts (one
+    gather after the elementwise split)."""
     lead = layers[0][0].shape[:-2]  # () or (S,)
-
-    def images(part, dt, lo):  # the packed layout's entries from lo on, for `part`'s layers
-        flat = torch.cat([w.reshape(*lead, -1) for w, _ in part], dim=-1)
-        return flat[..., pack_index(dt, flat.device)[lo:lo + flat.shape[-1]] - lo]
-
     head_dtype = head_dtype or dtype
     if head_dtype == dtype:
-        w_flat = images(layers, dtype, 0)
+        w_flat = _images(layers, dtype, 0)
     else:
-        w_flat = torch.cat([images(layers[:FEATURE], dtype, 0).view(torch.uint8),
-                            images(layers[FEATURE:], head_dtype, TRUNK_NUMEL).view(torch.uint8)], dim=-1)
+        heads = torch.cat([w.reshape(*lead, -1) for w, _ in layers[FEATURE:]], dim=-1)
+        parts = torch.cat(split_bf16(heads), dim=-1)
+        w_flat = torch.cat([_images(layers[:FEATURE], dtype, 0).view(torch.uint8),
+                            parts[..., heads_index(parts.device)].view(torch.uint8)], dim=-1)
     return w_flat.reshape(-1), torch.cat([b for _, b in layers], dim=-1).reshape(-1)
+
+
+def ffma_heads(weights: "FusedWeights") -> torch.Tensor:
+    """The FFMA heads' weights for `fused_mlp_raw_ffma`: layers 8-11 of a
+    bf16_f32h pack's f32 layers as W^T, each scene's in turn."""
+    return _images(weights.layers[FEATURE:], torch.float32, TRUNK_NUMEL).reshape(-1)
 
 
 def prepare_weights(mlp, dtype: torch.dtype, f32_heads: bool = False) -> FusedWeights:
@@ -340,12 +450,9 @@ def fused_mlp_reference(
     return F.pad(out, (0, NOUT - out.shape[1])).to(ve.dtype)
 
 
-def _entry(mode: Tuple[torch.dtype, torch.dtype]):
-    lib = build.load("fused_mlp")
-    fn = getattr(lib, "vipnerf_" + INSTANCE[mode])
+def _entry(name: str, pointers: int):
+    fn = getattr(build.load("fused_mlp"), "vipnerf_" + name)
     if fn.argtypes is None:
-        # bf16_f32h takes one more pointer: the scratch for the trunk's h
-        pointers = 7 if mode[0] != mode[1] else 6
         fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -356,8 +463,19 @@ def smem_bytes(dtype: torch.dtype, f32_heads: bool = False) -> Tuple[int, ...]:
     (builds them): bf16_f32h's trunk, then its heads."""
     lib = build.load("fused_mlp")
     if f32_heads and dtype == torch.bfloat16:
-        return lib.vipnerf_fused_mlp_smem_bytes(1), lib.vipnerf_fused_mlp_smem_bytes(0)
+        return lib.vipnerf_fused_mlp_smem_bytes(1), lib.vipnerf_fused_mlp_smem_bytes(2)
     return (lib.vipnerf_fused_mlp_smem_bytes(int(dtype == torch.bfloat16)),)
+
+
+def h_scratch_bytes(n: int, scenes: int) -> int:
+    """Bytes of bf16_f32h's scratch for the trunk's h: a 32 KB slab image per
+    64 rows, two per tile of each scene."""
+    return scenes * -(-(n // scenes) // TILE_ROWS) * TILE_ROWS * WIDTH * 2
+
+
+def h_scratch(n: int, scenes: int, device) -> torch.Tensor:
+    """bf16_f32h's scratch for the trunk's h (`h_scratch_bytes`)."""
+    return torch.empty((h_scratch_bytes(n, scenes) // (2 * WIDTH), WIDTH), dtype=torch.bfloat16, device=device)
 
 
 def _check(weights: FusedWeights, xe, ve, ve2, n_sec: int):
@@ -390,6 +508,20 @@ def _check(weights: FusedWeights, xe, ve, ve2, n_sec: int):
         raise ValueError(f"weights on {weights.w_flat.device}, inputs on {xe.device}")
 
 
+def _launch(fn, weights: FusedWeights, xe, n_sec: int, pointers) -> None:
+    """Runs the C entry `fn` on the current stream: the tensors' pointers,
+    then the scene count, the rows per scene, n_sec and the stream."""
+    stream = torch.cuda.current_stream(xe.device).cuda_stream
+    with torch.cuda.device(xe.device):
+        rc = fn(*(t.data_ptr() for t in pointers), weights.scenes, xe.shape[0] // weights.scenes, n_sec, stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 launch failed: cudaError {rc}")
+
+
+def _output(weights: FusedWeights, xe) -> torch.Tensor:
+    return torch.empty((xe.shape[0], NOUT), dtype=weights.mode[1], device=xe.device)
+
+
 def fused_mlp_raw(
     weights: FusedWeights, xe: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
     n_sec: int,
@@ -403,31 +535,54 @@ def fused_mlp_raw(
         return fused_mlp_reference(weights.layers, xe, ve, ve2, n_sec)
     if xe.device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {xe.device}")
-    n = xe.shape[0]
-    mode = weights.mode
-    out = torch.empty((n, NOUT), dtype=mode[1], device=xe.device)
-    if n == 0:
+    out = _output(weights, xe)
+    if xe.shape[0] == 0:
         return out
-    fn = _entry(mode)
+    mode = weights.mode
     tensors = [xe, ve, ve2, weights.w_flat, weights.b_flat]
     if mode[0] != mode[1]:  # bf16_f32h: scratch for the trunk's h, which its heads' kernel reads back
-        tensors.append(torch.empty((n, WIDTH), dtype=mode[0], device=xe.device))
-    stream = torch.cuda.current_stream(xe.device).cuda_stream
-    with torch.cuda.device(xe.device):
-        rc = fn(*(t.data_ptr() for t in tensors + [out]), weights.scenes, n // weights.scenes, n_sec, stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {rc}")
+        tensors.append(h_scratch(xe.shape[0], weights.scenes, xe.device))
+    _launch(_entry(INSTANCE[mode], len(tensors) + 1), weights, xe, n_sec, tensors + [out])
     fused_mlp_raw.launches += 1
     fused_mlp_raw.launches_by_instance[INSTANCE[mode]] += 1
     return out
 
 
+def fused_mlp_raw_ffma(
+    weights: FusedWeights, heads32: torch.Tensor, xe: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
+    n_sec: int,
+) -> torch.Tensor:
+    """The bf16_f32h function with the heads in FFMA on CUDA cores (the
+    trunk kernel, then the f32 kernel's heads on `heads32`, `ffma_heads` of
+    the same weights): the tensor-core heads' yardstick, CUDA tensors only.
+    Counts its launches in `fused_mlp_raw_ffma.launches`."""
+    _check(weights, xe, ve, ve2, n_sec)
+    if weights.mode != (torch.bfloat16, torch.float32):
+        raise TypeError(f"the FFMA heads take bf16_f32h weights, not {INSTANCE[weights.mode]}'s")
+    if heads32.dtype != torch.float32 or heads32.numel() != weights.scenes * HEAD_NUMEL \
+            or heads32.device != xe.device:
+        raise ValueError("heads32 is not ffma_heads of these weights")
+    if xe.device.type != "cuda":
+        raise ValueError(f"the FFMA heads run on cuda tensors only, not {xe.device}")
+    out = _output(weights, xe)
+    if xe.shape[0] == 0:
+        return out
+    h = h_scratch(xe.shape[0], weights.scenes, xe.device)
+    _launch(_entry("fused_mlp_bf16_f32h_ffma", 8), weights, xe, n_sec,
+            [xe, ve, ve2, weights.w_flat, heads32, weights.b_flat, h, out])
+    fused_mlp_raw_ffma.launches += 1
+    return out
+
+
 def reset_launch_counts():
+    """Zeroes `fused_mlp_raw`'s counts. `fused_mlp_raw_ffma.launches`, a
+    yardstick's on no path, runs on from 0 at import."""
     fused_mlp_raw.launches = 0
     fused_mlp_raw.launches_by_instance = dict.fromkeys(INSTANCE.values(), 0)
 
 
 reset_launch_counts()
+fused_mlp_raw_ffma.launches = 0
 
 
 def module_params(mlp) -> List[torch.Tensor]:

@@ -7,14 +7,17 @@ Each ROOT is a directory that holds a `vipnerf_tpu_torch/` (default: this
 repository); with several, each is timed in the order given, in a fresh
 subprocess, so "A B B A" gives two readings of each. For each tree: the
 build's ptxas lines (registers, spills) and, for every instance (bf16,
-f32, bf16_f32h), the CUDA-event time of one call (median of 5 rounds of
-20; bf16_f32h's call is its two launches) at the serving
+f32, bf16_f32h, and bf16_f32h with FFMA heads, the tensor-core heads'
+yardstick), the CUDA-event time of one call (median of 5 rounds of 20;
+bf16_f32h's call is its two launches, also split per kernel by
+torch.profiler) at the serving
 tile shapes (8192 rays x 64 / x 192 points, n_sec 0) and the training
 step's (4096 x 64 / x 192, n_sec 2), with seed-0 flagship weights. Prints
 one JSON line per tree. Needs CUDA.
 """
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -34,11 +37,25 @@ def time_tree(root: Path) -> dict:
 
     build.build_all(["fused_mlp"])
     ptxas = [line.strip() for line in build.ptxas_reports.get("fused_mlp", "").splitlines()
-             if "registers" in line or "spill" in line]
+             if "Used " in line or "spill" in line]
     dev = torch.device("cuda", 0)
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
     g = torch.Generator(device=dev).manual_seed(1)
     out = {"root": str(root), "ptxas": ptxas}
+    def median_ms(fn):
+        for _ in range(3):
+            fn()
+        rounds = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            rounds.append(start.elapsed_time(end) / 20)
+        return sorted(rounds)[2]
+
     for dtype, f32_heads in ((torch.bfloat16, False), (torch.float32, False), (torch.bfloat16, True)):
         weights = k1.prepare_weights(mlp, dtype, f32_heads)
         for label, n, n_sec in SHAPES:
@@ -47,19 +64,37 @@ def time_tree(root: Path) -> dict:
             vd2 = (torch.nn.functional.normalize(torch.randn((n, n_sec, 3), generator=g, device=dev), dim=-1)
                    if n_sec else None)
             xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype, f32_heads=f32_heads)
-            for _ in range(3):
-                k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
-            rounds = []
-            for _ in range(5):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(20):
-                    k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
-                end.record()
-                torch.cuda.synchronize()
-                rounds.append(start.elapsed_time(end) / 20)
-            out[f"{k1.INSTANCE[weights.mode]} {label}"] = sorted(rounds)[2]
+            out[f"{k1.INSTANCE[weights.mode]} {label}"] = median_ms(lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns))
+            if f32_heads:
+                heads32 = k1.ffma_heads(weights)
+                out[f"fused_mlp_bf16_f32h_ffma {label}"] = median_ms(
+                    lambda: k1.fused_mlp_raw_ffma(weights, heads32, xe, ve, ve2, ns))
+                out[f"fused_mlp_bf16_f32h {label} per kernel"] = kernel_split_ms(
+                    lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns))
     return out
+
+
+def kernel_split_ms(fn, calls: int = 20) -> dict:
+    """Device ms per call of each CUDA kernel `fn` launches, from
+    torch.profiler over `calls` calls ("not measured" if the profiler
+    records no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        name = re.search(r"fused_mlp_(\w+?)_kernel<([^>]*)>", evt.key)
+        if us and name:  # e.g. "bf16<false, true>" (the trunk) and "heads<false>"
+            kernel = f"{name.group(1)}<{name.group(2)}>"
+            split[kernel] = split.get(kernel, 0.0) + us / 1e3 / calls
+    return split or "not measured"
 
 
 def main(argv) -> int:
