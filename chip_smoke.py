@@ -20,7 +20,15 @@ Phases, each of which fails the run loudly:
    the L2 bytes its design reads per launch; bf16_f32h (heads on tensor
    cores from split bf16 products) also against its FFMA yardstick (the
    former heads on CUDA cores, on no path) at every one of those shapes,
-   timed beside it; each instance's weight pack per training step;
+   timed beside it; each instance's weight pack per training step; then
+   K1's backward in the shipped mode (csrc/fused_mlp_bwd.cu, the f32
+   heads' gradient on the bf16 tensor cores): the two kernels bit for bit
+   the plain version on exact-sum inputs (and the forward heads on one),
+   each against its plain version in f64 and both end to end against f64
+   and the yardstick (autograd through raw_recompute's f32 heads) at the
+   training step's two launch shapes for n_sec 0..3, at S = 2 and at ragged
+   sizes, on inputs without ReLU ties, and timed at the training shapes at
+   S = 1, 2, 4 beside their plain versions and the yardstick;
 3. the serving path: a run tree at the flagship width (8x256 MLPs, 64+128
    samples, NDC, bf16 matmuls with bf16 heads) with seeded random weights,
    rendered by the port's `start_testing` at 1008x756 -- 3 train frames with
@@ -47,9 +55,14 @@ Phases, each of which fails the run loudly:
    100, validation at 200), then resumed to 220, checking finite and falling
    losses, the checkpoints, exactly 2 K1 launches per step and the
    validation's, and the trained model's PSNR on the test frame against the
-   untrained one's; in the shipped mode (bf16_f32h) the median warm step
+   untrained one's; 100 shipped-mode steps through K1, K1 with the
+   yardstick backward and the module MLP from the same weights and batches,
+   each pair compared (the first 20 steps held to the port-vs-JAX
+   trajectory's bands); in
+   the shipped mode (bf16_f32h) the median warm step
    time with rays/s, K1's share and peak memory, and a torch.profiler table
-   of one step split into forward, backward and Adam; a warm step in each
+   of one step split into forward, backward and Adam (the backward with
+   K1's backward kernels and no f32 matrix product); a warm step in each
    precision mode, and in the shipped mode through the module MLP;
 5. the user's pipeline at 1008x756: a synthetic LLFF scene under the LLFF
    policy's _down4 suffix without a visibility prior; the prior generated
@@ -117,8 +130,9 @@ Phases, each of which fails the run loudly:
    printed); (d) `batch_scenes` with S = 2 over the two ranks against S = 2
    in one process, the scenes in both orders; the seconds of two ranks sharing one card (not a
    scaling figure);
-10. a JSON line of each of phases 3-9 and of the kernels (the FFMA
-   yardstick apart, under "yardsticks"), and the device line last.
+10. a JSON line of each of phases 3-9, of K1's backward, and of the
+   kernels (K1's instances and its two backward kernels; the FFMA yardstick
+   apart, under "yardsticks"), and the device line last.
 
 It needs CUDA and the repository around it, and exits non-zero without a
 result otherwise. Nothing of JAX is imported.
@@ -171,6 +185,54 @@ TOL_REL_RMS = {"fused_mlp_bf16": 2e-3, "fused_mlp_f32": 1e-6, "fused_mlp_bf16_f3
 # operand's third part does not (the same file emulates both)
 TOL_HEADS_MAX = 3e-5  # max|new - ffma| / max|ffma|
 TOL_HEADS_RMS = 3e-6  # ||new - ffma|| / ||ffma||
+# The shipped mode's heads backward (kernels/fused_mlp.py heads_backward)
+# on inputs whose ReLU ties are taken out (`untie_relu`); errors are
+# max|err| / max|ref| and ||err|| / ||ref|| per tensor, and the share of d
+# h's (bf16) entries off the reference's rounding. The limits come from the
+# numpy emulation of the kernels' arithmetic (tests/
+# test_torch_heads_backward.py: 512 points, n_sec 0-3, the card's
+# truncating k16 sums), which reads at most the figure in the comment.
+# End to end (the 8 gradients and d PE(dir): worst tensor) against the plain
+# version in f64 (on the CPU, against the JAX package's f32 gradients).
+# Emulated: 8.1e-7, 5.8e-7, d h 2.3e-4 off; one pass of TF32 reads 1.2e-1,
+# 2.6e-2, 0.12 (>10x over each). A dropped third part reads 2e-6-5e-6: any
+# f32 computation of this chain sits at ~5e-7 (its f32 intermediates), so
+# the per-kernel limits below are the ones that see a dropped part.
+TOL_BWD_MAX = 2e-6
+TOL_BWD_RMS = 1.5e-6
+TOL_BWD_DH_FRAC = 5e-4
+# Each kernel alone against its plain version in f64 on the same inputs.
+# The per-point kernel's f32 outputs from h, PE(dir) and g, per tensor
+# (RMS; emulated floors feature 9.6e-8, d feature 8.9e-8, D 4.9e-8, hv
+# 1.4e-7, d hv 3.6e-8, d PE 8.8e-8, the worst entry 2.7e-7; the card read
+# less). A dropped third
+# part of W8 reads 11x over (feature), of W10 11x (d feature) and 12x (d
+# PE), of D 12x (d feature), of d hv 12x (d PE); of the feature 7x and of
+# PE(dir) 3x (hv: its parts are the smallest), and of d feature only through
+# d h (3x): those three splits are the weight kernel's too, where they read
+# over 10x.
+TOL_BWD_POINTS_RMS = {"feature": 2e-7, "d_feature": 2e-7, "D": 1e-7, "hv": 3e-7, "d_hv": 8e-8,
+                      "d_ve": 2e-7, "d_ve2": 2e-7}
+TOL_BWD_POINTS_MAX = 6e-7
+# The weight-gradient kernel's 8 gradients (dW10's feature and PE(dir)
+# columns apart) from the per-point kernel's outputs, worst tensor: emulated
+# 1.1e-7 and 7.6e-8 (1.1e-5 without promotion at 786,432 points); a dropped
+# third part of the feature, PE(dir), D, d feature, d hv, hv or d o reads
+# 15x-23x over the RMS limit. The max limits, here and for the per-point
+# kernel, guard single entries (a stray tile) at 2-3x the worst measured:
+# this one was 2e-7 as first derived, and the card read 1.8e-7 (dW9 at S =
+# 2 x 786,432 points, an H100 80GB HBM3 at 700 W), so it is 4e-7.
+TOL_BWD_WEIGHTS_MAX = 4e-7
+TOL_BWD_WEIGHTS_RMS = 1.5e-7
+# End to end against the yardstick (autograd through raw_recompute's f32
+# heads, cuBLAS FFMA): one-pass TF32 reads >1000x over (emulated). First
+# set at 1e-5 and 5e-6; on an H100 80GB HBM3 at 700 W the yardstick then
+# read up to 4.83e-6 (max) and 4.58e-6 (RMS) from the kernels at 786,432
+# points, where the kernels read 2.1e-7 and 1.3e-7 from f64 (the
+# yardstick's own summation over the points), hence 2e-5 and 1e-5.
+TOL_BWD_YARD_MAX = 2e-5
+TOL_BWD_YARD_RMS = 1e-5
+TOL_BWD_YARD_DH_FRAC = 1e-3
 TOL_CROP_RGB = 2.0 / 255  # K1 on the card vs its plain version on the CPU
 TOL_CROP_DEPTH = 5e-3  # of the NDC depth, in [0, 1]
 MIN_CROP_ACC = 0.1  # the crop check holds only where depth is well conditioned
@@ -331,6 +393,145 @@ def check_against_ffma(k1, weights, heads32, out, xe, ve, ve2, ns, label):
 check_against_ffma.launches = 0
 
 
+def rel_pair(got, want):
+    """(max|got - want| / max|want|, ||got - want|| / ||want||) in f64."""
+    got, want = got.double(), want.double()
+    return (((got - want).abs().max() / want.abs().max().clamp_min(1e-300)).item(),
+            ((got - want).norm() / want.norm().clamp_min(1e-300)).item())
+
+
+def worst_rel(pairs) -> tuple:
+    """The worst `rel_pair` (max, rms) over (got, want) pairs, each taken
+    on its own."""
+    worst = [0.0, 0.0]
+    for got, want in pairs:
+        if got is None and want is None:
+            continue
+        worst = [max(a, b) for a, b in zip(worst, rel_pair(got, want))]
+    return tuple(worst)
+
+
+def dh_off(d_h, want) -> float:
+    """Share of d h's (bf16) entries that differ from `want` rounded to
+    bf16."""
+    return (d_h.float() != want.to(torch.bfloat16).float()).double().mean().item()
+
+
+def bwd_errors(got, want) -> dict:
+    """The heads backward `got` = (d h, the 8 gradients, d ve, d ve2)
+    against `want` (the same, any dtype): {"max", "rms"} worst over the
+    gradients and d PE(dir), "dh_off"."""
+    e_max, e_rms = worst_rel(list(zip(got[1], want[1])) + [(got[2], want[2]), (got[3], want[3])])
+    return {"max": e_max, "rms": e_rms, "dh_off": dh_off(got[0], want[0])}
+
+
+POINT_FIELDS = tuple(TOL_BWD_POINTS_RMS)
+GRAD_PIECES = ("W8", "b8", "W9", "b9", "W10f", "W10p", "b10", "W11", "b11")
+
+
+def points_errors(got, want) -> dict:
+    """The per-point kernel's outputs (a `k1.HeadsIntermediates`) against
+    another's: (max, rms) per field of `POINT_FIELDS` present, "dh_off"."""
+    out = {f: rel_pair(getattr(got, f), getattr(want, f)) for f in POINT_FIELDS if getattr(want, f) is not None}
+    out["dh_off"] = dh_off(got.d_h, want.d_h)
+    return out
+
+
+def points_ok(errs: dict) -> bool:
+    return all(e[1] <= TOL_BWD_POINTS_RMS[f] and e[0] <= TOL_BWD_POINTS_MAX for f, e in errs.items()
+               if f != "dh_off") and errs["dh_off"] <= TOL_BWD_DH_FRAC
+
+
+def weights_errors(got, want) -> dict:
+    """The 8 gradients against another's, dW10's feature and PE(dir)
+    columns apart: (max, rms) per piece of `GRAD_PIECES`."""
+    pieces = lambda g: g[:4] + [g[4][..., :256], g[4][..., 256:]] + g[5:]  # noqa: E731
+    return dict(zip(GRAD_PIECES, (rel_pair(a, b) for a, b in zip(pieces(got), pieces(want)))))
+
+
+def weights_ok(errs: dict) -> bool:
+    return all(e[0] <= TOL_BWD_WEIGHTS_MAX and e[1] <= TOL_BWD_WEIGHTS_RMS for e in errs.values())
+
+
+def untie_relu(k1, params, h, ve, ve2, g, n_sec, rel_gap: float = 1e-4):
+    """g with each view's output gradient zeroed at the points where a
+    pre-activation of that view's hidden layer, recomputed in f64, lies
+    within `rel_gap` of its RMS from 0: there a ReLU's side can differ
+    between two f32 computations of the same function (the kernels, the
+    plain version, cuBLAS), and the whole d hv entry with it, which no
+    rounding tolerance describes. The other entries' gradients are left as
+    they are."""
+    w8, b8, w10, b10 = (p.double() for p in (params[0], params[1], params[4], params[5]))
+    views = [ve] + [ve2[:, 32 * j:32 * j + 32] for j in range(n_sec)]
+    scenes = w8.shape[0] if w8.dim() == 3 else 1
+    g = g.clone()
+    for s in range(scenes):
+        pick = (lambda t: t[s]) if w8.dim() == 3 else (lambda t: t)  # noqa: E731
+        rows = slice(s * (h.shape[0] // scenes), (s + 1) * (h.shape[0] // scenes))
+        feature = h[rows].double() @ pick(w8).t() + pick(b8)
+        for v, pe in enumerate(views):
+            pre = torch.cat([feature, pe[rows, :27].double()], 1) @ pick(w10).t() + pick(b10)
+            tie = (pre.abs() < rel_gap * pre.square().mean().sqrt()).any(1)
+            cols = slice(1, 5) if v == 0 else slice(4 + v, 5 + v)
+            g[rows][tie, cols] = 0.0
+    return g
+
+
+def exact_heads_case(case: str, n: int, scenes: int = 1, n_sec: int = 2, seed: int = 0):
+    """Inputs of the shipped mode's heads backward for which every sum of
+    its function is exact in f32, whatever the order: (the heads' parameters
+    in `module_params` order, stacked for S > 1; h (S n, 256) bf16; ve, ve2,
+    g f32), CPU tensors. Every value is a small multiple of a power of two,
+    and the sums' terms are few enough that no partial sum needs more than
+    24 bits. "dense": every product of the function has many nonzero
+    terms, but no operand has a second or third bf16 part. "witness": h is
+    one-hot (a column per point, no column twice in a scene), W8 has one
+    nonzero of 18 significant bits per column and W9 18 bits everywhere
+    (their third parts are not zero), W10's feature columns are zero: the
+    feature, D^T feature (dW10), d sigma W9 (d h) and h W9 (sigma) carry
+    bits that only the third parts hold, each in a sum of one term, so a
+    dropped third part moves dW10 by ~2^-17."""
+    rng = np.random.default_rng(seed)
+
+    def grid(shape, step, values=(-1, 1), density=1.0):
+        v = rng.choice(np.asarray(values, np.float64), size=shape) * step
+        return np.where(rng.uniform(size=shape) < density, v, 0.0)
+
+    def scene(s):
+        if case == "dense":
+            h = (rng.uniform(size=(n, 256)) < 0.25).astype(np.float64)
+            w8 = grid((256, 256), 2.0 ** -4, density=8 / 256)
+            w10f = grid((128, 256), 2.0 ** -2, density=8 / 256)
+        else:
+            if n > 256:
+                raise ValueError("the witness case takes at most 256 points per scene")
+            h = np.zeros((n, 256))
+            h[np.arange(n), rng.permutation(256)[:n]] = 1.0
+            w8 = np.zeros((256, 256))
+            w8[rng.permutation(256), np.arange(256)] = rng.integers(2 ** 17, 2 ** 18, 256) * rng.choice(
+                [-1.0, 1.0], 256) * 2.0 ** -22
+            w10f = np.zeros((128, 256))
+        b8 = grid(256, 2.0 ** -4, (-1, 0, 1)) if case == "dense" else np.zeros(256)
+        w9 = grid((1, 256), 2.0 ** -4, (-2, -1, 1, 2)) if case == "dense" else \
+            rng.integers(2 ** 17, 2 ** 18, (1, 256)) * rng.choice([-1.0, 1.0], (1, 256)) * 2.0 ** -22
+        w10 = np.concatenate([w10f, grid((128, 27), 2.0 ** -4, density=4 / 27)], 1)
+        params = [w8, b8, w9, grid(1, 2.0 ** -4),
+                  w10, grid(128, 2.0 ** -4, (-1, 0, 1)), grid((4, 128), 2.0 ** -2, density=0.25), grid(4, 2.0 ** -4)]
+        pe = [np.pad(grid((n, 27), 2.0 ** -2, (-4, -3, -2, -1, 0, 1, 2, 3, 4)), ((0, 0), (0, 5)))
+              for _ in range(1 + n_sec)]
+        g = np.zeros((n, 8))
+        g[:, :5 + n_sec] = grid((n, 5 + n_sec), 0.5, (-2, -1, 0, 1, 2))
+        return params, h, pe, g
+
+    parts = [scene(s) for s in range(scenes)]
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    params = [f32(np.stack([p[0][i] for p in parts]) if scenes > 1 else parts[0][0][i]) for i in range(8)]
+    h = f32(np.concatenate([p[1] for p in parts])).to(torch.bfloat16)
+    ve = f32(np.concatenate([p[2][0] for p in parts]))
+    ve2 = f32(np.concatenate([np.concatenate(p[2][1:], 1) for p in parts])) if n_sec else ve
+    return params, h, ve, ve2, f32(np.concatenate([p[3] for p in parts])), n_sec
+
+
 def phase_k1(k1, mlp, dev):
     """K1 against its plain version on the card at every checked shape, timed
     at the serving path's two tile shapes and the training step's two launch
@@ -402,6 +603,208 @@ def phase_k1(k1, mlp, dev):
         pack_ms = cuda_ms(lambda: k1.kernel_buffers(k1.pack_layers(mlp, dtype, head), dtype, head), reps=20)
         log(f"K1 {name}: packing the weights takes {pack_ms:.4f} ms per training step")
     return worst, timings
+
+
+# ------------------------------------------------- K1's backward (shipped mode)
+
+BWD = ("heads_bwd_points", "heads_bwd_weights")  # k1.BWD_KERNELS: the two kernels, as the kernels line names them
+BWD_SCENES = (1, 2, 4)  # scenes per launch timed at the training shapes
+
+
+def stacked_mlp(dev, scenes, seed=10):
+    """A flagship MLP (stacked over `scenes`, different weights per scene)."""
+    from vipnerf_tpu_torch.data.synthetic_rig import flagship_mlp_config
+    from vipnerf_tpu_torch.models.mlp import NeRFMLP
+
+    cfg = flagship_mlp_config(0)
+    if scenes == 1:
+        return NeRFMLP(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    singles = [NeRFMLP(cfg, torch.Generator().manual_seed(seed + s)) for s in range(scenes)]
+    stacked = NeRFMLP(cfg, scenes=scenes)
+    with torch.no_grad():
+        for name, p in stacked.named_parameters():
+            p.copy_(torch.stack([dict(m.named_parameters())[name] for m in singles]))
+    return stacked.to(dev)
+
+
+def heads_inputs(k1, mlp, n, n_sec, g, dev):
+    """The heads backward's inputs on n points: the heads' parameters, h
+    from the trunk's recompute, f32 PE(dir), and an upstream gradient of
+    raw's scale without ReLU ties (`untie_relu`)."""
+    xe, ve, ve2, ns = k1_inputs(k1, n, n_sec, "fused_mlp_bf16_f32h", g, dev)
+    params = [p.detach() for p in k1.module_params(mlp)]
+    with torch.no_grad():
+        h = k1.trunk_recompute(params[:2 * k1.FEATURE], xe).reshape(-1, k1.WIDTH).contiguous()
+    up = torch.randn((n, k1.NOUT), generator=g, device=dev) * 1e-3
+    up[:, 5 + ns:] = 0.0
+    heads = params[2 * k1.FEATURE:]
+    return heads, h, ve, ve2, untie_relu(k1, heads, h, ve, ve2, up, ns), ns
+
+
+def to_f64(mid):
+    return type(mid)(*(t.double() if t is not None and t.dtype == torch.float32 else t for t in mid))
+
+
+def check_heads_backward(k1, weights, params, h, ve, ve2, up, ns, label):
+    """The two kernels on one input: the per-point kernel against its plain
+    version in f64 (`TOL_BWD_POINTS_*`), the weight kernel against its plain
+    version in f64 on the per-point kernel's outputs (`TOL_BWD_WEIGHTS_*`),
+    both end to end against the whole plain version in f64 (`TOL_BWD_*`)
+    and against the yardstick (`TOL_BWD_YARD_*`). Returns each kernel's
+    max|err| against its plain version."""
+    stacked = params[0].dim() == 3
+    mid = k1.heads_bwd_points(weights, params, h, ve, ve2, up, ns)
+    grads = k1.heads_bwd_weights(mid, h, ve, ve2, up, weights.scenes, stacked)
+    torch.cuda.synchronize()
+    p64 = [p.double() for p in params]
+    want_mid = k1.heads_points_reference(p64, h, ve.double(), ve2.double(), up.double(), ns)
+    points = points_errors(mid, want_mid)
+    want_w = k1.heads_weights_reference(to_f64(mid), h, ve, ve2, up, weights.scenes, stacked)
+    weights_err = weights_errors(grads, want_w)
+    got = (mid.d_h, grads, mid.d_ve, mid.d_ve2)
+    full = k1.heads_weights_reference(want_mid, h, ve, ve2, up, weights.scenes, stacked)
+    e2e = bwd_errors(got, (want_mid.d_h, full, want_mid.d_ve, want_mid.d_ve2))
+    yard = bwd_errors(got, k1.heads_backward_recompute(params, h, ve, ve2, up, ns))
+    finite = all(bool(torch.isfinite(t).all()) for t in [mid.d_h.float(), *grads, mid.d_ve]
+                 + ([mid.d_ve2] if ns else []))
+    fmt = lambda d: ", ".join(f"{k} {v[0]:.3g}/{v[1]:.3g}" if isinstance(v, tuple) else f"{k} {v:.3g}"  # noqa: E731
+                              for k, v in d.items())
+    log(f"K1 backward (bf16_f32h heads), {label}: per-point kernel vs f64 (max/rms) {fmt(points)}; weight kernel "
+        f"vs f64 on its inputs {fmt(weights_err)}; end to end vs f64 max {e2e['max']:.3g} (tol {TOL_BWD_MAX:.3g}), "
+        f"rms {e2e['rms']:.3g} (tol {TOL_BWD_RMS:.3g}), d h off {e2e['dh_off']:.3g} (tol {TOL_BWD_DH_FRAC:.3g}); "
+        f"vs the yardstick max {yard['max']:.3g} (tol {TOL_BWD_YARD_MAX:.3g}), rms {yard['rms']:.3g} "
+        f"(tol {TOL_BWD_YARD_RMS:.3g}), d h off {yard['dh_off']:.3g} (tol {TOL_BWD_YARD_DH_FRAC:.3g}); finite {finite}")
+    if not (finite and points_ok(points) and weights_ok(weights_err) and e2e["max"] <= TOL_BWD_MAX
+            and e2e["rms"] <= TOL_BWD_RMS and e2e["dh_off"] <= TOL_BWD_DH_FRAC and yard["max"] <= TOL_BWD_YARD_MAX
+            and yard["rms"] <= TOL_BWD_YARD_RMS and yard["dh_off"] <= TOL_BWD_YARD_DH_FRAC):
+        raise AssertionError(f"K1's heads backward disagrees with its plain version or its yardstick: {label}")
+    err_points = max((getattr(mid, f).double() - getattr(want_mid, f)).abs().max().item()
+                     for f in POINT_FIELDS if getattr(want_mid, f) is not None)
+    err_weights = max((a.double() - b).abs().max().item() for a, b in zip(grads, want_w))
+    return {"heads_bwd_points": err_points, "heads_bwd_weights": err_weights}
+
+
+def heads_bound_parts(k1, n, n_sec, scenes=1):
+    """Least times (ms) of each heads-backward kernel on n points: its bf16
+    products (`k1.BWD_*_MACS`) at the bf16 tensor-core peak, and its bytes
+    (`k1.bwd_bytes`) at the memory rate."""
+    ops = {"heads_bwd_points": n * (k1.BWD_POINT_MACS + (1 + n_sec) * k1.BWD_POINT_MACS_PER_VIEW),
+           "heads_bwd_weights": n * (k1.BWD_WEIGHT_MACS + (1 + n_sec) * k1.BWD_WEIGHT_MACS_PER_VIEW)}
+    nbytes = dict(zip(BWD, k1.bwd_bytes(n, n_sec, scenes)))
+    return {k: {"ops": 2e3 * ops[k] / PEAK_BF16_FLOPS, "bytes": 1e3 * nbytes[k] / PEAK_BYTES} for k in BWD}
+
+
+def time_heads_backward(k1, weights, params, h, ve, ve2, up, ns, label):
+    """CUDA-event times of each kernel (the wrapper's call), of its plain
+    version in f32 and of the yardstick on the same inputs, with the
+    kernels' bounds."""
+    stacked = params[0].dim() == 3
+    mid = k1.heads_bwd_points(weights, params, h, ve, ve2, up, ns, False, False)
+    run = {"heads_bwd_points": lambda: k1.heads_bwd_points(weights, params, h, ve, ve2, up, ns, False, False),
+           "heads_bwd_weights": lambda: k1.heads_bwd_weights(mid, h, ve, ve2, up, weights.scenes, stacked)}
+    plain = {"heads_bwd_points": lambda: k1.heads_points_reference(params, h, ve, ve2, up, ns),
+             "heads_bwd_weights": lambda: k1.heads_weights_reference(mid, h, ve, ve2, up, weights.scenes, stacked)}
+    out = {}
+    bounds = heads_bound_parts(k1, h.shape[0], ns, weights.scenes)
+    for name in BWD:
+        ms = cuda_ms(run[name], reps=5)
+        plain_ms = cuda_ms(plain[name], reps=3)
+        parts = bounds[name]
+        bound = max(parts.values())
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=max(parts, key=parts.get),
+                         bound_parts_ms=parts, library_ms=None)
+    yard_ms = cuda_ms(lambda: k1.heads_backward_recompute(params, h, ve, ve2, up, ns), reps=3)
+    total = sum(out[k]["ms"] for k in BWD)
+    log(f"K1 backward timing, {label}: per-point kernel {out[BWD[0]]['ms']:.4f} ms (plain {out[BWD[0]]['plain_ms']:.4f}, "
+        f"bound {out[BWD[0]]['bound_ms']:.4f} by {out[BWD[0]]['bound_by']}: operations "
+        f"{bounds[BWD[0]]['ops']:.4f}, bytes {bounds[BWD[0]]['bytes']:.4f}), weight kernel {out[BWD[1]]['ms']:.4f} ms "
+        f"(plain {out[BWD[1]]['plain_ms']:.4f}, bound {out[BWD[1]]['bound_ms']:.4f} by {out[BWD[1]]['bound_by']}: "
+        f"operations {bounds[BWD[1]]['ops']:.4f}, bytes {bounds[BWD[1]]['bytes']:.4f}); both {total:.4f} ms against "
+        f"the yardstick (autograd through raw_recompute's f32 heads, cuBLAS) {yard_ms:.4f} ms")
+    return {**out, "yardstick_ms": yard_ms, "both_ms": total}
+
+
+def exact_case_on_card(k1, case, scenes, dev):
+    """`exact_heads_case` through the kernels and the plain version in f32
+    on the card: every output bit for bit."""
+    params, h, ve, ve2, up, ns = exact_heads_case(case, 200, scenes)
+    params = [p.to(dev) for p in params]
+    h, ve, ve2, up = (t.to(dev) for t in (h, ve, ve2, up))
+    mlp = stacked_mlp(dev, scenes)
+    with torch.no_grad():
+        for p, q in zip(k1.module_params(mlp)[2 * k1.FEATURE:], params):
+            p.copy_(q)
+    weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+    got = k1.heads_backward(weights, params, h, ve, ve2, up, ns)
+    ref = k1.heads_backward_reference(params, h, ve, ve2, up, ns)
+    same = [torch.equal(a, b) for a, b in zip([got[0], *got[1], got[2], got[3]], [ref[0], *ref[1], ref[2], ref[3]])]
+    log(f"K1 backward, exact-sum case {case!r}, S = {scenes}, 200 points per scene, n_sec {ns}: kernels bit for bit "
+        f"the plain version in f32 (d h, 8 gradients, d ve, d ve2): {same}")
+    if not all(same):
+        raise AssertionError(f"the heads backward is not exact on the exact-sum case {case} (S = {scenes})")
+
+
+def exact_forward_on_card(k1, dev):
+    """K1's bf16_f32h forward on the witness case's heads, with the trunk's
+    last layer zero and a one-hot bias (h = e_c for every point): each sum
+    of the heads is exact, so the forward heads kernel equals the plain
+    version's f32 products bit for bit, and W9's third parts reach the
+    output (sigma)."""
+    params, _, ve, ve2, _, ns = exact_heads_case("witness", 256, 1)
+    mlp = stacked_mlp(dev, 1)
+    with torch.no_grad():
+        for p, q in zip(k1.module_params(mlp)[2 * k1.FEATURE:], params):
+            p.copy_(q.to(dev))
+        mlp.pts_linears[7].weight.zero_()
+        mlp.pts_linears[7].bias.zero_()
+        mlp.pts_linears[7].bias[37] = 1.0
+    weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+    g = torch.Generator(device=dev).manual_seed(3)
+    xe = k1_inputs(k1, 256, ns, "fused_mlp_bf16_f32h", g, dev)[0]
+    ve, ve2 = ve.to(dev), ve2.to(dev)
+    out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
+    ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns)
+    torch.cuda.synchronize()
+    same = torch.equal(out, ref)
+    log(f"K1 forward bf16_f32h, exact-sum heads (one-hot h, 256 points, n_sec {ns}): bit for bit the plain "
+        f"version's f32 products: {same}")
+    if not same:
+        raise AssertionError("the bf16_f32h forward heads are not exact on the exact-sum case")
+
+
+def phase_heads_backward(k1, dev):
+    """K1's backward in the shipped mode: the exact-sum cases bit for bit
+    (and the forward heads on the witness case); the two kernels against
+    their plain versions and the yardstick at the training step's two
+    launch shapes for n_sec 0..3, at S = 2, and at ragged sizes; their
+    times at the training shapes at S = 1, 2, 4. Returns the timings and
+    each kernel's worst max|err|."""
+    for case in ("dense", "witness"):
+        for scenes in (1, 2):
+            exact_case_on_card(k1, case, scenes, dev)
+    exact_forward_on_card(k1, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    worst = dict.fromkeys(BWD, 0.0)
+    timings = {}
+    cases = [(1, n, n_sec) for n in sorted(TRAIN_N.values()) for n_sec in range(4)]
+    cases += [(1, n, n_sec) for n in RAGGED_N for n_sec in (0, 3)] + [(2, TRAIN_N["fine"], TRAIN_SEC),
+                                                                       (2, 2048 + 37, 1)]
+    for scenes, n, n_sec in cases:
+        mlp = stacked_mlp(dev, scenes)
+        weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+        inputs = heads_inputs(k1, mlp, scenes * n, n_sec, g, dev)
+        errs = check_heads_backward(k1, weights, *inputs, f"S = {scenes} x {n} points, n_sec {n_sec}")
+        worst = {k: max(worst[k], errs[k]) for k in BWD}
+        del inputs
+    for scenes in BWD_SCENES:
+        mlp = stacked_mlp(dev, scenes)
+        weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+        for level, n in TRAIN_N.items():
+            inputs = heads_inputs(k1, mlp, scenes * n, TRAIN_SEC, g, dev)
+            timings[(scenes, level)] = time_heads_backward(k1, weights, *inputs,
+                                                           f"S = {scenes} x {n} points ({level}), n_sec {TRAIN_SEC}")
+            del inputs
+    return {"timings": timings, "worst": worst}
 
 
 def check_png(path: Path, shape=None):
@@ -719,6 +1122,136 @@ class TrainRig:
         return {k: p.grad.detach().clone() for k, p in self.model.named_parameters()}
 
 
+# K1 through a training trajectory at the flagship width: the bands of
+# tests/test_torch_protocol.py's port-vs-JAX trajectory (TRAJ_TOL_FIRST for
+# the shipped mode, TRAJ_TOL_STEP, TRAJ_TOL_PARAMS; a CPU test holds them
+# equal)
+TRAJ_STEPS = 100
+TRAJ_LOSSES = ("MSE01", "VisibilityLoss01", "SparseDepthMSE01", "VisibilityPriorLoss01")
+TRAJ_TOL_FIRST = 1e-4  # relative, the first step's loss terms
+TRAJ_TOL_STEP = 5e-3  # relative, every later step's
+TRAJ_TOL_PARAMS = 5e-2  # the final parameters' distance over the reference run's move from the start
+TRAJ_PATHS = ("K1", "K1, yardstick backward", "module MLP")
+# At the flagship width the shipped mode's training is chaotic: two
+# computations of the same step that differ by f32 rounding (~1e-7) move a
+# bf16 rounding of the trunk now and then, and Adam carries it on. The two
+# routes from before the backward kernels (K1 with the yardstick backward,
+# the module MLP) leave TRAJ_TOL_STEP against each other as K1 leaves it
+# against either: on the card (`phase_trajectory` prints all three pairs)
+# and on the CPU with no kernel anywhere
+# (tests/test_torch_heads_backward.py::test_flagship_training_is_chaotic_without_any_kernel).
+# So every step is printed against the bands, and the first TRAJ_BAND_STEPS
+# steps are held to them.
+TRAJ_BAND_STEPS = 20
+
+
+@contextlib.contextmanager
+def yardstick_backward(k1):
+    """Within the block, K1's shipped-mode backward computes the heads'
+    gradients with its yardstick (autograd through raw_recompute's f32
+    heads, the route before the backward kernels) instead of the kernels."""
+    kernels = k1.heads_backward
+    k1.heads_backward = lambda weights, params, h, ve, ve2, g, n_sec, *need: \
+        k1.heads_backward_recompute(params, h, ve, ve2, g, n_sec)
+    try:
+        yield
+    finally:
+        k1.heads_backward = kernels
+
+
+def trajectory_compare(got, end_got, want, end_want, start):
+    """The worst relative difference of the loss terms at the first step
+    and after it, per term after it, and the final parameters' distance
+    over the reference run's move."""
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    dist = math.sqrt(sum(float(((end_got[k] - end_want[k]).double() ** 2).sum()) for k in start))
+    moved = math.sqrt(sum(float(((end_want[k] - start[k]).double() ** 2).sum()) for k in start))
+    return {"first": float(rel[0].max()), "band": float(rel[1:TRAJ_BAND_STEPS + 1].max()),
+            "later": float(rel[1:].max()),
+            "later_by_term": dict(zip(TRAJ_LOSSES, (float(x) for x in rel[1:].max(0)))),
+            "first_over_tol_step": int(np.argmax(rel.max(1) > TRAJ_TOL_STEP)) if (rel.max(1) > TRAJ_TOL_STEP).any()
+            else None, "params": dist / moved}
+
+
+def run_trajectories(k1, rig, paths=TRAJ_PATHS, steps: int = TRAJ_STEPS, start_it: int = 5000):
+    """`steps` training steps in the shipped mode (bf16 trunk, f32 heads)
+    along each of `paths` (of `TRAJ_PATHS`), perturbation and sigma noise
+    off, from the same weights (the rig's, +0.5 on the sigma biases, so
+    that depth, a ratio over the accumulated weight, is well conditioned
+    from the start) on the same gathered batches. Returns the start's
+    state and, per path, (the loss terms per step, the end state, K1's
+    launch counts)."""
+    from vipnerf_tpu_torch.train.step import make_optimizer, make_train_step
+
+    cfg = copy.deepcopy(rig.configs)
+    cfg["model"].update(bf16_matmuls=True, f32_heads=True, perturb=False, raw_noise_std=0.0)
+    batches = [rig.batch(start_it + it) for it in range(steps)]
+    original = {k: v.detach().clone() for k, v in rig.model.state_dict().items()}
+    with torch.no_grad():
+        for mlp in rig.model.children():
+            mlp.pts_output_linear.bias += SIGMA_OFFSET
+    start = {k: v.detach().clone() for k, v in rig.model.state_dict().items()}
+    runs = {}
+    for path in paths:
+        rig.model.load_state_dict(start)
+        step = make_train_step(cfg, rig.render_rays, rig.loss_computer, make_optimizer(cfg, rig.model.parameters()))
+        k1.reset_launch_counts()
+        losses = []
+        context = {"K1": contextlib.nullcontext(), "K1, yardstick backward": yardstick_backward(k1),
+                   "module MLP": module_mlp_path()}[path]
+        with context:
+            for it, batch in enumerate(batches):
+                rig.generator.manual_seed(it)
+                scalars = step(rig.model, batch, rig.generator)
+                losses.append([float(scalars[k]) for k in TRAJ_LOSSES])
+        if rig.generator.device.type == "cuda":
+            torch.cuda.synchronize()
+        runs[path] = (np.asarray(losses), {k: v.detach().clone() for k, v in rig.model.state_dict().items()},
+                      {"fused_mlp_bf16_f32h": k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"],
+                       **k1.heads_backward.launches_by_kernel})
+    rig.model.load_state_dict(original)
+    return start, runs
+
+
+def phase_trajectory(k1, rig, steps: int = TRAJ_STEPS):
+    """`run_trajectories` on the card through K1 (its forward and its
+    backward kernels), through K1 with the yardstick backward (the same
+    forward; the heads' gradient by autograd through raw_recompute's f32
+    heads, as before the kernels), and through the module MLP. Each pair is
+    compared; K1 against each of the others, and the two routes from before
+    the kernels against each other: the loss terms of the first step within
+    `TRAJ_TOL_FIRST`, of the next `TRAJ_BAND_STEPS` within `TRAJ_TOL_STEP`;
+    every step and the final parameters are printed against the bands (see
+    `TRAJ_BAND_STEPS`). Returns the comparisons and K1's launches."""
+    t0 = time.perf_counter()
+    start, runs = run_trajectories(k1, rig, TRAJ_PATHS, steps)
+    seconds = time.perf_counter() - t0
+    (got, end_k1, launches), (old, end_old, old_launches), (mod, end_mod, mod_launches) = (
+        runs[p] for p in TRAJ_PATHS)
+    pairs = {"K1 vs K1 with the yardstick backward": trajectory_compare(got, end_k1, old, end_old, start),
+             "K1 vs the module MLP": trajectory_compare(got, end_k1, mod, end_mod, start),
+             "K1 with the yardstick backward vs the module MLP (both from before the kernels)":
+                 trajectory_compare(old, end_old, mod, end_mod, start)}
+    for label, c in pairs.items():
+        log(f"K1 trajectory, shipped mode at the flagship width, {steps} steps of {TRAIN_RAYS} rays (perturbation "
+            f"and sigma noise off, {SIGMA_OFFSET} on the sigma biases), {label}, from the same weights and "
+            f"batches: the loss terms' worst relative difference at the first step {c['first']:.3g} (tol "
+            f"{TRAJ_TOL_FIRST}), steps 2-{TRAJ_BAND_STEPS + 1} {c['band']:.3g} (tol {TRAJ_TOL_STEP}); every step "
+            f"{c['later']:.3g} (band {TRAJ_TOL_STEP}, left at step {c['first_over_tol_step']}; by term "
+            f"{json.dumps(c['later_by_term'])}), the parameters' distance over the second run's move "
+            f"{c['params']:.3g} (band {TRAJ_TOL_PARAMS})")
+    log(f"K1 trajectory: launches through K1 {launches}, with the yardstick backward {old_launches}, the module "
+        f"run {mod_launches}; {seconds:.1f} s")
+    if not (all(c["first"] <= TRAJ_TOL_FIRST and c["band"] <= TRAJ_TOL_STEP for c in pairs.values())
+            and launches == {"fused_mlp_bf16_f32h": 2 * steps, **dict.fromkeys(BWD, 2 * steps)}
+            and old_launches == {"fused_mlp_bf16_f32h": 2 * steps, **dict.fromkeys(BWD, 0)}
+            and not any(mod_launches.values()) and np.isfinite(got).all()):
+        raise AssertionError("K1's training trajectory leaves its bands")
+    vs_old, vs_mod, old_vs_mod = pairs.values()
+    return {"vs_yardstick_backward": vs_old, "vs_module_mlp": vs_mod,
+            "yardstick_backward_vs_module_mlp": old_vs_mod, "launches": launches, "seconds": seconds}
+
+
 def phase_grad_check(k1, rig):
     """One gathered batch, one generator state: the parameters' gradients of
     a training render through K1 against the same render through the module
@@ -906,7 +1439,27 @@ def phase_step_profile(rig, configs, warm_ms):
     attributed = sum(t for rows in split.values() for _, t in rows.values())
     log(f"training step profile: device {device_ms:.2f} ms ({attributed:.2f} ms attributed to the "
         f"three phases); busy share {device_ms / warm_ms:.3f} of the median warm step ({warm_ms:.2f} ms)")
-    return {phase: sum(t for _, t in rows.values()) for phase, rows in split.items()}
+    out = {phase: sum(t for _, t in rows.values()) for phase, rows in split.items()}
+    if configs["model"]["bf16_matmuls"] and configs["model"]["f32_heads"]:
+        # the shipped mode's backward: K1's two backward kernels, and no f32
+        # matrix product (every GEMM left is the bf16 trunk's)
+        backward = split["backward"]
+        kernels = {k: sum(t for name, (_, t) in backward.items() if f"{k}_kernel" in name) for k in BWD}
+        counts = {k: sum(c for name, (c, _) in backward.items() if f"{k}_kernel" in name) for k in BWD}
+        # cuBLAS names its products *gemm* (sgemm, xmma_gemm_f32f32: f32;
+        # the dtype in the name otherwise) or nvjet_<a><b><c>_* (cuBLASLt on
+        # Hopper: s for f32 operands, t for bf16)
+        gemms = {name: t for name, (_, t) in backward.items()
+                 if "gemm" in name.lower() or name.startswith("nvjet_")}
+        f32_gemms = [name for name in gemms if name.startswith("nvjet_s")
+                     or ("gemm" in name.lower() and "bf16" not in name.lower())]
+        log(f"training step profile, backward: K1's backward kernels {kernels} ms ({counts} launches); "
+            f"matrix products {len(gemms)} kinds, {sum(gemms.values()):.2f} ms, none of them f32: {not f32_gemms}")
+        if not all(counts.values()) or f32_gemms:
+            raise AssertionError(f"the shipped step's backward ran {counts} of K1's backward kernels and f32 "
+                                 f"products {f32_gemms}")
+        out["k1_backward_ms"] = kernels
+    return out
 
 
 def phase_train(k1, dev, timings):
@@ -935,6 +1488,7 @@ def phase_train(k1, dev, timings):
             f"{rig.prep.cache['rays_o'].shape[0]} cached rays, "
             f"{len(rig.prep._indices_sd)} sparse-depth rays")
         grads = phase_grad_check(k1, rig)
+        trajectory = phase_trajectory(k1, rig)
         run = phase_training_run(k1, root, configs, gt, tiles)
 
         step = rig.step_fn(bf16=True, f32_heads=True)
@@ -974,7 +1528,7 @@ def phase_train(k1, dev, timings):
             modes[label] = {"ms": ms, "path": path, "launches": launches_m}
     return {"run": run, "step_ms": med_ms, "step_ms_all": [1e3 * s for s in seconds],
             "rays_per_s": TRAIN_RAYS / (med_ms / 1e3), "k1_ms": k1_ms, "peak_bytes": peak,
-            "profile_ms": profile, "modes": modes, "grad_check": grads}
+            "profile_ms": profile, "modes": modes, "grad_check": grads, "trajectory": trajectory}
 
 
 # --------------------------------------------------- batched multi-scene training
@@ -1521,9 +2075,11 @@ def phase_pipeline(k1):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launches_train = dict(k1.fused_mlp_raw.launches_by_instance)
-        if launches_train != launch_counts(k1, fused_mlp_bf16_f32h=2 * PIPE_STEPS):
-            raise AssertionError(f"the app's {PIPE_STEPS} steps launched K1 {launches_train}, expected 2 per step "
-                                 "of fused_mlp_bf16_f32h")
+        backward_train = dict(k1.heads_backward.launches_by_kernel)
+        if launches_train != launch_counts(k1, fused_mlp_bf16_f32h=2 * PIPE_STEPS) \
+                or backward_train != dict.fromkeys(BWD, 2 * PIPE_STEPS if torch.cuda.is_available() else 0):
+            raise AssertionError(f"the app's {PIPE_STEPS} steps launched K1 {launches_train} and its backward "
+                                 f"{backward_train}, expected 2 per step of fused_mlp_bf16_f32h and of each")
         scene_train = root / "runs/training/train0011/synth01"
         losses = [v for _, v in sorted(read_scalars(scene_train / "logs/scalars.jsonl")["train/TotalLoss"].items())]
         if len(losses) != PIPE_STEPS or not np.isfinite(losses).all() \
@@ -1590,7 +2146,7 @@ def phase_pipeline(k1):
             "steps_per_s": PIPE_STEPS / train_s, "test_s_per_frame": test_s / len(test_frames),
             "qa_s_per_frame": qa_s[0], "qa_breakdown_s": qa_parts,
             "video_s_per_frame": {k: v / 2 for k, v in video_s.items()},
-            "qa_scores": scores, "k1_launches": launches}
+            "qa_scores": scores, "k1_launches": launches, "k1_backward_launches": backward_train}
 
 
 # ------------------------------------------------- database and migration
@@ -1973,6 +2529,7 @@ def phase_protocol(k1, dev):
         finally:
             dtu.app.start_training = start_training
         shipped_launches = dict(k1.fused_mlp_raw.launches_by_instance)
+        shipped_backward = dict(k1.heads_backward.launches_by_kernel)
         directions = summary["prior_s_per_direction"]
         pairs = [(a, b) for i, a in enumerate(driver.TRAIN_FRAMES) for b in driver.TRAIN_FRAMES[i + 1:]]
         if len(directions) != 2 * len(pairs) or summary["prior_devices"] != [str(dev)]:
@@ -2001,7 +2558,9 @@ def phase_protocol(k1, dev):
         first, last = float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
         if len(losses) != PROTO_STEPS or not np.isfinite(losses).all() or not last < first:
             raise AssertionError(f"the shipped-mode leg logged {len(losses)} losses, first {first}, last {last}")
+        # the backward's kernels launch on the card only (a CPU rehearsal runs their plain version)
         if shipped_training["fused_mlp_bf16_f32h"] != 2 * PROTO_STEPS \
+                or shipped_backward != dict.fromkeys(BWD, 2 * PROTO_STEPS if dev.type == "cuda" else 0) \
                 or shipped_launches != launch_counts(k1, fused_mlp_bf16_f32h=shipped_launches["fused_mlp_bf16_f32h"]):
             raise AssertionError(f"the shipped mode (f32 heads) launched K1 {shipped_launches}, "
                                  f"{shipped_training} in start_training; expected bf16_f32h only, 2 per step")
@@ -2018,7 +2577,7 @@ def phase_protocol(k1, dev):
         parts["database_prior_and_leg_s"] = leg_s
         log(f"protocol: the shipped-mode leg, {PROTO_STEPS} steps (K1 fused_mlp_bf16_f32h: "
             f"{shipped_training['fused_mlp_bf16_f32h']} launches in start_training, {shipped_launches} over the "
-            f"leg with its test and videos): TotalLoss "
+            f"leg with its test and videos; its backward kernels {shipped_backward}): TotalLoss "
             f"mean of the first {window} {first:.5f}, of the last {window} {last:.5f}; median chunk "
             f"{summary['ms_per_step_median']} ms per step; masked QA of test frames {test_frames} against "
             f"ObjectMasks: {json.dumps(scores)}; train/MSE01 beside the JAX run's (information, not a gate): "
@@ -2147,7 +2706,8 @@ def phase_protocol(k1, dev):
                 "worst_of_tolerance": worst, "adam_count": count, "k1_launches_training": seam_launches["training"],
                 "k1_launches_per_step": (seam_launches["training"] - val_launches) / seam_steps},
             "k1_dtu": k1_dtu, "k1_launches": seam_total["fused_mlp_bf16"],
-            "k1_launches_shipped": shipped_launches["fused_mlp_bf16_f32h"]}
+            "k1_launches_shipped": shipped_launches["fused_mlp_bf16_f32h"],
+            "k1_backward_launches_shipped": shipped_backward}
 
 
 
@@ -2548,6 +3108,7 @@ def main() -> int:
 
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
     worst, timings = phase_k1(k1, mlp, dev)
+    backward = phase_heads_backward(k1, dev)
     # the FFMA yardstick's count runs on through the main path's phases (no
     # phase resets it): what it gains there, less check_against_ffma's
     # comparisons, are launches on a path
@@ -2593,6 +3154,24 @@ def main() -> int:
                      "fused_mlp_bf16_f32h": pipeline["k1_launches"]["fused_mlp_bf16_f32h"]
                      + protocol["k1_launches_shipped"]
                      + modes["bf16, f32 heads (default)"]["launches"]["fused_mlp_bf16_f32h"]}
+    # K1's backward kernels run in every shipped-mode training step: the
+    # app's run of demo1a's configs, the protocol's shipped leg and the
+    # trajectory through K1
+    for name in BWD:
+        path_launches[name] = (pipeline["k1_backward_launches"][name]
+                               + protocol["k1_backward_launches_shipped"][name]
+                               + train["trajectory"]["launches"][name])
+
+    def bwd_entry(name):
+        fine = backward["timings"][(1, "fine")][name]
+        return {"name": name, "route": "cuda", "source": "vipnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
+                "replaces": "experiments/fused_mlp.py:261", "launches": path_launches[name],
+                "max_abs_err": backward["worst"][name], "ms": fine["ms"], "plain_ms": fine["plain_ms"],
+                "bound_ms": fine["bound_ms"], "bound_by": "bytes" if fine["bound_by"] == "bytes" else "operations",
+                "bound_parts_ms": fine["bound_parts_ms"], "library_ms": None,
+                "yardstick_ms": backward["timings"][(1, "fine")]["yardstick_ms"],
+                "shape": {"points": TRAIN_N["fine"], "n_sec": TRAIN_SEC}}
+
     def kernel_entry(name, launches):
         main_shape = timings[(name, 0, MAIN_N)]
         return {
@@ -2617,7 +3196,15 @@ def main() -> int:
         raise AssertionError(f"the FFMA yardstick was launched {ffma_path} times on a path")
     # the FFMA heads are on no path: they are listed apart, as the
     # tensor-core heads' yardstick, timed in the same call
-    log(json.dumps({"kernels": [kernel_entry(name, path_launches[name]) for name in K1_MODES],
+    for name in BWD:
+        if not path_launches[name]:
+            raise AssertionError(f"{name} was not launched on its path")
+    log(json.dumps({"k1_backward": {
+        "timings": {f"S={s} {level}": t for (s, level), t in backward["timings"].items()},
+        "worst_max_abs_err": backward["worst"], "step_profile_ms": train["profile_ms"].get("k1_backward_ms"),
+        "trajectory": {k: v for k, v in train["trajectory"].items() if k != "launches"}, "card": card}}))
+    log(json.dumps({"kernels": [kernel_entry(name, path_launches[name]) for name in K1_MODES]
+                    + [bwd_entry(name) for name in BWD],
                     "yardsticks": [dict(kernel_entry(FFMA, ffma_path), yardstick_of="fused_mlp_bf16_f32h")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

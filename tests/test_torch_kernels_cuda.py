@@ -17,8 +17,20 @@ f32-accurate, so only summation differs: the tensor cores round each k16
 step's sum toward zero). The scene-batched launch is held
 against the plain version looped over the scenes with the same tolerances,
 and against each scene's single-scene launch bit for bit. K1's backward on
-the card is held against autograd through its recompute there; one training
-step on the card against the same step on the CPU (tolerances at each test).
+the card is held against autograd through its recompute there, bit for
+bit (in the shipped mode, where the heads' gradient and d h are the two
+kernels of csrc/fused_mlp_bwd.cu: the heads' gradients and d PE(dir)
+within chip_smoke's `TOL_BWD_YARD_*`, and xe's and the trunk's gradients
+bit for bit those of autograd through the trunk's recompute from the
+kernels' d h); one training step on the card against the same step on
+the CPU (tolerances at each test). The heads backward's kernels against
+their plain versions in f64 and the yardstick at ragged sizes, n_sec 0-3,
+S = 1, 2 (chip_smoke's `check_heads_backward` and its `TOL_BWD_*`), and
+bit for bit on chip_smoke's exact-sum cases; K1 through 100 training steps
+at the flagship width, K1 with the yardstick backward and the module MLP,
+each pair compared (chip_smoke's `phase_trajectory` and `TRAJ_TOL_*`, the
+bands of the port-vs-JAX trajectory in tests/test_torch_protocol.py, held
+over its first `TRAJ_BAND_STEPS` steps).
 nvJPEG's decode of the committed 4:2:0 fixture against the JAX package's
 (libjpeg's) decode of it: at least chip_smoke.py's `JPEG_MIN_PSNR` dB, since
 the two differ in the IDCT and the chroma upsampling. chip_smoke's
@@ -37,6 +49,7 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke as cs  # noqa: E402
 from chip_smoke import JPEG_MIN_PSNR, TOL_HEADS_MAX, TOL_HEADS_RMS, TOL_REL_MAX, TOL_REL_RMS  # noqa: E402
 from vipnerf_tpu_torch.kernels import fused_mlp as k1  # noqa: E402
 from vipnerf_tpu_torch.models.mlp import NeRFMLP
@@ -91,7 +104,9 @@ def test_fused_mlp_matches_plain(device, dtype, n_sec, n):
 def test_fused_raw_backward_matches_the_recompute(device, dtype, n):
     """K1's autograd.Function on the card: one launch forward, and the
     gradients of autograd through `raw_recompute` on the card, for every
-    parameter and for xe/ve/ve2 (the same function, so equal exactly)."""
+    parameter and for xe/ve/ve2 (the same function, so equal exactly; in
+    the shipped mode the heads' part within `TOL_BWD_YARD_*`, the trunk's
+    exactly that of the kernels' d h)."""
     f32_heads = dtype == "bf16_f32h"
     dtype = torch.bfloat16 if f32_heads else dtype
     mlp = NeRFMLP(CFG, torch.Generator().manual_seed(1)).to(device)
@@ -104,15 +119,38 @@ def test_fused_raw_backward_matches_the_recompute(device, dtype, n):
     inputs = [t.clone().requires_grad_() for t in (xe, ve, ve2)]
     params = k1.module_params(mlp)
     upstream = torch.randn((n, k1.NOUT), generator=g, device=device).to(ve.dtype)
-    before = k1.fused_mlp_raw.launches
-    out = k1.FusedRaw.apply(k1.prepare_weights(mlp, dtype, f32_heads), ns, *inputs, *params)
-    assert k1.fused_mlp_raw.launches == before + 1
+    if f32_heads:  # no ReLU of the heads within rounding of 0 (its side would decide a whole entry)
+        with torch.no_grad():
+            h = k1.trunk_recompute([p.detach() for p in params[:16]], xe).reshape(n, -1)
+        upstream = cs.untie_relu(k1, [p.detach() for p in params[16:]], h, ve, ve2, upstream, ns)
+    k1.reset_launch_counts()
+    weights = k1.prepare_weights(mlp, dtype, f32_heads)
+    out = k1.FusedRaw.apply(weights, ns, *inputs, *params)
+    assert k1.fused_mlp_raw.launches == 1
     got = torch.autograd.grad(out, inputs + params, upstream)
     ref_in = [t.clone().requires_grad_() for t in (xe, ve, ve2)]
     want = torch.autograd.grad(k1.raw_recompute(params, *ref_in, ns), ref_in + params, upstream)
-    assert k1.fused_mlp_raw.launches == before + 1  # the backward launches nothing
-    for a, b in zip(got, want):
-        assert torch.isfinite(a).all()
+    assert k1.fused_mlp_raw.launches == 1  # the backward launches no forward
+    assert k1.heads_backward.launches_by_kernel == dict.fromkeys(k1.BWD_KERNELS, int(f32_heads))
+    if not f32_heads:
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        return
+    trunk = 3 + 2 * k1.FEATURE  # xe, ve, ve2, then the trunk's parameters
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all() and a.dtype == b.dtype and a.shape == b.shape, i
+        if 0 < i < 3 or i >= trunk:  # d PE(dir) and the heads' gradients
+            a, b = a.double(), b.double()
+            assert (a - b).abs().max() <= cs.TOL_BWD_YARD_MAX * b.abs().max(), i
+            assert (a - b).norm() <= cs.TOL_BWD_YARD_RMS * b.norm(), i
+    # xe and the trunk: the kernels' d h through autograd of the trunk's
+    # recompute, exactly
+    trunk_in = [t.detach().requires_grad_() for t in [xe] + params[:trunk - 3]]
+    h = k1.trunk_recompute(trunk_in[1:], trunk_in[0])
+    d_h = k1.heads_backward(weights, [p.detach() for p in params[trunk - 3:]], h.detach().reshape(n, -1).contiguous(),
+                            ve, ve2, upstream.float(), ns)[0]
+    for a, b in zip([got[0], *got[3:trunk]], torch.autograd.grad(h, trunk_in, d_h.reshape(h.shape))):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
@@ -439,3 +477,52 @@ def test_two_ranks_on_one_card_need_gloo(device, backend):
         assert results == {0: ok, 1: ok}
     else:
         assert all(results.get(r) != ok for r in (0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes", [1, 2])
+@pytest.mark.parametrize("n_sec", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 2048 + 37, 132 * 128 * 3 + 37])
+def test_heads_backward_kernels_match_their_plain_versions(device, scenes, n_sec, n):
+    """The shipped mode's heads backward, each kernel against its plain
+    version in f64 on the same inputs and both end to end against the
+    whole plain version in f64 and the yardstick (chip_smoke's
+    `check_heads_backward`: `TOL_BWD_*`), one launch of each kernel."""
+    mlp = cs.stacked_mlp(device, scenes)
+    weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+    g = torch.Generator(device=device).manual_seed(11 + n_sec)
+    inputs = cs.heads_inputs(k1, mlp, scenes * n, n_sec, g, device)
+    k1.reset_launch_counts()
+    cs.check_heads_backward(k1, weights, *inputs, f"S = {scenes} x {n} points, n_sec {n_sec}")
+    assert k1.heads_backward.launches_by_kernel == dict.fromkeys(k1.BWD_KERNELS, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense", "witness"])
+@pytest.mark.parametrize("scenes", [1, 2])
+def test_heads_backward_is_exact_on_the_exact_sum_cases(device, case, scenes):
+    """chip_smoke's exact-sum inputs: the kernels equal the plain version in
+    f32 bit for bit (and the forward heads on the witness case)."""
+    cs.exact_case_on_card(k1, case, scenes, device)
+    cs.exact_forward_on_card(k1, device)
+
+
+@pytest.mark.cuda
+def test_flagship_trajectory_through_k1_matches_the_module_mlp(device, tmp_path):
+    """K1 in the shipped mode (its forward instance and its backward
+    kernels) through 100 training steps at the flagship width, 2048 + 2048
+    rays, perturbation and sigma noise off, against K1 with the yardstick
+    backward and against the module MLP from the same weights on the same
+    batches, and those two against each other (chip_smoke's
+    `phase_trajectory`): the first step's loss terms within
+    `TRAJ_TOL_FIRST`, the next `TRAJ_BAND_STEPS` within `TRAJ_TOL_STEP`
+    (the bands of the port-vs-JAX trajectory); the rest printed against the
+    bands (`-s`)."""
+    from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
+    from vipnerf_tpu_torch.data.synthetic_rig import flagship_training_configs
+
+    write_synthetic_database(tmp_path / "data/databases", scene_name="synth01", num_frames=5,
+                             train_frames=(0, 2, 4), val_frames=(1,), height=189, width=252)
+    rig = cs.TrainRig(tmp_path, flagship_training_configs(tmp_path, cs.TRAJ_STEPS), device)
+    out = cs.phase_trajectory(k1, rig)
+    assert out["launches"] == {"fused_mlp_bf16_f32h": 200, "heads_bwd_points": 200, "heads_bwd_weights": 200}

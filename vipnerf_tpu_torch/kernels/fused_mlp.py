@@ -44,8 +44,14 @@ Gradients: `FusedRaw` is the `torch.autograd.Function` around the wrapper
 (the counterpart of `_make_fused_raw`, a `jax.custom_vjp`). It takes the
 module's own parameters as inputs; its backward recomputes the raw output
 with `raw_recompute`, a differentiable torch function with K1's numerics
-(as `_raw_xla` is in JAX), and returns autograd's gradients of it. The
-backward is matrix products outside any kernel, as in the JAX package.
+(as `_raw_xla` is in JAX), and returns autograd's gradients of it: matrix
+products outside any kernel, as in the JAX package. In the shipped mode
+(bf16_f32h) only the bf16 trunk goes that way: the f32 heads' gradient
+(layers 8-11, d h, d PE(dir)) is `heads_backward`, two hand-written kernels
+in `csrc/fused_mlp_bwd.cu` on the bf16 tensor cores from the same split
+products as the forward's heads (`heads_backward_reference` on CPU tensors;
+`heads_backward_recompute`, autograd through the f32 heads of
+`raw_recompute` on cuBLAS, is their yardstick and on no path).
 
 Scene axis (batched multi-scene training, the counterpart of vmap over K1):
 a stacked MLP (`models.mlp.NeRFMLP(..., scenes=S)`) packs S scenes' weights
@@ -122,6 +128,7 @@ class FusedWeights(NamedTuple):
     dtype: torch.dtype  # the trunk's
     scenes: int = 1
     head_dtype: Optional[torch.dtype] = None  # the heads', when it is not the trunk's
+    heads_bwd: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # bf16_f32h: `heads_bwd_pack` of the layers
 
     @property
     def mode(self) -> Tuple[torch.dtype, torch.dtype]:
@@ -358,6 +365,36 @@ def kernel_buffers(layers, dtype: torch.dtype, head_dtype: Optional[torch.dtype]
     return w_flat.reshape(-1), torch.cat([b for _, b in layers], dim=-1).reshape(-1)
 
 
+# The shipped mode's heads backward (`heads_backward`) reads each f32 head
+# weight as three bf16 parts (`split_bf16`), every matrix in the orientation
+# its product contracts: rows n, K contiguous, as mma.sync's B fragments take
+# them. Per scene, in this order, each matrix's three parts one after the
+# other: W8 (feature = h W8^T), W10's feature columns and its PE(dir) columns
+# (the view layer's forward), their transposes and W8's (d feature = D W10f,
+# d h = d feature W8, d PE(dir) = d hv W10p).
+BWD_MATS = (("w8", WIDTH, WIDTH), ("w10f", 128, WIDTH), ("w10p", 128, VIEW_IN),
+            ("w10ft", WIDTH, 128), ("w8t", WIDTH, WIDTH), ("w10pt", VIEW_IN, 128))
+BWD_IMG_NUMEL = SPLIT_PARTS * sum(r * c for _, r, c in BWD_MATS)
+BWD_SMALL_NUMEL = WIDTH + 128 + WIDTH + 4 * 128  # f32 b8, b10, W9, W11 (4 real rows)
+
+
+def heads_bwd_pack(layers) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The heads backward's weights from packed bf16_f32h layers (with their
+    scene axis, if any): the bf16 image of `BWD_MATS`' split parts, and the
+    f32 biases and small layers its CUDA-core products read, each scene's in
+    turn."""
+    with torch.no_grad():
+        lead = layers[0][0].shape[:-2]
+        w8, w10 = layers[FEATURE][0], layers[VIEW][0]
+        w10f, w10p = w10[..., :WIDTH], w10[..., WIDTH:]
+        mats = (w8, w10f, w10p, w10f.transpose(-1, -2), w8.transpose(-1, -2), w10p.transpose(-1, -2))
+        image = torch.cat([torch.stack(split_bf16(m.reshape(*lead, -1)), dim=-2).reshape(*lead, -1) for m in mats],
+                          dim=-1)
+        small = torch.cat([layers[FEATURE][1], layers[VIEW][1], layers[SIGMA][0][..., 0, :],
+                           layers[VIEW_OUT][0][..., :4, :].reshape(*lead, -1)], dim=-1)
+    return image.reshape(-1).contiguous(), small.reshape(-1).contiguous()
+
+
 def ffma_heads(weights: "FusedWeights") -> torch.Tensor:
     """The FFMA heads' weights for `fused_mlp_raw_ffma`: layers 8-11 of a
     bf16_f32h pack's f32 layers as W^T, each scene's in turn."""
@@ -378,8 +415,9 @@ def prepare_weights(mlp, dtype: torch.dtype, f32_heads: bool = False) -> FusedWe
     if mode not in cache[1]:
         layers = pack_layers(mlp, dtype, head_dtype)
         w_flat, b_flat = kernel_buffers(layers, dtype, head_dtype)
+        mixed = head_dtype != dtype
         cache[1][mode] = FusedWeights(layers, w_flat, b_flat, dtype, mlp.scenes or 1,
-                                      head_dtype if head_dtype != dtype else None)
+                                      head_dtype if mixed else None, heads_bwd_pack(layers) if mixed else None)
     return cache[1][mode]
 
 
@@ -574,17 +612,6 @@ def fused_mlp_raw_ffma(
     return out
 
 
-def reset_launch_counts():
-    """Zeroes `fused_mlp_raw`'s counts. `fused_mlp_raw_ffma.launches`, a
-    yardstick's on no path, runs on from 0 at import."""
-    fused_mlp_raw.launches = 0
-    fused_mlp_raw.launches_by_instance = dict.fromkeys(INSTANCE.values(), 0)
-
-
-reset_launch_counts()
-fused_mlp_raw_ffma.launches = 0
-
-
 def module_params(mlp) -> List[torch.Tensor]:
     """The flagship MLP's parameters in `raw_recompute`'s order: trunk 0..7
     (weight, bias each), feature, sigma head, view hidden, view output."""
@@ -593,6 +620,64 @@ def module_params(mlp) -> List[torch.Tensor]:
         mlp.views_output_linear,
     ]
     return [p for lin in linears for p in (lin.weight, lin.bias)]
+
+
+def _recompute_layers(params, dtype: torch.dtype, first: int = 0):
+    """Layers first, first + 1, ... of the module's parameters
+    (`module_params` order, from that layer on) in `dtype`, the zero padding
+    built in from the real weights (so it takes no gradient)."""
+    w = {first + i: p.to(dtype) for i, p in enumerate(params[0::2])}
+    b = {first + i: p.to(dtype) for i, p in enumerate(params[1::2])}
+    if 0 in w:
+        w[0] = F.pad(w[0], (0, 1))
+        w[5] = torch.cat([w[5][..., :63], w[5].new_zeros(*w[5].shape[:-1], 1), w[5][..., 63:]], dim=-1)
+    if VIEW in w:
+        w[VIEW] = F.pad(w[VIEW], (0, VIEW_IN - 27))
+    return w, b
+
+
+def _dense(x, w, b, relu):
+    y = scene_matmul(x, w) + b[:, None] if x.dim() == 3 else F.linear(x, w) + b
+    return torch.relu(y) if relu else y
+
+
+def trunk_recompute(params, xe: torch.Tensor) -> torch.Tensor:
+    """Layers 0-7 of `raw_recompute` on the trunk's parameters (the first 16
+    of `module_params`): h after the last ReLU, in xe's dtype; (S, N/S, 256)
+    for stacked parameters."""
+    w, b = _recompute_layers(params, xe.dtype)
+    if w[0].dim() == 3:  # (S, N/S, cols): a product per scene
+        xe = xe.reshape(w[0].shape[0], -1, xe.shape[-1])
+    h = _dense(xe, w[0], b[0], True)
+    for i in range(1, 5):
+        h = _dense(h, w[i], b[i], True)
+    h = _dense(torch.cat([xe, h], dim=-1), w[5], b[5], True)
+    for i in (6, 7):
+        h = _dense(h, w[i], b[i], True)
+    return h
+
+
+def _heads_recompute(params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor, n_sec: int) -> torch.Tensor:
+    """Layers 8-11 of `raw_recompute` on h (the trunk's output, cast here to
+    ve's dtype) and the heads' parameters (the last 8 of `module_params`):
+    raw (N, 8)."""
+    n = ve.shape[0]
+    w, b = _recompute_layers(params, ve.dtype, FEATURE)
+    if w[FEATURE].dim() == 3:
+        h, ve, ve2 = (t.reshape(w[FEATURE].shape[0], -1, t.shape[-1]) for t in (h, ve, ve2))
+    h = h.to(ve.dtype)
+    feature = _dense(h, w[FEATURE], b[FEATURE], False)
+    sigma = _dense(h, w[SIGMA], b[SIGMA], False)
+
+    def view_branch(enc_v):
+        hv = _dense(torch.cat([feature, enc_v], dim=-1), w[VIEW], b[VIEW], True)
+        return _dense(hv, w[VIEW_OUT], b[VIEW_OUT], False)
+
+    cols = [sigma, view_branch(ve)]
+    for j in range(n_sec):
+        cols.append(view_branch(ve2[..., j * VIEW_IN:(j + 1) * VIEW_IN])[..., 3:4])
+    out = torch.cat(cols, dim=-1)
+    return F.pad(out, (0, NOUT - out.shape[-1])).reshape(n, NOUT)
 
 
 def raw_recompute(
@@ -608,54 +693,301 @@ def raw_recompute(
     `fused_mlp_reference`, the products run in the working dtype (cuBLAS on
     the card), as XLA's do. Stacked parameters (S scenes) take S blocks of
     N/S rows and run each layer as one batched product over the scenes."""
-    dts = [xe.dtype] * FEATURE + [ve.dtype] * (len(LAYER_SHAPES) - FEATURE)
-    w = [p.to(dt) for p, dt in zip(params[0::2], dts)]
-    b = [p.to(dt) for p, dt in zip(params[1::2], dts)]
-    n = xe.shape[0]
-    if w[0].dim() == 3:  # (S, N/S, cols): a product per scene
-        xe, ve, ve2 = (t.reshape(w[0].shape[0], -1, t.shape[-1]) for t in (xe, ve, ve2))
+    return _heads_recompute(params[2 * FEATURE:], trunk_recompute(params[:2 * FEATURE], xe), ve, ve2, n_sec)
 
-    def dense(x, i, relu):
-        if x.dim() == 3:
-            y = scene_matmul(x, w[i]) + b[i][:, None]
-        else:
-            y = F.linear(x, w[i]) + b[i]
-        return torch.relu(y) if relu else y
 
-    def pad_cols(wi, at, n):
-        return torch.cat([wi[..., :at], wi.new_zeros(*wi.shape[:-1], n), wi[..., at:]], dim=-1)
+def _secondary_grad_out(g: torch.Tensor, v: int) -> torch.Tensor:
+    """d o_v, the upstream gradient of view v's output layer: g[:, 1:5] for
+    the primary view, [0, 0, 0, g[:, 4 + v]] for secondary view v (only its
+    visibility is an output)."""
+    return g[:, 1:5] if v == 0 else F.pad(g[:, 4 + v:5 + v], (3, 0))
 
-    w[0] = F.pad(w[0], (0, 1))
-    w[5] = pad_cols(w[5], 63, 1)
-    w[10] = F.pad(w[10], (0, VIEW_IN - 27))
-    h = dense(xe, 0, True)
-    for i in range(1, 5):
-        h = dense(h, i, True)
-    h = dense(torch.cat([xe, h], dim=-1), 5, True)
-    for i in (6, 7):
-        h = dense(h, i, True)
-    h = h.to(ve.dtype)
-    feature = dense(h, 8, False)
-    sigma = dense(h, 9, False)
 
-    def view_branch(enc_v):
-        return dense(dense(torch.cat([feature, enc_v], dim=-1), 10, True), 11, False)
+class HeadsIntermediates(NamedTuple):
+    """The shipped mode's heads backward between its two kernels, per point
+    (the rows of every scene in turn), with V = 1 + n_sec views: d h (N,
+    256) bf16; f32 feature and d feature (N, 256), D = sum_v d hv_v (N,
+    128), hv_v and d hv_v (N, V, 128); d ve (N, 32) and d ve2 (N, 32 n_sec),
+    or None."""
 
-    cols = [sigma, view_branch(ve)]
-    for j in range(n_sec):
-        cols.append(view_branch(ve2[..., j * VIEW_IN:(j + 1) * VIEW_IN])[..., 3:4])
-    out = torch.cat(cols, dim=-1)
-    return F.pad(out, (0, NOUT - out.shape[-1])).reshape(n, NOUT)
+    d_h: torch.Tensor
+    feature: torch.Tensor
+    d_feature: torch.Tensor
+    D: torch.Tensor
+    hv: torch.Tensor
+    d_hv: torch.Tensor
+    d_ve: Optional[torch.Tensor]
+    d_ve2: Optional[torch.Tensor]
+
+
+def heads_points_reference(params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor, g: torch.Tensor,
+                           n_sec: int) -> HeadsIntermediates:
+    """The per-point kernel's function in plain torch, in the parameters'
+    dtype: on h (N, 256) bf16, the trunk's output, PE(dir) ve and ve2, the
+    upstream gradient g (N, 8) and the heads' parameters (the last 8 of
+    `module_params`: W8, b8, W9, b9, W10, b10, W11, b11, each with a leading
+    scene axis for S scenes of N/S rows), it recomputes feature = h W8^T +
+    b8 and each view's hv_v = relu([feature, pe_v] W10^T + b10), then d hv_v
+    = (d o_v W11) [hv_v > 0], D, d feature = D W10[:, :256] and d h = d
+    feature W8 + d sigma W9, rounded to bf16 where autograd's backward of
+    the cast to f32 rounds it, and d pe_v = d hv_v W10[:, 256:] (zero on the
+    padding columns)."""
+    if params[0].dim() == 3:
+        scenes = params[0].shape[0]
+        per = [heads_points_reference([p[s] for p in params], *block, n_sec)
+               for s, block in enumerate(zip(*(t.chunk(scenes) for t in (h, ve, ve2, g))))]
+        return HeadsIntermediates(*(None if per[0][i] is None else torch.cat([r[i] for r in per])
+                                    for i in range(len(per[0]))))
+    w8, b8, w9, _, w10, b10, w11, _ = params
+    feature = h.to(w8.dtype) @ w8.t() + b8
+    views = [ve] + [ve2[:, j * VIEW_IN:(j + 1) * VIEW_IN] for j in range(n_sec)]
+    hvs, d_hvs, d_pe = [], [], []
+    for v, pe in enumerate(views):
+        hv = torch.relu(torch.cat([feature, pe[:, :27]], dim=1) @ w10.t() + b10)
+        d_hvs.append((_secondary_grad_out(g, v) @ w11) * (hv > 0))
+        hvs.append(hv)
+        d_pe.append(F.pad(d_hvs[-1] @ w10[:, WIDTH:], (0, VIEW_IN - 27)))
+    D = sum(d_hvs)
+    d_feature = D @ w10[:, :WIDTH]
+    d_h = (d_feature @ w8 + g[:, :1] @ w9).to(torch.bfloat16)
+    return HeadsIntermediates(d_h, feature, d_feature, D, torch.stack(hvs, 1), torch.stack(d_hvs, 1), d_pe[0],
+                              torch.cat(d_pe[1:], dim=1) if n_sec else None)
+
+
+def _view_rows(ve: torch.Tensor, ve2: torch.Tensor, g: torch.Tensor, n_sec: int):
+    """PE(dir) (27 real columns) and d o of every (point, view) pair, in the
+    order of the per-point intermediates' rows (point after point, its
+    views in turn)."""
+    pe = torch.stack([ve[:, :27]] + [ve2[:, j * VIEW_IN:j * VIEW_IN + 27] for j in range(n_sec)], 1)
+    d_o = torch.stack([_secondary_grad_out(g, v) for v in range(1 + n_sec)], 1)
+    return pe.reshape(-1, 27), d_o.reshape(-1, 4)
+
+
+def heads_weights_reference(mid: HeadsIntermediates, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
+                            g: torch.Tensor, scenes: int = 1, stacked: bool = False):
+    """The weight-gradient kernel's function in plain torch, in the
+    intermediates' dtype: per scene, dW8 = d feature^T h, dW9 = d sigma^T
+    h, dW10 = [D^T feature, sum_v d hv_v^T pe_v], dW11 = sum_v d o_v^T
+    hv_v, and the biases' column sums, in the module's shapes (with a
+    leading scene axis if `stacked`). h, PE(dir) and g are the per-point
+    kernel's inputs."""
+    n_sec = mid.hv.shape[1] - 1
+    per = []
+    for s in range(scenes):
+        t = [x.chunk(scenes)[s] for x in (h, ve, ve2, g, mid.feature, mid.d_feature, mid.D, mid.hv, mid.d_hv)]
+        hs, ves, ve2s, gs, feature, d_feature, D, hv, d_hv = t
+        hs = hs.to(feature.dtype)
+        pe, d_o = _view_rows(ves.to(feature.dtype), ve2s.to(feature.dtype), gs.to(feature.dtype), n_sec)
+        flat = lambda x: x.reshape(-1, x.shape[-1])  # noqa: E731  the (point, view) rows
+        d_sigma = gs[:, :1].to(feature.dtype)
+        per.append([d_feature.t() @ hs, d_feature.sum(0), d_sigma.t() @ hs, d_sigma.sum(0),
+                    torch.cat([D.t() @ feature, flat(d_hv).t() @ pe], dim=1), D.sum(0),
+                    d_o.t() @ flat(hv), d_o.sum(0)])
+    if stacked:
+        return [torch.stack([p[i] for p in per]) for i in range(8)]
+    return per[0]
+
+
+def heads_backward_reference(params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor, g: torch.Tensor,
+                             n_sec: int):
+    """The shipped mode's heads backward in plain torch, both kernels'
+    functions in turn (`heads_points_reference`, then
+    `heads_weights_reference`) in the parameters' dtype. Returns (d h, the 8
+    parameters' gradients in their shapes, d ve, d ve2 (None with no
+    secondary view))."""
+    stacked = params[0].dim() == 3
+    mid = heads_points_reference(params, h, ve, ve2, g.to(params[0].dtype), n_sec)
+    grads = heads_weights_reference(mid, h, ve, ve2, g, params[0].shape[0] if stacked else 1, stacked)
+    return mid.d_h, grads, mid.d_ve, mid.d_ve2
+
+
+def heads_backward_recompute(params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor, g: torch.Tensor,
+                             n_sec: int):
+    """The heads backward as the shipped mode computed it before it had
+    kernels: autograd through the f32 heads of `raw_recompute` (cuBLAS f32
+    products on the card), the same returns as `heads_backward_reference`.
+    The kernels' yardstick; nothing on a path calls it."""
+    inputs = [t.detach().requires_grad_() for t in [h, ve, ve2] + list(params)]
+    with torch.enable_grad():
+        out = _heads_recompute(inputs[3:], inputs[0], inputs[1], inputs[2] if n_sec else inputs[1], n_sec)
+        grads = torch.autograd.grad(out, inputs if n_sec else inputs[:2] + inputs[3:], g.to(out.dtype))
+    if not n_sec:
+        grads = grads[:2] + (None,) + grads[2:]
+    return grads[0].reshape(h.shape), list(grads[3:]), grads[1], grads[2]
+
+
+# the heads backward's two kernels, in launch order (each wrapper has its name)
+BWD_KERNELS = ("heads_bwd_points", "heads_bwd_weights")
+# csrc/fused_mlp_bwd.cu's weight-gradient reduction: an accumulator runs
+# BWD_PROMOTE k16 steps before it joins its CTA's compensated total; a CTA
+# reduces BWD_KSPLIT points
+BWD_PROMOTE = 4
+BWD_KSPLIT = 8192
+# bf16 products per point of the two kernels (real widths, split products
+# counted as `F32H_SPLIT_MACS` counts them): the per-point kernel's feature
+# (h times W8's three parts), G = feature W10f^T, d feature and d h (six
+# each); per view PE(dir) W10p^T, and d hv W10p where d PE(dir) is asked for
+# (six each). The weight kernel's dW8 and dW9 (three), dW10's feature
+# columns (six); per view dW10's PE(dir) columns and dW11's live rows (six):
+# four for the primary view, one (column 3 of d o) for a secondary one.
+BWD_POINT_MACS = 3 * WIDTH * WIDTH + 6 * (128 * WIDTH + WIDTH * 128 + WIDTH * WIDTH)
+BWD_POINT_MACS_PER_VIEW = 6 * 27 * 128
+BWD_WEIGHT_MACS = 3 * (WIDTH * WIDTH + WIDTH) + 6 * (128 * WIDTH + 3 * 128)
+BWD_WEIGHT_MACS_PER_VIEW = 6 * (128 * 27 + 128)
+
+
+def bwd_bytes(n: int, n_sec: int, scenes: int = 1, need_ve: bool = False) -> Tuple[int, int]:
+    """Bytes each heads-backward kernel reads and writes once for n points:
+    the per-point kernel's h, PE(dir), g and weight image in, d h and the
+    intermediates of `HeadsIntermediates` (feature, d feature, D, hv_v, d
+    hv_v) out; the weight kernel's intermediates, h, PE(dir) and g in, the
+    gradients out."""
+    views = 1 + n_sec
+    inputs = n * (2 * WIDTH + 4 * VIEW_IN * views + 4 * NOUT)  # h, PE(dir), g
+    mid = n * (4 * (2 * WIDTH + 128) + views * 4 * 2 * 128)  # feature, d feature, D; per view hv, d hv
+    grads = scenes * 4 * (HEAD_NUMEL + WIDTH + 1 + 128 + 4)
+    points = inputs + scenes * (2 * BWD_IMG_NUMEL + 4 * BWD_SMALL_NUMEL) + n * 2 * WIDTH + mid \
+        + (n * 4 * VIEW_IN * views if need_ve else 0)
+    return points, inputs + mid + grads
+
+
+def _bwd_lib():
+    lib = build.load("fused_mlp_bwd")
+    if lib.vipnerf_heads_bwd_points.argtypes is None:
+        lib.vipnerf_heads_bwd_points.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.vipnerf_heads_bwd_points.restype = ctypes.c_int
+        lib.vipnerf_heads_bwd_weights.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.vipnerf_heads_bwd_weights.restype = ctypes.c_int
+        lib.vipnerf_heads_bwd_scratch.argtypes = [ctypes.c_int] * 4
+        lib.vipnerf_heads_bwd_scratch.restype = ctypes.c_longlong
+    return lib
+
+
+def _check_heads_inputs(weights: FusedWeights, h, ve, ve2, g, n_sec: int):
+    if weights.mode != (torch.bfloat16, torch.float32):
+        raise TypeError(f"the heads backward takes bf16_f32h weights, not {INSTANCE[weights.mode]}'s")
+    n = h.shape[0]
+    _check(weights, torch.empty((n, PTS_IN), dtype=torch.bfloat16, device=h.device), ve, ve2, n_sec)
+    if tuple(h.shape) != (n, WIDTH) or h.dtype != torch.bfloat16 or not h.is_contiguous():
+        raise ValueError(f"h must be a contiguous ({n}, {WIDTH}) bf16 tensor")
+    if tuple(g.shape) != (n, NOUT) or g.dtype != torch.float32 or g.device != h.device or not g.is_contiguous():
+        raise ValueError(f"g must be a contiguous ({n}, {NOUT}) f32 tensor on {h.device}")
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the heads backward runs on cuda or cpu tensors, not {h.device}")
+
+
+def heads_bwd_points(weights: FusedWeights, params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
+                     g: torch.Tensor, n_sec: int, need_ve: bool = True, need_ve2: bool = True
+                     ) -> HeadsIntermediates:
+    """The heads backward's per-point kernel (`heads_points_reference`'s
+    function) for bf16_f32h `weights` and the heads' parameters they were
+    packed from: CPU tensors take the plain version; CUDA tensors launch
+    the kernel on the current stream (or raise), d PE(dir) only where
+    `need_ve`/`need_ve2` ask. Counts its launches in
+    `heads_backward.launches_by_kernel["heads_bwd_points"]`."""
+    _check_heads_inputs(weights, h, ve, ve2, g, n_sec)
+    if h.device.type == "cpu":
+        return heads_points_reference(params, h, ve, ve2, g, n_sec)
+    n, views, dev = h.shape[0], 1 + n_sec, h.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    mid = HeadsIntermediates(
+        torch.empty((n, WIDTH), dtype=torch.bfloat16, device=dev), torch.empty((n, WIDTH), **f32),
+        torch.empty((n, WIDTH), **f32), torch.empty((n, 128), **f32), torch.empty((n, views, 128), **f32),
+        torch.empty((n, views, 128), **f32), torch.empty((n, VIEW_IN), **f32) if need_ve else None,
+        torch.empty((n, VIEW_IN * n_sec), **f32) if need_ve2 and n_sec else None)
+    if n:
+        image, small = weights.heads_bwd
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        with torch.cuda.device(dev):
+            rc = _bwd_lib().vipnerf_heads_bwd_points(
+                *map(ptr, (h, ve, ve2, g, image, small, *mid)), weights.scenes, n // weights.scenes, n_sec,
+                int(need_ve or need_ve2), torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"heads backward, per-point kernel: launch failed: cudaError {rc}")
+        heads_backward.launches_by_kernel["heads_bwd_points"] += 1
+    return mid
+
+
+def heads_bwd_weights(mid: HeadsIntermediates, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor, g: torch.Tensor,
+                      scenes: int = 1, stacked: bool = False):
+    """The heads backward's weight-gradient kernel (`heads_weights_reference`'s
+    function) on the per-point kernel's inputs (h, PE(dir), g, as
+    `heads_bwd_points` took them) and outputs: CPU tensors take the plain
+    version; CUDA tensors launch the kernel on the current stream (or
+    raise): split-K products over the points, each CTA's share in f64, the
+    splits summed in a fixed order. Counts its launches in
+    `heads_backward.launches_by_kernel["heads_bwd_weights"]`."""
+    if h.device.type == "cpu":
+        return heads_weights_reference(mid, h, ve, ve2, g, scenes, stacked)
+    n, dev = h.shape[0], h.device
+    n_sec = mid.hv.shape[1] - 1
+    shapes = ((h, (n, WIDTH)), (ve, (n, VIEW_IN)), (ve2, (n, VIEW_IN * max(n_sec, 1))), (g, (n, NOUT)))
+    if n % scenes or mid.hv.shape[0] != n or mid.D.dtype != torch.float32 or h.dtype != torch.bfloat16 \
+            or any(tuple(t.shape) != shape or not t.is_contiguous() or (t is not h and t.dtype != torch.float32)
+                   for t, shape in shapes):
+        raise ValueError("the per-point intermediates, h, PE(dir) and g do not match")
+    lib = _bwd_lib()
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = [torch.empty((scenes, *shape), **f32) for shape in (
+        (WIDTH, WIDTH), (1, WIDTH), (128, WIDTH), (128, VIEW_IN), (4, 128), (WIDTH,), (1,), (128,), (4,))]
+    nps = n // scenes
+    partials = torch.empty(max(lib.vipnerf_heads_bwd_scratch(scenes, nps, n_sec, 1), 1), dtype=torch.float64,
+                           device=dev)
+    counters = torch.zeros(max(lib.vipnerf_heads_bwd_scratch(scenes, nps, n_sec, 0), 1), dtype=torch.int32,
+                           device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.vipnerf_heads_bwd_weights(
+            *(t.data_ptr() for t in (h, g, ve, ve2, mid.feature, mid.d_feature, mid.D, mid.hv, mid.d_hv,
+                                     *outs, partials, counters)),
+            scenes, nps, n_sec, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"heads backward, weight-gradient kernel: launch failed: cudaError {rc}")
+    heads_backward.launches_by_kernel["heads_bwd_weights"] += 1
+    w8, w9, w10f, w10p, w11, b8, b9, b10, b11 = outs
+    grads = [w8, b8, w9, b9, torch.cat([w10f, w10p[..., :27]], dim=-1), b10, w11, b11]
+    return grads if stacked else [t[0] for t in grads]
+
+
+def heads_backward(weights: FusedWeights, params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
+                   g: torch.Tensor, n_sec: int, need_ve: bool = True, need_ve2: bool = True):
+    """The shipped mode's heads backward (`heads_backward_reference`'s
+    function and returns) for bf16_f32h `weights` and the heads' parameters
+    they were packed from: on CUDA tensors `heads_bwd_points`, then
+    `heads_bwd_weights` (each launches its kernel); on CPU tensors
+    `heads_backward_reference`."""
+    if h.device.type == "cpu":
+        _check_heads_inputs(weights, h, ve, ve2, g, n_sec)
+        return heads_backward_reference(params, h, ve, ve2, g, n_sec)
+    mid = heads_bwd_points(weights, params, h, ve, ve2, g, n_sec, need_ve, need_ve2)
+    grads = heads_bwd_weights(mid, h, ve, ve2, g, weights.scenes, params[0].dim() == 3)
+    return mid.d_h, grads, mid.d_ve, mid.d_ve2
+
+
+def reset_launch_counts():
+    """Zeroes the counts of `fused_mlp_raw` and of `heads_backward`.
+    `fused_mlp_raw_ffma.launches`, a yardstick's on no path, runs on from 0
+    at import."""
+    fused_mlp_raw.launches = 0
+    fused_mlp_raw.launches_by_instance = dict.fromkeys(INSTANCE.values(), 0)
+    heads_backward.launches_by_kernel = dict.fromkeys(BWD_KERNELS, 0)
+
+
+reset_launch_counts()
+fused_mlp_raw_ffma.launches = 0
 
 
 class FusedRaw(torch.autograd.Function):
     """K1 with a gradient: forward launches the kernel (the plain version on
     the CPU); backward recomputes through `raw_recompute` and differentiates
-    that, for the parameters and for xe/ve/ve2 where they need it."""
+    that, for the parameters and for xe/ve/ve2 where they need it. In the
+    shipped mode (bf16_f32h) the recompute stops at the trunk's h: the heads'
+    gradients and d h come from `heads_backward`, and one autograd pass takes
+    d h back through the trunk."""
 
     @staticmethod
     def forward(ctx, weights: FusedWeights, n_sec: int, xe, ve, ve2, *params):
         ctx.n_sec = n_sec
+        ctx.weights = weights
         ctx.save_for_backward(xe, ve, ve2, *params)
         return fused_mlp_raw(weights, xe, ve, ve2, n_sec)
 
@@ -663,12 +995,35 @@ class FusedRaw(torch.autograd.Function):
     def backward(ctx, g):
         saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[2:]
+        if ctx.weights.mode == (torch.bfloat16, torch.float32):
+            return (None, None) + _f32h_backward(ctx.weights, ctx.n_sec, saved, needs, g)
         inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
         with torch.enable_grad():
             out = raw_recompute(inputs[3:], *inputs[:3], ctx.n_sec)
         wanted = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype), allow_unused=True))
         return (None, None) + tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def _f32h_backward(weights: FusedWeights, n_sec: int, saved, needs, g):
+    """FusedRaw's backward in the shipped mode: the trunk recomputed with
+    autograd up to h, the heads' gradients and d h from `heads_backward`,
+    then one `torch.autograd.grad` of h for the trunk's parameters and xe.
+    Returns the gradients of (xe, ve, ve2, *params)."""
+    xe, ve, ve2, *params = saved
+    head = 2 * FEATURE
+    trunk = [t.detach().requires_grad_(need) for t, need in zip([xe] + params[:head], (needs[0],) + needs[3:3 + head])]
+    with torch.enable_grad():
+        h = trunk_recompute(trunk[1:], trunk[0])
+    d_h, head_grads, d_ve, d_ve2 = heads_backward(weights, [p.detach() for p in params[head:]],
+                                                  h.detach().reshape(-1, WIDTH).contiguous(), ve, ve2,
+                                                  g.float(), n_sec, needs[1], needs[2] and n_sec > 0)
+    wanted = [t for t in trunk if t.requires_grad]
+    grads = iter(torch.autograd.grad(h, wanted, d_h.reshape(h.shape), allow_unused=True) if wanted else ())
+    trunk_grads = [next(grads) if t.requires_grad else None for t in trunk]
+    head_grads = [gr if need else None for gr, need in zip(head_grads, needs[3 + head:])]
+    return (trunk_grads[0], d_ve if needs[1] else None, d_ve2 if needs[2] else None,
+            *trunk_grads[1:], *head_grads)
 
 
 def apply_fused_mlp(

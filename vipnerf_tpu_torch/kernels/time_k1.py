@@ -12,8 +12,11 @@ yardstick), the CUDA-event time of one call (median of 5 rounds of 20;
 bf16_f32h's call is its two launches, also split per kernel by
 torch.profiler) at the serving
 tile shapes (8192 rays x 64 / x 192 points, n_sec 0) and the training
-step's (4096 x 64 / x 192, n_sec 2), with seed-0 flagship weights. Prints
-one JSON line per tree. Needs CUDA.
+step's (4096 x 64 / x 192, n_sec 2), with seed-0 flagship weights; and, at
+the training step's shapes, the shipped mode's backward: each of its two
+kernels (`heads_bwd_points`, `heads_bwd_weights`) and their yardstick
+(autograd through raw_recompute's f32 heads on cuBLAS). Prints one JSON
+line per tree. Needs CUDA.
 """
 
 import json
@@ -35,9 +38,9 @@ def time_tree(root: Path) -> dict:
     from vipnerf_tpu_torch.kernels import fused_mlp as k1
     from vipnerf_tpu_torch.models.mlp import NeRFMLP
 
-    build.build_all(["fused_mlp"])
-    ptxas = [line.strip() for line in build.ptxas_reports.get("fused_mlp", "").splitlines()
-             if "Used " in line or "spill" in line]
+    build.build_all(["fused_mlp", "fused_mlp_bwd"])
+    ptxas = [f"{lib}: {line.strip()}" for lib in ("fused_mlp", "fused_mlp_bwd")
+             for line in build.ptxas_reports.get(lib, "").splitlines() if "Used " in line or "spill" in line]
     dev = torch.device("cuda", 0)
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -71,6 +74,23 @@ def time_tree(root: Path) -> dict:
                     lambda: k1.fused_mlp_raw_ffma(weights, heads32, xe, ve, ve2, ns))
                 out[f"fused_mlp_bf16_f32h {label} per kernel"] = kernel_split_ms(
                     lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns))
+    weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+    params = [p.detach() for p in k1.module_params(mlp)]
+    for label, n, n_sec in SHAPES[2:]:
+        pts = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
+        vd = torch.nn.functional.normalize(torch.randn((n, 3), generator=g, device=dev), dim=-1)
+        vd2 = torch.nn.functional.normalize(torch.randn((n, n_sec, 3), generator=g, device=dev), dim=-1)
+        xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, torch.bfloat16, f32_heads=True)
+        with torch.no_grad():
+            h = k1.trunk_recompute(params[:16], xe).reshape(n, -1).contiguous()
+        up = torch.randn((n, k1.NOUT), generator=g, device=dev) * 1e-3
+        heads = params[16:]
+        mid = k1.heads_bwd_points(weights, heads, h, ve, ve2, up, ns, False, False)
+        out[f"heads_bwd_points {label}"] = median_ms(
+            lambda: k1.heads_bwd_points(weights, heads, h, ve, ve2, up, ns, False, False))
+        out[f"heads_bwd_weights {label}"] = median_ms(lambda: k1.heads_bwd_weights(mid, h, ve, ve2, up))
+        out[f"heads_backward_recompute {label}"] = median_ms(
+            lambda: k1.heads_backward_recompute(heads, h, ve, ve2, up, ns))
     return out
 
 
