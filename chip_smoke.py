@@ -22,13 +22,17 @@ Phases, each of which fails the run loudly:
    former heads on CUDA cores, on no path) at every one of those shapes,
    timed beside it; each instance's weight pack per training step; then
    K1's backward in the shipped mode (csrc/fused_mlp_bwd.cu, the f32
-   heads' gradient on the bf16 tensor cores): the two kernels bit for bit
-   the plain version on exact-sum inputs (and the forward heads on one),
-   each against its plain version in f64 and both end to end against f64
-   and the yardstick (autograd through raw_recompute's f32 heads) at the
-   training step's two launch shapes for n_sec 0..3, at S = 2 and at ragged
-   sizes, on inputs without ReLU ties, and timed at the training shapes at
-   S = 1, 2, 4 beside their plain versions and the yardstick;
+   heads' gradient on the bf16 tensor cores, wgmma fed by bulk copies):
+   the two kernels bit for bit the plain version on exact-sum inputs (and
+   the forward heads on one), each against its plain version in f64 and
+   both end to end against f64, the yardstick (autograd through
+   raw_recompute's f32 heads) and the first design's kernels
+   (csrc/fused_mlp_bwd_mma_sync.cu, on no path) at the training step's two
+   launch shapes for n_sec 0..3, at S = 2 and at ragged sizes, on inputs
+   without ReLU ties; two launches bit for bit the same; timed at the
+   training shapes at S = 1, 2, 4 in turns with the first design's kernels,
+   beside their plain versions, their library routes (f32 torch.matmul per
+   product) and the yardstick, with the L2 bytes each design moves;
 3. the serving path: a run tree at the flagship width (8x256 MLPs, 64+128
    samples, NDC, bf16 matmuls with bf16 heads) with seeded random weights,
    rendered by the port's `start_testing` at 1008x756 -- 3 train frames with
@@ -132,7 +136,8 @@ Phases, each of which fails the run loudly:
    scaling figure);
 10. a JSON line of each of phases 3-9, of K1's backward, and of the
    kernels (K1's instances and its two backward kernels; the FFMA yardstick
-   apart, under "yardsticks"), and the device line last.
+   and the backward's first design apart, under "yardsticks", each with
+   its launches on the main path: 0), and the device line last.
 
 It needs CUDA and the repository around it, and exits non-zero without a
 result otherwise. Nothing of JAX is imported.
@@ -649,9 +654,10 @@ def check_heads_backward(k1, weights, params, h, ve, ve2, up, ns, label):
     """The two kernels on one input: the per-point kernel against its plain
     version in f64 (`TOL_BWD_POINTS_*`), the weight kernel against its plain
     version in f64 on the per-point kernel's outputs (`TOL_BWD_WEIGHTS_*`),
-    both end to end against the whole plain version in f64 (`TOL_BWD_*`)
-    and against the yardstick (`TOL_BWD_YARD_*`). Returns each kernel's
-    max|err| against its plain version."""
+    both end to end against the whole plain version in f64 (`TOL_BWD_*`),
+    against the yardstick (`TOL_BWD_YARD_*`) and against the first design's
+    kernels (`heads_backward_mma_sync`, `TOL_BWD_YARD_*`). Returns each
+    kernel's max|err| against its plain version."""
     stacked = params[0].dim() == 3
     mid = k1.heads_bwd_points(weights, params, h, ve, ve2, up, ns)
     grads = k1.heads_bwd_weights(mid, h, ve, ve2, up, weights.scenes, stacked)
@@ -665,6 +671,8 @@ def check_heads_backward(k1, weights, params, h, ve, ve2, up, ns, label):
     full = k1.heads_weights_reference(want_mid, h, ve, ve2, up, weights.scenes, stacked)
     e2e = bwd_errors(got, (want_mid.d_h, full, want_mid.d_ve, want_mid.d_ve2))
     yard = bwd_errors(got, k1.heads_backward_recompute(params, h, ve, ve2, up, ns))
+    got_first = k1.heads_backward_mma_sync(weights, params, h, ve, ve2, up, ns)
+    first = bwd_errors(got, got_first)
     finite = all(bool(torch.isfinite(t).all()) for t in [mid.d_h.float(), *grads, mid.d_ve]
                  + ([mid.d_ve2] if ns else []))
     fmt = lambda d: ", ".join(f"{k} {v[0]:.3g}/{v[1]:.3g}" if isinstance(v, tuple) else f"{k} {v:.3g}"  # noqa: E731
@@ -673,15 +681,21 @@ def check_heads_backward(k1, weights, params, h, ve, ve2, up, ns, label):
         f"vs f64 on its inputs {fmt(weights_err)}; end to end vs f64 max {e2e['max']:.3g} (tol {TOL_BWD_MAX:.3g}), "
         f"rms {e2e['rms']:.3g} (tol {TOL_BWD_RMS:.3g}), d h off {e2e['dh_off']:.3g} (tol {TOL_BWD_DH_FRAC:.3g}); "
         f"vs the yardstick max {yard['max']:.3g} (tol {TOL_BWD_YARD_MAX:.3g}), rms {yard['rms']:.3g} "
-        f"(tol {TOL_BWD_YARD_RMS:.3g}), d h off {yard['dh_off']:.3g} (tol {TOL_BWD_YARD_DH_FRAC:.3g}); finite {finite}")
+        f"(tol {TOL_BWD_YARD_RMS:.3g}), d h off {yard['dh_off']:.3g} (tol {TOL_BWD_YARD_DH_FRAC:.3g}); vs the first "
+        f"design's kernels (mma.sync) max {first['max']:.3g}, rms {first['rms']:.3g}, d h off {first['dh_off']:.3g}; "
+        f"finite {finite}")
     if not (finite and points_ok(points) and weights_ok(weights_err) and e2e["max"] <= TOL_BWD_MAX
-            and e2e["rms"] <= TOL_BWD_RMS and e2e["dh_off"] <= TOL_BWD_DH_FRAC and yard["max"] <= TOL_BWD_YARD_MAX
-            and yard["rms"] <= TOL_BWD_YARD_RMS and yard["dh_off"] <= TOL_BWD_YARD_DH_FRAC):
+            and e2e["rms"] <= TOL_BWD_RMS and e2e["dh_off"] <= TOL_BWD_DH_FRAC
+            and all(y["max"] <= TOL_BWD_YARD_MAX and y["rms"] <= TOL_BWD_YARD_RMS
+                    and y["dh_off"] <= TOL_BWD_YARD_DH_FRAC for y in (yard, first))):
         raise AssertionError(f"K1's heads backward disagrees with its plain version or its yardstick: {label}")
     err_points = max((getattr(mid, f).double() - getattr(want_mid, f)).abs().max().item()
                      for f in POINT_FIELDS if getattr(want_mid, f) is not None)
     err_weights = max((a.double() - b).abs().max().item() for a, b in zip(grads, want_w))
-    return {"heads_bwd_points": err_points, "heads_bwd_weights": err_weights}
+    # the first design's, end to end (its gradients and d PE(dir) against f64)
+    err_first = max((a.double() - b).abs().max().item() for a, b in zip(
+        [*got_first[1], got_first[2], got_first[3]], [*full, want_mid.d_ve, want_mid.d_ve2]) if b is not None)
+    return {"heads_bwd_points": err_points, "heads_bwd_weights": err_weights, "mma_sync": err_first}
 
 
 def heads_bound_parts(k1, n, n_sec, scenes=1):
@@ -694,34 +708,102 @@ def heads_bound_parts(k1, n, n_sec, scenes=1):
     return {k: {"ops": 2e3 * ops[k] / PEAK_BF16_FLOPS, "bytes": 1e3 * nbytes[k] / PEAK_BYTES} for k in BWD}
 
 
+def library_heads_routes(k1, params, h, ve, ve2, up, ns, mid, scenes):
+    """Each heads-backward kernel's function as f32 `torch.matmul` calls
+    (TF32 off), on the same inputs and the per-point kernel's outputs, every
+    operand laid out beforehand: the per-point kernel's products (h W8^T,
+    feature W10f^T, per view PE(dir) W10p^T and d o W11, D W10f, d feature
+    W8, d sigma W9; one batched call per product over the scene axis; its
+    elementwise steps are not in it), the weight kernel's five X^T Y
+    products and its column sums (one call per product and scene: batched
+    over the scenes, these long reductions with small outputs run far
+    slower). The port never calls them."""
+    sc = lambda t: t.reshape(scenes, -1, t.shape[-1])  # noqa: E731
+    w8, w9, w10, w11 = (params[i].reshape(scenes, *params[i].shape[-2:]) for i in (0, 2, 4, 6))
+    w8t, w10f = w8.transpose(1, 2).contiguous(), w10[..., :256].contiguous()
+    w10ft, w10pt = w10f.transpose(1, 2).contiguous(), w10[..., 256:].transpose(1, 2).contiguous()
+    h32, feature, D, dfeat = sc(h.float()), sc(mid.feature), sc(mid.D), sc(mid.d_feature)
+    dsig = sc(up[:, :1].contiguous())
+    pe_rows, do_rows = k1._view_rows(ve, ve2, up, ns)
+    pe_flat, do_flat = sc(pe_rows.contiguous()), sc(do_rows.contiguous())
+    pe_v = [sc(t.contiguous()) for t in pe_rows.reshape(-1, 1 + ns, 27).unbind(1)]
+    do_v = [sc(t.contiguous()) for t in do_rows.reshape(-1, 1 + ns, 4).unbind(1)]
+    hv_flat, dhv_flat = sc(mid.hv.reshape(-1, 128)), sc(mid.d_hv.reshape(-1, 128))
+    dfeat_t, dsig_t, D_t = dfeat.transpose(1, 2), dsig.transpose(1, 2), D.transpose(1, 2)
+    dhv_t, do_t = dhv_flat.transpose(1, 2), do_flat.transpose(1, 2)
+    mm = torch.matmul
+
+    def points():
+        mm(h32, w8t), mm(feature, w10ft)
+        for pe, d_o in zip(pe_v, do_v):
+            mm(pe, w10pt), mm(d_o, w11)
+        mm(D, w10f), mm(dfeat, w8), mm(dsig, w9)
+
+    def weights():
+        for s in range(scenes):
+            mm(dfeat_t[s], h32[s]), mm(dsig_t[s], h32[s]), mm(D_t[s], feature[s]), mm(dhv_t[s], pe_flat[s])
+            mm(do_t[s], hv_flat[s])
+            dfeat[s].sum(0), dsig[s].sum(0), D[s].sum(0), do_flat[s].sum(0)
+
+    return {"heads_bwd_points": points, "heads_bwd_weights": weights}
+
+
 def time_heads_backward(k1, weights, params, h, ve, ve2, up, ns, label):
-    """CUDA-event times of each kernel (the wrapper's call), of its plain
-    version in f32 and of the yardstick on the same inputs, with the
-    kernels' bounds."""
+    """CUDA-event times of each kernel (the wrapper's call) against the
+    first design's kernel in turns (first design, new, new, first design),
+    of its plain version in f32, of its library route
+    (`library_heads_routes`) and of the yardstick on the same inputs, with
+    the kernels' bounds and their L2 bytes by design."""
     stacked = params[0].dim() == 3
+    scenes, n = weights.scenes, h.shape[0]
     mid = k1.heads_bwd_points(weights, params, h, ve, ve2, up, ns, False, False)
     run = {"heads_bwd_points": lambda: k1.heads_bwd_points(weights, params, h, ve, ve2, up, ns, False, False),
-           "heads_bwd_weights": lambda: k1.heads_bwd_weights(mid, h, ve, ve2, up, weights.scenes, stacked)}
+           "heads_bwd_weights": lambda: k1.heads_bwd_weights(mid, h, ve, ve2, up, scenes, stacked)}
+    first = {"heads_bwd_points": lambda: k1.heads_bwd_points_mma_sync(weights, h, ve, ve2, up, ns, False, False),
+             "heads_bwd_weights": lambda: k1.heads_bwd_weights_mma_sync(mid, h, ve, ve2, up, scenes, stacked)}
     plain = {"heads_bwd_points": lambda: k1.heads_points_reference(params, h, ve, ve2, up, ns),
-             "heads_bwd_weights": lambda: k1.heads_weights_reference(mid, h, ve, ve2, up, weights.scenes, stacked)}
+             "heads_bwd_weights": lambda: k1.heads_weights_reference(mid, h, ve, ve2, up, scenes, stacked)}
+    library = library_heads_routes(k1, params, h, ve, ve2, up, ns, mid, scenes)
     out = {}
-    bounds = heads_bound_parts(k1, h.shape[0], ns, weights.scenes)
+    bounds = heads_bound_parts(k1, n, ns, scenes)
     for name in BWD:
-        ms = cuda_ms(run[name], reps=5)
-        plain_ms = cuda_ms(plain[name], reps=3)
+        turns = [cuda_ms(f, reps=5) for f in (first[name], run[name], run[name], first[name])]
         parts = bounds[name]
-        bound = max(parts.values())
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=max(parts, key=parts.get),
-                         bound_parts_ms=parts, library_ms=None)
+        out[name] = dict(ms=(turns[1] + turns[2]) / 2, mma_sync_ms=(turns[0] + turns[3]) / 2, turns_ms=turns,
+                         plain_ms=cuda_ms(plain[name], reps=3), library_ms=cuda_ms(library[name], reps=5),
+                         bound_ms=max(parts.values()), bound_by=max(parts, key=parts.get), bound_parts_ms=parts,
+                         l2_bytes_by_design=k1.bwd_stream_bytes(name, n, ns, scenes),
+                         mma_sync_l2_bytes_by_design=k1.bwd_stream_bytes(name + "_mma_sync", n, ns, scenes))
     yard_ms = cuda_ms(lambda: k1.heads_backward_recompute(params, h, ve, ve2, up, ns), reps=3)
     total = sum(out[k]["ms"] for k in BWD)
-    log(f"K1 backward timing, {label}: per-point kernel {out[BWD[0]]['ms']:.4f} ms (plain {out[BWD[0]]['plain_ms']:.4f}, "
-        f"bound {out[BWD[0]]['bound_ms']:.4f} by {out[BWD[0]]['bound_by']}: operations "
-        f"{bounds[BWD[0]]['ops']:.4f}, bytes {bounds[BWD[0]]['bytes']:.4f}), weight kernel {out[BWD[1]]['ms']:.4f} ms "
-        f"(plain {out[BWD[1]]['plain_ms']:.4f}, bound {out[BWD[1]]['bound_ms']:.4f} by {out[BWD[1]]['bound_by']}: "
-        f"operations {bounds[BWD[1]]['ops']:.4f}, bytes {bounds[BWD[1]]['bytes']:.4f}); both {total:.4f} ms against "
-        f"the yardstick (autograd through raw_recompute's f32 heads, cuBLAS) {yard_ms:.4f} ms")
+    for name in BWD:
+        o = out[name]
+        log(f"K1 backward timing, {label}, {name}: {o['ms']:.4f} ms (turns, first design / new / new / first "
+            f"design: {' / '.join(f'{t:.4f}' for t in o['turns_ms'])}), share of bound {o['bound_ms'] / o['ms']:.3f}"
+            f"; the first design (mma.sync) {o['mma_sync_ms']:.4f}, plain {o['plain_ms']:.4f}, library "
+            f"{o['library_ms']:.4f}; bound {o['bound_ms']:.4f} by {o['bound_by']} (operations "
+            f"{o['bound_parts_ms']['ops']:.4f}, bytes {o['bound_parts_ms']['bytes']:.4f}); L2 bytes by design "
+            f"{o['l2_bytes_by_design']} ({o['l2_bytes_by_design'] / n:.0f} per point; the first design's "
+            f"{o['mma_sync_l2_bytes_by_design'] / n:.0f})")
+    log(f"K1 backward timing, {label}: both {total:.4f} ms (the first design's "
+        f"{sum(out[k]['mma_sync_ms'] for k in BWD):.4f}) against the yardstick (autograd through raw_recompute's "
+        f"f32 heads, cuBLAS) {yard_ms:.4f} ms")
     return {**out, "yardstick_ms": yard_ms, "both_ms": total}
+
+
+def check_reproducible(k1, weights, params, h, ve, ve2, up, ns, label):
+    """Two launches of each kernel on the same inputs: every output bit for
+    bit the same (no float atomics, a fixed reduction order)."""
+    stacked = params[0].dim() == 3
+    mids = [k1.heads_bwd_points(weights, params, h, ve, ve2, up, ns) for _ in range(2)]
+    grads = [k1.heads_bwd_weights(mids[0], h, ve, ve2, up, weights.scenes, stacked) for _ in range(2)]
+    torch.cuda.synchronize()
+    same_points = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(*mids))
+    same_weights = all(torch.equal(a, b) for a, b in zip(*grads))
+    log(f"K1 backward, {label}: two launches bit for bit the same: per-point kernel {same_points}, weight kernel "
+        f"{same_weights}")
+    if not (same_points and same_weights):
+        raise AssertionError(f"the heads backward's kernels are not reproducible: {label}")
 
 
 def exact_case_on_card(k1, case, scenes, dev):
@@ -775,16 +857,18 @@ def exact_forward_on_card(k1, dev):
 def phase_heads_backward(k1, dev):
     """K1's backward in the shipped mode: the exact-sum cases bit for bit
     (and the forward heads on the witness case); the two kernels against
-    their plain versions and the yardstick at the training step's two
-    launch shapes for n_sec 0..3, at S = 2, and at ragged sizes; their
-    times at the training shapes at S = 1, 2, 4. Returns the timings and
-    each kernel's worst max|err|."""
+    their plain versions, the yardstick and the first design's kernels at
+    the training step's two launch shapes for n_sec 0..3, at S = 2, and at
+    ragged sizes; two launches bit for bit the same at the training fine
+    shape (S = 1, 2); their times against the first design's in turns, the
+    plain versions' and the library routes' at the training shapes at S =
+    1, 2, 4. Returns the timings and each kernel's worst max|err|."""
     for case in ("dense", "witness"):
         for scenes in (1, 2):
             exact_case_on_card(k1, case, scenes, dev)
     exact_forward_on_card(k1, dev)
     g = torch.Generator(device=dev).manual_seed(4)
-    worst = dict.fromkeys(BWD, 0.0)
+    worst = dict.fromkeys(BWD + ("mma_sync",), 0.0)
     timings = {}
     cases = [(1, n, n_sec) for n in sorted(TRAIN_N.values()) for n_sec in range(4)]
     cases += [(1, n, n_sec) for n in RAGGED_N for n_sec in (0, 3)] + [(2, TRAIN_N["fine"], TRAIN_SEC),
@@ -794,7 +878,9 @@ def phase_heads_backward(k1, dev):
         weights = k1.prepare_weights(mlp, torch.bfloat16, True)
         inputs = heads_inputs(k1, mlp, scenes * n, n_sec, g, dev)
         errs = check_heads_backward(k1, weights, *inputs, f"S = {scenes} x {n} points, n_sec {n_sec}")
-        worst = {k: max(worst[k], errs[k]) for k in BWD}
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        if n == TRAIN_N["fine"] and n_sec == TRAIN_SEC:
+            check_reproducible(k1, weights, *inputs, f"S = {scenes} x {n} points, n_sec {n_sec}")
         del inputs
     for scenes in BWD_SCENES:
         mlp = stacked_mlp(dev, scenes)
@@ -3109,6 +3195,9 @@ def main() -> int:
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
     worst, timings = phase_k1(k1, mlp, dev)
     backward = phase_heads_backward(k1, dev)
+    # the first design's backward kernels, a yardstick: their counts from
+    # here on are launches on the main path's phases
+    k1.heads_backward_mma_sync.launches_by_kernel = dict.fromkeys(k1.BWD_MMA_SYNC_KERNELS, 0)
     # the FFMA yardstick's count runs on through the main path's phases (no
     # phase resets it): what it gains there, less check_against_ffma's
     # comparisons, are launches on a path
@@ -3122,6 +3211,8 @@ def main() -> int:
     protocol = phase_protocol(k1, dev)
     parallel = phase_parallel(k1, dev)
     ffma_path = k1.fused_mlp_raw_ffma.launches - (check_against_ffma.launches - compared)
+    mma_sync_path = dict(k1.heads_backward_mma_sync.launches_by_kernel)
+    log(f"K1's backward, the first design's kernels' launches on the main path: {mma_sync_path} (expected 0)")
     log(f"K1 {FFMA} launches on the main path: {ffma_path} (expected 0; "
         f"{check_against_ffma.launches - compared} more compared bf16_f32h with it)")
 
@@ -3162,15 +3253,20 @@ def main() -> int:
                                + protocol["k1_backward_launches_shipped"][name]
                                + train["trajectory"]["launches"][name])
 
-    def bwd_entry(name):
+    def bwd_entry(name, first=False):
         fine = backward["timings"][(1, "fine")][name]
-        return {"name": name, "route": "cuda", "source": "vipnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
-                "replaces": "experiments/fused_mlp.py:261", "launches": path_launches[name],
-                "max_abs_err": backward["worst"][name], "ms": fine["ms"], "plain_ms": fine["plain_ms"],
-                "bound_ms": fine["bound_ms"], "bound_by": "bytes" if fine["bound_by"] == "bytes" else "operations",
-                "bound_parts_ms": fine["bound_parts_ms"], "library_ms": None,
-                "yardstick_ms": backward["timings"][(1, "fine")]["yardstick_ms"],
-                "shape": {"points": TRAIN_N["fine"], "n_sec": TRAIN_SEC}}
+        entry = {"name": name + "_mma_sync" if first else name, "route": "cuda",
+                 "source": f"vipnerf_tpu_torch/csrc/fused_mlp_bwd{'_mma_sync' if first else ''}.cu",
+                 "replaces": "experiments/fused_mlp.py:261",
+                 "launches": mma_sync_path[name + "_mma_sync"] if first else path_launches[name],
+                 "max_abs_err": backward["worst"]["mma_sync" if first else name],
+                 "ms": fine["mma_sync_ms" if first else "ms"], "plain_ms": fine["plain_ms"],
+                 "bound_ms": fine["bound_ms"], "bound_by": "bytes" if fine["bound_by"] == "bytes" else "operations",
+                 "bound_parts_ms": fine["bound_parts_ms"], "library_ms": fine["library_ms"],
+                 "l2_bytes_by_design": fine["mma_sync_l2_bytes_by_design" if first else "l2_bytes_by_design"],
+                 "yardstick_ms": backward["timings"][(1, "fine")]["yardstick_ms"],
+                 "shape": {"points": TRAIN_N["fine"], "n_sec": TRAIN_SEC}}
+        return dict(entry, yardstick_of=name) if first else entry
 
     def kernel_entry(name, launches):
         main_shape = timings[(name, 0, MAIN_N)]
@@ -3199,13 +3295,16 @@ def main() -> int:
     for name in BWD:
         if not path_launches[name]:
             raise AssertionError(f"{name} was not launched on its path")
+    if any(mma_sync_path.values()):
+        raise AssertionError(f"the first design's backward kernels were launched on a path: {mma_sync_path}")
     log(json.dumps({"k1_backward": {
         "timings": {f"S={s} {level}": t for (s, level), t in backward["timings"].items()},
         "worst_max_abs_err": backward["worst"], "step_profile_ms": train["profile_ms"].get("k1_backward_ms"),
         "trajectory": {k: v for k, v in train["trajectory"].items() if k != "launches"}, "card": card}}))
     log(json.dumps({"kernels": [kernel_entry(name, path_launches[name]) for name in K1_MODES]
                     + [bwd_entry(name) for name in BWD],
-                    "yardsticks": [dict(kernel_entry(FFMA, ffma_path), yardstick_of="fused_mlp_bf16_f32h")]}))
+                    "yardsticks": [dict(kernel_entry(FFMA, ffma_path), yardstick_of="fused_mlp_bf16_f32h")]
+                    + [bwd_entry(name, first=True) for name in BWD]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -15,16 +15,25 @@
 - `FusedRaw`'s backward in the shipped mode runs `heads_backward_reference`
   on CPU tensors, once per call, and nothing of it in the other modes.
 - A numpy emulation of the kernels' arithmetic (`_emulate_points`,
-  `_emulate_weights`: bf16 parts, exact products, each mma's sum rounded to
-  f32 toward zero as the card's tensor cores do, the per-point kernel's
-  fresh accumulator per k16 step, the weight kernel's promotion every
-  `PROMOTE` k16 steps into a Kahan sum and its f64 reduction over splits of
-  `KSPLIT` points) held to the JAX gradients within chip_smoke's card
-  tolerances (`TOL_BWD_*`), and the same emulation with one operand's third
-  part dropped, or rounded once to TF32 or bf16, missing them by more than
-  10x. Over 786,432 points (a training step's fine launch), the weight
-  kernel's emulation without promotion misses them: the witness for the
-  interval.
+  `_emulate_weights`: bf16 parts, exact products, each wgmma's sum rounded
+  to f32 toward zero as the card's tensor cores do, the per-point kernel's
+  fresh accumulator per `BWD_CHAIN` k16 steps, the weight kernel's chains
+  of `BWD_PROMOTE` k16 steps with their part products ordered by size, the
+  Fast2Sum that moves each into the total and leaves the error in the
+  accumulator, its f64 shares of `BWD_KSPLIT` points; dW9 and dW11 exact
+  in f64) held to the JAX
+  gradients within chip_smoke's card tolerances (`TOL_BWD_*`), and the same
+  emulation with one operand's third part dropped, or rounded once to TF32
+  or bf16, missing them by more than 10x. Over 786,432 points (a training
+  step's fine launch), the weight kernel's emulation without promotion
+  misses them by more than 10x, and the per-point kernel's with one chain
+  over all of K misses the feature's and d feature's limits: the witnesses
+  for the interval and the chain length.
+- The host-side layout arithmetic of the redesigned kernels: the weight
+  stream (`heads_bwd_stream`) inverts to the split weights, the MN-major
+  slabs' offsets follow their descriptors' strides, the weight kernel's
+  grid covers every point once at ragged sizes and S = 2, and the L2 bytes
+  by design follow the stream and the tiles.
 - The exact-sum cases of chip_smoke (`exact_heads_case`): every sum of the
   function is exact in f32, so the plain version in f32 equals itself in f64
   bit for bit, and so does the emulation; with one third part dropped, the
@@ -275,14 +284,18 @@ def _mma_chain(acc, ap, bp, k0):
     return acc
 
 
-def point_product(a, b, total=None, mode_a=None, mode_b=None, a_exact=False):
-    """The per-point kernel's a b^T (a (n, K), b (m, K)): per k16 step the
-    part products into a fresh accumulator, then added to the f32 total."""
+def point_product(a, b, total=None, mode_a=None, mode_b=None, a_exact=False, chain=k1.BWD_CHAIN):
+    """The per-point kernel's a b^T (a (n, K), b (m, K)): per `chain` k16
+    steps the part products (each step's smallest first) into a fresh
+    accumulator, then added to the f32 total."""
     ap = [np.asarray(a, np.float32)] if a_exact else parts(a, mode_a)
     bp = parts(b, mode_b)
     total = np.zeros((a.shape[0], b.shape[0]), np.float32) if total is None else total
-    for k0 in range(0, a.shape[1], 16):
-        total = (total + _mma_chain(np.zeros_like(total, np.float64), ap, bp, k0)).astype(np.float32)
+    for c0 in range(0, a.shape[1], 16 * chain):
+        acc = np.zeros_like(total, np.float64)
+        for k0 in range(c0, min(c0 + 16 * chain, a.shape[1]), 16):
+            acc = _mma_chain(acc, ap, bp, k0)
+        total = (total + acc).astype(np.float32)
     return total
 
 
@@ -320,56 +333,91 @@ def _emulate_points(params, h, ve, ve2, g, n_sec, drop=None) -> k1.HeadsIntermed
         t(dpes[0]), t(np.concatenate(dpes[1:], 1)) if n_sec else None)
 
 
-def _emulate_weights(x, y, y_exact=False, promote=k1.BWD_PROMOTE, ksplit=k1.BWD_KSPLIT, mode_x=None, mode_y=None):
-    """The weight kernel's x^T y over the rows (x (K, M), y (K, N)): splits
-    of `ksplit` rows; in each, two accumulators (the (0, 0) part products,
-    the others) run `promote` k16 steps (each mma rounded toward zero),
-    then their sum joins a Kahan f32 sum; the splits' sums (s - c) add in
-    f64. promote=None: the accumulators run the whole split. Returns f32
-    (M, N)."""
+def _fast_two_sum(s, x):
+    """f32 Fast2Sum, as the kernel promotes: (s + x rounded, x - (that - s))."""
+    t = (s + x).astype(np.float32)
+    return t, (x - (t - s).astype(np.float32)).astype(np.float32)
+
+
+def _emulate_weights(x, y, y_exact=False, promote=k1.BWD_PROMOTE, ksplit=k1.BWD_KSPLIT, mode_x=None, mode_y=None,
+                     f64=False):
+    """The weight kernel's x^T y over the rows (x (K, M), y (K, N)): shares
+    of `ksplit` rows; in each, blocks of `promote` k16 steps, each block's
+    part products (each wgmma's sum rounded toward zero) by size (every i +
+    j = 2 product of its steps, then 1, then the (0, 0) ones) into the
+    accumulator, which a Fast2Sum then moves into the f32 total, leaving
+    the rounding error in it; the shares (total + accumulator) add in f64.
+    promote=None: the accumulator runs the
+    whole share, each step's products smallest first, and joins the total
+    once. Returns f32 (M, N) (the f64 sum with f64)."""
     k = x.shape[0]
     xp = parts(x, mode_x)
     yp = [np.asarray(y, np.float32)] if y_exact else parts(y, mode_y)
-    splits = -(-k // ksplit)
-    pad = lambda t: np.pad(t, ((0, splits * ksplit - k), (0, 0))).reshape(splits, ksplit, -1)  # noqa: E731
+    splits = max(-(-k // ksplit), 1)
+    steps = -(-min(ksplit, max(k, 1)) // 16)
+
+    def pad(t):
+        return np.pad(t, ((0, splits * ksplit - k), (0, 0))).reshape(splits, ksplit, -1)[:, :16 * steps]
+
     xp, yp = [pad(t) for t in xp], [pad(t) for t in yp]
-    steps = ksplit // 16
-    block = promote or steps
+    # each share's blocks of rows that hold points (the kernel runs no other)
+    live = np.minimum(np.maximum(k - ksplit * np.arange(splits), 0), ksplit)
+    per = promote or steps
+    blocks = -(-live // (16 * per))
+    order = pairs(len(xp), len(yp))
     m, n = x.shape[1], y.shape[1]
-    s = np.zeros((splits, m, n), np.float32)
-    c = np.zeros_like(s)
-    for b0 in range(0, steps, block):
-        acc = {True: np.zeros((splits, m, n), np.float64), False: np.zeros((splits, m, n), np.float64)}
-        for st in range(b0, min(b0 + block, steps)):
-            rows = slice(16 * st, 16 * st + 16)
-            for i, j in pairs(len(xp), len(yp)):
-                big = (i, j) == (0, 0)
-                acc[big] = rz(np.einsum("skm,skn->smn", xp[i][:, rows].astype(np.float64),
-                                        yp[j][:, rows].astype(np.float64)) + acc[big])
-        yk = ((acc[True].astype(np.float32) + acc[False].astype(np.float32)).astype(np.float32) - c).astype(np.float32)
-        t = (s + yk).astype(np.float32)
-        c = ((t - s).astype(np.float32) - yk).astype(np.float32)
-        s = t
-    return (s.astype(np.float64) - c.astype(np.float64)).sum(0).astype(np.float32)
+    tot = np.zeros((splits, m, n), np.float32)
+    acc = np.zeros((splits, m, n), np.float32)
+
+    def step(a, i, j, st):
+        rs = slice(16 * st, 16 * st + 16)
+        return rz(np.einsum("skm,skn->smn", xp[i][:, rs].astype(np.float64), yp[j][:, rs].astype(np.float64)) + a)
+
+    for b in range(-(-steps // per)):
+        sts = range(b * per, min((b + 1) * per, steps))
+        a = acc.astype(np.float64)
+        if promote is None:
+            for st in sts:
+                for i, j in order:
+                    a = step(a, i, j, st)
+        else:
+            for cls in (2, 1, 0):
+                for st in sts:
+                    for i, j in order:
+                        if i + j == cls:
+                            a = step(a, i, j, st)
+        on = (b < blocks)[:, None, None]
+        t, e = _fast_two_sum(tot, a.astype(np.float32))
+        tot, acc = np.where(on, t, tot), np.where(on, e, acc)
+    total = (tot.astype(np.float64) + acc.astype(np.float64)).sum(0)
+    return total if f64 else total.astype(np.float32)
+
+
+def _exact(x, y):
+    """x^T y in f64 (every product exact), rounded to f32 once."""
+    return (np.asarray(x, np.float64).T @ np.asarray(y, np.float64)).astype(np.float32)
 
 
 def _emulate_weight_grads(mid: k1.HeadsIntermediates, h, ve, ve2, g, drop=None):
     """The weight-gradient kernel in numpy on the per-point kernel's inputs
     and outputs: the 8 gradients as torch tensors, module shapes (one
-    scene). PE(dir) and d o of each (point, view) row are read from ve, ve2
-    and g, as the kernel reads them."""
+    scene). dW10's PE(dir) columns take a share per view; dW9 and dW11 are
+    f64 on the CUDA cores, d o read from g as the kernel reads it."""
     one = drop if drop in ("tf32", "bf16") else None
     m = lambda name: "drop" if drop == name else one  # noqa: E731
-    flat = lambda t: t.reshape(-1, t.shape[-1]).numpy()  # noqa: E731  the (point, view) rows, as the kernel reads them
     colsum = lambda t: t.astype(np.float64).sum(0).astype(np.float32)  # noqa: E731  exact column sums
-    pe, d_o = (t.numpy() for t in k1._view_rows(ve, ve2, g, mid.hv.shape[1] - 1))
+    n_sec = mid.hv.shape[1] - 1
+    pe, d_o = (t.numpy() for t in k1._view_rows(ve, ve2, g, n_sec))
+    hv = mid.hv.reshape(-1, mid.hv.shape[-1]).numpy()
     h, g = h.float().numpy(), g.numpy()
     feature, d_feature, D = mid.feature.numpy(), mid.d_feature.numpy(), mid.D.numpy()
+    views = 1 + n_sec
+    w10p = sum(_emulate_weights(mid.d_hv[:, v].numpy(), pe[v::views], mode_x=m("dhv"), mode_y=m("pe"), f64=True)
+               for v in range(views)).astype(np.float32)
     grads = [_emulate_weights(d_feature, h, y_exact=True, mode_x=m("dfeature")), colsum(d_feature),
-             _emulate_weights(g[:, :1], h, y_exact=True), colsum(g[:, :1]),
-             np.concatenate([_emulate_weights(D, feature, mode_x=m("D"), mode_y=m("feature")),
-                             _emulate_weights(flat(mid.d_hv), pe, mode_x=m("dhv"), mode_y=m("pe"))], 1),
-             colsum(D), _emulate_weights(d_o, flat(mid.hv), mode_x=m("do"), mode_y=m("hv")), colsum(d_o)]
+             _exact(g[:, :1], h), colsum(g[:, :1]),
+             np.concatenate([_emulate_weights(D, feature, mode_x=m("D"), mode_y=m("feature")), w10p], 1),
+             colsum(D), _exact(d_o, hv), colsum(d_o)]
     return [torch.from_numpy(t) for t in grads]
 
 
@@ -396,7 +444,7 @@ def _f64(params):
 # 10x: the per-point kernel's (field) or the weight kernel's (gradient piece)
 DROPS = {"w8": ("points", "feature"), "w10": ("points", "d_feature"), "D": ("points", "d_feature"),
          "dhv": ("points", "d_ve"), "feature": ("weights", "W10f"), "pe": ("weights", "W10p"),
-         "dfeature": ("weights", "W8"), "hv": ("weights", "W11"), "do": ("weights", "W11")}
+         "dfeature": ("weights", "W8")}
 
 
 @pytest.mark.parametrize("n_sec", [0, 1, 2, 3])
@@ -434,7 +482,7 @@ def test_kernel_emulation_matches_jax_within_the_card_tolerances(jax_params, n_s
         assert min(m_e2e["max"] / cs.TOL_BWD_MAX, m_e2e["rms"] / cs.TOL_BWD_RMS) > 10, drop
         assert m_e2e["dh_off"] > 10 * cs.TOL_BWD_DH_FRAC, drop
         assert all(m_points[f][1] > 10 * cs.TOL_BWD_POINTS_RMS[f] for f in ("feature", "d_feature", "hv")), drop
-        assert all(m_weights[w][1] > 10 * cs.TOL_BWD_WEIGHTS_RMS for w in ("W8", "W10f", "W10p", "W11")), drop
+        assert all(m_weights[w][1] > 10 * cs.TOL_BWD_WEIGHTS_RMS for w in ("W8", "W10f", "W10p")), drop
     for drop, (kernel, piece) in DROPS.items():
         m_e2e, m_points, m_weights = errors(drop)
         seen = m_points[piece][1] / cs.TOL_BWD_POINTS_RMS[piece] if kernel == "points" \
@@ -447,32 +495,184 @@ def test_kernel_emulation_matches_jax_within_the_card_tolerances(jax_params, n_s
         assert m_e2e["rms"] > 2 * e2e["rms"] and seen > 10, drop
 
 
-def test_promotion_interval_over_a_training_launch():
+@pytest.mark.parametrize("promote", [k1.BWD_PROMOTE, 4 * k1.BWD_PROMOTE, None])
+def test_promotion_interval_over_a_training_launch(promote):
     """A weight gradient over 786,432 points (a training step's fine launch),
-    d feature-like f32 against h-like bf16 columns: the weight kernel's
-    arithmetic with promotion every `BWD_PROMOTE` k16 steps within
-    `TOL_BWD_WEIGHTS_*` of the f64 product; one accumulator per split of
-    `BWD_KSPLIT` points instead (no promotion) misses them by 10x."""
+    d feature-like f32 against h-like bf16 columns, through the weight
+    kernel's arithmetic: with the kernel's chain of `BWD_PROMOTE` k16 steps
+    before each Fast2Sum, within `TOL_BWD_WEIGHTS_*` of the f64 product; a
+    chain four times as long reads more; one accumulator per share of
+    `BWD_KSPLIT` points (no promotion) misses the RMS limit by more than
+    10x."""
     rng = np.random.default_rng(5)
     k = 786432
     x = (rng.normal(0, 1, (k, 2)) * rng.uniform(0.5, 1.5, (k, 1))).astype(np.float32)
     y = torch.from_numpy(np.maximum(rng.normal(0.3, 1, (k, 4)), 0).astype(np.float32)).bfloat16().float().numpy()
     exact = torch.from_numpy(x.astype(np.float64).T @ y.astype(np.float64))
-    promoted = cs.rel_pair(torch.from_numpy(_emulate_weights(x, y, y_exact=True)), exact)
-    unpromoted = cs.rel_pair(torch.from_numpy(_emulate_weights(x, y, y_exact=True, promote=None)), exact)
-    print(f"promotion every {k1.BWD_PROMOTE} k16 steps: {promoted}; none: {unpromoted}")
-    assert promoted[0] <= cs.TOL_BWD_WEIGHTS_MAX and promoted[1] <= cs.TOL_BWD_WEIGHTS_RMS
-    assert unpromoted[1] > 10 * cs.TOL_BWD_WEIGHTS_RMS
+    err = cs.rel_pair(torch.from_numpy(_emulate_weights(x, y, y_exact=True, promote=promote)), exact)
+    design = cs.rel_pair(torch.from_numpy(_emulate_weights(x, y, y_exact=True)), exact)
+    print(f"a chain of {promote} k16 steps: {err} (the kernel's {k1.BWD_PROMOTE}: {design})")
+    if promote == k1.BWD_PROMOTE:
+        assert err[0] <= cs.TOL_BWD_WEIGHTS_MAX and err[1] <= cs.TOL_BWD_WEIGHTS_RMS
+    elif promote is None:
+        assert err[1] > 10 * cs.TOL_BWD_WEIGHTS_RMS
+    else:
+        assert err[1] > design[1]
+
+
+@pytest.mark.parametrize("chain", [k1.BWD_CHAIN, 16])
+def test_chain_length_of_the_per_point_products(chain):
+    """The per-point kernel's products on 2048 points at the flagship
+    widths, d feature = D W10f and feature = h W8^T (+ b8), through its
+    arithmetic: with a fresh accumulator per `BWD_CHAIN` k16 step, within
+    `TOL_BWD_POINTS_RMS` of the f64 products; one chain over all of K (16
+    k16 steps, the forward heads' way) misses both limits, the feature's
+    and d feature's, by more than 2x."""
+    rng = np.random.default_rng(7)
+    params = torch_heads(init_mlp_params(jax.random.PRNGKey(2), CFG))
+    w8, b8, w10 = (params[i].numpy() for i in (0, 1, 4))
+    h = torch.from_numpy(np.maximum(rng.normal(0, 1, (2048, 256)), 0).astype(np.float32)).bfloat16().float().numpy()
+    D = (rng.normal(0, 1e-3, (2048, 128)) * (rng.uniform(size=(2048, 128)) < 0.5)).astype(np.float32)
+    got = {"feature": (point_product(h, w8, a_exact=True, chain=chain) + b8).astype(np.float32),
+           "d_feature": point_product(D, np.ascontiguousarray(w10[:, :256].T), chain=chain)}
+    want = {"feature": h.astype(np.float64) @ w8.T.astype(np.float64) + b8,
+            "d_feature": D.astype(np.float64) @ w10[:, :256].astype(np.float64)}
+    errs = {f: cs.rel_pair(torch.from_numpy(got[f]), torch.from_numpy(want[f])) for f in got}
+    print(f"a chain of {chain} k16 steps: {errs}")
+    if chain == k1.BWD_CHAIN:
+        assert all(e[1] <= cs.TOL_BWD_POINTS_RMS[f] and e[0] <= cs.TOL_BWD_POINTS_MAX for f, e in errs.items())
+    else:
+        assert all(e[1] > 2 * cs.TOL_BWD_POINTS_RMS[f] for f, e in errs.items())
 
 
 def test_kernel_constants_match_the_source():
-    """The reduction constants the emulation and chip_smoke use are the
-    CUDA source's."""
-    src = (Path(k1.__file__).resolve().parent.parent / "csrc/fused_mlp_bwd.cu").read_text()
-    assert f"constexpr int PROMOTE = {k1.BWD_PROMOTE};" in src
+    """The constants the emulation, the wrappers and chip_smoke use are the
+    CUDA sources': the redesigned kernels' chain, interval, shares and weight
+    stream, and the first design's weight image."""
+    csrc = Path(k1.__file__).resolve().parent.parent / "csrc"
+    src, first = (csrc / "fused_mlp_bwd.cu").read_text(), (csrc / "fused_mlp_bwd_mma_sync.cu").read_text()
+    assert f"constexpr int CHAIN = {k1.BWD_CHAIN};" in src and f"constexpr int PROMOTE = {k1.BWD_PROMOTE};" in src
     assert f"constexpr int KSPLIT = {k1.BWD_KSPLIT};" in src
-    assert f"IMG_ELEMS == {k1.BWD_IMG_NUMEL}" in src and f"SMALL_ELEMS == {k1.BWD_SMALL_NUMEL}" in src
+    assert f"constexpr int KSPLIT_SMALL = {k1.BWD_KSPLIT_SMALL};" in src
+    assert f"constexpr int CHUNK = {k1.BWD_CHUNK};" in src
+    assert f"constexpr int STREAM_CHUNKS = {k1.BWD_STREAM_CHUNKS};" in src
+    assert f"SMALL_ELEMS == {k1.BWD_SMALL_NUMEL}" in src
+    assert f"IMG_ELEMS == {k1.BWD_IMG_NUMEL}" in first and f"SMALL_ELEMS == {k1.BWD_SMALL_NUMEL}" in first
+    order = ", ".join(f"J_{name[1:].upper() if name != 'small' else 'SMALL'} = {i}"
+                      for i, (name, *_) in enumerate(k1.BWD_WEIGHT_JOBS))
+    assert f"enum {{ {order}, NJOBS = {len(k1.BWD_WEIGHT_JOBS)} }};" in src
+    assert "job_mt(int j) { return j == J_W8 ? 64 : 128; }" in src
+    assert "job_nt(int j) { return j == J_W8 ? 256 : (j == J_W10F ? 128 : 32); }" in src
+    assert "job_tiles(int j) { return j == J_W8 ? 4 : (j == J_W10F ? 2 : 1); }" in src
     assert cs.BWD == k1.BWD_KERNELS
+
+
+def test_backward_stream_is_the_split_weights_in_the_kernels_order():
+    """`heads_bwd_stream` (the per-point kernel's weight stream, in the
+    bf16_f32h pack cache): a permutation of `heads_bwd_pack`'s image; each
+    chunk, unswizzled part by part, is the three parts of the block of the
+    matrix `bwd_stream_blocks` names; S = 2 packs each scene's in turn."""
+    mlp = NeRFMLP(CFG, torch.Generator().manual_seed(8), scenes=2)
+    weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+    image, stream = weights.heads_bwd[0], weights.heads_bwd_stream
+    assert stream.numel() * 2 == 2 * k1.BWD_STREAM_CHUNKS * k1.BWD_CHUNK and stream.dtype == torch.bfloat16
+    assert torch.equal(k1.bwd_stream_index("cpu").sort().values, torch.arange(k1.BWD_IMG_NUMEL))
+    for s in range(2):
+        w8 = mlp.feature_linear.weight.detach()[s]
+        w10 = torch.nn.functional.pad(mlp.views_linears[0].weight.detach()[s], (0, 5))
+        mats = {"w8": w8, "w10f": w10[:, :256], "w10p": w10[:, 256:], "w10ft": w10[:, :256].t(), "w8t": w8.t(),
+                "w10pt": w10[:, 256:].t()}
+        chunks = stream[s * k1.BWD_IMG_NUMEL:(s + 1) * k1.BWD_IMG_NUMEL].reshape(k1.BWD_STREAM_CHUNKS, 3, -1)
+        for chunk, (name, r0, rows, ks) in zip(chunks, k1.bwd_stream_blocks()):
+            for p in range(3):
+                # each block 64-byte-swizzled: piece c of row n at c ^ (n // 2 % 4)
+                blocks = chunk[p].reshape(len(ks), rows, 4, 8)
+                n = torch.arange(rows)[:, None]
+                c = torch.arange(4)[None, :]
+                plain = torch.stack([b[n, c ^ ((n >> 1) & 3)].reshape(rows, 32) for b in blocks], 0)
+                want = torch.stack([k1.split_bf16(mats[name][r0:r0 + rows, k0:k0 + 32].contiguous())[p] for k0 in ks])
+                assert torch.equal(plain, want), (name, r0, ks, p)
+
+
+@pytest.mark.parametrize("cols", [256, 128, 64, 32])
+def test_mn_major_slab_offsets_follow_the_descriptors(cols):
+    """The weight kernel's MN-major slabs (`bwd_mn_offset`, the CUDA
+    source's mn_off): every (point, column) of a block lands on its own two
+    bytes inside the part; 8 points on, the offset moves by the stride byte
+    offset, an atom of columns on by the leading byte offset, as the wgmma
+    descriptors say; within a row the 16-byte pieces are the row's columns,
+    permuted by the swizzle."""
+    lay = k1.bwd_mn_layout(cols)
+    offs = np.array([[k1.bwd_mn_offset(k, c, cols) for c in range(cols)] for k in range(k1.BWD_BLOCK)])
+    assert offs.min() == 0 and offs.max() == lay["part_bytes"] - 2 and len(np.unique(offs)) == offs.size
+    assert (offs % 2 == 0).all()
+    assert (offs[8:] - offs[:-8] == lay["sbo"]).all()
+    atom = lay["swizzle"] // 2
+    if cols > atom:
+        assert (offs[:, atom:] - offs[:, :-atom] == lay["lbo"]).all()
+    for k in range(k1.BWD_BLOCK):
+        row = offs[k, :atom]
+        assert sorted(row // 16 % (lay["swizzle"] // 16)) == sorted(list(range(lay["swizzle"] // 16)) * 8)
+        assert (row // lay["swizzle"] == row[0] // lay["swizzle"]).all()
+
+
+@pytest.mark.parametrize("scenes, nps, n_sec", [(1, 786432, 2), (1, 2085, 0), (2, 132 * 128 * 3 + 37, 3), (2, 1, 1)])
+def test_weight_kernel_grid_covers_every_point_once(scenes, nps, n_sec):
+    """`bwd_weight_grid` (the CUDA source's make_wargs): per job and scene
+    its shares cover every point of every output tile once (every view's
+    for dW10's PE(dir) columns), the CTAs of the jobs follow each other,
+    the scratch is a share's doubles per CTA, and the second launch takes a
+    thread per entry of each tile's share."""
+    grid = k1.bwd_weight_grid(scenes, nps, n_sec)
+    cta = 0
+    for name, mt, nt, tiles in k1.BWD_WEIGHT_JOBS:
+        job = grid["jobs"][name]
+        assert job["cta0"] == cta and job["tiles"] == tiles
+        per = k1.BWD_KSPLIT_SMALL if name == "small" else k1.BWD_KSPLIT
+        views = 1 + n_sec if name == "dW10p" else 1
+        assert job["splits"] % views == 0
+        covered = [min(per, nps - per * s) for s in range(job["splits"] // views)]
+        assert sum(covered) == nps and min(covered) > 0
+        cta += scenes * tiles * job["splits"]
+    assert grid["ctas"] == cta
+    assert grid["share_entries"] == scenes * sum(j["tiles"] * j["share_doubles"] for j in grid["jobs"].values())
+    assert grid["doubles"] == sum(scenes * j["tiles"] * j["splits"] * j["share_doubles"]
+                                  for j in grid["jobs"].values())
+
+
+@pytest.mark.parametrize("scenes, n, n_sec", [(1, 786432, 2), (2, 2 * (2048 + 37), 1)])
+def test_l2_bytes_by_design_follow_the_stream_and_the_tiles(scenes, n, n_sec):
+    """`bwd_stream_bytes`: the per-point kernel passes over its weight
+    stream once per 128-point tile of each scene (48 chunks, one per view,
+    one more per view with d PE(dir)); the weight kernel reads each tile's
+    columns of its points, at least what `bwd_bytes` says it must read; at
+    the training fine shape the redesign moves less than the first design
+    does, per kernel."""
+    tiles = scenes * -(-(n // scenes) // 128)
+    for dve in (False, True):
+        assert k1.bwd_stream_bytes("heads_bwd_points", n, n_sec, scenes, dve) == \
+            tiles * (48 + (1 + n_sec) * (1 + dve)) * k1.BWD_CHUNK
+    weights = k1.bwd_stream_bytes("heads_bwd_weights", n, n_sec, scenes)
+    must = k1.bwd_bytes(n, n_sec, scenes)[1] - scenes * 4 * (k1.HEAD_NUMEL + 256 + 1 + 128 + 4)
+    assert weights >= must
+    if n == 786432:
+        for kernel in k1.BWD_KERNELS:
+            assert k1.bwd_stream_bytes(kernel, n, n_sec) < k1.bwd_stream_bytes(kernel + "_mma_sync", n, n_sec)
+
+
+def test_weight_kernel_job_variants_cut_the_source():
+    """`kernels/time_bwd_jobs.py` finds each marker it cuts in the weight
+    kernel's source: every variant differs from the kernel, each job's alone
+    returns early from the other jobs' CTAs, "nochain" runs no wgmma and
+    "bare" splits nothing either."""
+    from vipnerf_tpu_torch.kernels import time_bwd_jobs
+
+    src = (Path(k1.__file__).resolve().parent.parent / "csrc/fused_mlp_bwd.cu").read_text()
+    out = time_bwd_jobs.variants(src)
+    assert out["kernel"] == src and len(out) == 9 and len(set(out.values())) == 9
+    assert all("if (jb != J_" in v for name, v in out.items() if name != "kernel")
+    assert all("cls >= 3" in v for name, v in out.items() if name.startswith(("nochain", "bare")))
+    assert all(v.count("i < 0 * ") == 3 for name, v in out.items() if name.startswith("bare"))
 
 
 @pytest.mark.parametrize("case", ["dense", "witness"])

@@ -26,7 +26,10 @@ kernels' d h); one training step on the card against the same step on
 the CPU (tolerances at each test). The heads backward's kernels against
 their plain versions in f64 and the yardstick at ragged sizes, n_sec 0-3,
 S = 1, 2 (chip_smoke's `check_heads_backward` and its `TOL_BWD_*`), and
-bit for bit on chip_smoke's exact-sum cases; K1 through 100 training steps
+bit for bit on chip_smoke's exact-sum cases; against the first design's
+kernels (`heads_backward_mma_sync`, csrc/fused_mlp_bwd_mma_sync.cu) within
+`TOL_BWD_YARD_*`; two launches of each bit for bit the same; the weight
+kernel's grid and scratch as `k1.bwd_weight_grid` lays them out; K1 through 100 training steps
 at the flagship width, K1 with the yardstick backward and the module MLP,
 each pair compared (chip_smoke's `phase_trajectory` and `TRAJ_TOL_*`, the
 bands of the port-vs-JAX trajectory in tests/test_torch_protocol.py, held
@@ -505,6 +508,57 @@ def test_heads_backward_is_exact_on_the_exact_sum_cases(device, case, scenes):
     f32 bit for bit (and the forward heads on the witness case)."""
     cs.exact_case_on_card(k1, case, scenes, device)
     cs.exact_forward_on_card(k1, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes, n_sec, n", [(1, 0, 2048 + 37), (1, 3, 132 * 128 * 3 + 37), (2, 2, 2048 + 37),
+                                              (1, 2, 4096 * 64)])
+def test_heads_backward_matches_the_first_design(device, scenes, n_sec, n):
+    """The redesigned kernels against the first design's (mma.sync,
+    on no path) on the same inputs: every gradient and d PE(dir) within
+    `TOL_BWD_YARD_*` (max and RMS relative to the first design's), d h off
+    its rounding on at most `TOL_BWD_YARD_DH_FRAC` of the entries; one
+    launch of each of the four kernels, each counted by its own wrapper."""
+    mlp = cs.stacked_mlp(device, scenes)
+    weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+    g = torch.Generator(device=device).manual_seed(21 + n_sec)
+    params, h, ve, ve2, up, ns = cs.heads_inputs(k1, mlp, scenes * n, n_sec, g, device)
+    k1.reset_launch_counts()
+    first_before = dict(k1.heads_backward_mma_sync.launches_by_kernel)
+    got = k1.heads_backward(weights, params, h, ve, ve2, up, ns)
+    first = k1.heads_backward_mma_sync(weights, params, h, ve, ve2, up, ns)
+    err = cs.bwd_errors(got, first)
+    print(f"S = {scenes} x {n} points, n_sec {n_sec}: the redesigned kernels against the first design's {err}")
+    assert err["max"] <= cs.TOL_BWD_YARD_MAX and err["rms"] <= cs.TOL_BWD_YARD_RMS
+    assert err["dh_off"] <= cs.TOL_BWD_YARD_DH_FRAC
+    assert k1.heads_backward.launches_by_kernel == dict.fromkeys(k1.BWD_KERNELS, 1)
+    assert {k: v - first_before[k] for k, v in k1.heads_backward_mma_sync.launches_by_kernel.items()} == \
+        dict.fromkeys(k1.BWD_MMA_SYNC_KERNELS, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes", [1, 2])
+def test_heads_backward_kernels_are_reproducible(device, scenes):
+    """Two launches of each redesigned kernel on the same inputs give
+    bit-identical outputs (chip_smoke's `check_reproducible`: no float
+    atomics, the weight kernel's shares summed in a fixed order)."""
+    mlp = cs.stacked_mlp(device, scenes)
+    weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+    g = torch.Generator(device=device).manual_seed(31)
+    inputs = cs.heads_inputs(k1, mlp, scenes * (132 * 128 * 3 + 37), 2, g, device)
+    cs.check_reproducible(k1, weights, *inputs, f"S = {scenes}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes, nps, n_sec", [(1, 786432, 2), (1, 2085, 0), (2, 132 * 128 * 3 + 37, 3), (4, 1, 1)])
+def test_weight_grid_matches_the_kernel_scratch(device, scenes, nps, n_sec):
+    """The weight kernel's share doubles, CTAs and second-launch threads as
+    its C entry computes them are `k1.bwd_weight_grid`'s, which the CPU
+    tests check."""
+    scratch = k1._bwd_fns()[2]
+    grid = k1.bwd_weight_grid(scenes, nps, n_sec)
+    assert [scratch(scenes, nps, n_sec, w) for w in (1, 2, 3)] == [grid["doubles"], grid["ctas"],
+                                                                    grid["share_entries"]]
 
 
 @pytest.mark.cuda

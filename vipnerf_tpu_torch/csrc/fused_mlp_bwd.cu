@@ -15,67 +15,79 @@
 //   dW8 = d feature^T h, dW9 = d sigma^T h, dW10 = [D^T feature, sum_v d hv_v^T pe_v],
 //   dW11 = sum_v d o_v^T hv_v, the biases' column sums, d pe_v = d hv_v W10[:, 256:]
 //
-// Arithmetic: every f32 product runs on the bf16 tensor cores
-// (mma.sync.m16n8k16, f32 accumulation) as products of split operands, as
-// the forward heads kernel does (csrc/fused_mlp.cu): an f32 value is three
-// bf16 parts that sum to it exactly (each the round to nearest even of what
-// the parts before it leave). A bf16 operand (h) times an f32 one takes the
-// three products h p_j; two f32 operands take the six a_i b_j with
-// i + j <= 2 (the three dropped are below 2^-24 of the product). The small
-// products with 4 or 1 terms (d o_v W11, d sigma W9) run in f32 on the CUDA
-// cores; hv's mask and the bias adds too.
-//
-// The tensor cores round each k16 step's sum toward zero (PERF.md section 6,
-// measured for wgmma in the forward heads; mma.sync is assumed to do the
-// same). A long chain into one accumulator then shrinks the sum: over the
-// point axis (786,432 points in a training step's fine launch, ~49k k16
-// steps) by ~3e-3. So no accumulator carries a long chain:
+// Arithmetic: every f32 product of the big layers runs on the bf16 tensor
+// cores (wgmma, f32 accumulation) as products of split operands, as the
+// forward heads kernel does (csrc/fused_mlp.cu): an f32 value is three bf16
+// parts that sum to it exactly. A bf16 operand (h) times an f32 one takes
+// the three products h p_j; two f32 operands take the six a_i b_j with
+// i + j <= 2. The tensor cores round each wgmma's sum toward zero (PERF.md
+// section 6), so no accumulator runs a long chain at the scale of its sum:
 // - per-point kernel: each k16 step's part products go into a fresh
-//   accumulator, smallest parts first, and the step's sum is added to the
-//   running f32 total with an ordinary (round-to-nearest) add;
-// - weight-gradient kernel: two accumulators per tile, one for the (0, 0)
-//   part products and one for the smaller ones (so that no small product
-//   truncates at the scale of the full sum), run PROMOTE = 4 k16 steps (64
-//   points), then their sum joins a Kahan-compensated f32 total and they
-//   restart;
-//   each CTA takes KSPLIT = 8192 points of the reduction and writes its
-//   total in f64; the last CTA of an output tile to finish (an integer
-//   atomic counts them) sums the partials in f64 in a fixed order (four
-//   running sums over the splits, then a fixed tree), so the result does
-//   not depend on the CTAs' timing (no float atomics).
-// The interval is sized by the numpy emulation in
-// tests/test_torch_heads_backward.py, which shows the same arithmetic
-// without promotion missing the tolerances over 786,432 points.
+//   accumulator, smallest first, and its sum joins the running f32 total
+//   with an ordinary (round-to-nearest) add: CHAIN = 1 k16 step per chain;
+// - weight kernel: an accumulator chain runs PROMOTE = 2 k16 steps (a
+//   block of 32 points), its part products ordered by size over the whole
+//   block (every i + j = 2 product of both steps, then i + j = 1, then the
+//   two (0, 0) products), so that no small product is added to a sum of
+//   full size; then a Fast2Sum moves it into an f32 total and leaves the
+//   rounding error in the accumulator, where the next chain adds to it.
+//   Each CTA writes its share (KSPLIT points) as f64 (total + accumulator);
+//   a second launch sums each output's shares in f64 in a fixed order, so
+//   the result does not depend on the CTAs' timing (no float atomics).
+// The chain length and the interval are sized by the numpy emulation in
+// tests/test_torch_heads_backward.py, which shows longer chains and no
+// promotion missing the tolerances.
 //
-// What bounds it: tensor-core operations, ~1.58M bf16 products per point at
-// n_sec 2 (per-point kernel ~1.06M, weights ~0.52M), against ~5.6 KB per
-// point of intermediates written once and read once (PERF.md section 6).
-// This is a first, simple design: the per-point kernel stages weight chunks
-// through shared memory with cp.async and issues mma.sync from registers;
-// the intermediates (feature, d feature, D, hv_v, d hv_v) go through device
-// memory to the weight-gradient kernel, which reads the inputs h, PE(dir)
-// and g where it needs them.
+// What bounds them: the per-point kernel, tensor-core operations (~1.06M
+// bf16 products per point at n_sec 2) against its weight stream from L2
+// (1.2 MB of split weights per 128 points); the weight kernel, the bytes of
+// its inputs (~6.6 KB per point of intermediates, h, PE(dir) and g, each
+// read once from device memory) (PERF.md section 6).
 //
-// Per-point kernel (heads_bwd_points_kernel): a CTA of 8 warps takes 128
-// points, a warp 16 of them through the whole chain, so an accumulator's
-// fragment is, register pair for register pair, the A fragment of the next
-// product (the f32 value split into its parts in registers). All warps
-// consume the same sequence of weight chunks (3 parts x 128 rows x 32 K of a
-// K-contiguous image, double-buffered by cp.async). To stay within the
-// registers, a product whose A operand is no longer in registers (G's
-// feature, d PE(dir)'s d hv_v, d h's d feature) reads it back from the rows
-// this thread stored, and G = feature W10f^T waits per thread in shared
-// memory while the views run.
+// Per-point kernel (heads_bwd_points_kernel), shaped like the forward's
+// fused_mlp_heads_kernel: a persistent CTA per SM, one producer thread
+// streaming the scene's weight image (`heads_bwd_stream` in
+// kernels/fused_mlp.py: 50 chunks of 24 KB, each the three bf16 parts of a
+// (rows x 32 K) block, 64-byte-swizzled K-major, one bulk copy each) into a
+// 4-stage mbarrier ring, and two consumer warpgroups of 64 points each.
+// - feature = h W8^T + b8: A is h, loaded into 128-byte-swizzled K-major
+//   slabs, B the W8 chunk (wgmma with both operands in shared memory), a
+//   half of 128 columns at a time; after each half, G += feature_half
+//   W10f^T with A from registers: an accumulator's fragment is, pair for
+//   pair, the next product's A fragment, split into its parts in registers.
+// - G then waits in shared memory (thread-private slots) while each view's
+//   hv_v (A: PE(dir) from device memory, split in registers), d hv_v (CUDA
+//   cores), D (registers) and d PE(dir) (A: d hv_v in registers) run.
+// - d feature = D W10f from registers (D never leaves them), parked in
+//   thread-private slots; d h = d feature W8 + d sigma W9 from the slots.
+//   Feature, hv_v, d hv_v, D and d feature are written once, for the weight
+//   kernel; nothing is read back from device memory.
+// Registers: at most three 64-float accumulator sets (the total being
+// built, the fresh accumulator, and G or D) plus one step's split
+// fragments; D accumulates in thread-private slots while the views run.
 //
-// Weight-gradient kernel (heads_bwd_weights_kernel): X^T Y products over the
-// point axis for five jobs (dW8: d feature x h; dW10f: D x feature; dW10p:
-// d hv x PE(dir) over points and views; dW11: d o x hv over points and
-// views, d o read from g; dW9: d sigma x h), each a grid
-// of 64 x 64 output tiles x splits of KSPLIT rows, with the column sums of
-// X (the biases) beside. A CTA of 4 warps loads 32 rows of X and Y per
-// step, splits them into bf16 parts transposed into shared memory (point
-// axis contiguous, the MMA's K), and each warp runs a 32 x 32 block.
+// Weight kernel (heads_bwd_weights_kernel): dW = X^T Y over the point axis.
+// The reduction axis is the rows as they arrive, so both wgmma operands are
+// MN-major (the transpose bits set): a producer thread copies point-major
+// row blocks of X and Y (32 points of a tile's columns, one tensor-map box
+// each, cp.async.bulk.tensor, so that two copies per block move strided
+// rows) into a 3-stage ring; the consumer warpgroups split each f32 element
+// into its three parts once per CTA and write them in the orientation they
+// were loaded in, as 128-byte-swizzled (64-byte for 32 columns) MN-major
+// slabs, double buffered, and run the block's chain (both operands from
+// shared memory, m64n128 or m64n32) while the next block is split. No
+// __syncthreads in the loop: the ring's mbarriers, and one named barrier of
+// the two consumer warpgroups per block. A second launch sums the shares.
+// Jobs, each a grid of (output tile, split of KSPLIT points):
+//   dW8 = d feature^T h  (64 x 256 tiles: d feature split once, h copied),
+//         b8 beside;
+//   dW10[:, :256] = D^T feature (128 x 128 tiles: feature split once), b10;
+//   dW10[:, 256:] = sum_v d hv_v^T PE(dir)_v (128 x 32, a split per view);
+//   the small ones, dW9 = d sigma^T h, dW11 = sum_v d o_v^T hv_v, b9 and
+//   b11, in f64 on the CUDA cores (every product exact), d o from g.
+// Column sums are f64. L2 bytes per launch by design: k1.bwd_stream_bytes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,19 +102,24 @@ constexpr int VIEW_IN = 32;
 constexpr int NOUT = 8;
 constexpr int MAX_SEC = 3;
 
-// One scene's image of split weights (kernels/fused_mlp.py heads_bwd_pack):
-// each matrix (rows, cols) K-contiguous as its three bf16 parts in turn.
-constexpr int M_W8 = 0;                             // (256, 256): feature = h W8^T
-constexpr int M_W10F = M_W8 + 3 * WIDTH * WIDTH;    // (128, 256): W10's feature columns
-constexpr int M_W10P = M_W10F + 3 * HID * WIDTH;    // (128, 32): W10's PE(dir) columns
-constexpr int M_W10FT = M_W10P + 3 * HID * VIEW_IN;  // (256, 128)
-constexpr int M_W8T = M_W10FT + 3 * WIDTH * HID;    // (256, 256)
-constexpr int M_W10PT = M_W8T + 3 * WIDTH * WIDTH;  // (32, 128)
-constexpr int IMG_ELEMS = M_W10PT + 3 * VIEW_IN * HID;
 // one scene's f32 small weights: b8, b10, W9, W11 (4 rows)
 constexpr int S_B8 = 0, S_B10 = WIDTH, S_W9 = WIDTH + HID, S_W11 = 2 * WIDTH + HID;
 constexpr int SMALL_ELEMS = S_W11 + 4 * HID;
-static_assert(IMG_ELEMS == 614400 && SMALL_ELEMS == 1152, "heads_bwd_pack");
+
+// One scene's weight stream (kernels/fused_mlp.py heads_bwd_stream): chunks
+// of the three bf16 parts (part p at p * PART) of a (rows x 32 K) block of a
+// matrix, 64-byte-swizzled K-major (row n at 64 n bytes).
+constexpr int CHUNK = 24576;
+constexpr int PART = CHUNK / 3;
+constexpr int C_W8 = 0;      // W8 rows [128 hf, +128), K [32 c, +32): chunk 12 hf + c (c < 8)
+constexpr int C_W10F = 8;    // W10's feature columns [128 hf + 32 c, +32), 128 rows: chunk 12 hf + 8 + c (c < 4)
+constexpr int C_W10P = 24;   // W10's PE(dir) columns (128 x 32)
+constexpr int C_W10PT = 25;  // their transpose (32 x 128): K-block s (32 rows x 32 K) at s * 2048
+constexpr int C_W10FT = 26;  // W10f^T rows [128 hf, +128), K [32 c, +32): 26 + 4 hf + c (c < 4)
+constexpr int C_W8T = 34;    // W8^T rows [128 hh, +128), K [32 c, +32): 34 + 8 hh + c (c < 8)
+constexpr int STREAM_CHUNKS = 50;
+constexpr long long STREAM_BYTES = (long long)STREAM_CHUNKS * CHUNK;
+static_assert(SMALL_ELEMS == 1152 && STREAM_BYTES == 1228800, "heads_bwd_stream");
 
 // ------------------------------------------------------------ PTX helpers
 
@@ -110,42 +127,158 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
-// four 8 x 8 b16 matrices from shared memory, lane l giving the address of
-// row l % 8 of matrix l / 8; r[i] holds matrix i's row (lane / 4), columns
-// 2 (lane % 4) and + 1: an MMA fragment register
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// d = a b (+ c): one m16n8k16 bf16 product, f32 accumulation. Fragments of
-// lane l (g = l / 4, t = l % 4): a[0] rows g, K 2t..2t+1; a[1] row g + 8;
-// a[2], a[3] the same rows at K + 8; b[0] K 2t..2t+1 of column g, b[1] K + 8;
-// d[0..1] row g, columns 2t..2t+1, d[2..3] row g + 8.
-__device__ __forceinline__ void mma_first(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+// A wait that never ends (a broken pipeline) traps after 2^24 polls, so a
+// fault ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// a box of a tensor map (2-D or 3-D, coordinates innermost first) global ->
+// shared, completing its bytes on the mbarrier
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::
+          "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
-__device__ __forceinline__ void mma_acc(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::
+          "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
 }
 
-// x = part 0 + part 1 + part 2 exactly; a pair of floats gives a bf16 pair
-// per part (x in the low half), as the forward heads kernel splits
+// 1-D bulk copy global -> shared, completing `bytes` on the mbarrier
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// thread stores into shared memory -> visible to wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns them.
+template <int R>
+__device__ __forceinline__ void acc_fence(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand with the SW-byte
+// swizzle (SW = 128 or 64): rows of SW bytes, 8-row groups SW * 8 bytes
+// apart (the stride byte offset); the leading byte offset is unused.
+template <int SW>
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  static_assert(SW == 128 || SW == 64, "swizzle");
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(8 * SW / 16) << 32) | (static_cast<uint64_t>(SW == 128 ? 1 : 2) << 62);
+}
+
+// Descriptor of an MN-major operand (the transpose bit set) with the SW-byte
+// swizzle: each K row holds SW bytes of consecutive MN elements (an atom of
+// SW / 2 bf16), 8 K rows per swizzle atom; `lbo` bytes from one MN atom to
+// the next (the leading byte offset), `sbo` bytes from 8 K rows to the next
+// 8 (the stride byte offset). kernels/fused_mlp.py bwd_mn_layout computes the
+// same offsets and the CPU tests pin them.
+template <int SW>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(SW == 128 || SW == 64, "swizzle");
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (static_cast<uint64_t>(SW == 128 ? 1 : 2) << 62);
+}
+
+#define ACC8(i)                                                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define REGS64                                                                                               \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
+  "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory; TA, TB
+// the transpose bits (1: the operand is MN-major). The accumulator fragment
+// of thread t of the warpgroup: d[4j + 2h + e] is row 16 (t / 32) + (t % 32)
+// / 4 + 8h, column 8j + 2 (t % 4) + e.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64 "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+               : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+               : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// the same for N = 32 in d[0..15]
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n32_ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+               "%11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+               : ACC8(0), ACC8(8)
+               : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// A from registers: a[i] is fragment register i of the k16 step, a bf16
+// pair (lower column in the low half): (row r, columns 2 (lane % 4) + {0,
+// 1}), (row r + 8, the same), (row r, 8 more), (row r + 8, 8 more), r = 16
+// warp + lane / 4 -- the order of an accumulator's d[8c .. 8c + 7] for
+// columns [16c, 16c + 16). B K-major from shared memory.
+__device__ __forceinline__ void wgmma_n128_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
+               "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+               : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_n32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+               "%11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+               : ACC8(0), ACC8(8)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+#undef REGS64
+#undef ACC8
+
+// x = part 0 + part 1 + part 2 exactly, each part the bf16 (round to nearest
+// even) of what the parts before it leave; a pair of floats gives a bf16 pair
+// per part (x in the low half)
 __device__ __forceinline__ void split_pair(float x, float y, uint32_t& p0, uint32_t& p1, uint32_t& p2) {
   const __nv_bfloat162 a = __floats2bfloat162_rn(x, y);
   const float2 af = __bfloat1622float2(a);
@@ -158,81 +291,28 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t& p0, uint3
   p2 = *reinterpret_cast<const uint32_t*>(&c);
 }
 
-// the parts' A fragments of a k16 step from four float pairs (rows g and
-// g + 8, K 2t and 2t + 8)
+// the parts' A fragments of a k16 step from its four float pairs
 __device__ __forceinline__ void split_frag(const float2 (&v)[4], uint32_t (&a)[3][4]) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) split_pair(v[k].x, v[k].y, a[0][k], a[1][k], a[2][k]);
 }
 
-// ------------------------------------------------------ per-point kernel
-
-constexpr int WARPS_A = 8;
-constexpr int THREADS_A = 32 * WARPS_A;
-constexpr int TILE_A = 16 * WARPS_A;  // points per CTA
-constexpr int H_PITCH = WIDTH + 8;    // bf16 per h row in shared memory (conflict-free fragments)
-// a warp's shared memory: its h rows, then (thread-private slots) G and D
-constexpr int WARP_SMEM = 2 * 64 * 32 * 4;
-constexpr int CK = 32;           // K of a weight chunk
-constexpr int C_PITCH = CK + 8;  // bf16 per chunk row (conflict-free fragments)
-constexpr int C_ROWS = 128;      // rows per chunk (32 for W10p^T)
-constexpr int CHUNK_ELEMS = 3 * C_ROWS * C_PITCH;
-constexpr int SMEM_A = WARPS_A * WARP_SMEM + 2 * CHUNK_ELEMS * 2;
-constexpr int JG = 8;  // n8 tiles whose product chains interleave
-static_assert(WARP_SMEM >= 16 * H_PITCH * 2 && SMEM_A <= 232448 && WARP_SMEM % 16 == 0, "shared memory");
-
-// The i-th weight chunk of a tile: rows [n0, n0 + nc) and columns
-// [k0, k0 + 32) of an image matrix (offset, row length k, rows r), its three
-// parts. The sequence: the feature (two halves of 8 chunks), G (8); per view
-// W10p (1); with d PE(dir), per view W10p^T (4); d feature (two halves of
-// 4); d h (two halves of 8).
-struct Chunk {
-  int mat, k, r, n0, nc, k0;
-};
-__device__ __forceinline__ Chunk chunk_of(int i, int views, int dve) {
-  if (i < 16) return {M_W8, WIDTH, WIDTH, 128 * (i / 8), 128, CK * (i % 8)};
-  i -= 16;
-  if (i < 8) return {M_W10F, WIDTH, HID, 0, 128, CK * i};
-  i -= 8;
-  if (i < views) return {M_W10P, VIEW_IN, HID, 0, 128, 0};
-  i -= views;
-  if (dve) {
-    if (i < 4 * views) return {M_W10PT, HID, VIEW_IN, 0, VIEW_IN, CK * (i % 4)};
-    i -= 4 * views;
-  }
-  if (i < 8) return {M_W10FT, HID, WIDTH, 128 * (i / 4), 128, CK * (i % 4)};
-  i -= 8;
-  return {M_W8T, WIDTH, WIDTH, 128 * (i / 8), 128, CK * (i % 8)};
+// ... of the k16 step over columns [16C, 16C + 16) of an accumulator
+template <int C, int R>
+__device__ __forceinline__ void split_acc(const float (&f)[R], uint32_t (&a)[3][4]) {
+  const float2 v[4] = {make_float2(f[8 * C], f[8 * C + 1]), make_float2(f[8 * C + 2], f[8 * C + 3]),
+                       make_float2(f[8 * C + 4], f[8 * C + 5]), make_float2(f[8 * C + 6], f[8 * C + 7])};
+  split_frag(v, a);
 }
 
-// The CTA's weight pipeline: chunk i in buffer i % 2, chunk i + 1 loading.
-struct Pipe {
-  const __nv_bfloat16* img;
-  __nv_bfloat16* bufs;
-  int i, total, views, dve;
-  __device__ __forceinline__ void issue(int j) {
-    if (j < total) {
-      const Chunk c = chunk_of(j, views, dve);
-      __nv_bfloat16* dst = bufs + (j & 1) * CHUNK_ELEMS;
-      for (int q = threadIdx.x; q < 3 * c.nc * 4; q += THREADS_A) {
-        const int p = q / (c.nc * 4), row = (q >> 2) % c.nc, piece = q & 3;
-        cp_async16(dst + (p * C_ROWS + row) * C_PITCH + 8 * piece,
-                   img + c.mat + (size_t)p * c.r * c.k + (size_t)(c.n0 + row) * c.k + c.k0 + 8 * piece);
-      }
-    }
-    cp_async_commit();
-  }
-  __device__ __forceinline__ const __nv_bfloat16* acquire() {
-    issue(i + 1);
-    cp_async_wait1();
-    __syncthreads();
-    return bufs + (i & 1) * CHUNK_ELEMS;
-  }
-  __device__ __forceinline__ void release() {
-    __syncthreads();
-    ++i;
-  }
-};
+// keeps the compiler from reusing A fragment registers before the wgmma
+// that reads them has completed
+__device__ __forceinline__ void frag_fence(uint32_t (&a)[3][4]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[i][k])::"memory");
+}
 
 // f(std::integral_constant<int, C>{}) for C = 0 .. N - 1 in order: a loop
 // whose index stays a constant expression in f
@@ -245,95 +325,16 @@ __device__ __forceinline__ void static_for(F&& f) {
   static_for(f, std::make_integer_sequence<int, N>{});
 }
 
-// B fragments of n8 tiles j and j + 1 at k16 step s of a chunk, their three
-// parts (one ldmatrix per part: the two tiles' K halves 0-7 and 8-15)
-__device__ __forceinline__ void chunk_frag2(const __nv_bfloat16* chunk, int j, int s, int lane,
-                                            uint32_t (&b0)[3][2], uint32_t (&b1)[3][2]) {
-  const int m = lane >> 3, row = 8 * (j + (m >> 1)) + (lane & 7), col = 16 * s + 8 * (m & 1);
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    uint32_t r[4];
-    ldsm_x4(r, chunk + (p * C_ROWS + row) * C_PITCH + col);
-    b0[p][0] = r[0], b0[p][1] = r[1], b1[p][0] = r[2], b1[p][1] = r[3];
-  }
-}
-
-// The part pairs (A's part, B's part) of a product, smallest first: the six
-// i + j <= 2 of two split operands, or an exact bf16 A times B's three parts
-// (as functions of the pair's index q: the six are (2, 0), (1, 1), (0, 2),
-// (1, 0), (0, 1), (0, 0), the three (0, 2), (0, 1), (0, 0))
+// The part pairs (A's part, B's part) of two split operands with i + j <= 2,
+// smallest first (q = 0..5: (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0));
+// class(q) = i + j
 __host__ __device__ constexpr int pair6_a(int q) { return q == 0 ? 2 : (q == 1 || q == 3 ? 1 : 0); }
 __host__ __device__ constexpr int pair6_b(int q) { return q == 2 ? 2 : (q == 1 || q == 4 ? 1 : 0); }
-__host__ __device__ constexpr int pair3_b(int q) { return 2 - q; }
 
-// acc[NT tiles] (+)= A B^T over one chunk of 32 K: for each of its two k16
-// steps, frag(step, a) gives A's NA parts; the part products of JG tiles at
-// a time run as interleaved chains into fresh accumulators, each step's sum
-// then added to acc
-template <int NT, int NA, typename F>
-__device__ __forceinline__ void chunk_mma(float (&acc)[4 * NT], const __nv_bfloat16* chunk, int lane, F&& frag) {
-  constexpr int G = NT < JG ? NT : JG;
-  constexpr int NP = NA == 3 ? 6 : 3;
-  static_for<2>([&](auto s) {
-    uint32_t a[NA][4];
-    frag(s, a);
+template <int N>
+__device__ __forceinline__ void add_into(float (&tot)[N], const float (&x)[N]) {
 #pragma unroll
-    for (int j0 = 0; j0 < NT; j0 += G) {
-      static_assert(G % 2 == 0, "tiles in pairs");
-      uint32_t b[G][3][2];
-#pragma unroll
-      for (int j = 0; j < G; j += 2) chunk_frag2(chunk, j0 + j, decltype(s)::value, lane, b[j], b[j + 1]);
-      float t[G][4];
-#pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        const int ia = NA == 3 ? pair6_a(q) : 0, ib = NA == 3 ? pair6_b(q) : pair3_b(q);
-#pragma unroll
-        for (int j = 0; j < G; ++j) {
-          if (q == 0)
-            mma_first(t[j], a[ia], b[j][ib]);
-          else
-            mma_acc(t[j], a[ia], b[j][ib]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < G; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[4 * (j0 + j) + e] += t[j][e];
-    }
-  });
-}
-
-// the split A fragments of k16 step s of a chunk at column k0 of rows r and
-// r + 8 of an f32 matrix (row length ld; zeros for rows past the scene's
-// end)
-struct RowFrag {
-  const float* src;
-  int ld, k0, r, lane;
-  bool lo, hi;
-  template <typename S>
-  __device__ __forceinline__ void operator()(S, uint32_t (&a)[3][4]) const {
-    const int k = k0 + 16 * S::value + 2 * (lane & 3);
-    const float2 z = make_float2(0.f, 0.f);
-    const float* row_lo = src + (size_t)r * ld + k;
-    const float* row_hi = row_lo + 8 * (size_t)ld;
-    const float2 x[4] = {lo ? *reinterpret_cast<const float2*>(row_lo) : z,
-                         hi ? *reinterpret_cast<const float2*>(row_hi) : z,
-                         lo ? *reinterpret_cast<const float2*>(row_lo + 8) : z,
-                         hi ? *reinterpret_cast<const float2*>(row_hi + 8) : z};
-    split_frag(x, a);
-  }
-};
-
-// stores an accumulator's columns [c0, c0 + 8 NT) of rows r and r + 8
-template <int NT>
-__device__ __forceinline__ void store_rows(const float (&acc)[4 * NT], float* out, int ld, int c0, int r, bool lo,
-                                           bool hi, int lane) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int c = c0 + 8 * j + 2 * (lane & 3);
-    if (lo) *reinterpret_cast<float2*>(out + (size_t)r * ld + c) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    if (hi) *reinterpret_cast<float2*>(out + (size_t)(r + 8) * ld + c) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-  }
+  for (int i = 0; i < N; ++i) tot[i] = __fadd_rn(tot[i], x[i]);
 }
 
 template <int N>
@@ -342,667 +343,923 @@ __device__ __forceinline__ void zero(float (&x)[N]) {
   for (int i = 0; i < N; ++i) x[i] = 0.f;
 }
 
+// -------------------------------------------------------- per-point kernel
+
+constexpr int CONSUMERS = 2;                    // consumer warpgroups per CTA
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + one producer warpgroup
+constexpr int ROWS_WG = 64;                     // points per consumer warpgroup
+constexpr int TILE = ROWS_WG * CONSUMERS;       // points per tile
+constexpr int CHAIN = 1;                        // k16 steps per fresh accumulator
+constexpr int A_SLAB = ROWS_WG * 64 * 2;        // 64 rows x 64 K of h, 128-byte swizzle
+constexpr int REGION = 65536;                   // a consumer warpgroup's: h, then its parked rows
+constexpr int PSTAGES = 4;
+constexpr int P_RING = CONSUMERS * REGION;
+constexpr int P_BARS = P_RING + PSTAGES * CHUNK;
+constexpr int SMEM_P = P_BARS + 2 * PSTAGES * 8 + 1024;  // + slack to align the base to 1 KB
+static_assert(SMEM_P <= 232448 && 4 * A_SLAB <= REGION && 128 * 128 * 4 == REGION && CHAIN == 1, "budget");
+
+// The weight ring as a consumer sees it: `it` counts the chunks consumed.
+struct Ring {
+  uint32_t stages, full, empty, it;
+  __device__ __forceinline__ uint32_t acquire() {
+    const uint32_t s = it % PSTAGES;
+    mbar_wait(full + 8 * s, (it / PSTAGES) & 1);
+    return stages + s * CHUNK;
+  }
+  __device__ __forceinline__ void release(int lane) {
+    if (lane == 0) mbar_arrive(empty + 8 * (it % PSTAGES));
+    ++it;
+  }
+};
+
+// tot += the part products of one k16 step into a fresh accumulator, A
+// from registers (the three parts a), B the chunk's three parts at b (+
+// part * PART), smallest first
+__device__ __forceinline__ void step_rs6(float (&tot)[64], float (&t)[64], uint32_t (&a)[3][4], uint32_t b) {
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < 6; ++q) wgmma_n128_rs(t, a[pair6_a(q)], desc_k<64>(b + pair6_b(q) * PART), q > 0);
+  wgmma_commit();
+  wgmma_wait0();
+  acc_fence(t);
+  frag_fence(a);
+  add_into(tot, t);
+}
+
+// the four float pairs of a k16 step's A fragment over columns [k, k + 16)
+// of rows r and r + 8 of an f32 matrix (row length ld; zeros for rows past
+// the scene's end)
+__device__ __forceinline__ void load_frag(float2 (&x)[4], const float* src, size_t ld, int r, int k, bool lo,
+                                          bool hi) {
+  const float2 z = make_float2(0.f, 0.f);
+  const float* row_lo = src + (size_t)r * ld + k;
+  const float* row_hi = row_lo + 8 * ld;
+  x[0] = lo ? __ldg(reinterpret_cast<const float2*>(row_lo)) : z;
+  x[1] = hi ? __ldg(reinterpret_cast<const float2*>(row_hi)) : z;
+  x[2] = lo ? __ldg(reinterpret_cast<const float2*>(row_lo + 8)) : z;
+  x[3] = hi ? __ldg(reinterpret_cast<const float2*>(row_hi + 8)) : z;
+}
+
+// stores an n128 accumulator's columns [c0, c0 + 128) of rows r and r + 8
+// (or the n32 one's [c0, c0 + 32))
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N], float* out, size_t ld, int c0, int r, bool lo,
+                                           bool hi, int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const int c = c0 + 8 * j + 2 * (lane & 3);
+    if (lo) *reinterpret_cast<float2*>(out + (size_t)r * ld + c) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (hi) *reinterpret_cast<float2*>(out + (size_t)(r + 8) * ld + c) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
 template <bool SCENES>
-__global__ void __launch_bounds__(THREADS_A, 1)
+__global__ void __launch_bounds__(THREADS, 1)
     heads_bwd_points_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ ve,
                             const float* __restrict__ ve2, const float* __restrict__ g,
-                            const __nv_bfloat16* __restrict__ img, const float* __restrict__ small,
+                            const unsigned char* __restrict__ stream, const float* __restrict__ small,
                             __nv_bfloat16* __restrict__ d_h, float* __restrict__ feature_out,
                             float* __restrict__ dfeat_out, float* __restrict__ D_out, float* __restrict__ hv_out,
-                            float* __restrict__ dhv_out, float* __restrict__ d_ve, float* __restrict__ d_ve2, int nps,
-                            int n_sec, int dve) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tps = (nps + TILE_A - 1) / TILE_A;
-  const int scene = SCENES ? blockIdx.x / tps : 0;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-  const int lrow = (blockIdx.x - scene * tps) * TILE_A + 16 * warp + gq;  // within the scene
-  const int r = scene * nps + lrow;                                       // this thread's rows r, r + 8
-  const bool lo = lrow < nps, hi = lrow + 8 < nps;
-  const int views = 1 + n_sec, ve2_ld = VIEW_IN * (n_sec > 0 ? n_sec : 1);
-  img += (size_t)scene * IMG_ELEMS;
-  small += (size_t)scene * SMALL_ELEMS;
-  unsigned char* mine = smem + warp * WARP_SMEM;
-  __nv_bfloat16* sh = reinterpret_cast<__nv_bfloat16*>(mine);
-  float* sg = reinterpret_cast<float*>(mine);  // G, thread-private: slot i of lane l at 32 i + l
-  float* sd = sg + 64 * 32;                    // D, likewise
-  Pipe pipe{img, reinterpret_cast<__nv_bfloat16*>(smem + WARPS_A * WARP_SMEM), 0,
-            16 + 8 + views * (1 + 4 * dve) + 8 + 16, views, dve};
-  pipe.issue(0);
+                            float* __restrict__ dhv_out, float* __restrict__ d_ve, float* __restrict__ d_ve2,
+                            int scenes, int nps, int n_sec, int dve) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + P_BARS, empty = full + 8 * PSTAGES;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int tps = (nps + TILE - 1) / TILE;  // tiles per scene
+  const int ntiles = SCENES ? scenes * tps : tps;
+  const int views = 1 + n_sec;
 
-  // the warp's 16 rows of h; rows past the scene's end are zeros
-  {
-    const int row0 = r - gq;
-    for (int q = lane; q < 16 * (WIDTH / 8); q += 32) {
-      const int rr = q / (WIDTH / 8), c = q % (WIDTH / 8);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PSTAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // producer: one thread replays the scene's stream into the ring, in the
+    // order the consumers take it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      const unsigned char* sb = stream;
+      uint32_t it = 0;
+      auto push = [&](int chunk) {
+        const uint32_t s = it % PSTAGES;
+        mbar_wait(empty + 8 * s, ((it / PSTAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, CHUNK);
+        bulk_g2s(base + P_RING + s * CHUNK, sb + (size_t)chunk * CHUNK, CHUNK, full + 8 * s);
+        ++it;
+      };
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        if (SCENES) sb = stream + (size_t)(tile / tps) * STREAM_BYTES;
+        for (int hf = 0; hf < 2; ++hf) {
+          for (int c = 0; c < 8; ++c) push(C_W8 + 12 * hf + c);
+          for (int c = 0; c < 4; ++c) push(C_W10F + 12 * hf + c);
+        }
+        for (int v = 0; v < views; ++v) {
+          push(C_W10P);
+          if (dve) push(C_W10PT);
+        }
+        for (int c = 0; c < 8; ++c) push(C_W10FT + c);
+        for (int c = 0; c < 16; ++c) push(C_W8T + c);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int warp = tid / 32, lane = tid % 32, bar_id = 1 + wg, tq = lane & 3;
+  const int r = 16 * warp + (lane >> 2);  // this thread's rows r, r + 8 of the warpgroup's 64
+  const uint32_t hs = base + wg * REGION;
+  float* park = reinterpret_cast<float*>(smem + wg * REGION) + tid;  // slot i at park[128 i]
+  Ring ring{base + P_RING, full, empty, 0};
+  const int ve2_ld = VIEW_IN * (n_sec > 0 ? n_sec : 1);
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int scene = SCENES ? tile / tps : 0;
+    const int lrow0 = (tile - scene * tps) * TILE + wg * ROWS_WG;  // within the scene
+    const int row = scene * nps + lrow0 + r;                       // global row of r
+    const bool lo = lrow0 + r < nps, hi = lrow0 + r + 8 < nps;
+    const float* sw = small + (SCENES ? (size_t)scene * SMALL_ELEMS : 0);
+
+    // h's 64 rows as four 128-byte-swizzled K-slabs; rows past the scene's
+    // end are zeros. The barrier orders this after the previous tile's
+    // reads of the parked slots.
+    bar_sync(bar_id, 128);
+    for (int i = tid; i < ROWS_WG * 32; i += 128) {
+      const int rr = i >> 5, c = i & 31;  // row, 16-byte piece of the 512-byte row
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (lrow - gq + rr < nps) v = __ldg(reinterpret_cast<const uint4*>(h + (size_t)(row0 + rr) * WIDTH) + c);
-      *reinterpret_cast<uint4*>(sh + rr * H_PITCH + 8 * c) = v;
+      if (lrow0 + rr < nps)
+        v = __ldg(reinterpret_cast<const uint4*>(h + (size_t)(scene * nps + lrow0 + rr) * WIDTH) + c);
+      *reinterpret_cast<uint4*>(smem + wg * REGION + (c >> 3) * A_SLAB + rr * 128 + (((c & 7) ^ (rr & 7)) << 4)) = v;
     }
-    __syncwarp();
-  }
+    fence_proxy_async();
+    bar_sync(bar_id, 128);
 
-  // feature = h W8^T + b8, a half of 128 columns at a time
-#pragma unroll 1
-  for (int hf = 0; hf < 2; ++hf) {
-    float f[64];
-    zero(f);
-#pragma unroll 1
-    for (int c = 0; c < 8; ++c) {
-      const __nv_bfloat16* chunk = pipe.acquire();
-      chunk_mma<16, 1>(f, chunk, lane, [&](auto s, uint32_t (&a)[1][4]) {
-        const __nv_bfloat16* hp = sh + gq * H_PITCH + CK * c + 16 * decltype(s)::value + 2 * tq;
-        a[0][0] = *reinterpret_cast<const uint32_t*>(hp);
-        a[0][1] = *reinterpret_cast<const uint32_t*>(hp + 8 * H_PITCH);
-        a[0][2] = *reinterpret_cast<const uint32_t*>(hp + 8);
-        a[0][3] = *reinterpret_cast<const uint32_t*>(hp + 8 * H_PITCH + 8);
-      });
-      pipe.release();
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float2 bb = *reinterpret_cast<const float2*>(small + S_B8 + 128 * hf + 8 * j + 2 * tq);
-      f[4 * j] += bb.x;
-      f[4 * j + 1] += bb.y;
-      f[4 * j + 2] += bb.x;
-      f[4 * j + 3] += bb.y;
-    }
-    store_rows<16>(f, feature_out, WIDTH, 128 * hf, r, lo, hi, lane);
-  }
-
-  // G = feature W10[:, :256]^T, the feature read back from the rows this
-  // thread stored; G waits in shared memory while the views run
-  {
+    // feature = h W8^T + b8 a half of 128 columns at a time, then G +=
+    // feature_half W10[:, half]^T with the half in registers
     float G[64];
     zero(G);
 #pragma unroll 1
-    for (int c = 0; c < 8; ++c) {
-      const __nv_bfloat16* chunk = pipe.acquire();
-      chunk_mma<16, 3>(G, chunk, lane, RowFrag{feature_out, WIDTH, CK * c, r, lane, lo, hi});
-      pipe.release();
-    }
-    __syncwarp();  // every lane's h fragments are read
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      sg[i * 32 + lane] = G[i];
-      sd[i * 32 + lane] = 0.f;
-    }
-  }
-
-  const float* w11 = small + S_W11;
+    for (int hf = 0; hf < 2; ++hf) {
+      float f[64], t[64];
+      zero(f);
 #pragma unroll 1
-  for (int v = 0; v < views; ++v) {
-    const float* pe_src = v == 0 ? ve : ve2 + (v - 1) * VIEW_IN;
-    const int pe_ld = v == 0 ? VIEW_IN : ve2_ld;
-    // hv = G + pe_v W10[:, 256:]^T
-    float hv[64];
+      for (int c = 0; c < 8; ++c) {
+        const uint32_t b = ring.acquire();
 #pragma unroll
-    for (int i = 0; i < 64; ++i) hv[i] = sg[i * 32 + lane];
-    {
-      const __nv_bfloat16* chunk = pipe.acquire();
-      chunk_mma<16, 3>(hv, chunk, lane, RowFrag{pe_src, pe_ld, 0, r, lane, lo, hi});
-      pipe.release();
-    }
-    // d o_v of rows r and r + 8: g[1:5] for the primary view, only column 3
-    // (g[4 + v]) for a secondary one
-    float dlo[4] = {0.f, 0.f, 0.f, 0.f}, dhi[4] = {0.f, 0.f, 0.f, 0.f};
-    if (v == 0) {
+        for (int s = 0; s < 2; ++s) {
+          const int k = 32 * c + 16 * s;
+          const uint64_t da = desc_k<128>(hs + (k >> 6) * A_SLAB + (k & 63) * 2);
+          wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        dlo[k] = lo ? g[(size_t)r * NOUT + 1 + k] : 0.f;
-        dhi[k] = hi ? g[(size_t)(r + 8) * NOUT + 1 + k] : 0.f;
+          for (int p = 2; p >= 0; --p) wgmma_n128_ss<0, 0>(t, da, desc_k<64>(b + p * PART + 32 * s), p < 2);
+          wgmma_commit();
+          wgmma_wait0();
+          acc_fence(t);
+          add_into(f, t);
+        }
+        ring.release(lane);
       }
-    } else {
-      dlo[3] = lo ? g[(size_t)r * NOUT + 4 + v] : 0.f;
-      dhi[3] = hi ? g[(size_t)(r + 8) * NOUT + 4 + v] : 0.f;
-    }
-    // hv = relu(. + b10); d hv = (d o W11) where hv > 0; D += d hv. From
-    // here on the register array hv holds d hv.
+      const float* b8 = sw + S_B8 + 128 * hf;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = 8 * j + 2 * tq;
-      const float2 bb = *reinterpret_cast<const float2*>(small + S_B10 + c);
-      float act[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c + (e & 1);
-        const float* dd = e < 2 ? dlo : dhi;
-        const float pre = hv[4 * j + e] + ((e & 1) ? bb.y : bb.x);
-        float dh = __fmul_rn(dd[0], w11[col]);
-        dh = __fmaf_rn(dd[1], w11[HID + col], dh);
-        dh = __fmaf_rn(dd[2], w11[2 * HID + col], dh);
-        dh = __fmaf_rn(dd[3], w11[3 * HID + col], dh);
-        act[e] = fmaxf(pre, 0.f);
-        hv[4 * j + e] = pre > 0.f ? dh : 0.f;
-        sd[(4 * j + e) * 32 + lane] += hv[4 * j + e];
+      for (int j = 0; j < 16; ++j) {
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(b8 + 8 * j + 2 * tq));
+        f[4 * j] = __fadd_rn(f[4 * j], bb.x);
+        f[4 * j + 1] = __fadd_rn(f[4 * j + 1], bb.y);
+        f[4 * j + 2] = __fadd_rn(f[4 * j + 2], bb.x);
+        f[4 * j + 3] = __fadd_rn(f[4 * j + 3], bb.y);
       }
-      float* hv_row = hv_out + ((size_t)r * views + v) * HID + c;
-      if (lo) *reinterpret_cast<float2*>(hv_row) = make_float2(act[0], act[1]);
-      if (hi) *reinterpret_cast<float2*>(hv_row + 8 * views * HID) = make_float2(act[2], act[3]);
+      store_rows(f, feature_out, WIDTH, 128 * hf, row, lo, hi, lane);
+      static_for<4>([&](auto cc) {
+        constexpr int c = decltype(cc)::value;
+        const uint32_t b = ring.acquire();
+        static_for<2>([&](auto ss) {
+          constexpr int s = decltype(ss)::value;
+          uint32_t a[3][4];
+          split_acc<2 * c + s>(f, a);
+          step_rs6(G, t, a, b + 32 * s);
+        });
+        ring.release(lane);
+      });
     }
-    store_rows<16>(hv, dhv_out + v * HID, views * HID, 0, r, lo, hi, lane);
-  }
-  {
-    float D[64];
+    // G waits in this thread's slots 0-63 (h's slabs are read: the barrier)
+    bar_sync(bar_id, 128);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) D[i] = sd[i * 32 + lane];
-    store_rows<16>(D, D_out, HID, 0, r, lo, hi, lane);
-  }
+    for (int i = 0; i < 64; ++i) park[128 * i] = G[i];
 
-  // d pe_v = d hv_v W10[:, 256:], d hv_v read back from the rows this thread
-  // stored: 4 chunks of W10p^T (32 rows) per view
-  if (dve) {
+    // D = sum_v d hv_v accumulates in the slots 64-127 while the views run
+#pragma unroll
+    for (int i = 0; i < 64; ++i) park[128 * (64 + i)] = 0.f;
+    const float* w11 = sw + S_W11;
 #pragma unroll 1
     for (int v = 0; v < views; ++v) {
-      float dp[16];
-      zero(dp);
-#pragma unroll 1
-      for (int c = 0; c < 4; ++c) {
-        const __nv_bfloat16* chunk = pipe.acquire();
-        chunk_mma<4, 3>(dp, chunk, lane, RowFrag{dhv_out + v * HID, views * HID, CK * c, r, lane, lo, hi});
-        pipe.release();
+      const float* pe = v == 0 ? ve : ve2 + (v - 1) * VIEW_IN;
+      const size_t pe_ld = v == 0 ? VIEW_IN : ve2_ld;
+      // hv = G + pe_v W10[:, 256:]^T, each k16 step into a fresh accumulator
+      float hv[64], t[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) hv[i] = park[128 * i];
+      float2 x[2][4];
+      load_frag(x[0], pe, pe_ld, row, 2 * tq, lo, hi);
+      load_frag(x[1], pe, pe_ld, row, 16 + 2 * tq, lo, hi);
+      {
+        const uint32_t b = ring.acquire();
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          uint32_t a[3][4];
+          split_frag(x[s], a);
+          step_rs6(hv, t, a, b + 32 * s);
+        }
+        ring.release(lane);
       }
+      // d o_v of rows r and r + 8: g[1:5] for the primary view, only column
+      // 3 (g[4 + v]) for a secondary one
+      float dlo[4] = {0.f, 0.f, 0.f, 0.f}, dhi[4] = {0.f, 0.f, 0.f, 0.f};
       if (v == 0) {
-        if (d_ve) store_rows<4>(dp, d_ve, VIEW_IN, 0, r, lo, hi, lane);
-      } else if (d_ve2) {
-        store_rows<4>(dp, d_ve2, VIEW_IN * n_sec, VIEW_IN * (v - 1), r, lo, hi, lane);
-      }
-    }
-  }
-
-  // d feature = D W10[:, :256], a half of 128 columns at a time, D read back
-#pragma unroll 1
-  for (int hf = 0; hf < 2; ++hf) {
-    float df[64];
-    zero(df);
-#pragma unroll 1
-    for (int c = 0; c < 4; ++c) {
-      const __nv_bfloat16* chunk = pipe.acquire();
-      chunk_mma<16, 3>(df, chunk, lane, RowFrag{D_out, HID, CK * c, r, lane, lo, hi});
-      pipe.release();
-    }
-    store_rows<16>(df, dfeat_out, WIDTH, 128 * hf, r, lo, hi, lane);
-  }
-
-  // d h = d feature W8 + d sigma W9, to bf16, a half of 128 columns at a
-  // time, d feature read back
-  const float dsig_lo = lo ? g[(size_t)r * NOUT] : 0.f, dsig_hi = hi ? g[(size_t)(r + 8) * NOUT] : 0.f;
-#pragma unroll 1
-  for (int hh = 0; hh < 2; ++hh) {
-    float dh[64];
-    zero(dh);
-#pragma unroll 1
-    for (int c = 0; c < 8; ++c) {
-      const __nv_bfloat16* chunk = pipe.acquire();
-      chunk_mma<16, 3>(dh, chunk, lane, RowFrag{dfeat_out, WIDTH, CK * c, r, lane, lo, hi});
-      pipe.release();
-    }
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = 128 * hh + 8 * j + 2 * tq;
-      const float2 w9 = *reinterpret_cast<const float2*>(small + S_W9 + c);
-      const __nv_bfloat162 vlo = __floats2bfloat162_rn(__fadd_rn(dh[4 * j], __fmul_rn(dsig_lo, w9.x)),
-                                                       __fadd_rn(dh[4 * j + 1], __fmul_rn(dsig_lo, w9.y)));
-      const __nv_bfloat162 vhi = __floats2bfloat162_rn(__fadd_rn(dh[4 * j + 2], __fmul_rn(dsig_hi, w9.x)),
-                                                       __fadd_rn(dh[4 * j + 3], __fmul_rn(dsig_hi, w9.y)));
-      if (lo) *reinterpret_cast<__nv_bfloat162*>(d_h + (size_t)r * WIDTH + c) = vlo;
-      if (hi) *reinterpret_cast<__nv_bfloat162*>(d_h + (size_t)(r + 8) * WIDTH + c) = vhi;
-    }
-  }
-}
-
-// ---------------------------------------------- weight-gradient kernel
-
-constexpr int THREADS_B = 128;
-constexpr int TM = 64, TN = 64;  // output tile
-constexpr int KSPLIT = 8192;     // rows of the point axis per CTA
-constexpr int PROMOTE = 4;       // k16 steps per accumulator before it joins the total
-constexpr int X_PITCH = CK + 8;  // bf16 per row of a transposed part
-constexpr int SMEM_B = 2 * 3 * TM * X_PITCH * 2;
-// a CTA's partial, in doubles: the tile's (mv, nv) entries that lie in the
-// output (every tile of a job has the same extent), then X's mv column sums
-__host__ __device__ constexpr int partial_doubles(int m, int n) {
-  return (m < TM ? m : TM) * (n < TN ? n : TN) + (m < TM ? m : TM);
-}
-static_assert(TM == TN && PROMOTE % 2 == 0, "tiles");
-
-// How a job finds row k of the reduction in X and Y: ROWS_PLAIN, row k of
-// each; the others run over (point p, view v) pairs, k = p views + v, with X
-// (ROWS_PE) or Y (ROWS_DO) row k of an (N, views, .) tensor and the other
-// side read from the kernels' inputs: ROWS_PE, Y = PE(dir) of view v, row p
-// of ve (y) or columns 32 (v - 1).. of row p of ve2 (y2); ROWS_DO, X = d o_v
-// of row p of g (x): g[1:5] for the primary view, only column 3 (g[4 + v])
-// for a secondary one.
-enum { ROWS_PLAIN = 0, ROWS_PE = 1, ROWS_DO = 2 };
-
-// out = X^T Y over the point axis, per scene; xsum = X's column sums
-struct Job {
-  const float* x;
-  const void* y;    // f32, or bf16 if y_bf16
-  const float* y2;  // ROWS_PE: ve2
-  float* out;       // (M, N) per scene
-  float* xsum;      // (M) per scene, or null
-  int ldx, ldy, ldy2, m, n, y_bf16, rows, views;
-  int k;  // reduction rows per scene
-  int tiles_m, tiles_n, splits;
-  int cta0, tile0;     // the job's first CTA and output tile (counter)
-  long long part0;     // its first partial, in doubles
-};
-constexpr int MAX_JOBS = 5;
-struct Jobs {
-  Job j[MAX_JOBS];
-  int count;
-};
-
-__device__ __forceinline__ void kahan(float& s, float& c, float x) {
-  const float y = __fsub_rn(x, c);
-  const float t = __fadd_rn(s, y);
-  c = __fsub_rn(__fsub_rn(t, s), y);
-  s = t;
-}
-
-// The part products of a k16 step for the warp's 2 x 4 tiles, smallest
-// first, each pair over the 8 tiles in turn (independent chains): NP = 6
-// for X's three parts against Y's three (i + j <= 2), 3 against a bf16 Y.
-// The (0, 0) products go to `big`, the others to `small`; `first` starts
-// both afresh.
-template <int NP>
-__device__ __forceinline__ void mma_pairs(float (&big)[2][4][4], float (&small)[2][4][4], const uint32_t (&a)[2][3][4],
-                                          const uint32_t (&b)[4][3][2], bool first, const bool (&mi_live)[2]) {
-#pragma unroll
-  for (int q = 0; q < NP; ++q) {
-    const int ia = NP == 3 ? 2 - q : pair6_a(q), ib = NP == 3 ? 0 : pair6_b(q);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      if (!mi_live[mi]) continue;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        if (q == NP - 1) {
-          if (first)
-            mma_first(big[mi][nj], a[mi][ia], b[nj][ib]);
-          else
-            mma_acc(big[mi][nj], a[mi][ia], b[nj][ib]);
-        } else if (q == 0 && first) {
-          mma_first(small[mi][nj], a[mi][ia], b[nj][ib]);
-        } else {
-          mma_acc(small[mi][nj], a[mi][ia], b[nj][ib]);
+        for (int k = 0; k < 4; ++k) {
+          dlo[k] = lo ? g[(size_t)row * NOUT + 1 + k] : 0.f;
+          dhi[k] = hi ? g[(size_t)(row + 8) * NOUT + 1 + k] : 0.f;
         }
-      }
-    }
-  }
-}
-
-// One CTA's rows of X and Y for a step of 32 rows: a unit is two rows x four
-// columns, unit u = (k-pair u % 16, column quad u / 16), two units per
-// thread (u = tid, tid + 128). Loads are 32-byte row segments; the stores of
-// the transposed parts hit 32 distinct banks per warp.
-struct Rows {
-  float x[2][2][4], y[2][2][4];  // [unit][row of the pair][column]
-};
-
-// X's columns m .. m + 3 of reduction row k (x: the scene's base)
-template <int ROWS>
-__device__ __forceinline__ float4 x_quad(const Job& job, const float* x, int k, int m) {
-  if constexpr (ROWS == ROWS_DO) {
-    const int p = k / job.views, v = k - p * job.views;
-    const float* gr = x + (size_t)p * job.ldx;
-    return v == 0 ? make_float4(gr[1], gr[2], gr[3], gr[4]) : make_float4(0.f, 0.f, 0.f, gr[4 + v]);
-  }
-  return *reinterpret_cast<const float4*>(x + (size_t)k * job.ldx + m);
-}
-
-__device__ __forceinline__ const float* pe_row(const Job& job, const void* y, const float* y2, int k) {
-  const int p = k / job.views, v = k - p * job.views;
-  return v == 0 ? static_cast<const float*>(y) + (size_t)p * job.ldy : y2 + (size_t)p * job.ldy2 + VIEW_IN * (v - 1);
-}
-
-template <int ROWS>
-__device__ __forceinline__ void load_rows(Rows& rw, const Job& job, const float* x, const void* ybase,
-                                          const float* y2, int k0, int ke, int m0, int n0, int tid) {
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int unit = tid + THREADS_B * u, kp = unit & 15, cq = unit >> 4;
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int k = k0 + 2 * kp + rr;
-      const int m = m0 + 4 * cq, n = n0 + 4 * cq;
-      float4 xv = make_float4(0.f, 0.f, 0.f, 0.f), yv = xv;
-      if (k < ke && m < job.m) xv = x_quad<ROWS>(job, x, k, m);
-      if (k < ke && n < job.n) {
-        if constexpr (ROWS == ROWS_PE) {
-          yv = *reinterpret_cast<const float4*>(pe_row(job, ybase, y2, k) + n);
-        } else if (job.y_bf16) {
-          const uint2 raw = *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(ybase) +
-                                                            (size_t)k * job.ldy + n);
-          const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-          const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-          yv = make_float4(lo.x, lo.y, hi.x, hi.y);
-        } else {
-          yv = *reinterpret_cast<const float4*>(static_cast<const float*>(ybase) + (size_t)k * job.ldy + n);
-        }
-      }
-      rw.x[u][rr][0] = xv.x, rw.x[u][rr][1] = xv.y, rw.x[u][rr][2] = xv.z, rw.x[u][rr][3] = xv.w;
-      rw.y[u][rr][0] = yv.x, rw.y[u][rr][1] = yv.y, rw.y[u][rr][2] = yv.z, rw.y[u][rr][3] = yv.w;
-    }
-  }
-}
-
-// the rows' split parts, transposed: part q of (row k, column c) at
-// s[(q * 64 + c) * X_PITCH + k - k0] (a bf16 y: its values as part 0, the
-// other parts unused)
-__device__ __forceinline__ void store_rows_split(const Rows& rw, __nv_bfloat16* sx, __nv_bfloat16* sy, int tid,
-                                                 bool y_bf16) {
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int unit = tid + THREADS_B * u, kp = unit & 15, cq = unit >> 4;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint32_t p[3], q[3];
-      split_pair(rw.x[u][0][c], rw.x[u][1][c], p[0], p[1], p[2]);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) *reinterpret_cast<uint32_t*>(sx + (i * TM + 4 * cq + c) * X_PITCH + 2 * kp) = p[i];
-      if (y_bf16) {  // exact in bf16: part 0 only
-        const __nv_bfloat162 y2 = __floats2bfloat162_rn(rw.y[u][0][c], rw.y[u][1][c]);
-        *reinterpret_cast<__nv_bfloat162*>(sy + (4 * cq + c) * X_PITCH + 2 * kp) = y2;
       } else {
-        split_pair(rw.y[u][0][c], rw.y[u][1][c], q[0], q[1], q[2]);
+        dlo[3] = lo ? g[(size_t)row * NOUT + 4 + v] : 0.f;
+        dhi[3] = hi ? g[(size_t)(row + 8) * NOUT + 4 + v] : 0.f;
+      }
+      // hv = relu(. + b10); d hv = (d o W11) where hv > 0; D += d hv. From
+      // here on the register array hv holds d hv.
 #pragma unroll
-        for (int i = 0; i < 3; ++i)
-          *reinterpret_cast<uint32_t*>(sy + (i * TN + 4 * cq + c) * X_PITCH + 2 * kp) = q[i];
+      for (int j = 0; j < 16; ++j) {
+        const int c = 8 * j + 2 * tq;
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(sw + S_B10 + c));
+        float act[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c + (e & 1);
+          const float* dd = e < 2 ? dlo : dhi;
+          const float pre = __fadd_rn(hv[4 * j + e], (e & 1) ? bb.y : bb.x);
+          float dh = __fmul_rn(dd[0], w11[col]);
+          dh = __fmaf_rn(dd[1], w11[HID + col], dh);
+          dh = __fmaf_rn(dd[2], w11[2 * HID + col], dh);
+          dh = __fmaf_rn(dd[3], w11[3 * HID + col], dh);
+          act[e] = fmaxf(pre, 0.f);
+          hv[4 * j + e] = pre > 0.f ? dh : 0.f;
+          float* dslot = park + 128 * (64 + 4 * j + e);
+          *dslot = __fadd_rn(*dslot, hv[4 * j + e]);
+        }
+        float* hv_row = hv_out + ((size_t)row * views + v) * HID + c;
+        if (lo) *reinterpret_cast<float2*>(hv_row) = make_float2(act[0], act[1]);
+        if (hi) *reinterpret_cast<float2*>(hv_row + 8 * views * HID) = make_float2(act[2], act[3]);
+      }
+      store_rows(hv, dhv_out + v * HID, (size_t)views * HID, 0, row, lo, hi, lane);
+      // d pe_v = d hv_v W10[:, 256:] from registers: W10p^T's 4 K-blocks
+      if (dve) {
+        float dp[16], tp[16];
+        zero(dp);
+        const uint32_t b = ring.acquire();
+        static_for<8>([&](auto cc) {
+          constexpr int C = decltype(cc)::value;
+          uint32_t a[3][4];
+          split_acc<C>(hv, a);
+          const uint32_t bc = b + (C >> 1) * 2048 + (C & 1) * 32;
+          wgmma_fence();
+#pragma unroll
+          for (int q = 0; q < 6; ++q) wgmma_n32_rs(tp, a[pair6_a(q)], desc_k<64>(bc + pair6_b(q) * PART), q > 0);
+          wgmma_commit();
+          wgmma_wait0();
+          acc_fence(tp);
+          frag_fence(a);
+          add_into(dp, tp);
+        });
+        ring.release(lane);
+        if (v == 0) {
+          if (d_ve) store_rows(dp, d_ve, VIEW_IN, 0, row, lo, hi, lane);
+        } else if (d_ve2) {
+          store_rows(dp, d_ve2, (size_t)VIEW_IN * n_sec, VIEW_IN * (v - 1), row, lo, hi, lane);
+        }
+      }
+    }
+    float D[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) D[i] = park[128 * (64 + i)];
+    store_rows(D, D_out, HID, 0, row, lo, hi, lane);
+
+    // d feature = D W10[:, :256] from registers, a half of 128 columns at a
+    // time, parked in slots 64 hf .. 64 hf + 63 (G's are read)
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      float df[64], t[64];
+      zero(df);
+      static_for<4>([&](auto cc) {
+        constexpr int c = decltype(cc)::value;
+        const uint32_t b = ring.acquire();
+        static_for<2>([&](auto ss) {
+          constexpr int s = decltype(ss)::value;
+          uint32_t a[3][4];
+          split_acc<2 * c + s>(D, a);
+          step_rs6(df, t, a, b + 32 * s);
+        });
+        ring.release(lane);
+      });
+      store_rows(df, dfeat_out, WIDTH, 128 * hf, row, lo, hi, lane);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) park[128 * (64 * hf + i)] = df[i];
+    }
+
+    // d h = d feature W8 + d sigma W9, to bf16, a half of 128 columns at a
+    // time, d feature from the slots (k16 step C: slots 8C .. 8C + 7)
+    const float dsig_lo = lo ? g[(size_t)row * NOUT] : 0.f, dsig_hi = hi ? g[(size_t)(row + 8) * NOUT] : 0.f;
+#pragma unroll 1
+    for (int hh = 0; hh < 2; ++hh) {
+      float dh[64], t[64];
+      zero(dh);
+#pragma unroll 1
+      for (int c = 0; c < 8; ++c) {
+        const uint32_t b = ring.acquire();
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const float* sl = park + 128 * 8 * (2 * c + s);
+          const float2 x[4] = {make_float2(sl[0], sl[128]), make_float2(sl[256], sl[384]),
+                               make_float2(sl[512], sl[640]), make_float2(sl[768], sl[896])};
+          uint32_t a[3][4];
+          split_frag(x, a);
+          step_rs6(dh, t, a, b + 32 * s);
+        }
+        ring.release(lane);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 128 * hh + 8 * j + 2 * tq;
+        const float2 w9 = __ldg(reinterpret_cast<const float2*>(sw + S_W9 + c));
+        const __nv_bfloat162 vlo = __floats2bfloat162_rn(__fadd_rn(dh[4 * j], __fmul_rn(dsig_lo, w9.x)),
+                                                         __fadd_rn(dh[4 * j + 1], __fmul_rn(dsig_lo, w9.y)));
+        const __nv_bfloat162 vhi = __floats2bfloat162_rn(__fadd_rn(dh[4 * j + 2], __fmul_rn(dsig_hi, w9.x)),
+                                                         __fadd_rn(dh[4 * j + 3], __fmul_rn(dsig_hi, w9.y)));
+        if (lo) *reinterpret_cast<__nv_bfloat162*>(d_h + (size_t)row * WIDTH + c) = vlo;
+        if (hi) *reinterpret_cast<__nv_bfloat162*>(d_h + (size_t)(row + 8) * WIDTH + c) = vhi;
       }
     }
   }
 }
 
-// One CTA's share of a job (a tile and a split of the reduction), for the
-// job's row mode
-template <bool SCENES, int ROWS>
-__device__ __forceinline__ void weights_cta(const Job& job, int local, double* __restrict__ partials,
-                                            int* __restrict__ counters, __nv_bfloat16* sx, __nv_bfloat16* sy,
-                                            int& last_s) {
-  const int split = local % job.splits, tile = local / job.splits;
-  const int tn = tile % job.tiles_n, tm = (tile / job.tiles_n) % job.tiles_m;
-  const int scene = SCENES ? tile / (job.tiles_n * job.tiles_m) : 0;
-  const int m0 = TM * tm, n0 = TN * tn;
-  const int kb = split * KSPLIT, ke = min(job.k, kb + KSPLIT);
-  // the scene's rows: job.k of each (N, .) or (N, views, .) tensor, k / views
-  // of the inputs read per point (g for ROWS_DO's X, PE(dir) for ROWS_PE's Y)
-  const size_t nps = ROWS == ROWS_PLAIN ? job.k : job.k / job.views;
-  const float* x = job.x + scene * (ROWS == ROWS_DO ? nps : (size_t)job.k) * job.ldx;
-  const size_t y_rows = ROWS == ROWS_PE ? nps : (size_t)job.k;
-  const size_t y0 = scene * y_rows * job.ldy;
-  const void* ybase = job.y_bf16 ? static_cast<const void*>(static_cast<const __nv_bfloat16*>(job.y) + y0)
-                                 : static_cast<const void*>(static_cast<const float*>(job.y) + y0);
-  const float* y2 = ROWS == ROWS_PE ? job.y2 + scene * nps * job.ldy2 : nullptr;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
-  const int wm = 32 * (warp >> 1), wn = 32 * (warp & 1);
-  const bool sums = job.xsum != nullptr && tn == 0;
-  // X's column sums over this thread's rows (its units' columns 4 cq ..
-  // 4 cq + 3, cq = tid / 16 + 8 u), exact in f64
-  double colsum[2][4] = {{0.0, 0.0, 0.0, 0.0}, {0.0, 0.0, 0.0, 0.0}};
+// ------------------------------------------------------ weight-gradient kernel
 
-  // per tile of the warp: the (0, 0) part products and the others in two
-  // accumulators, so that the small products are never added to a sum of
-  // full size (each such add would truncate at its scale); both join the
-  // Kahan total every PROMOTE k16 steps
-  float big[2][4][4], small[2][4][4], tot[2][4][4], comp[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) big[a][b][e] = small[a][b][e] = tot[a][b][e] = comp[a][b][e] = 0.f;
-  const bool mi_live[2] = {m0 + wm < job.m, m0 + wm + 16 < job.m};
-  const bool n_live = n0 + wn < job.n;  // a job's n is a multiple of 32
+constexpr int PROMOTE = 2;           // k16 steps per accumulator chain before its Fast2Sum
+constexpr int WKB = 16 * PROMOTE;    // points per block: one chain
+constexpr int KSPLIT = 8192;         // points of the reduction per CTA (per view for dW10's PE(dir) columns)
+constexpr int KSPLIT_SMALL = 2048;   // ... for the small jobs
+constexpr int WSTAGES = 3;
+constexpr int WSTAGE = 32768;        // a block's rows of X (at 0) and Y (at Y_OFF), as bulk-copied
+constexpr int Y_OFF = 16384;
+constexpr int WSLAB = 49152;         // a block's split parts, MN-major: X's (at 0), then Y's (at SLAB_Y)
+constexpr int SLAB_Y = 24576;
+constexpr int W_STAGES_AT = 2 * WSLAB;
+constexpr int W_SUMS_AT = W_STAGES_AT + WSTAGES * WSTAGE;  // column sums, 4 doubles per thread
+constexpr int W_BARS_AT = W_SUMS_AT + 256 * 4 * 8;
+constexpr int SMEM_W = W_BARS_AT + 2 * WSTAGES * 8 + 1024;
+constexpr int SMALL_SUMS = 29;       // doubles per thread of a small job: dW9 8, dW11 16, b9 1, b11 4
+static_assert(SMEM_W <= 232448 && 256 * SMALL_SUMS * 8 <= 2 * WSLAB && PROMOTE == 2, "budget");
 
-  Rows rw;
-  load_rows<ROWS>(rw, job, x, ybase, y2, kb, ke, m0, n0, tid);
-  int steps = 0;
-  for (int k0 = kb; k0 < ke; k0 += CK) {
-    store_rows_split(rw, sx, sy, tid, job.y_bf16);
-    if (sums) {
+// the jobs, in grid order (the small jobs first: they take their SM longest)
+enum { J_SMALL = 0, J_W10F = 1, J_W8 = 2, J_W10P = 3, NJOBS = 4 };
+// tile shapes (X columns MT x Y columns NT) and whether Y is bf16
+__host__ __device__ constexpr int job_mt(int j) { return j == J_W8 ? 64 : 128; }
+__host__ __device__ constexpr int job_nt(int j) { return j == J_W8 ? 256 : (j == J_W10F ? 128 : 32); }
+__host__ __device__ constexpr int job_tiles(int j) { return j == J_W8 ? 4 : (j == J_W10F ? 2 : 1); }
+// doubles of a CTA's share: the tile's entries, then X's column sums (the small jobs: dW11, dW9, b11, b9)
+__host__ __device__ constexpr int job_pw(int j) {
+  return j == J_SMALL ? 4 * HID + WIDTH + 4 + 1 : job_mt(j) * job_nt(j) + (j == J_W10P ? 0 : job_mt(j));
+}
+
+struct WJob {
+  int tiles, splits;     // per scene: output tiles, CTAs per tile
+  int cta0;              // the job's first CTA
+  long long part0, ent0;  // its first share (doubles) and first share entry over all scenes' tiles
+};
+struct WArgs {
+  const __nv_bfloat16* h;
+  const float *g, *ve, *ve2, *feature, *dfeat, *D, *hv, *dhv;
+  float *w8, *w9, *w10f, *w10p, *w11, *b8, *b9, *b10, *b11;
+  double* partials;
+  int scenes, nps, n_sec, nsplit;
+  WJob job[NJOBS];
+};
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The tensor maps of the big jobs' operands, over the rows of every scene
+// (a box: WKB rows of a job's columns; rows past the tensor read as zeros):
+// d feature and h (dW8's X and Y), D and the feature (dW10f's), d hv (3-D:
+// columns, views, points) and PE(dir) from ve or ve2 (3-D: columns,
+// secondary views, points) (dW10p's).
+struct WMaps {
+  CUtensorMap dfeat, h, D, feature, dhv, ve, ve2;
+};
+
+// The grids: per job, scenes x tiles x splits CTAs (a CTA per share), and
+// the second launch's thread per entry of a tile's share.
+WArgs make_wargs(int scenes, int nps, int n_sec) {
+  WArgs a{};
+  a.scenes = scenes, a.nps = nps, a.n_sec = n_sec;
+  a.nsplit = nps > 0 ? cdiv(nps, KSPLIT) : 1;
+  int cta = 0;
+  long long part = 0, ent = 0;
+  for (int j = 0; j < NJOBS; ++j) {
+    WJob& jb = a.job[j];
+    jb.tiles = job_tiles(j);
+    jb.splits = j == J_SMALL ? (nps > 0 ? cdiv(nps, KSPLIT_SMALL) : 1) : (j == J_W10P ? (1 + n_sec) : 1) * a.nsplit;
+    jb.cta0 = cta, jb.part0 = part, jb.ent0 = ent;
+    cta += scenes * jb.tiles * jb.splits;
+    part += (long long)scenes * jb.tiles * jb.splits * job_pw(j);
+    ent += (long long)scenes * jb.tiles * job_pw(j);
+  }
+  return a;
+}
+
+int weight_ctas(const WArgs& a) {
+  const WJob& j = a.job[NJOBS - 1];
+  return j.cta0 + a.scenes * j.tiles * j.splits;
+}
+
+long long share_entries(const WArgs& a) {
+  const WJob& j = a.job[NJOBS - 1];
+  return j.ent0 + (long long)a.scenes * j.tiles * job_pw(NJOBS - 1);
+}
+
+// Fast2Sum: tot + acc = new tot + new acc, exactly where |tot| >= |acc|
+// (the total is larger than a block's sum but for the first blocks of a
+// share) or where the sum is exact; else off by less than half an ulp of
+// the block's sum
+template <int N>
+__device__ __forceinline__ void promote(float (&tot)[N], float (&acc)[N]) {
 #pragma unroll
-      for (int u = 0; u < 2; ++u)
+  for (int i = 0; i < N; ++i) {
+    const float s = __fadd_rn(tot[i], acc[i]);
+    acc[i] = __fsub_rn(acc[i], __fsub_rn(s, tot[i]));
+    tot[i] = s;
+  }
+}
+
+// byte offset of element (k, c) in an MN-major slab of one part: atoms of
+// SW / 2 columns, WKB rows of SW bytes each, atoms WKB * SW bytes apart
+template <int SW>
+__device__ __forceinline__ int mn_off(int k, int c) {
+  if constexpr (SW == 128)
+    return (c >> 6) * (WKB * 128) + k * 128 + ((((c & 63) >> 3) ^ (k & 7)) << 4) + (c & 7) * 2;
+  else
+    return k * 64 + ((((c & 31) >> 3) ^ ((k >> 1) & 3)) << 4) + (c & 7) * 2;
+}
+
+// One CTA's share of a big job: the tile's X^T Y over KSPLIT points (of one
+// view for J_W10P), consumer side (256 threads).
+template <int JOB, bool SCENES>
+__device__ __forceinline__ void big_share(const WArgs& a, const WJob& job, int local, unsigned char* smem,
+                                          uint32_t base, int tid) {
+  constexpr int MT = job_mt(JOB), NT = job_nt(JOB), NW = NT == 256 ? 128 : NT, ACC = NW / 2;
+  constexpr bool YB = JOB == J_W8;
+  constexpr int YSW = NT == 32 ? 64 : 128;
+  constexpr int APART = MT * WKB * 2, BPART = NT * WKB * 2;
+  const uint32_t full = base + W_BARS_AT, empty = full + 8 * WSTAGES;
+  const int split = local % job.splits, tall = local / job.splits;
+  const int tile = tall % job.tiles, views = 1 + a.n_sec;
+  const int ks = JOB == J_W10P ? split % a.nsplit : split;
+  const int kb = ks * KSPLIT, ke = min(a.nps, kb + KSPLIT), nblk = ke > kb ? cdiv(ke - kb, WKB) : 0;
+  const bool sums = JOB == J_W8 || (JOB == J_W10F && tile == 0);
+  const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+
+  float acc[ACC], tot[ACC];
+  zero(acc);
+  zero(tot);
+  // X's column sums over this thread's rows: columns 4 (tid % (MT / 4)) ..
+  double cs[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int blk = 0; blk < nblk; ++blk) {
+    const int s = blk % WSTAGES, rows = min(WKB, ke - (kb + blk * WKB));
+    mbar_wait(full + 8 * s, (blk / WSTAGES) & 1);
+    const unsigned char* st = smem + W_STAGES_AT + s * WSTAGE;
+    unsigned char* slab = smem + (blk & 1) * WSLAB;
+    // X: MT columns, split once, written in the orientation they came in
 #pragma unroll
-        for (int c = 0; c < 4; ++c) colsum[u][c] += (double)rw.x[u][0][c] + (double)rw.x[u][1][c];
-    }
-    __syncthreads();
-    // the next step's rows, in flight
-    if (k0 + CK < ke) load_rows<ROWS>(rw, job, x, ybase, y2, k0 + CK, ke, m0, n0, tid);
-    if (n_live) {
+    for (int i = 0; i < MT / 32; ++i) {
+      const int u = tid + 256 * i, c4 = u % (MT / 4), k = u / (MT / 4);
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k < rows) x = *reinterpret_cast<const float4*>(st + (k * MT + 4 * c4) * 4);
+      uint32_t lo[3], hi[3];
+      split_pair(x.x, x.y, lo[0], lo[1], lo[2]);
+      split_pair(x.z, x.w, hi[0], hi[1], hi[2]);
+      const int off = mn_off<128>(k, 4 * c4);
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        // fragments by ldmatrix: lane l addresses row l % 8 of matrix l / 8;
-        // A's four are (rows 0-7 | 8-15) x (K 0-7 | 8-15), B's two tiles x
-        // (K 0-7 | 8-15); a bf16 Y has part 0 only
-        const int lm = lane >> 3, lrow = lane & 7;
-        uint32_t a[2][3][4], b[4][3][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int q = 0; q < 3; ++q)
-            ldsm_x4(a[mi][q], sx + (q * TM + wm + 16 * mi + 8 * (lm & 1) + lrow) * X_PITCH + 16 * s + 8 * (lm >> 1));
-#pragma unroll
-        for (int nj = 0; nj < 4; nj += 2)
-#pragma unroll
-          for (int q = 0; q < 3; ++q) {
-            uint32_t r[4] = {0u, 0u, 0u, 0u};
-            if (q == 0 || !job.y_bf16)
-              ldsm_x4(r, sy + (q * TN + wn + 8 * (nj + (lm >> 1)) + lrow) * X_PITCH + 16 * s + 8 * (lm & 1));
-            b[nj][q][0] = r[0], b[nj][q][1] = r[1], b[nj + 1][q][0] = r[2], b[nj + 1][q][1] = r[3];
-          }
-        const bool first = steps % PROMOTE == 0 && s == 0;
-        if (job.y_bf16)
-          mma_pairs<3>(big, small, a, b, first, mi_live);
-        else
-          mma_pairs<6>(big, small, a, b, first, mi_live);
+      for (int p = 0; p < 3; ++p) *reinterpret_cast<uint2*>(slab + p * APART + off) = make_uint2(lo[p], hi[p]);
+      if (sums) {
+        cs[0] += (double)x.x;
+        cs[1] += (double)x.y;
+        cs[2] += (double)x.z;
+        cs[3] += (double)x.w;
       }
     }
-    steps += 2;
-    if (steps % PROMOTE == 0 || k0 + CK >= ke) {
+    // Y: NT columns, split once (bf16 h: copied)
+    if constexpr (YB) {
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int i = 0; i < 4; ++i) {
+        const int u = tid + 256 * i, c8 = u & 31, k = u >> 5;
+        uint4 y = make_uint4(0, 0, 0, 0);
+        if (k < rows) y = *reinterpret_cast<const uint4*>(st + Y_OFF + (k * NT + 8 * c8) * 2);
+        *reinterpret_cast<uint4*>(slab + SLAB_Y + mn_off<128>(k, 8 * c8)) = y;
+      }
+    } else {
 #pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
+      for (int i = 0; i < NT / 32; ++i) {
+        const int u = tid + 256 * i, c4 = u % (NT / 4), k = u / (NT / 4);
+        float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k < rows) y = *reinterpret_cast<const float4*>(st + Y_OFF + (k * NT + 4 * c4) * 4);
+        uint32_t lo[3], hi[3];
+        split_pair(y.x, y.y, lo[0], lo[1], lo[2]);
+        split_pair(y.z, y.w, hi[0], hi[1], hi[2]);
+        const int off = mn_off<YSW>(k, 4 * c4);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            kahan(tot[mi][nj][e], comp[mi][nj][e], __fadd_rn(big[mi][nj][e], small[mi][nj][e]));
-            big[mi][nj][e] = small[mi][nj][e] = 0.f;
-          }
-      steps = 0;
+        for (int p = 0; p < 3; ++p)
+          *reinterpret_cast<uint2*>(slab + SLAB_Y + p * BPART + off) = make_uint2(lo[p], hi[p]);
+      }
     }
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // the stage is read
+    fence_proxy_async();
+    if (blk > 0) {  // the previous block's chain, into the total
+      wgmma_wait0();
+      acc_fence(acc);
+      promote(tot, acc);
+    }
+    bar_sync(1, 256);  // both warpgroups' parts written, both previous chains done
+    // the chain: A = the warpgroup's 64 X columns, B its NW Y columns; the
+    // part products of both k16 steps by size (i + j = 2, 1, then 0)
+    const uint32_t sa = base + (blk & 1) * WSLAB + (MT == 128 ? w * WKB * 128 : 0);
+    const uint32_t sb = base + (blk & 1) * WSLAB + SLAB_Y + (NT == 256 ? 2 * w * WKB * 128 : 0);
+    acc_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int cls = 2; cls >= 0; --cls)
+#pragma unroll
+      for (int st16 = 0; st16 < PROMOTE; ++st16)
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+          const int i = pair6_a(q), j = pair6_b(q);
+          if (i + j != cls || (YB && j > 0)) continue;
+          const uint64_t da = desc_mn<128>(sa + i * APART + st16 * 2048, WKB * 128, 1024);
+          if constexpr (NT == 32) {
+            wgmma_n32_ss<1, 1>(acc, da, desc_mn<64>(sb + j * BPART + st16 * 1024, WKB * 64, 512), 1);
+          } else {
+            wgmma_n128_ss<1, 1>(acc, da, desc_mn<128>(sb + j * BPART + st16 * 2048, WKB * 128, 1024), 1);
+          }
+        }
+    wgmma_commit();
+  }
+  if (nblk > 0) {
+    wgmma_wait0();
+    acc_fence(acc);
+    promote(tot, acc);
   }
 
-  // this CTA's partial, in f64 (tot - comp: Kahan's running compensation)
-  const int mv = min(job.m, TM), nv = min(job.n, TN), pw = partial_doubles(job.m, job.n);
-  double* part = partials + job.part0 + ((size_t)tile * job.splits + split) * pw;
+  // this CTA's share, in f64 (the total + what the accumulator holds)
+  double* part = a.partials + job.part0 + ((size_t)tall * job.splits + split) * job_pw(JOB);
+  const int gq = lane >> 2, tq = lane & 3;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int jj = 0; jj < ACC / 4; ++jj)
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
+    for (int e = 0; e < 4; ++e) {
+      const int m = (MT == 128 ? 64 * w : 0) + 16 * warp + gq + 8 * (e >> 1);
+      const int n = (NT == 256 ? 128 * w : 0) + 8 * jj + 2 * tq + (e & 1);
+      part[m * NT + n] = (double)tot[4 * jj + e] + (double)acc[4 * jj + e];
+    }
+  if (sums) {
+    // the threads of a column quad (tid % (MT / 4)) in a fixed order
+    double* sm = reinterpret_cast<double*>(smem + W_SUMS_AT);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sm[4 * tid + c] = cs[c];
+    bar_sync(1, 256);
+    if (tid < MT / 4) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        double v = 0.0;
+        for (int gi = 0; gi < 256 / (MT / 4); ++gi) v += sm[4 * (tid + gi * (MT / 4)) + c];
+        part[MT * NT + 4 * tid + c] = v;
+      }
+    }
+  }
+}
+
+// The small jobs' share of KSPLIT_SMALL points, in f64 on the CUDA cores:
+// warp wq takes points kb + wq, kb + wq + 8, ...; lane l the columns 8l ..
+// 8l + 7 of h (dW9) and 4l .. 4l + 3 of hv_v (dW11, each of d o's 4 rows).
+template <bool SCENES>
+__device__ __forceinline__ void small_share(const WArgs& a, const WJob& job, int local, unsigned char* smem, int tid) {
+  const int split = local % job.splits, tall = local / job.splits;
+  const int scene = SCENES ? tall / job.tiles : 0, views = 1 + a.n_sec;
+  const int kb = split * KSPLIT_SMALL, ke = min(a.nps, kb + KSPLIT_SMALL);
+  const int wq = tid / 32, lane = tid % 32;
+  double s[SMALL_SUMS];
+#pragma unroll
+  for (int i = 0; i < SMALL_SUMS; ++i) s[i] = 0.0;  // dW9 [0, 8), dW11 [8, 24) (row j: 8 + 4j), b9 24, b11 25..28
+  const size_t r0 = (size_t)scene * a.nps;
+  constexpr int U = 2;  // points per warp in flight: every load of U points first
+  for (int p0 = kb + wq; p0 < ke; p0 += 8 * U) {
+    float4 g0[U], g1[U], x[U][1 + MAX_SEC];
+    uint4 hr[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const size_t row = r0 + min(p0 + 8 * u, ke - 1);
+      g0[u] = __ldg(reinterpret_cast<const float4*>(a.g + row * NOUT));
+      g1[u] = __ldg(reinterpret_cast<const float4*>(a.g + row * NOUT) + 1);
+      hr[u] = __ldg(reinterpret_cast<const uint4*>(a.h + row * WIDTH) + lane);
+#pragma unroll
+      for (int v = 0; v <= MAX_SEC; ++v)
+        if (v < views) x[u][v] = __ldg(reinterpret_cast<const float4*>(a.hv + (row * views + v) * HID) + lane);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (p0 + 8 * u >= ke) break;
+      const __nv_bfloat162* hp = reinterpret_cast<const __nv_bfloat162*>(&hr[u]);
+      const double dsig = g0[u].x;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = wm + 16 * mi + gq + 8 * (e >> 1), col = wn + 8 * nj + 2 * tq + (e & 1);
-        if (row < mv && col < nv) part[row * nv + col] = (double)tot[mi][nj][e] - (double)comp[mi][nj][e];
+        const float2 hf = __bfloat1622float2(hp[e]);
+        s[2 * e] = fma(dsig, (double)hf.x, s[2 * e]);
+        s[2 * e + 1] = fma(dsig, (double)hf.y, s[2 * e + 1]);
       }
-  // the column sums: the 16 threads of a column quad (lanes with equal
-  // tid / 16, one per k-pair) in a fixed butterfly order
+      s[24] += dsig;
 #pragma unroll
-  for (int u = 0; u < 2; ++u)
+      for (int v = 0; v <= MAX_SEC; ++v) {
+        if (v >= views) break;
+        const double xe[4] = {x[u][v].x, x[u][v].y, x[u][v].z, x[u][v].w};
+        if (v == 0) {
+          const double d[4] = {g0[u].y, g0[u].z, g0[u].w, g1[u].x};
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      double v = colsum[u][c];
+          for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      const int col = 4 * ((tid >> 4) + 8 * u) + c;
-      if ((tid & 15) == 0 && col < mv) part[mv * nv + col] = v;
+            for (int e = 0; e < 4; ++e) s[8 + 4 * jj + e] = fma(d[jj], xe[e], s[8 + 4 * jj + e]);
+            s[25 + jj] += d[jj];
+          }
+        } else {
+          const double d3 = v == 1 ? g1[u].y : (v == 2 ? g1[u].z : g1[u].w);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[20 + e] = fma(d3, xe[e], s[20 + e]);
+          s[28] += d3;
+        }
+      }
     }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last_s = atomicAdd(counters + job.tile0 + tile, 1) == job.splits - 1;
-  __syncthreads();
-  if (!last_s) return;
-  // the tile's last CTA: every split's partial, summed in a fixed order
-  // (four running sums over the splits, split sp in sum sp % 4 and the last
-  // splits in the first, added as a tree), eight entries per thread at a
-  // time: 32 loads in flight each
-  __threadfence();
-  const double* first = partials + job.part0 + (size_t)tile * job.splits * pw;
-  float* out = job.out + (size_t)scene * job.m * job.n;
-  for (int i0 = 8 * tid; i0 < pw; i0 += 8 * THREADS_B) {
-    double acc[4][8];
+  }
+  // over the 8 warps in a fixed order
+  double* sm = reinterpret_cast<double*>(smem);
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
+  for (int i = 0; i < SMALL_SUMS; ++i) sm[tid * SMALL_SUMS + i] = s[i];
+  bar_sync(1, 256);
+  if (tid < 32) {
+    double* part = a.partials + job.part0 + ((size_t)tall * job.splits + split) * job_pw(J_SMALL);
+    for (int i = 0; i < SMALL_SUMS; ++i) {
+      double v = 0.0;
+      for (int k = 0; k < 8; ++k) v += sm[(32 * k + tid) * SMALL_SUMS + i];
+      if (i < 8) part[4 * HID + 8 * tid + i] = v;                                  // dW9
+      else if (i < 24) part[((i - 8) >> 2) * HID + 4 * tid + ((i - 8) & 3)] = v;  // dW11
+      else if (tid == 0) part[4 * HID + WIDTH + (i == 24 ? 4 : i - 25)] = v;        // b9, b11
+    }
+  }
+}
+
+// The second launch: a thread per entry of a tile's shares, their sum in a
+// fixed order (four running sums over the shares, share sp in sum sp % 4
+// and the last ones in the first, added as a tree), written where the
+// module's gradient holds it.
+__global__ void __launch_bounds__(256) heads_bwd_reduce_kernel(const WArgs a) {
+  const long long gi = (long long)blockIdx.x * 256 + threadIdx.x;
+  int jb = 0;
+  WJob job = a.job[0];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) acc[u][q] = 0.0;
-    int sp = 0;
-    for (; sp + 4 <= job.splits; sp += 4)
+  for (int i = 1; i < NJOBS; ++i)
+    if (gi >= a.job[i].ent0) jb = i, job = a.job[i];
+  const int pw = job_pw(jb);
+  const long long local = gi - job.ent0;
+  if (local >= (long long)a.scenes * job.tiles * pw) return;
+  const int tall = (int)(local / pw), i = (int)(local % pw);
+  const int scene = tall / job.tiles, tile = tall % job.tiles;
+  const double* first = a.partials + job.part0 + (size_t)tall * job.splits * pw + i;
+  double acc[4] = {0.0, 0.0, 0.0, 0.0};
+  int sp = 0;
+  for (; sp + 4 <= job.splits; sp += 4)
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          if (i0 + q < pw) acc[u][q] += __ldcg(first + (size_t)(sp + u) * pw + i0 + q);
-    for (; sp < job.splits; ++sp)  // the last splits, into the first sum
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (i0 + q < pw) acc[0][q] += __ldcg(first + (size_t)sp * pw + i0 + q);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int i = i0 + q;
-      if (i >= pw) break;
-      const double s = (acc[0][q] + acc[1][q]) + (acc[2][q] + acc[3][q]);
-      if (i < mv * nv) {
-        out[(size_t)(m0 + i / nv) * job.n + n0 + i % nv] = (float)s;
-      } else if (sums) {
-        job.xsum[(size_t)scene * job.m + m0 + i - mv * nv] = (float)s;
-      }
+    for (int u = 0; u < 4; ++u) acc[u] += __ldg(first + (size_t)(sp + u) * pw);
+  for (; sp < job.splits; ++sp) acc[0] += __ldg(first + (size_t)sp * pw);
+  const float v = (float)((acc[0] + acc[1]) + (acc[2] + acc[3]));
+  if (jb == J_W8) {
+    if (i < 64 * WIDTH)
+      a.w8[(size_t)scene * WIDTH * WIDTH + (64 * tile + i / WIDTH) * WIDTH + i % WIDTH] = v;
+    else
+      a.b8[(size_t)scene * WIDTH + 64 * tile + i - 64 * WIDTH] = v;
+  } else if (jb == J_W10F) {
+    if (i < HID * 128)
+      a.w10f[(size_t)scene * HID * WIDTH + (i / 128) * WIDTH + 128 * tile + i % 128] = v;
+    else if (tile == 0)
+      a.b10[(size_t)scene * HID + i - HID * 128] = v;
+  } else if (jb == J_W10P) {
+    a.w10p[(size_t)scene * HID * VIEW_IN + i] = v;
+  } else {
+    if (i < 4 * HID) a.w11[(size_t)scene * 4 * HID + i] = v;
+    else if (i < 4 * HID + WIDTH) a.w9[(size_t)scene * WIDTH + i - 4 * HID] = v;
+    else if (i < 4 * HID + WIDTH + 4) a.b11[(size_t)scene * 4 + i - 4 * HID - WIDTH] = v;
+    else a.b9[scene] = v;
+  }
+}
+
+// the producer thread of a big job's share: each block's WKB rows of X and
+// Y, a tensor-map box each, into stage blk % WSTAGES
+template <int JOB>
+__device__ __forceinline__ void produce(const WArgs& a, const WMaps& maps, const WJob& job, int local,
+                                        uint32_t base) {
+  constexpr int XBYTES = WKB * job_mt(JOB) * 4, YBYTES = WKB * job_nt(JOB) * (JOB == J_W8 ? 2 : 4);
+  const uint32_t full = base + W_BARS_AT, empty = full + 8 * WSTAGES;
+  const int split = local % job.splits, tall = local / job.splits;
+  const int tile = tall % job.tiles, scene = tall / job.tiles;
+  const int v = JOB == J_W10P ? split / a.nsplit : 0, ks = JOB == J_W10P ? split % a.nsplit : split;
+  const int kb = ks * KSPLIT, ke = min(a.nps, kb + KSPLIT), nblk = ke > kb ? cdiv(ke - kb, WKB) : 0;
+  const int row0 = scene * a.nps + kb;
+  for (int blk = 0; blk < nblk; ++blk) {
+    const int s = blk % WSTAGES, row = row0 + blk * WKB;
+    const uint32_t st = base + W_STAGES_AT + s * WSTAGE, bar = full + 8 * s;
+    mbar_wait(empty + 8 * s, ((blk / WSTAGES) & 1) ^ 1);
+    mbar_expect_tx(bar, XBYTES + YBYTES);
+    if constexpr (JOB == J_W8) {
+      tma_2d(st, &maps.dfeat, 64 * tile, row, bar);
+      tma_2d(st + Y_OFF, &maps.h, 0, row, bar);
+    } else if constexpr (JOB == J_W10F) {
+      tma_2d(st, &maps.D, 0, row, bar);
+      tma_2d(st + Y_OFF, &maps.feature, 128 * tile, row, bar);
+    } else {
+      tma_3d(st, &maps.dhv, 0, v, row, bar);
+      if (v == 0)
+        tma_2d(st + Y_OFF, &maps.ve, 0, row, bar);
+      else
+        tma_3d(st + Y_OFF, &maps.ve2, 0, v - 1, row, bar);
     }
   }
 }
 
 template <bool SCENES>
-__global__ void __launch_bounds__(THREADS_B)
-    heads_bwd_weights_kernel(const Jobs jobs, double* __restrict__ partials, int* __restrict__ counters) {
-  __shared__ __align__(16) __nv_bfloat16 sx[3 * TM * X_PITCH];
-  __shared__ __align__(16) __nv_bfloat16 sy[3 * TN * X_PITCH];
-  __shared__ int last_s;
-  // this CTA's job: the last whose first CTA is at or before it (each job
-  // read with a constant index, so the table stays in parameter space)
-  Job job = jobs.j[0];
+__global__ void __launch_bounds__(THREADS, 1)
+    heads_bwd_weights_kernel(const WArgs a, const __grid_constant__ WMaps maps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  if (threadIdx.x == 0) {
+    const uint32_t full = base + W_BARS_AT, empty = full + 8 * WSTAGES;
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // this CTA's job: the last whose first CTA is at or before it (each read
+  // with a constant index, so the table stays in parameter space)
+  int jb = 0;
+  WJob job = a.job[0];
 #pragma unroll
-  for (int i = 1; i < MAX_JOBS; ++i)
-    if (i < jobs.count && (int)blockIdx.x >= jobs.j[i].cta0) job = jobs.j[i];
+  for (int i = 1; i < NJOBS; ++i)
+    if ((int)blockIdx.x >= a.job[i].cta0) jb = i, job = a.job[i];
   const int local = blockIdx.x - job.cta0;
-  if (job.rows == ROWS_PE)
-    weights_cta<SCENES, ROWS_PE>(job, local, partials, counters, sx, sy, last_s);
-  else if (job.rows == ROWS_DO)
-    weights_cta<SCENES, ROWS_DO>(job, local, partials, counters, sx, sy, last_s);
-  else
-    weights_cta<SCENES, ROWS_PLAIN>(job, local, partials, counters, sx, sy, last_s);
-}
-
-// The five jobs of one launch, their grid laid out in turn.
-Jobs make_jobs(const void* h, const float* g, const float* ve, const float* ve2, const float* feature,
-               const float* dfeat, const float* D, const float* hv, const float* dhv, float* w8, float* w9,
-               float* w10f, float* w10p, float* w11, float* b8, float* b9, float* b10, float* b11, int scenes, int nps,
-               int n_sec) {
-  const int views = 1 + n_sec, ve2_ld = VIEW_IN * (n_sec > 0 ? n_sec : 1);
-  Jobs jobs{};
-  // x, y, y2, out, xsum, ldx, ldy, ldy2, m, n, y_bf16, rows, views, k
-  const Job list[MAX_JOBS] = {
-      {dfeat, h, nullptr, w8, b8, WIDTH, WIDTH, 0, WIDTH, WIDTH, 1, ROWS_PLAIN, 1, nps},  // dW8 = d feature^T h, b8
-      {D, feature, nullptr, w10f, b10, HID, WIDTH, 0, HID, WIDTH, 0, ROWS_PLAIN, 1, nps},  // dW10[:, :256], b10
-      // dW10[:, 256:] = sum_v d hv_v^T PE(dir)_v
-      {dhv, ve, ve2, w10p, nullptr, HID, VIEW_IN, ve2_ld, HID, VIEW_IN, 0, ROWS_PE, views, nps * views},
-      {g, hv, nullptr, w11, b11, NOUT, HID, 0, 4, HID, 0, ROWS_DO, views, nps * views},  // dW11 = sum_v d o^T hv, b11
-      {g, h, nullptr, w9, b9, NOUT, WIDTH, 0, 1, WIDTH, 1, ROWS_PLAIN, 1, nps},  // dW9 = d sigma^T h, b9
-  };
-  int cta = 0, tiles = 0;
-  long long part = 0;
-  for (int i = 0; i < MAX_JOBS; ++i) {
-    Job j = list[i];
-    j.tiles_m = (j.m + TM - 1) / TM;
-    j.tiles_n = (j.n + TN - 1) / TN;
-    j.splits = j.k > 0 ? (j.k + KSPLIT - 1) / KSPLIT : 1;
-    j.cta0 = cta;  // a CTA per (tile, split), and a partial each
-    j.part0 = part;
-    j.tile0 = tiles;
-    tiles += scenes * j.tiles_m * j.tiles_n;
-    cta += scenes * j.tiles_m * j.tiles_n * j.splits;
-    part += (long long)scenes * j.tiles_m * j.tiles_n * j.splits * partial_doubles(j.m, j.n);
-    jobs.j[i] = j;
+  if (threadIdx.x >= 256) {  // the producer warpgroup: one thread copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      if (jb == J_W10F) produce<J_W10F>(a, maps, job, local, base);
+      else if (jb == J_W8) produce<J_W8>(a, maps, job, local, base);
+      else if (jb == J_W10P) produce<J_W10P>(a, maps, job, local, base);
+    }
+    return;
   }
-  jobs.count = MAX_JOBS;
-  return jobs;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x;
+  if (jb == J_SMALL) small_share<SCENES>(a, job, local, smem, tid);
+  else if (jb == J_W10F) big_share<J_W10F, SCENES>(a, job, local, smem, base, tid);
+  else if (jb == J_W8) big_share<J_W8, SCENES>(a, job, local, smem, base, tid);
+  else big_share<J_W10P, SCENES>(a, job, local, smem, base, tid);
 }
 
-int total_ctas(const Jobs& jobs, int scenes) {
-  const Job& j = jobs.j[jobs.count - 1];
-  return j.cta0 + scenes * j.tiles_m * j.tiles_n * j.splits;
-}
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-}  // namespace
-
-extern "C" int vipnerf_heads_bwd_smem_bytes() { return SMEM_A; }
-
-// what = 0: output tiles of the weight-gradient launch (its counters);
-// what = 1: doubles of its partials
-extern "C" long long vipnerf_heads_bwd_scratch(int scenes, int nps, int n_sec, int what) {
-  const Jobs jobs = make_jobs(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, scenes, nps,
-                              n_sec);
-  long long tiles = 0, doubles = 0;
-  for (int i = 0; i < jobs.count; ++i) {
-    const Job& j = jobs.j[i];
-    const long long t = (long long)scenes * j.tiles_m * j.tiles_n;
-    tiles += t;
-    doubles += t * j.splits * partial_doubles(j.m, j.n);
+// the CUDA driver API's cuTensorMapEncodeTiled, through the runtime (no link to libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
   }
-  return what == 0 ? tiles : doubles;
+  return fn;
 }
 
-static bool shape_ok(int scenes, int nps, int n_sec) {
+// A row-major tensor's map: `rank` dims innermost first (elements), the
+// byte strides of dims 1.. and a box of WKB rows of `box0` columns (one
+// step of each middle dim); no swizzle, zeros past the tensor.
+bool encode(CUtensorMap* map, const void* ptr, bool bf16, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+            cuuint32_t box0) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t box[3] = {box0, rank == 3 ? 1u : (cuuint32_t)WKB, (cuuint32_t)WKB}, one[3] = {1, 1, 1};
+  return fn && fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                  const_cast<void*>(ptr), dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool shape_ok(int scenes, int nps, int n_sec) {
   return n_sec >= 0 && n_sec <= MAX_SEC && scenes >= 1 && nps >= 0 &&
          (long long)scenes * nps * (1 + n_sec) <= 0x7fffffffLL;
 }
 
-// h (N, 256) bf16; ve, ve2, g f32 (N = scenes * nps rows); img and small
-// each scene's heads_bwd_pack; outputs: d_h (N, 256) bf16, feature and
-// d feature (N, 256), D (N, 128), hv and d hv (N, 1 + n_sec, 128), and with
-// dve d ve (N, 32) and d ve2 (N, 32 n_sec), each may be null
+}  // namespace
+
+// which = 0: the per-point kernel's dynamic shared memory per CTA; 1: the
+// weight kernel's
+extern "C" int vipnerf_heads_bwd_smem_bytes(int which) { return which == 0 ? SMEM_P : SMEM_W; }
+
+// The weight gradients' scratch and grids: what = 1, the doubles of the
+// shares; 2, the first launch's CTAs; 3, the entries of a tile's share over
+// every tile (the second launch's threads); 0, none (the first design's
+// counters)
+extern "C" long long vipnerf_heads_bwd_scratch(int scenes, int nps, int n_sec, int what) {
+  const WArgs a = make_wargs(scenes, nps, n_sec);
+  const WJob& last = a.job[NJOBS - 1];
+  if (what == 1) return last.part0 + (long long)scenes * last.tiles * last.splits * job_pw(NJOBS - 1);
+  return what == 2 ? weight_ctas(a) : (what == 3 ? share_entries(a) : 0);
+}
+
+// h (N, 256) bf16; ve, ve2, g f32 (N = scenes * nps rows); stream and small
+// each scene's heads_bwd_stream and small weights; outputs: d_h (N, 256)
+// bf16, feature and d feature (N, 256), D (N, 128), hv and d hv (N, 1 +
+// n_sec, 128), and with dve d ve (N, 32) and d ve2 (N, 32 n_sec), each may
+// be null
 extern "C" int vipnerf_heads_bwd_points(const void* h, const void* ve, const void* ve2, const void* g,
-                                        const void* img, const void* small, void* d_h, void* feature, void* dfeat,
+                                        const void* stream, const void* small, void* d_h, void* feature, void* dfeat,
                                         void* D, void* hv, void* dhv, void* d_ve, void* d_ve2, int scenes, int nps,
-                                        int n_sec, int dve, void* stream) {
+                                        int n_sec, int dve, void* stream_) {
   if (!shape_ok(scenes, nps, n_sec)) return (int)cudaErrorInvalidValue;
   auto kernel = scenes > 1 ? heads_bwd_points_kernel<true> : heads_bwd_points_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_A);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_P);
   if (e != cudaSuccess) return (int)e;
   if (nps == 0) return 0;
-  const int blocks = scenes * ((nps + TILE_A - 1) / TILE_A);
-  kernel<<<blocks, THREADS_A, SMEM_A, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)h, (const float*)ve, (const float*)ve2, (const float*)g, (const __nv_bfloat16*)img,
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)e;
+  const int ntiles = scenes * ((nps + TILE - 1) / TILE);
+  kernel<<<ntiles < sms ? ntiles : sms, THREADS, SMEM_P, (cudaStream_t)stream_>>>(
+      (const __nv_bfloat16*)h, (const float*)ve, (const float*)ve2, (const float*)g, (const unsigned char*)stream,
       (const float*)small, (__nv_bfloat16*)d_h, (float*)feature, (float*)dfeat, (float*)D, (float*)hv, (float*)dhv,
-      (float*)d_ve, (float*)d_ve2, nps, n_sec, dve);
+      (float*)d_ve, (float*)d_ve2, scenes, nps, n_sec, dve);
   return (int)cudaGetLastError();
 }
 
 // The weight gradients from the inputs h, g, ve, ve2 of the per-point
 // kernel and its outputs, per scene: w8 (256, 256), w9 (1, 256), w10f (128,
 // 256), w10p (128, 32) (columns 0-26 real), w11 (4, 128), b8 (256), b9 (1),
-// b10 (128), b11 (4); partials and counters sized by
-// vipnerf_heads_bwd_scratch, the counters zero.
+// b10 (128), b11 (4); partials sized by vipnerf_heads_bwd_scratch. Two
+// launches: the shares, then their sums.
 extern "C" int vipnerf_heads_bwd_weights(const void* h, const void* g, const void* ve, const void* ve2,
                                          const void* feature, const void* dfeat, const void* D, const void* hv,
                                          const void* dhv, void* w8, void* w9, void* w10f, void* w10p, void* w11,
-                                         void* b8, void* b9, void* b10, void* b11, void* partials, void* counters,
-                                         int scenes, int nps, int n_sec, void* stream) {
+                                         void* b8, void* b9, void* b10, void* b11, void* partials, int scenes,
+                                         int nps, int n_sec, void* stream) {
   if (!shape_ok(scenes, nps, n_sec)) return (int)cudaErrorInvalidValue;
-  const Jobs jobs = make_jobs(h, (const float*)g, (const float*)ve, (const float*)ve2, (const float*)feature,
-                              (const float*)dfeat, (const float*)D, (const float*)hv, (const float*)dhv, (float*)w8,
-                              (float*)w9, (float*)w10f, (float*)w10p, (float*)w11, (float*)b8, (float*)b9,
-                              (float*)b10, (float*)b11, scenes, nps, n_sec);
+  WArgs a = make_wargs(scenes, nps, n_sec);
+  a.h = (const __nv_bfloat16*)h, a.g = (const float*)g, a.ve = (const float*)ve, a.ve2 = (const float*)ve2;
+  a.feature = (const float*)feature, a.dfeat = (const float*)dfeat, a.D = (const float*)D;
+  a.hv = (const float*)hv, a.dhv = (const float*)dhv;
+  a.w8 = (float*)w8, a.w9 = (float*)w9, a.w10f = (float*)w10f, a.w10p = (float*)w10p, a.w11 = (float*)w11;
+  a.b8 = (float*)b8, a.b9 = (float*)b9, a.b10 = (float*)b10, a.b11 = (float*)b11;
+  a.partials = (double*)partials;
+  // every scene's rows at once (at least one, for a map of no points)
+  const cuuint64_t n = scenes * nps > 0 ? (cuuint64_t)scenes * nps : 1, views = 1 + n_sec, sec = n_sec > 0 ? n_sec : 1;
+  const cuuint64_t d_w[2] = {WIDTH, n}, s_w32[1] = {WIDTH * 4}, s_w16[1] = {WIDTH * 2};
+  const cuuint64_t d_hid[2] = {HID, n}, s_hid[1] = {HID * 4};
+  const cuuint64_t d_dhv[3] = {HID, views, n}, s_dhv[2] = {HID * 4, views * HID * 4};
+  const cuuint64_t d_ve[2] = {VIEW_IN, n}, s_ve[1] = {VIEW_IN * 4};
+  const cuuint64_t d_ve2[3] = {VIEW_IN, sec, n}, s_ve2[2] = {VIEW_IN * 4, sec * VIEW_IN * 4};
+  WMaps maps;
+  if (!(encode(&maps.dfeat, dfeat, false, 2, d_w, s_w32, 64) && encode(&maps.h, h, true, 2, d_w, s_w16, WIDTH) &&
+        encode(&maps.D, D, false, 2, d_hid, s_hid, HID) && encode(&maps.feature, feature, false, 2, d_w, s_w32, 128) &&
+        encode(&maps.dhv, dhv, false, 3, d_dhv, s_dhv, HID) && encode(&maps.ve, ve, false, 2, d_ve, s_ve, VIEW_IN) &&
+        encode(&maps.ve2, ve2, false, 3, d_ve2, s_ve2, VIEW_IN)))
+    return (int)cudaErrorInvalidValue;
   auto kernel = scenes > 1 ? heads_bwd_weights_kernel<true> : heads_bwd_weights_kernel<false>;
-  kernel<<<total_ctas(jobs, scenes), THREADS_B, 0, (cudaStream_t)stream>>>(jobs, (double*)partials, (int*)counters);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_W);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<weight_ctas(a), THREADS, SMEM_W, (cudaStream_t)stream>>>(a, maps);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  heads_bwd_reduce_kernel<<<(unsigned)((share_entries(a) + 255) / 256), 256, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -48,10 +48,12 @@ with `raw_recompute`, a differentiable torch function with K1's numerics
 products outside any kernel, as in the JAX package. In the shipped mode
 (bf16_f32h) only the bf16 trunk goes that way: the f32 heads' gradient
 (layers 8-11, d h, d PE(dir)) is `heads_backward`, two hand-written kernels
-in `csrc/fused_mlp_bwd.cu` on the bf16 tensor cores from the same split
-products as the forward's heads (`heads_backward_reference` on CPU tensors;
+in `csrc/fused_mlp_bwd.cu` on the bf16 tensor cores (`wgmma` fed by bulk
+copies) from the same split products as the forward's heads
+(`heads_backward_reference` on CPU tensors). Two yardsticks stay on no path:
 `heads_backward_recompute`, autograd through the f32 heads of
-`raw_recompute` on cuBLAS, is their yardstick and on no path).
+`raw_recompute` on cuBLAS, and `heads_backward_mma_sync`, the first design
+of the two kernels (`csrc/fused_mlp_bwd_mma_sync.cu`).
 
 Scene axis (batched multi-scene training, the counterpart of vmap over K1):
 a stacked MLP (`models.mlp.NeRFMLP(..., scenes=S)`) packs S scenes' weights
@@ -129,6 +131,7 @@ class FusedWeights(NamedTuple):
     scenes: int = 1
     head_dtype: Optional[torch.dtype] = None  # the heads', when it is not the trunk's
     heads_bwd: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # bf16_f32h: `heads_bwd_pack` of the layers
+    heads_bwd_stream: Optional[torch.Tensor] = None  # bf16_f32h: `heads_bwd_stream` of heads_bwd's image
 
     @property
     def mode(self) -> Tuple[torch.dtype, torch.dtype]:
@@ -367,11 +370,13 @@ def kernel_buffers(layers, dtype: torch.dtype, head_dtype: Optional[torch.dtype]
 
 # The shipped mode's heads backward (`heads_backward`) reads each f32 head
 # weight as three bf16 parts (`split_bf16`), every matrix in the orientation
-# its product contracts: rows n, K contiguous, as mma.sync's B fragments take
-# them. Per scene, in this order, each matrix's three parts one after the
-# other: W8 (feature = h W8^T), W10's feature columns and its PE(dir) columns
-# (the view layer's forward), their transposes and W8's (d feature = D W10f,
-# d h = d feature W8, d PE(dir) = d hv W10p).
+# its product contracts: rows n, K contiguous. Per scene, in this order, each
+# matrix's three parts one after the other: W8 (feature = h W8^T), W10's
+# feature columns and its PE(dir) columns (the view layer's forward), their
+# transposes and W8's (d feature = D W10f, d h = d feature W8, d PE(dir) = d
+# hv W10p). The first design's kernels (`heads_backward_mma_sync`) read this
+# image as it is; the per-point kernel reads its permutation
+# `heads_bwd_stream`.
 BWD_MATS = (("w8", WIDTH, WIDTH), ("w10f", 128, WIDTH), ("w10p", 128, VIEW_IN),
             ("w10ft", WIDTH, 128), ("w8t", WIDTH, WIDTH), ("w10pt", VIEW_IN, 128))
 BWD_IMG_NUMEL = SPLIT_PARTS * sum(r * c for _, r, c in BWD_MATS)
@@ -395,6 +400,55 @@ def heads_bwd_pack(layers) -> Tuple[torch.Tensor, torch.Tensor]:
     return image.reshape(-1).contiguous(), small.reshape(-1).contiguous()
 
 
+# The per-point kernel's weight stream: BWD_STREAM_CHUNKS chunks of
+# BWD_CHUNK bytes per scene, in the order the kernel consumes them, one bulk
+# copy each. A chunk is the three bf16 parts, one after the other, of a
+# block (rows x 32 K) of a matrix of `BWD_MATS` (W10p^T's chunk: its four
+# K-blocks in turn), each the 64-byte-swizzled K-major image (`swizzled_slab`)
+# that wgmma's B descriptor reads.
+BWD_CHUNK = 24576
+
+
+def bwd_stream_blocks() -> List[Tuple[str, int, int, Tuple[int, ...]]]:
+    """The stream's chunks in order: (matrix, first row, rows, first K
+    column of each 32-wide block). Per half of the feature's 128 columns,
+    W8's rows of the half over K in blocks of 32, then W10's feature columns
+    of the half; W10's PE(dir) columns; their transpose; W10f^T and W8^T by
+    halves of their rows, K in blocks of 32."""
+    out = []
+    for hf in range(2):
+        out += [("w8", 128 * hf, 128, (32 * c,)) for c in range(8)]
+        out += [("w10f", 0, 128, (128 * hf + 32 * c,)) for c in range(4)]
+    out += [("w10p", 0, 128, (0,)), ("w10pt", 0, VIEW_IN, (0, 32, 64, 96))]
+    out += [("w10ft", 128 * hf, 128, (32 * c,)) for hf in range(2) for c in range(4)]
+    out += [("w8t", 128 * hh, 128, (32 * c,)) for hh in range(2) for c in range(8)]
+    return out
+
+
+BWD_STREAM_CHUNKS = len(bwd_stream_blocks())
+
+
+def bwd_stream_index(device) -> torch.Tensor:
+    """`heads_bwd_stream` as one gather from a scene's `heads_bwd_pack`
+    image: entry i of the stream is entry index[i] of the image."""
+    key = ("bwd_stream", torch.device(device))
+    if key not in _PACK_INDEX:
+        at, pos = 0, {}
+        for name, rows, cols in BWD_MATS:
+            pos[name] = torch.arange(at, at + SPLIT_PARTS * rows * cols).reshape(SPLIT_PARTS, rows, cols)
+            at += SPLIT_PARTS * rows * cols
+        chunks = [swizzled_slab(pos[name][p, r0:r0 + rows, k0:k0 + 32].contiguous())
+                  for name, r0, rows, ks in bwd_stream_blocks() for p in range(SPLIT_PARTS) for k0 in ks]
+        _PACK_INDEX[key] = torch.cat(chunks).to(device)
+    return _PACK_INDEX[key]
+
+
+def heads_bwd_stream(image: torch.Tensor, scenes: int = 1) -> torch.Tensor:
+    """The per-point kernel's weight stream of each scene in turn, from the
+    scenes' `heads_bwd_pack` images (flat, one after the other)."""
+    return image.reshape(scenes, -1)[:, bwd_stream_index(image.device)].reshape(-1)
+
+
 def ffma_heads(weights: "FusedWeights") -> torch.Tensor:
     """The FFMA heads' weights for `fused_mlp_raw_ffma`: layers 8-11 of a
     bf16_f32h pack's f32 layers as W^T, each scene's in turn."""
@@ -416,8 +470,9 @@ def prepare_weights(mlp, dtype: torch.dtype, f32_heads: bool = False) -> FusedWe
         layers = pack_layers(mlp, dtype, head_dtype)
         w_flat, b_flat = kernel_buffers(layers, dtype, head_dtype)
         mixed = head_dtype != dtype
-        cache[1][mode] = FusedWeights(layers, w_flat, b_flat, dtype, mlp.scenes or 1,
-                                      head_dtype if mixed else None, heads_bwd_pack(layers) if mixed else None)
+        bwd = heads_bwd_pack(layers) if mixed else None
+        cache[1][mode] = FusedWeights(layers, w_flat, b_flat, dtype, mlp.scenes or 1, head_dtype if mixed else None,
+                                      bwd, heads_bwd_stream(bwd[0], mlp.scenes or 1) if mixed else None)
     return cache[1][mode]
 
 
@@ -818,11 +873,21 @@ def heads_backward_recompute(params, h: torch.Tensor, ve: torch.Tensor, ve2: tor
 
 # the heads backward's two kernels, in launch order (each wrapper has its name)
 BWD_KERNELS = ("heads_bwd_points", "heads_bwd_weights")
-# csrc/fused_mlp_bwd.cu's weight-gradient reduction: an accumulator runs
-# BWD_PROMOTE k16 steps before it joins its CTA's compensated total; a CTA
-# reduces BWD_KSPLIT points
-BWD_PROMOTE = 4
+# the first design's two kernels (csrc/fused_mlp_bwd_mma_sync.cu), the
+# redesigned ones' yardstick on no path
+BWD_MMA_SYNC_KERNELS = ("heads_bwd_points_mma_sync", "heads_bwd_weights_mma_sync")
+# csrc/fused_mlp_bwd.cu's arithmetic: the per-point kernel's part products
+# run BWD_CHAIN k16 steps into a fresh accumulator before they join the
+# total; the weight kernel's accumulator runs BWD_PROMOTE k16 steps (a block
+# of BWD_BLOCK points, its part products ordered by size over the block)
+# before a Fast2Sum moves it into the total; a CTA reduces BWD_KSPLIT points
+# (per view for dW10's PE(dir) columns), BWD_KSPLIT_SMALL for the small jobs
+# (dW9, dW11, b9, b11, in f64 on the CUDA cores)
+BWD_CHAIN = 1
+BWD_PROMOTE = 2
+BWD_BLOCK = 16 * BWD_PROMOTE
 BWD_KSPLIT = 8192
+BWD_KSPLIT_SMALL = 2048
 # bf16 products per point of the two kernels (real widths, split products
 # counted as `F32H_SPLIT_MACS` counts them): the per-point kernel's feature
 # (h times W8's three parts), G = feature W10f^T, d feature and d h (six
@@ -851,16 +916,93 @@ def bwd_bytes(n: int, n_sec: int, scenes: int = 1, need_ve: bool = False) -> Tup
     return points, inputs + mid + grads
 
 
-def _bwd_lib():
-    lib = build.load("fused_mlp_bwd")
-    if lib.vipnerf_heads_bwd_points.argtypes is None:
-        lib.vipnerf_heads_bwd_points.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.vipnerf_heads_bwd_points.restype = ctypes.c_int
-        lib.vipnerf_heads_bwd_weights.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.vipnerf_heads_bwd_weights.restype = ctypes.c_int
-        lib.vipnerf_heads_bwd_scratch.argtypes = [ctypes.c_int] * 4
-        lib.vipnerf_heads_bwd_scratch.restype = ctypes.c_longlong
-    return lib
+# The weight kernel's jobs in grid order: (name, X columns, Y columns of an
+# output tile, tiles per scene), and the doubles of one CTA's share (the
+# tile's entries, then X's column sums; the small jobs' dW11, dW9, b11, b9)
+BWD_WEIGHT_JOBS = (("small", 0, 0, 1), ("dW10f", 128, 128, 2), ("dW8", 64, 256, 4), ("dW10p", 128, 32, 1))
+
+
+def bwd_weight_grid(scenes: int, nps: int, n_sec: int) -> Dict[str, Any]:
+    """The weight kernel's grids as csrc/fused_mlp_bwd.cu's make_wargs lays
+    them out: per job its tiles, its CTAs per tile (a share each: BWD_KSPLIT
+    points, per view for dW10p; BWD_KSPLIT_SMALL for the small jobs) and
+    doubles per share; in all, the doubles of the shares, the first
+    launch's CTAs and the second launch's threads (an entry of a tile's
+    share each, summed over the tile's shares)."""
+    nsplit = -(-nps // BWD_KSPLIT) if nps else 1
+    jobs, entries, doubles, ctas = {}, 0, 0, 0
+    for name, mt, nt, per_scene in BWD_WEIGHT_JOBS:
+        if name == "small":
+            splits, pw = (-(-nps // BWD_KSPLIT_SMALL) if nps else 1), 4 * 128 + WIDTH + 4 + 1
+        else:
+            splits, pw = nsplit * ((1 + n_sec) if name == "dW10p" else 1), mt * nt + (0 if name == "dW10p" else mt)
+        jobs[name] = {"tiles": per_scene, "splits": splits, "share_doubles": pw, "cta0": ctas}
+        entries += scenes * per_scene * pw
+        doubles += scenes * per_scene * splits * pw
+        ctas += scenes * per_scene * splits
+    return {"jobs": jobs, "doubles": doubles, "ctas": ctas, "share_entries": entries}
+
+
+def bwd_mn_layout(cols: int) -> Dict[str, int]:
+    """One part of the weight kernel's MN-major operand slab for a block of
+    BWD_BLOCK points and `cols` columns (csrc/fused_mlp_bwd.cu mn_off and
+    the descriptors of its wgmma): the swizzle (bytes per row: 128, or 64
+    for 32 columns), the leading byte offset (one atom of swizzle / 2
+    columns to the next), the stride byte offset (8 rows to the next 8) and
+    the part's bytes."""
+    sw = 64 if cols == 32 else 128
+    return {"swizzle": sw, "lbo": BWD_BLOCK * sw, "sbo": 8 * sw, "part_bytes": BWD_BLOCK * cols * 2}
+
+
+def bwd_mn_offset(k: int, c: int, cols: int) -> int:
+    """Byte offset of (point k of the block, column c) in that slab: atom c
+    // (swizzle / 2), row k of it, the 16-byte piece XORed with k % 8 (128)
+    or k // 2 % 4 (64), as the hardware's swizzle reads it."""
+    lay = bwd_mn_layout(cols)
+    sw = lay["swizzle"]
+    atom = sw // 2
+    piece = (c % atom) // 8 ^ (k % 8 if sw == 128 else k // 2 % 4)
+    return (c // atom) * lay["lbo"] + k * sw + (piece << 4) + (c % 8) * 2
+
+
+def bwd_stream_bytes(kernel: str, n: int, n_sec: int, scenes: int = 1, need_ve: bool = False) -> int:
+    """Bytes one launch of a heads-backward kernel (`BWD_KERNELS` or
+    `BWD_MMA_SYNC_KERNELS`) on n points moves through L2 by its design,
+    counted from its tiles, not measured: the per-point kernels' passes over
+    the weight image, one per 128-point tile (the first design's also the
+    rows it reads back from its own outputs); the weight kernels' rows of X
+    and Y, each CTA reading its output tile's columns of its points."""
+    views, dve = 1 + n_sec, int(need_ve)
+    tiles = scenes * -(-(n // scenes) // TILE_ROWS)
+    if kernel == "heads_bwd_points":
+        return tiles * (48 + views * (1 + dve)) * BWD_CHUNK
+    if kernel == "heads_bwd_points_mma_sync":  # 24 KB chunks, W10p^T's 6 KB; feature, D, d feature, d hv read back
+        return tiles * ((48 + views) * BWD_CHUNK + 4 * views * dve * BWD_CHUNK // 4) \
+            + n * 4 * (2 * WIDTH + 128 + views * 128 * dve)
+    if kernel == "heads_bwd_weights":  # dW8 (4 tiles), dW10f (2), dW10p per view, the small jobs
+        per_point = 4 * (4 * 64 + 2 * WIDTH) + 2 * (4 * 128 + 4 * 128) + views * (4 * 128 + 4 * VIEW_IN) \
+            + 4 * NOUT + 2 * WIDTH + views * 4 * 128
+        return n * per_point
+    if kernel == "heads_bwd_weights_mma_sync":  # 64 x 64 tiles: X's 64 columns, Y's 64 (dW11 Y's, X 4 of g)
+        per_point = 16 * (4 * 64 + 2 * 64) + 8 * (4 * 64 + 4 * 64) + views * 2 * (4 * 64 + 4 * VIEW_IN) \
+            + views * 2 * (16 + 4 * 64) + 4 * (16 + 2 * 64)
+        return n * per_point
+    raise ValueError(f"no heads-backward kernel {kernel}")
+
+
+def _bwd_fns(mma_sync: bool = False):
+    """The C entries (per-point, weights, scratch) of the redesigned kernels
+    or of the first design's."""
+    lib = build.load("fused_mlp_bwd_mma_sync" if mma_sync else "fused_mlp_bwd")
+    sfx = "_mma_sync" if mma_sync else ""
+    fns = [getattr(lib, f"vipnerf_heads_bwd_{k}{sfx}") for k in ("points", "weights", "scratch")]
+    if fns[0].argtypes is None:  # the first design's weight kernel also takes its counters
+        fns[0].argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fns[1].argtypes = [ctypes.c_void_p] * (20 if mma_sync else 19) + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fns[2].argtypes = [ctypes.c_int] * 4
+        fns[0].restype = fns[1].restype = ctypes.c_int
+        fns[2].restype = ctypes.c_longlong
+    return fns
 
 
 def _check_heads_inputs(weights: FusedWeights, h, ve, ve2, g, n_sec: int):
@@ -876,6 +1018,61 @@ def _check_heads_inputs(weights: FusedWeights, h, ve, ve2, g, n_sec: int):
         raise ValueError(f"the heads backward runs on cuda or cpu tensors, not {h.device}")
 
 
+def _launch_points(mma_sync: bool, weights: FusedWeights, h, ve, ve2, g, n_sec: int, need_ve: bool,
+                   need_ve2: bool) -> HeadsIntermediates:
+    """One launch of a per-point kernel on CUDA tensors (or none for no
+    points): its outputs, allocated here."""
+    n, views, dev = h.shape[0], 1 + n_sec, h.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    mid = HeadsIntermediates(
+        torch.empty((n, WIDTH), dtype=torch.bfloat16, device=dev), torch.empty((n, WIDTH), **f32),
+        torch.empty((n, WIDTH), **f32), torch.empty((n, 128), **f32), torch.empty((n, views, 128), **f32),
+        torch.empty((n, views, 128), **f32), torch.empty((n, VIEW_IN), **f32) if need_ve else None,
+        torch.empty((n, VIEW_IN * n_sec), **f32) if need_ve2 and n_sec else None)
+    if n:
+        image, small = weights.heads_bwd
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        with torch.cuda.device(dev):
+            rc = _bwd_fns(mma_sync)[0](
+                *map(ptr, (h, ve, ve2, g, image if mma_sync else weights.heads_bwd_stream, small, *mid)),
+                weights.scenes, n // weights.scenes, n_sec, int(need_ve or need_ve2),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"heads backward, per-point kernel{' (mma.sync)' if mma_sync else ''}: "
+                               f"launch failed: cudaError {rc}")
+    return mid
+
+
+def _launch_weights(mma_sync: bool, mid: HeadsIntermediates, h, ve, ve2, g, scenes: int, stacked: bool):
+    """One launch of a weight-gradient kernel on CUDA tensors: the 8
+    gradients in the module's shapes (with the scene axis if `stacked`)."""
+    n, dev = h.shape[0], h.device
+    n_sec = mid.hv.shape[1] - 1
+    shapes = ((h, (n, WIDTH)), (ve, (n, VIEW_IN)), (ve2, (n, VIEW_IN * max(n_sec, 1))), (g, (n, NOUT)))
+    if n % scenes or mid.hv.shape[0] != n or mid.D.dtype != torch.float32 or h.dtype != torch.bfloat16 \
+            or any(tuple(t.shape) != shape or not t.is_contiguous() or (t is not h and t.dtype != torch.float32)
+                   for t, shape in shapes):
+        raise ValueError("the per-point intermediates, h, PE(dir) and g do not match")
+    _, launch, scratch = _bwd_fns(mma_sync)
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = [torch.empty((scenes, *shape), **f32) for shape in (
+        (WIDTH, WIDTH), (1, WIDTH), (128, WIDTH), (128, VIEW_IN), (4, 128), (WIDTH,), (1,), (128,), (4,))]
+    nps = n // scenes
+    scratch_tensors = [torch.empty(max(scratch(scenes, nps, n_sec, 1), 1), dtype=torch.float64, device=dev)]
+    if mma_sync:  # its counters, zero
+        scratch_tensors.append(torch.zeros(max(scratch(scenes, nps, n_sec, 0), 1), dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        rc = launch(*(t.data_ptr() for t in (h, g, ve, ve2, mid.feature, mid.d_feature, mid.D, mid.hv, mid.d_hv,
+                                             *outs, *scratch_tensors)),
+                    scenes, nps, n_sec, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"heads backward, weight-gradient kernel{' (mma.sync)' if mma_sync else ''}: "
+                           f"launch failed: cudaError {rc}")
+    w8, w9, w10f, w10p, w11, b8, b9, b10, b11 = outs
+    grads = [w8, b8, w9, b9, torch.cat([w10f, w10p[..., :27]], dim=-1), b10, w11, b11]
+    return grads if stacked else [t[0] for t in grads]
+
+
 def heads_bwd_points(weights: FusedWeights, params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
                      g: torch.Tensor, n_sec: int, need_ve: bool = True, need_ve2: bool = True
                      ) -> HeadsIntermediates:
@@ -888,22 +1085,8 @@ def heads_bwd_points(weights: FusedWeights, params, h: torch.Tensor, ve: torch.T
     _check_heads_inputs(weights, h, ve, ve2, g, n_sec)
     if h.device.type == "cpu":
         return heads_points_reference(params, h, ve, ve2, g, n_sec)
-    n, views, dev = h.shape[0], 1 + n_sec, h.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    mid = HeadsIntermediates(
-        torch.empty((n, WIDTH), dtype=torch.bfloat16, device=dev), torch.empty((n, WIDTH), **f32),
-        torch.empty((n, WIDTH), **f32), torch.empty((n, 128), **f32), torch.empty((n, views, 128), **f32),
-        torch.empty((n, views, 128), **f32), torch.empty((n, VIEW_IN), **f32) if need_ve else None,
-        torch.empty((n, VIEW_IN * n_sec), **f32) if need_ve2 and n_sec else None)
-    if n:
-        image, small = weights.heads_bwd
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        with torch.cuda.device(dev):
-            rc = _bwd_lib().vipnerf_heads_bwd_points(
-                *map(ptr, (h, ve, ve2, g, image, small, *mid)), weights.scenes, n // weights.scenes, n_sec,
-                int(need_ve or need_ve2), torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"heads backward, per-point kernel: launch failed: cudaError {rc}")
+    mid = _launch_points(False, weights, h, ve, ve2, g, n_sec, need_ve, need_ve2)
+    if h.shape[0]:
         heads_backward.launches_by_kernel["heads_bwd_points"] += 1
     return mid
 
@@ -915,37 +1098,13 @@ def heads_bwd_weights(mid: HeadsIntermediates, h: torch.Tensor, ve: torch.Tensor
     `heads_bwd_points` took them) and outputs: CPU tensors take the plain
     version; CUDA tensors launch the kernel on the current stream (or
     raise): split-K products over the points, each CTA's share in f64, the
-    splits summed in a fixed order. Counts its launches in
+    shares summed in a fixed order by a second launch. Counts its launches in
     `heads_backward.launches_by_kernel["heads_bwd_weights"]`."""
     if h.device.type == "cpu":
         return heads_weights_reference(mid, h, ve, ve2, g, scenes, stacked)
-    n, dev = h.shape[0], h.device
-    n_sec = mid.hv.shape[1] - 1
-    shapes = ((h, (n, WIDTH)), (ve, (n, VIEW_IN)), (ve2, (n, VIEW_IN * max(n_sec, 1))), (g, (n, NOUT)))
-    if n % scenes or mid.hv.shape[0] != n or mid.D.dtype != torch.float32 or h.dtype != torch.bfloat16 \
-            or any(tuple(t.shape) != shape or not t.is_contiguous() or (t is not h and t.dtype != torch.float32)
-                   for t, shape in shapes):
-        raise ValueError("the per-point intermediates, h, PE(dir) and g do not match")
-    lib = _bwd_lib()
-    f32 = dict(dtype=torch.float32, device=dev)
-    outs = [torch.empty((scenes, *shape), **f32) for shape in (
-        (WIDTH, WIDTH), (1, WIDTH), (128, WIDTH), (128, VIEW_IN), (4, 128), (WIDTH,), (1,), (128,), (4,))]
-    nps = n // scenes
-    partials = torch.empty(max(lib.vipnerf_heads_bwd_scratch(scenes, nps, n_sec, 1), 1), dtype=torch.float64,
-                           device=dev)
-    counters = torch.zeros(max(lib.vipnerf_heads_bwd_scratch(scenes, nps, n_sec, 0), 1), dtype=torch.int32,
-                           device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.vipnerf_heads_bwd_weights(
-            *(t.data_ptr() for t in (h, g, ve, ve2, mid.feature, mid.d_feature, mid.D, mid.hv, mid.d_hv,
-                                     *outs, partials, counters)),
-            scenes, nps, n_sec, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"heads backward, weight-gradient kernel: launch failed: cudaError {rc}")
+    grads = _launch_weights(False, mid, h, ve, ve2, g, scenes, stacked)
     heads_backward.launches_by_kernel["heads_bwd_weights"] += 1
-    w8, w9, w10f, w10p, w11, b8, b9, b10, b11 = outs
-    grads = [w8, b8, w9, b9, torch.cat([w10f, w10p[..., :27]], dim=-1), b10, w11, b11]
-    return grads if stacked else [t[0] for t in grads]
+    return grads
 
 
 def heads_backward(weights: FusedWeights, params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
@@ -963,10 +1122,46 @@ def heads_backward(weights: FusedWeights, params, h: torch.Tensor, ve: torch.Ten
     return mid.d_h, grads, mid.d_ve, mid.d_ve2
 
 
+def heads_bwd_points_mma_sync(weights: FusedWeights, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
+                              g: torch.Tensor, n_sec: int, need_ve: bool = True, need_ve2: bool = True
+                              ) -> HeadsIntermediates:
+    """The first design's per-point kernel (mma.sync, `heads_bwd_pack`'s
+    image), `heads_bwd_points`' yardstick: CUDA tensors only. Counts its
+    launches in `heads_backward_mma_sync.launches_by_kernel`."""
+    _check_heads_inputs(weights, h, ve, ve2, g, n_sec)
+    if h.device.type != "cuda":
+        raise ValueError(f"the first design's kernels run on cuda tensors only, not {h.device}")
+    mid = _launch_points(True, weights, h, ve, ve2, g, n_sec, need_ve, need_ve2)
+    if h.shape[0]:
+        heads_backward_mma_sync.launches_by_kernel["heads_bwd_points_mma_sync"] += 1
+    return mid
+
+
+def heads_bwd_weights_mma_sync(mid: HeadsIntermediates, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
+                               g: torch.Tensor, scenes: int = 1, stacked: bool = False):
+    """The first design's weight-gradient kernel, `heads_bwd_weights`'
+    yardstick: CUDA tensors only, its launches counted likewise."""
+    if h.device.type != "cuda":
+        raise ValueError(f"the first design's kernels run on cuda tensors only, not {h.device}")
+    grads = _launch_weights(True, mid, h, ve, ve2, g, scenes, stacked)
+    heads_backward_mma_sync.launches_by_kernel["heads_bwd_weights_mma_sync"] += 1
+    return grads
+
+
+def heads_backward_mma_sync(weights: FusedWeights, params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
+                            g: torch.Tensor, n_sec: int, need_ve: bool = True, need_ve2: bool = True):
+    """`heads_backward` through the first design's two kernels (mma.sync
+    from ldmatrix fragments, cp.async double buffers): the redesigned
+    kernels' yardstick on no path, CUDA tensors only, the same returns."""
+    mid = heads_bwd_points_mma_sync(weights, h, ve, ve2, g, n_sec, need_ve, need_ve2)
+    grads = heads_bwd_weights_mma_sync(mid, h, ve, ve2, g, weights.scenes, params[0].dim() == 3)
+    return mid.d_h, grads, mid.d_ve, mid.d_ve2
+
+
 def reset_launch_counts():
-    """Zeroes the counts of `fused_mlp_raw` and of `heads_backward`.
-    `fused_mlp_raw_ffma.launches`, a yardstick's on no path, runs on from 0
-    at import."""
+    """Zeroes the counts of `fused_mlp_raw` and of `heads_backward`. The
+    yardsticks' on no path, `fused_mlp_raw_ffma.launches` and
+    `heads_backward_mma_sync.launches_by_kernel`, run on from 0 at import."""
     fused_mlp_raw.launches = 0
     fused_mlp_raw.launches_by_instance = dict.fromkeys(INSTANCE.values(), 0)
     heads_backward.launches_by_kernel = dict.fromkeys(BWD_KERNELS, 0)
@@ -974,6 +1169,7 @@ def reset_launch_counts():
 
 reset_launch_counts()
 fused_mlp_raw_ffma.launches = 0
+heads_backward_mma_sync.launches_by_kernel = dict.fromkeys(BWD_MMA_SYNC_KERNELS, 0)
 
 
 class FusedRaw(torch.autograd.Function):

@@ -14,9 +14,11 @@ torch.profiler) at the serving
 tile shapes (8192 rays x 64 / x 192 points, n_sec 0) and the training
 step's (4096 x 64 / x 192, n_sec 2), with seed-0 flagship weights; and, at
 the training step's shapes, the shipped mode's backward: each of its two
-kernels (`heads_bwd_points`, `heads_bwd_weights`) and their yardstick
-(autograd through raw_recompute's f32 heads on cuBLAS). Prints one JSON
-line per tree. Needs CUDA.
+kernels (`heads_bwd_points`, `heads_bwd_weights`) in turns with the first
+design's (`*_mma_sync`, where the tree has them: first design, new, new,
+first design, each turn a median as above), and their yardstick (autograd
+through raw_recompute's f32 heads on cuBLAS). Prints one JSON line per
+tree. Needs CUDA.
 """
 
 import json
@@ -38,8 +40,9 @@ def time_tree(root: Path) -> dict:
     from vipnerf_tpu_torch.kernels import fused_mlp as k1
     from vipnerf_tpu_torch.models.mlp import NeRFMLP
 
-    build.build_all(["fused_mlp", "fused_mlp_bwd"])
-    ptxas = [f"{lib}: {line.strip()}" for lib in ("fused_mlp", "fused_mlp_bwd")
+    libs = [lib for lib in ("fused_mlp", "fused_mlp_bwd", "fused_mlp_bwd_mma_sync") if lib in build.SOURCES]
+    build.build_all(libs)
+    ptxas = [f"{lib}: {line.strip()}" for lib in libs
              for line in build.ptxas_reports.get(lib, "").splitlines() if "Used " in line or "spill" in line]
     dev = torch.device("cuda", 0)
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
@@ -86,9 +89,19 @@ def time_tree(root: Path) -> dict:
         up = torch.randn((n, k1.NOUT), generator=g, device=dev) * 1e-3
         heads = params[16:]
         mid = k1.heads_bwd_points(weights, heads, h, ve, ve2, up, ns, False, False)
-        out[f"heads_bwd_points {label}"] = median_ms(
-            lambda: k1.heads_bwd_points(weights, heads, h, ve, ve2, up, ns, False, False))
-        out[f"heads_bwd_weights {label}"] = median_ms(lambda: k1.heads_bwd_weights(mid, h, ve, ve2, up))
+        new = {"heads_bwd_points": lambda: k1.heads_bwd_points(weights, heads, h, ve, ve2, up, ns, False, False),
+               "heads_bwd_weights": lambda: k1.heads_bwd_weights(mid, h, ve, ve2, up)}
+        if not hasattr(k1, "heads_bwd_points_mma_sync"):  # a tree from before the redesign
+            out.update({f"{name} {label}": median_ms(fn) for name, fn in new.items()})
+        else:
+            first = {
+                "heads_bwd_points": lambda: k1.heads_bwd_points_mma_sync(weights, h, ve, ve2, up, ns, False, False),
+                "heads_bwd_weights": lambda: k1.heads_bwd_weights_mma_sync(mid, h, ve, ve2, up)}
+            for name in new:
+                turns = [median_ms(fn) for fn in (first[name], new[name], new[name], first[name])]
+                out[f"{name} {label}"] = (turns[1] + turns[2]) / 2
+                out[f"{name}_mma_sync {label}"] = (turns[0] + turns[3]) / 2
+                out[f"{name} {label} turns (first design, new, new, first design)"] = turns
         out[f"heads_backward_recompute {label}"] = median_ms(
             lambda: k1.heads_backward_recompute(heads, h, ve, ve2, up, ns))
     return out
