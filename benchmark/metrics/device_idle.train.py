@@ -1,0 +1,9 @@
+"""device_idle.train: the share of the traced training chunks in which no
+operation ran on the device, in %: 1 - busy / window."""
+
+
+def read(run):
+    prof = run.get("profile")
+    if run.get("counts", {}).get("kind") != "train" or not prof or prof["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - prof["busy_s"] / prof["window_s"])
