@@ -160,6 +160,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from vipnerf_tpu_torch.utils import tracing
+
 # Data-sheet peaks of an H100 SXM (dense): bf16 and TF32 tensor cores, f32 CUDA cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
@@ -263,6 +265,13 @@ MODE_RUNS = [(label, bf16, f32_heads, False) for label, (bf16, f32_heads) in MOD
 
 def log(*args):
     print(*args, flush=True)
+
+
+def launches_since(k1, mark: dict, kernels=None) -> dict:
+    """Launches of each of `kernels` (K1's forward instances by default)
+    since `mark`, a `tracing.counts()` taken before."""
+    kernels = k1.FORWARD if kernels is None else kernels
+    return {k: n - mark.get(f"k1.launches.{k}", 0) for k, n in k1.launches(kernels).items()}
 
 
 def launch_counts(k1, **counts) -> dict:
@@ -381,7 +390,7 @@ def check_against_ffma(k1, weights, heads32, out, xe, ve, ve2, ns, label):
     instance's `TOL_REL_*`). Returns the yardstick's max|err| from the plain
     version."""
     ffma = k1.fused_mlp_raw_ffma(weights, heads32, xe, ve, ve2, ns)
-    check_against_ffma.launches += 1  # a comparison's launch, not a path's
+    tracing.count("chip_smoke.ffma_compared")  # a comparison's launch, not a path's
     torch.cuda.synchronize()
     ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
     h_max, h_rms = rel_errors(out, ffma)
@@ -394,8 +403,6 @@ def check_against_ffma(k1, weights, heads32, out, xe, ve, ve2, ns, label):
         raise AssertionError(f"bf16_f32h's tensor-core heads disagree with its FFMA heads: {label}")
     return (ffma.float() - ref).abs().max().item()
 
-
-check_against_ffma.launches = 0
 
 
 def rel_pair(got, want):
@@ -1037,13 +1044,13 @@ def phase_slice(k1, dev, timings):
             i: {"extrinsic": poses[i], "is_train_frame": is_train[i]} for i in range(5)
         }}}
 
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out_dir = start_testing(test_configs, scenes_data, save_depth=True, save_visibility=True)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = dict(k1.fused_mlp_raw.launches_by_instance)
+        launches = launches_since(k1, mark)
 
         tiles = math.ceil(H * W / CHUNK)
         expected = launch_counts(k1, fused_mlp_bf16=5 * 2 * tiles)
@@ -1113,13 +1120,13 @@ def phase_modes(k1, root, model_configs, test_configs, pose, tiles):
         tester.load_model(root / "runs/training/train0001/rig/saved_models/Model_Latest.tar")
         with module_mlp_path() if module else contextlib.nullcontext():
             tester.predict_frame(pose)  # warm-up
-            k1.reset_launch_counts()
+            mark = tracing.counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             frame = tester.predict_frame(pose)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-        launches = dict(k1.fused_mlp_raw.launches_by_instance)
+        launches = launches_since(k1, mark)
         path = "module MLP" if module else uses_fused_mlp(cfg["model"]["fine_mlp"], bf16, f32_heads)
         expected = launch_counts(k1, **{path: 2 * tiles})
         finite = all(np.isfinite(np.asarray(v)).all() for v in frame.values())
@@ -1281,7 +1288,7 @@ def run_trajectories(k1, rig, paths=TRAJ_PATHS, steps: int = TRAJ_STEPS, start_i
     for path in paths:
         rig.model.load_state_dict(start)
         step = make_train_step(cfg, rig.render_rays, rig.loss_computer, make_optimizer(cfg, rig.model.parameters()))
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         losses = []
         context = {"K1": contextlib.nullcontext(), "K1, yardstick backward": yardstick_backward(k1),
                    "module MLP": module_mlp_path()}[path]
@@ -1293,8 +1300,8 @@ def run_trajectories(k1, rig, paths=TRAJ_PATHS, steps: int = TRAJ_STEPS, start_i
         if rig.generator.device.type == "cuda":
             torch.cuda.synchronize()
         runs[path] = (np.asarray(losses), {k: v.detach().clone() for k, v in rig.model.state_dict().items()},
-                      {"fused_mlp_bf16_f32h": k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"],
-                       **k1.heads_backward.launches_by_kernel})
+                      {"fused_mlp_bf16_f32h": launches_since(k1, mark)["fused_mlp_bf16_f32h"],
+                       **launches_since(k1, mark, k1.BWD_KERNELS)})
     rig.model.load_state_dict(original)
     return start, runs
 
@@ -1348,9 +1355,9 @@ def phase_grad_check(k1, rig):
     for name, (dtype, f32_heads) in K1_MODES.items():
         cfg = copy.deepcopy(rig.configs)
         cfg["model"].update(bf16_matmuls=dtype == torch.bfloat16, f32_heads=f32_heads, raw_noise_std=0.0)
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         g_k1 = rig.grads(cfg, batch, seed=7)
-        launches = k1.fused_mlp_raw.launches_by_instance[name]
+        launches = launches_since(k1, mark)[name]
         with module_mlp_path():
             g_mod = rig.grads(cfg, batch, seed=7)
         rel_max = rel_rms = 0.0
@@ -1380,13 +1387,13 @@ def phase_training_run(k1, root, configs, gt, tiles):
     n = TRAIN_STEPS
     cfg = copy.deepcopy(configs)
     cfg.update(num_iterations=n, model_save_interval=n // 2, validation_interval=n)
-    k1.reset_launch_counts()
+    mark = tracing.counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start_training(cfg)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches_run = dict(k1.fused_mlp_raw.launches_by_instance)
+    launches_run = launches_since(k1, mark)
     val_frames = 3 + 1  # train frames (n_sec 2) + the validation frame
     expected = launch_counts(k1, fused_mlp_bf16=2 * n + 2 * tiles * val_frames)
     log(f"start_training: {n} steps and one validation of {val_frames} frames in {run_s:.2f} s; "
@@ -1395,7 +1402,7 @@ def phase_training_run(k1, root, configs, gt, tiles):
     if launches_run != expected:
         raise AssertionError(f"training launched K1 {launches_run}, expected {expected}")
 
-    k1.reset_launch_counts()
+    mark = tracing.counts()
     cfg.update(num_iterations=n + RESUME_STEPS)
     t0 = time.perf_counter()
     out = io.StringIO()
@@ -1405,7 +1412,7 @@ def phase_training_run(k1, root, configs, gt, tiles):
     resume_s = time.perf_counter() - t0
     text = out.getvalue()
     sys.stdout.write(text)
-    launches_resume = dict(k1.fused_mlp_raw.launches_by_instance)
+    launches_resume = launches_since(k1, mark)
     if f"Resuming Training from iteration {n + 1}" not in text:
         raise AssertionError(f"the second start_training did not resume at {n}")
     if launches_resume != launch_counts(k1, fused_mlp_bf16=2 * RESUME_STEPS):
@@ -1441,7 +1448,6 @@ def phase_training_run(k1, root, configs, gt, tiles):
     test_configs = {"test_num": 1, "train_num": 1, "model_name": "Model_Latest.tar",
                     "root_dirpath": str(root), "device": "all", "chunk_size": CHUNK}
     frame = {"extrinsic": extr[3], "intrinsic": intr[3], "is_train_frame": False}
-    k1.reset_launch_counts()
     out_dir = start_testing(test_configs, {"synth01": {"output_dirname": "synth01", "frames_data": {3: frame}}})
     from vipnerf_tpu_torch.utils.io import read_image
 
@@ -1579,9 +1585,9 @@ def phase_train(k1, dev, timings):
 
         step = rig.step_fn(bf16=True, f32_heads=True)
         torch.cuda.reset_peak_memory_stats()
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         seconds = timed_steps(step, rig, 2000, TIMED_STEPS)
-        launches = k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"]
+        launches = launches_since(k1, mark)["fused_mlp_bf16_f32h"]
         peak = torch.cuda.max_memory_allocated()
         med_ms = 1e3 * float(np.median(seconds))
         k1_ms = sum(timings[("fused_mlp_bf16_f32h", TRAIN_SEC, n)]["ms"] for n in TRAIN_N.values())
@@ -1600,10 +1606,10 @@ def phase_train(k1, dev, timings):
         modes = {}
         for label, bf16, f32_heads, module in MODE_RUNS:
             step = rig.step_fn(bf16, f32_heads)
-            k1.reset_launch_counts()
+            mark = tracing.counts()
             with module_mlp_path() if module else contextlib.nullcontext():
                 secs = timed_steps(step, rig, 3000, 5, warmup=2)
-            launches_m = dict(k1.fused_mlp_raw.launches_by_instance)
+            launches_m = launches_since(k1, mark)
             path = "module MLP" if module else uses_fused_mlp(rig.configs["model"]["fine_mlp"], bf16, f32_heads)
             expected = launch_counts(k1, **{path: 2 * 7})
             ms = 1e3 * float(np.median(secs))
@@ -1676,11 +1682,12 @@ def phase_k1_scenes(k1, dev, scenes):
         worst[name] = 0.0
         for level, n in TRAIN_N.items():
             xe, ve, ve2, ns = k1_inputs(k1, scenes * n, TRAIN_SEC, name, g, dev)
-            k1.reset_launch_counts()
+            mark = tracing.counts()
             raw = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
             torch.cuda.synchronize()
-            if k1.fused_mlp_raw.launches != 1:
-                raise AssertionError(f"the scene-batched K1 took {k1.fused_mlp_raw.launches} launches")
+            taken = sum(launches_since(k1, mark).values())
+            if taken != 1:
+                raise AssertionError(f"the scene-batched K1 took {taken} launches")
             ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
             err = (raw.float() - ref).abs().max().item()
             rel_max = err / max(ref.abs().max().item(), 1e-30)
@@ -1720,7 +1727,7 @@ def ms_grad_check(k1, trainer):
     from vipnerf_tpu_torch.losses import LossComputer
     from vipnerf_tpu_torch.models.vip_nerf import render_rays, unstack_model
 
-    nerf, sd = trainer._index_rows(0, 1)
+    nerf, sd = (None if r is None else torch.from_numpy(r).to(trainer.device) for r in trainer._index_rows(0, 1))
     prep0 = trainer.preprocessors[0]
     batch = prep0.gather_batch(nerf[:, 0], sd[:, 0], 0, cache=trainer.cache, near=trainer.near, far=trainer.far)
     rps = trainer.rays_per_scene
@@ -1733,10 +1740,10 @@ def ms_grad_check(k1, trainer):
                             raw_noise_std=0.0)
         losses = LossComputer(cfg)
         trainer.model.zero_grad(set_to_none=True)
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         total = losses.scene_losses(batch, render_rays(trainer.model, cfg, batch, train=True), scenes)["TotalLoss"]
         total.sum().backward()
-        launches = k1.fused_mlp_raw.launches_by_instance[name]
+        launches = launches_since(k1, mark)[name]
         stacked = {k: p.grad for k, p in trainer.model.named_parameters()}
         rel_max = rel_rms = 0.0
         worst_tensor = (0.0, "")
@@ -1771,7 +1778,8 @@ def ms_grad_check(k1, trainer):
 def ms_timed_steps(k1, trainer, steps, start_it=0, warmup=3):
     """Host-clock seconds of `steps` warm batched steps (gather included),
     one synchronise per step, and K1's launches over all of them."""
-    nerf, sd = trainer._index_rows(start_it, warmup + steps)
+    nerf, sd = (None if r is None else torch.from_numpy(r).to(trainer.device)
+                for r in trainer._index_rows(start_it, warmup + steps))
     prep0 = trainer.preprocessors[0]
 
     def step(j):
@@ -1780,7 +1788,7 @@ def ms_timed_steps(k1, trainer, steps, start_it=0, warmup=3):
         trainer.generator.manual_seed(start_it + j)
         return trainer.train_step(trainer.model, batch, trainer.generator)
 
-    k1.reset_launch_counts()
+    mark = tracing.counts()
     for j in range(warmup):
         step(j)
     seconds = []
@@ -1792,7 +1800,7 @@ def ms_timed_steps(k1, trainer, steps, start_it=0, warmup=3):
         seconds.append(time.perf_counter() - t0)
     if not all(bool(torch.isfinite(v).all()) for v in scalars.values()):
         raise AssertionError("a batched step's losses are not finite")
-    return seconds, k1.fused_mlp_raw.launches
+    return seconds, sum(launches_since(k1, mark).values())
 
 
 def ms_time_trainer(k1, trainer, label):
@@ -1817,7 +1825,7 @@ def ms_step_profile(trainer, warm_ms):
     """torch.profiler over one warm batched step (gather included): the
     device time, its busy share of the median warm step, and the kernels
     that take the most of it."""
-    nerf, sd = trainer._index_rows(5000, 1)
+    nerf, sd = (None if r is None else torch.from_numpy(r).to(trainer.device) for r in trainer._index_rows(5000, 1))
     batch = trainer.preprocessors[0].gather_batch(nerf[:, 0], None if sd is None else sd[:, 0], 5000,
                                                   cache=trainer.cache, near=trainer.near, far=trainer.far)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1881,13 +1889,13 @@ def phase_multi_scene(k1, dev):
                        model_save_interval=MS_STEPS // 2, validation_interval=MS_STEPS)
         app = DatasetApp("NeRF_LLFF", "scene_name", "all", root_dirpath=root)
 
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         app.start_training(copy.deepcopy(configs))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches_run = dict(k1.fused_mlp_raw.launches_by_instance)
+        launches_run = launches_since(k1, mark)
         val_frames = 3 + 1
         expected = launch_counts(k1, fused_mlp_bf16=2 * MS_STEPS + 2 * tiles * val_frames * len(MS_SCENES))
         log(f"app start_training, batch_scenes, {len(MS_SCENES)} scenes: {MS_STEPS} steps and one validation of "
@@ -1896,7 +1904,7 @@ def phase_multi_scene(k1, dev):
         if launches_run != expected:
             raise AssertionError(f"batched training launched K1 {launches_run}, expected {expected}")
 
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         configs["num_iterations"] = MS_STEPS + MS_RESUME_STEPS
         out = io.StringIO()
         t0 = time.perf_counter()
@@ -1905,7 +1913,7 @@ def phase_multi_scene(k1, dev):
         torch.cuda.synchronize()
         resume_s = time.perf_counter() - t0
         sys.stdout.write(out.getvalue())
-        launches_resume = dict(k1.fused_mlp_raw.launches_by_instance)
+        launches_resume = launches_since(k1, mark)
         if f"Resuming multi-scene training from iteration {MS_STEPS + 1}" not in out.getvalue():
             raise AssertionError(f"the second batched run did not resume at {MS_STEPS}")
         if launches_resume != launch_counts(k1, fused_mlp_bf16=2 * MS_RESUME_STEPS):
@@ -1978,9 +1986,9 @@ def phase_multi_scene(k1, dev):
                     cfg["model"].update(bf16_matmuls=bf16, f32_heads=f32_heads)
                     trainer.train_step = make_train_step(cfg, render_rays, trainer.loss_computer,
                                                          make_optimizer(cfg, trainer.model.parameters(), scenes=2))
-                    k1.reset_launch_counts()
+                    mark = tracing.counts()
                     secs, _ = ms_timed_steps(k1, trainer, 5, start_it=1000, warmup=2)
-                    launches_m = dict(k1.fused_mlp_raw.launches_by_instance)
+                    launches_m = launches_since(k1, mark)
                     path = uses_fused_mlp(cfg["model"]["fine_mlp"], bf16, f32_heads) or "module MLP"
                     expected = launch_counts(k1, **{path: 2 * 7})
                     ms = 1e3 * float(np.median(secs))
@@ -2120,7 +2128,6 @@ def phase_pipeline(k1):
         log(f"pipeline: synthetic LLFF scene at {W}x{H} under rgb_down4 (train {PIPE_TRAIN}, validation 1, "
             f"test 3), sparse depths, no visibility prior, in {time.perf_counter() - t0:.2f} s")
 
-        k1.reset_launch_counts()
         tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = True  # no matmul setting may reach the warp
         t0 = time.perf_counter()
@@ -2154,14 +2161,14 @@ def phase_pipeline(k1):
         path_k1 = uses_fused_mlp(model["fine_mlp"], model["bf16_matmuls"], model["f32_heads"])
         if path_k1 != "fused_mlp_bf16_f32h":
             raise AssertionError(f"demo1a's shipped configs run {path_k1}, not fused_mlp_bf16_f32h")
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         app.start_training(train_configs)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches_train = dict(k1.fused_mlp_raw.launches_by_instance)
-        backward_train = dict(k1.heads_backward.launches_by_kernel)
+        launches_train = launches_since(k1, mark)
+        backward_train = launches_since(k1, mark, k1.BWD_KERNELS)
         if launches_train != launch_counts(k1, fused_mlp_bf16_f32h=2 * PIPE_STEPS) \
                 or backward_train != dict.fromkeys(BWD, 2 * PIPE_STEPS if torch.cuda.is_available() else 0):
             raise AssertionError(f"the app's {PIPE_STEPS} steps launched K1 {launches_train} and its backward "
@@ -2221,7 +2228,7 @@ def phase_pipeline(k1):
                 raise AssertionError(f"the {label} video track wrote {[p.name for p in frames]}")
             for p in frames:
                 check_png(p)
-        launches = dict(k1.fused_mlp_raw.launches_by_instance)
+        launches = launches_since(k1, mark)
         log(f"app video tracks: 2 frames each, moving {video_s['moving']:.2f} s, static {video_s['static']:.2f} s, "
             f"written as frame directories; K1 launches over the app's training, testing and videos {launches} "
             f"(the shipped f32 heads: fused_mlp_bf16_f32h only)")
@@ -2357,7 +2364,6 @@ def phase_database(k1, dev):
     from vipnerf_tpu_torch.priors.cli import main_visibility
     from vipnerf_tpu_torch.protocol.common import read_scalars
     from vipnerf_tpu_torch.utils import jax_ckpt
-    from vipnerf_tpu_torch.utils.jpeg import decode_jpeg
 
     t_phase = time.perf_counter()
     device_arg = "cpu" if dev.type == "cpu" else "all"
@@ -2373,12 +2379,12 @@ def phase_database(k1, dev):
                 zf.write(p, p.relative_to(root / "raw"))
         forge_s = time.perf_counter() - t0
         db_dir = root / "data/databases/NeRF_LLFF/data"
-        decodes = decode_jpeg.launches
+        decodes = tracing.counts().get("jpeg.decodes", 0)
         t0 = time.perf_counter()
         nerf_llff.main(["--database_dirpath", str(db_dir), "--zip_filepath", str(zip_path),
                         "--set_nums", "2", "--num_train_frames", "2", "--video_poses", "--device", device_arg])
         build_s = time.perf_counter() - t0
-        decodes = decode_jpeg.launches - decodes
+        decodes = tracing.counts().get("jpeg.decodes", 0) - decodes
         log(f"raw NeRF-LLFF scene forged (5 frames, COLMAP model, images/ JPEG fixture, images_4 {W}x{H}, images_8) "
             f"and zipped in {forge_s:.2f} s; `python -m vipnerf_tpu_torch.db_builders.nerf_llff --zip_filepath ... "
             f"--set_nums 2 --num_train_frames 2 --video_poses` built it in {build_s:.2f} s with {decodes} nvJPEG "
@@ -2407,13 +2413,13 @@ def phase_database(k1, dev):
         train_configs.update(model_save_interval=DB_STEPS // 2, validation_interval=10 * DB_STEPS, device=device_arg)
         if not uses_fused_mlp(train_configs["model"]["fine_mlp"], True, False):
             raise AssertionError("the built database's training does not take K1")
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         app.start_training(copy.deepcopy(train_configs))
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches_train = dict(k1.fused_mlp_raw.launches_by_instance)
+        launches_train = launches_since(k1, mark)
         run = root / "runs/training/train0021"
         saved = run / f"{DB_SCENE}/saved_models"
         losses = [v for _, v in sorted(read_scalars(run / DB_SCENE / "logs/scalars.jsonl")["train/TotalLoss"].items())]
@@ -2452,11 +2458,11 @@ def phase_database(k1, dev):
             (saved / "Model_Latest.tar").symlink_to(tar.name)
             cfg = copy.deepcopy(train_configs)
             cfg["num_iterations"] = DB_STEPS // 2 + DB_RESUME_STEPS
-            k1.reset_launch_counts()
+            mark = tracing.counts()
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
                 app.start_training(cfg)
-            launches = k1.fused_mlp_raw.launches
+            launches = sum(launches_since(k1, mark).values())
             if f"Resuming Training from iteration {DB_STEPS // 2 + 1}" not in out.getvalue() \
                     or launches != 2 * DB_RESUME_STEPS:
                 raise AssertionError(f"the resume from the {label} did not resume at {DB_STEPS // 2} "
@@ -2478,9 +2484,9 @@ def phase_database(k1, dev):
         for level in ("coarse_mlp", "fine_mlp"):
             fast_cfg["model"][level]["fast_encoding"] = True
         rig = TrainRig(root, fast_cfg, dev)
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         scalars = rig.step_fn(True, False)(rig.batch(0))
-        fast_launches = k1.fused_mlp_raw.launches
+        fast_launches = sum(launches_since(k1, mark).values())
         fast_loss = float(scalars["TotalLoss"])
         log(f"fast_encoding: PE at degree 10 of {x.shape[0]} points on the card vs the CPU max |diff| {pe_err:.2e} "
             f"(tolerance {TOL_FAST_PE:.2e}); one training step with it: TotalLoss {fast_loss:.5f}, "
@@ -2602,20 +2608,20 @@ def phase_protocol(k1, dev):
         start_training = dtu.app.start_training
 
         def counted_shipped(cfg):
-            before = k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"]
+            before = k1.launches()["fused_mlp_bf16_f32h"]
             start_training(cfg)
-            after = k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"]
+            after = k1.launches()["fused_mlp_bf16_f32h"]
             shipped_training["fused_mlp_bf16_f32h"] = after - before
 
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         torch.cuda.synchronize()
         dtu.app.start_training = counted_shipped
         try:
             summary, leg_s = run_driver(driver, argv + ["--iters", str(PROTO_STEPS)])
         finally:
             dtu.app.start_training = start_training
-        shipped_launches = dict(k1.fused_mlp_raw.launches_by_instance)
-        shipped_backward = dict(k1.heads_backward.launches_by_kernel)
+        shipped_launches = launches_since(k1, mark)
+        shipped_backward = launches_since(k1, mark, k1.BWD_KERNELS)
         directions = summary["prior_s_per_direction"]
         pairs = [(a, b) for i, a in enumerate(driver.TRAIN_FRAMES) for b in driver.TRAIN_FRAMES[i + 1:]]
         if len(directions) != 2 * len(pairs) or summary["prior_devices"] != [str(dev)]:
@@ -2686,21 +2692,21 @@ def phase_protocol(k1, dev):
         seam_launches = {}
 
         def counted_training(cfg):
-            before = k1.fused_mlp_raw.launches
+            before = sum(k1.launches().values())
             start_training(cfg)
-            seam_launches["training"] = k1.fused_mlp_raw.launches - before
+            seam_launches["training"] = sum(k1.launches().values()) - before
 
         def bf16_heads(cfg):
             cfg["model"].update(bf16_matmuls=True, f32_heads=False)
 
-        k1.reset_launch_counts()
+        mark = tracing.counts()
         dtu.app.start_training = counted_training
         try:
             with dtu_configs_edit(bf16_heads):
                 seam_summary, seam_s = run_driver(driver, argv + ["--iters", str(SEAM_END)])
         finally:
             dtu.app.start_training = start_training
-        seam_total = dict(k1.fused_mlp_raw.launches_by_instance)
+        seam_total = launches_since(k1, mark)
         parts["seam_s"] = time.perf_counter() - t0
         series = read_scalars(run / "logs/scalars.jsonl")
         steps = list(range(SEAM_START + 1, SEAM_END + 1))
@@ -2883,7 +2889,7 @@ def par_train(cfg: dict) -> dict:
     model = ViPNeRF(configs, torch.Generator().manual_seed(0)).to(dev)
     trainer = Trainer(configs, prep.get_model_configs(), prep, val, model, LossComputer(configs), run / "synth01",
                       verbose_log=False, group=group)
-    k1.reset_launch_counts()
+    mark = tracing.counts()
     try:
         trainer.train()
     finally:
@@ -2895,7 +2901,7 @@ def par_train(cfg: dict) -> dict:
         series = read_scalars(run / "synth01/logs/scalars.jsonl")["train/TotalLoss"]
         losses = [series[i] for i in range(1, PAR_STEPS + 1)]
     return {"losses": losses, "params": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-            "launches": k1.fused_mlp_raw.launches, "sharded": trainer.shard is not None}
+            "launches": sum(launches_since(k1, mark).values()), "sharded": trainer.shard is not None}
 
 
 def par_start(configs: dict) -> dict:
@@ -3181,8 +3187,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.build_all()
+    builds = [r for r in tracing.snapshot()["spans"] if r["name"] == "kernels.build"]
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: "
-        + ", ".join(f"{k} {v:.2f} s" for k, v in build.build_seconds.items()))
+        + ", ".join(f"{r['attrs']['library']} {(r['end_ns'] - r['start_ns']) * 1e-9:.2f} s" for r in builds))
     for name, report in build.ptxas_reports.items():
         for line in report.splitlines():
             if "Compiling entry" in line or "Used " in line or "spill" in line:
@@ -3195,14 +3202,10 @@ def main() -> int:
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
     worst, timings = phase_k1(k1, mlp, dev)
     backward = phase_heads_backward(k1, dev)
-    # the first design's backward kernels, a yardstick: their counts from
-    # here on are launches on the main path's phases
-    k1.heads_backward_mma_sync.launches_by_kernel = dict.fromkeys(k1.BWD_MMA_SYNC_KERNELS, 0)
-    # the FFMA yardstick's count runs on through the main path's phases (no
-    # phase resets it): what it gains there, less check_against_ffma's
-    # comparisons, are launches on a path
-    k1.fused_mlp_raw_ffma.launches = 0
-    compared = check_against_ffma.launches
+    # the yardsticks (the first design's backward kernels, bf16_f32h with
+    # FFMA heads): their launches from here on, less check_against_ffma's
+    # comparisons, are launches on the main path's phases
+    yardsticks = tracing.counts()
     launches, s_per_frame, frame_s, modes = phase_slice(k1, dev, timings)
     train = phase_train(k1, dev, timings)
     pipeline = phase_pipeline(k1)
@@ -3210,11 +3213,12 @@ def main() -> int:
     database = phase_database(k1, dev)
     protocol = phase_protocol(k1, dev)
     parallel = phase_parallel(k1, dev)
-    ffma_path = k1.fused_mlp_raw_ffma.launches - (check_against_ffma.launches - compared)
-    mma_sync_path = dict(k1.heads_backward_mma_sync.launches_by_kernel)
+    compared = tracing.counts().get("chip_smoke.ffma_compared", 0) - yardsticks.get("chip_smoke.ffma_compared", 0)
+    ffma_path = launches_since(k1, yardsticks, [k1.FFMA])[k1.FFMA] - compared
+    mma_sync_path = launches_since(k1, yardsticks, k1.BWD_MMA_SYNC_KERNELS)
     log(f"K1's backward, the first design's kernels' launches on the main path: {mma_sync_path} (expected 0)")
     log(f"K1 {FFMA} launches on the main path: {ffma_path} (expected 0; "
-        f"{check_against_ffma.launches - compared} more compared bf16_f32h with it)")
+        f"{compared} more compared bf16_f32h with it)")
 
     log(json.dumps({"slice": {
         "resolution": [H, W], "chunk_size": CHUNK, "k1_timing_shape": {"points": MAIN_N, "n_sec": 0},

@@ -25,6 +25,7 @@ from vipnerf_tpu_torch.data.synthetic_rig import (
 )
 from vipnerf_tpu_torch.models.vip_nerf import ViPNeRF
 from vipnerf_tpu_torch.train import checkpoints
+from vipnerf_tpu_torch.utils import tracing
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -85,8 +86,7 @@ def test_phase_protocol_rehearses_on_the_cpu(tmp_path, monkeypatch):
     reference = k1.fused_mlp_reference
 
     def counted(layers, xe, ve, *args):
-        k1.fused_mlp_raw.launches += 1
-        k1.fused_mlp_raw.launches_by_instance[k1.INSTANCE[xe.dtype, ve.dtype]] += 1
+        tracing.count(f"k1.launches.{k1.INSTANCE[xe.dtype, ve.dtype]}")
         return reference(layers, xe, ve, *args)
 
     monkeypatch.setattr(k1, "fused_mlp_reference", counted)

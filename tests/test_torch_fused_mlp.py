@@ -48,6 +48,7 @@ from jax.experimental.pallas import tpu as pltpu
 from vipnerf_tpu.models.mlp import apply_mlp, init_mlp_params
 from vipnerf_tpu_torch.kernels import fused_mlp as k1
 from vipnerf_tpu_torch.models.mlp import NeRFMLP
+from vipnerf_tpu_torch.utils import tracing
 from vipnerf_tpu_torch.utils.convert import state_dict_from_jax_params
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "experiments"))
@@ -89,9 +90,9 @@ def test_plain_and_cpu_dispatch_match_raw_xla(models, dtype, n_sec):
     t_dt, j_dt, tol = DTYPES[dtype]
     xe, ve, ve2, ns = k1.encode_inputs(*inputs(256, n_sec), t_dt)
     weights = k1.prepare_weights(mlp, t_dt)
-    before = k1.fused_mlp_raw.launches
+    before = k1.launches()
     out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
-    assert k1.fused_mlp_raw.launches == before  # a CPU tensor never launches
+    assert k1.launches() == before  # a CPU tensor never launches
     plain = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns)
     assert torch.equal(out, plain)
     assert out.shape == (256, k1.NOUT) and out.dtype == t_dt
@@ -238,7 +239,7 @@ def test_ffma_yardstick_rejects_what_it_does_not_take(models):
     heads32 = k1.ffma_heads(mixed)
     assert heads32.dtype == torch.float32 and heads32.numel() == k1.HEAD_NUMEL
     xe, ve, ve2, ns = k1.encode_inputs(*inputs(64, 2), torch.bfloat16, f32_heads=True)
-    before = k1.fused_mlp_raw_ffma.launches
+    before = k1.launches([k1.FFMA])
     with pytest.raises(ValueError, match="cuda tensors only"):  # the yardstick has no plain twin of its own
         k1.fused_mlp_raw_ffma(mixed, heads32, xe, ve, ve2, ns)
     with pytest.raises(ValueError, match="not ffma_heads"):
@@ -247,7 +248,7 @@ def test_ffma_yardstick_rejects_what_it_does_not_take(models):
     xe16, ve16, ve2_16, _ = k1.encode_inputs(*inputs(64, 2), torch.bfloat16)
     with pytest.raises(TypeError):  # bf16 heads
         k1.fused_mlp_raw_ffma(w16, heads32, xe16, ve16, ve2_16, ns)
-    assert k1.fused_mlp_raw_ffma.launches == before
+    assert k1.launches([k1.FFMA]) == before
 
 
 def test_packing_layout(models):
@@ -693,16 +694,18 @@ def test_dispatch_routes_each_precision_mode():
 
 
 def test_launch_counts_per_instance(models):
+    """K1's launches are the tracer's counters, per instance; CPU tensors
+    take the plain version and count none."""
     _, mlp = models
-    k1.reset_launch_counts()
-    assert k1.fused_mlp_raw.launches == 0
+    tracing.reset()
     zero = {"fused_mlp_bf16": 0, "fused_mlp_f32": 0, "fused_mlp_bf16_f32h": 0}
-    assert k1.fused_mlp_raw.launches_by_instance == zero
+    assert k1.launches() == zero
     xe, ve, ve2, ns = k1.encode_inputs(*inputs(16, 1), torch.float32)
     k1.fused_mlp_raw(k1.prepare_weights(mlp, torch.float32), xe, ve, ve2, ns)
     xe, ve, ve2, ns = k1.encode_inputs(*inputs(16, 1), torch.bfloat16, f32_heads=True)
     k1.fused_mlp_raw(k1.prepare_weights(mlp, torch.bfloat16, f32_heads=True), xe, ve, ve2, ns)
-    assert k1.fused_mlp_raw.launches_by_instance == zero  # CPU tensors launch nothing
+    assert k1.launches() == zero  # CPU tensors launch nothing
+    assert tracing.counts("k1.") == {}
 
 
 def test_prepare_weights_repacks_after_an_update(models):

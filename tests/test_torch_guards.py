@@ -13,7 +13,7 @@ scene's guard against `vmap` of the optax wrapper.
 
 The profiler hook: `profiler: {start_iter, num_iters}` traces exactly the
 chunks that overlap the window (the JAX trainer's rule) into
-logs/profile as Chrome traces.
+logs/profile as Chrome traces, the program's spans in them.
 """
 
 import copy
@@ -149,3 +149,5 @@ def test_profiler_traces_the_chunks_overlapping_the_window(tmp_path):
     assert traces == ["chunk_000002-000004.json", "chunk_000004-000006.json"]
     events = json.loads((profile / traces[0]).read_text())["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    names = {e.get("name") for e in events}  # the program's spans on the profiler's timeline
+    assert {"train.step", "train.forward", "train.backward", "train.adam", "train.chunk.read"} <= names

@@ -50,7 +50,8 @@ import chip_smoke
 assert not any(m.split(".")[0] in {forbidden!r} for m in sys.modules), "a blocked module loaded"
 from vipnerf_tpu_torch.kernels import build
 assert "jpeg_decode" in build.SOURCES  # nvJPEG's binding is one of the libraries that must not build
-assert not build._loaded and not build.build_seconds, "a library was built or loaded at import"
+from vipnerf_tpu_torch.utils import tracing
+assert not build._loaded and not tracing.snapshot()["spans"], "a library was built or loaded at import"
 for new in ("db_builders.nerf_llff", "db_builders.dtu", "db_builders.real_estate", "utils.jax_ckpt", "utils.jpeg",
             "protocol.common", "protocol.evidence_snapshot", "protocol.run_dtu_control", "protocol.checkpoint_sweep",
             "protocol.run_dtu_50k", "protocol.run_priorgen_50k", "protocol.run_realestate_50k",

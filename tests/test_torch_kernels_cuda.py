@@ -56,6 +56,7 @@ import chip_smoke as cs  # noqa: E402
 from chip_smoke import JPEG_MIN_PSNR, TOL_HEADS_MAX, TOL_HEADS_RMS, TOL_REL_MAX, TOL_REL_RMS  # noqa: E402
 from vipnerf_tpu_torch.kernels import fused_mlp as k1  # noqa: E402
 from vipnerf_tpu_torch.models.mlp import NeRFMLP
+from vipnerf_tpu_torch.utils import tracing
 
 CFG = {
     "num_samples": 0, "netdepth": 8, "netwidth": 256,
@@ -89,10 +90,11 @@ def test_fused_mlp_matches_plain(device, dtype, n_sec, n):
     vd = unit(torch.randn((n, 3), generator=g, device=device))
     vd2 = unit(torch.randn((n, n_sec, 3), generator=g, device=device)) if n_sec else None
     xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype, f32_heads=f32_heads)
-    before = k1.fused_mlp_raw.launches_by_instance[name]
+    before = tracing.counts()
     out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
     torch.cuda.synchronize()
-    assert k1.fused_mlp_raw.launches_by_instance[name] == before + 1
+    after = tracing.counts()
+    assert after[f"k1.launches.{name}"] == before.get(f"k1.launches.{name}", 0) + 1
     assert out.dtype == ve.dtype
     ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
     err = out.float() - ref
@@ -126,15 +128,15 @@ def test_fused_raw_backward_matches_the_recompute(device, dtype, n):
         with torch.no_grad():
             h = k1.trunk_recompute([p.detach() for p in params[:16]], xe).reshape(n, -1)
         upstream = cs.untie_relu(k1, [p.detach() for p in params[16:]], h, ve, ve2, upstream, ns)
-    k1.reset_launch_counts()
+    tracing.reset()
     weights = k1.prepare_weights(mlp, dtype, f32_heads)
     out = k1.FusedRaw.apply(weights, ns, *inputs, *params)
-    assert k1.fused_mlp_raw.launches == 1
+    assert sum(k1.launches().values()) == 1
     got = torch.autograd.grad(out, inputs + params, upstream)
     ref_in = [t.clone().requires_grad_() for t in (xe, ve, ve2)]
     want = torch.autograd.grad(k1.raw_recompute(params, *ref_in, ns), ref_in + params, upstream)
-    assert k1.fused_mlp_raw.launches == 1  # the backward launches no forward
-    assert k1.heads_backward.launches_by_kernel == dict.fromkeys(k1.BWD_KERNELS, int(f32_heads))
+    assert sum(k1.launches().values()) == 1  # the backward launches no forward
+    assert k1.launches(k1.BWD_KERNELS) == dict.fromkeys(k1.BWD_KERNELS, int(f32_heads))
     if not f32_heads:
         for a, b in zip(got, want):
             assert torch.isfinite(a).all()
@@ -175,11 +177,11 @@ def test_f32h_tensor_core_heads_match_the_ffma_heads(device, scenes, n_sec, n):
     vd2 = unit(torch.randn((rows, n_sec, 3), generator=g, device=device)) if n_sec else None
     xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, torch.bfloat16, f32_heads=True)
     weights = k1.prepare_weights(mlp, torch.bfloat16, f32_heads=True)
-    before = k1.fused_mlp_raw_ffma.launches
+    before = k1.launches([k1.FFMA])[k1.FFMA]
     out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
     ffma = k1.fused_mlp_raw_ffma(weights, k1.ffma_heads(weights), xe, ve, ve2, ns)
     torch.cuda.synchronize()
-    assert k1.fused_mlp_raw_ffma.launches == before + 1
+    assert k1.launches([k1.FFMA])[k1.FFMA] == before + 1
     assert torch.isfinite(out).all() and not out[:, 5 + n_sec:].any()
     err = out - ffma
     assert err.abs().max().item() <= TOL_HEADS_MAX * ffma.abs().max().item()
@@ -216,10 +218,10 @@ def test_scene_batched_launch(device, dtype, scenes, n_per_scene, n_sec):
     xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, dtype, f32_heads=f32_heads)
     weights = k1.prepare_weights(stacked, dtype, f32_heads)
     name = k1.INSTANCE[weights.mode]
-    before = k1.fused_mlp_raw.launches
+    before = sum(k1.launches().values())
     out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
     torch.cuda.synchronize()
-    assert k1.fused_mlp_raw.launches == before + 1
+    assert sum(k1.launches().values()) == before + 1
     ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
     err = out.float() - ref
     assert err.abs().max().item() <= TOL_REL_MAX[name] * ref.abs().max().item()
@@ -342,9 +344,9 @@ def test_train_step_on_the_card_matches_the_cpu(device, monkeypatch):
         start = {k: v.detach().clone() for k, v in model.named_parameters()}
         step = make_train_step(cfg, render_rays, LossComputer(cfg), make_optimizer(cfg, model.parameters()))
         batch = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in _train_batch().items()}
-        before = k1.fused_mlp_raw.launches
+        before = sum(k1.launches().values())
         scalars = step(model, batch, torch.Generator(device=dev))
-        assert k1.fused_mlp_raw.launches - before == (2 if dev.type == "cuda" else 0)
+        assert sum(k1.launches().values()) - before == (2 if dev.type == "cuda" else 0)
         return ({k: v.cpu() for k, v in scalars.items()},
                 {k: p.grad.cpu() for k, p in model.named_parameters()},
                 {k: (p.detach() - start[k]).cpu() for k, p in model.named_parameters()})
@@ -371,13 +373,12 @@ def test_nvjpeg_decodes_the_fixture_as_libjpeg_does(device):
     import numpy as np
 
     from vipnerf_tpu_torch.utils.io import read_image, read_png
-    from vipnerf_tpu_torch.utils.jpeg import decode_jpeg
 
     data = Path(__file__).resolve().parent / "data"
-    before = decode_jpeg.launches
+    before = tracing.counts().get("jpeg.decodes", 0)
     got = read_image(data / "synth_1008x756.jpg", device).astype(np.float64)
     want = read_png(data / "synth_1008x756_decoded.png").astype(np.float64)
-    assert decode_jpeg.launches == before + 1
+    assert tracing.counts()["jpeg.decodes"] == before + 1
     assert got.shape == want.shape == (756, 1008, 3)
     psnr = 10 * np.log10(255.0 ** 2 / np.mean((got - want) ** 2))
     print(f"nvJPEG vs libjpeg: max |diff| {np.abs(got - want).max():.0f}, PSNR {psnr:.2f} dB")
@@ -495,9 +496,9 @@ def test_heads_backward_kernels_match_their_plain_versions(device, scenes, n_sec
     weights = k1.prepare_weights(mlp, torch.bfloat16, True)
     g = torch.Generator(device=device).manual_seed(11 + n_sec)
     inputs = cs.heads_inputs(k1, mlp, scenes * n, n_sec, g, device)
-    k1.reset_launch_counts()
+    tracing.reset()
     cs.check_heads_backward(k1, weights, *inputs, f"S = {scenes} x {n} points, n_sec {n_sec}")
-    assert k1.heads_backward.launches_by_kernel == dict.fromkeys(k1.BWD_KERNELS, 1)
+    assert k1.launches(k1.BWD_KERNELS) == dict.fromkeys(k1.BWD_KERNELS, 1)
 
 
 @pytest.mark.cuda
@@ -523,17 +524,15 @@ def test_heads_backward_matches_the_first_design(device, scenes, n_sec, n):
     weights = k1.prepare_weights(mlp, torch.bfloat16, True)
     g = torch.Generator(device=device).manual_seed(21 + n_sec)
     params, h, ve, ve2, up, ns = cs.heads_inputs(k1, mlp, scenes * n, n_sec, g, device)
-    k1.reset_launch_counts()
-    first_before = dict(k1.heads_backward_mma_sync.launches_by_kernel)
+    tracing.reset()
     got = k1.heads_backward(weights, params, h, ve, ve2, up, ns)
     first = k1.heads_backward_mma_sync(weights, params, h, ve, ve2, up, ns)
     err = cs.bwd_errors(got, first)
     print(f"S = {scenes} x {n} points, n_sec {n_sec}: the redesigned kernels against the first design's {err}")
     assert err["max"] <= cs.TOL_BWD_YARD_MAX and err["rms"] <= cs.TOL_BWD_YARD_RMS
     assert err["dh_off"] <= cs.TOL_BWD_YARD_DH_FRAC
-    assert k1.heads_backward.launches_by_kernel == dict.fromkeys(k1.BWD_KERNELS, 1)
-    assert {k: v - first_before[k] for k, v in k1.heads_backward_mma_sync.launches_by_kernel.items()} == \
-        dict.fromkeys(k1.BWD_MMA_SYNC_KERNELS, 1)
+    assert k1.launches(k1.BWD_KERNELS) == dict.fromkeys(k1.BWD_KERNELS, 1)
+    assert k1.launches(k1.BWD_MMA_SYNC_KERNELS) == dict.fromkeys(k1.BWD_MMA_SYNC_KERNELS, 1)
 
 
 @pytest.mark.cuda
@@ -580,3 +579,46 @@ def test_flagship_trajectory_through_k1_matches_the_module_mlp(device, tmp_path)
     rig = cs.TrainRig(tmp_path, flagship_training_configs(tmp_path, cs.TRAJ_STEPS), device)
     out = cs.phase_trajectory(k1, rig)
     assert out["launches"] == {"fused_mlp_bf16_f32h": 200, "heads_bwd_points": 200, "heads_bwd_weights": 200}
+
+
+@pytest.mark.cuda
+def test_timed_spans_read_their_stream_intervals_back(device):
+    """Spans given the card time their interval on its stream: read back
+    after a synchronisation, a child's interval lies inside its parent's and
+    covers its work, and a span timed at its end alone has no start; the
+    events return to the tracer's pool, so later rounds allocate none."""
+    t = tracing.Tracer()
+    a = torch.randn(4096, 4096, device=device)
+    for _ in range(3):
+        with t.span("outer", device):
+            with t.span("inner", device):
+                for _ in range(20):
+                    a = a @ a.T / 64.0
+        with t.span("after", device, start_event=False):
+            a = a @ a.T / 64.0
+        torch.cuda.synchronize()
+        t.collect()
+        pool = len(t._free)
+    assert pool == 5 and t._pending == []
+    records = t.snapshot()["spans"]
+    assert [r["name"] for r in records] == ["inner", "outer", "after"] * 3
+    inner, outer, after = records[-3:]
+    assert inner["parent"] == outer["id"]
+    (i0, i1), (o0, o1), (a0, a1) = inner["device_ms"], outer["device_ms"], after["device_ms"]
+    assert o0 <= i0 < i1 <= o1 < a1 and a0 is None
+    assert i1 - i0 > 1.0  # twenty 4096^3 products take milliseconds
+    assert records[2]["device_ms"][1] <= records[3]["device_ms"][0]  # rounds in order on one timeline
+
+
+@pytest.mark.cuda
+def test_timed_spans_without_a_collect_stay_bounded(device):
+    """A caller that never collects (a train step driven by hand) holds at
+    most `PENDING` timed spans: the rest are read back as they close."""
+    t = tracing.Tracer()
+    for _ in range(tracing.PENDING + 10):
+        with t.span("train.forward", device):
+            pass
+    assert len(t._pending) < tracing.PENDING
+    torch.cuda.synchronize()
+    t.collect()
+    assert t._pending == [] and all(r["device_ms"] is not None for r in t.snapshot()["spans"])

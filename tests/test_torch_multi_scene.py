@@ -309,7 +309,7 @@ def test_stacked_render_takes_each_scenes_poses(db):
     with torch.no_grad():
         for p in tt.model.parameters():
             p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(3)))
-    nerf, sd = tt._index_rows(0, 1)
+    nerf, sd = (torch.from_numpy(r).to(tt.device) for r in tt._index_rows(0, 1))
     prep0 = tt.preprocessors[0]
     batch = prep0.gather_batch(nerf[:, 0], sd[:, 0], 0, cache=tt.cache, near=tt.near, far=tt.far)
     out = render_rays(tt.model, cfg, batch, train=False, sec_views_vis=True)

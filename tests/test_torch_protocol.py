@@ -35,7 +35,9 @@ import re
 import runpy
 import shutil
 import sys
+import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import imageio.v2 as imageio
 import jax
@@ -67,7 +69,7 @@ from vipnerf_tpu_torch.protocol import (
 )
 from vipnerf_tpu_torch.train import checkpoints
 from vipnerf_tpu_torch.train.step import make_optimizer, make_train_step
-from vipnerf_tpu_torch.utils import jax_ckpt
+from vipnerf_tpu_torch.utils import jax_ckpt, tracing
 from vipnerf_tpu_torch.utils.convert import state_dict_from_jax_params
 from vipnerf_tpu_torch.utils.io import read_png
 
@@ -492,17 +494,22 @@ def test_comparison_bands(mse_ratio, lr_shift, masked_psnr, within):
 
 
 def test_leg_figures_read_the_trainer_lines():
-    """The figures of a leg come from the trainer's chunk records and the
-    app's stage clocks: the median over full chunks only."""
-    app = DatasetApp("DTU", "scene_num", "all")
-    app.chunk_seconds += [(100, 9.0), (100, 9.4), (50, 4.0)]
-    app.stage_seconds["training"] = 30.0
-    leg = common.leg_figures(app, 300)
+    """The figures of a leg come from the trainer's chunk spans and the
+    app's stage spans: the median over full chunks only."""
+    tracer = tracing.Tracer()
+    t = 0
+    for steps, seconds in ((100, 9.0), (100, 9.4), (50, 4.0)):
+        tracer.add("train.chunk", t, t + int(seconds * 1e9), it=0, steps=steps)
+        t += int(seconds * 1e9)
+    tracer.add("app.training", 0, int(30e9))
+    leg = common.leg_figures(tracer.snapshot()["spans"], 300)
     assert leg["ms_per_step_median"] == pytest.approx(92.0) and leg["full_chunks"] == 2
     assert leg["ms_per_step_range"] == pytest.approx([90.0, 94.0])
-    assert leg["steps_per_s_over_training"] == 10.0 and leg["stage_s"] == {"training": 30.0}
-    app.reset_timings()
-    assert app.chunk_seconds == [] and app.stage_seconds == {}
+    assert leg["steps_per_s_over_training"] == pytest.approx(10.0)
+    assert leg["stage_s"] == {"training": pytest.approx(30.0)}
+    tracer.reset()
+    empty = common.leg_figures(tracer.snapshot()["spans"], 0)
+    assert empty["full_chunks"] == 0 and empty["ms_per_step_median"] is None and empty["stage_s"] == {}
 
 
 def test_each_leg_of_one_process_reports_its_own_rate(tmp_path, monkeypatch):
@@ -519,9 +526,16 @@ def test_each_leg_of_one_process_reports_its_own_rate(tmp_path, monkeypatch):
         with (logs / "scalars.jsonl").open("a") as f:
             for step in range(start + 1, num_iterations + 1):
                 f.write(json.dumps({"tag": "train/TotalLoss", "value": 0.1, "step": step}) + "\n")
-        dtu.app.stage_seconds["training"] = dtu.app.stage_seconds.get("training", 0.0) + seconds
-        dtu.app.chunk_seconds += [(100, seconds / ((num_iterations - start) / 100))] * ((num_iterations - start) // 100)
+        t0, chunks = clock["ns"], (num_iterations - start) // 100  # the leg's spans on a fake clock
+        tracing.add("app.training", t0, t0 + int(seconds * 1e9))
+        for i in range(chunks):
+            chunk_ns = int(seconds * 1e9 / ((num_iterations - start) / 100))
+            tracing.add("train.chunk", t0 + i * chunk_ns, t0 + (i + 1) * chunk_ns, it=start + 100 * i, steps=100)
+        clock["ns"] = t0 + int(seconds * 1e9)
 
+    clock = {"ns": time.perf_counter_ns()}
+    monkeypatch.setattr(common, "time", SimpleNamespace(perf_counter=time.perf_counter,
+                                                        perf_counter_ns=lambda: clock["ns"]))
     monkeypatch.setattr(dtu, "_run_full", run_full)
     monkeypatch.chdir(tmp_path)
     argv = ["--workdir", str(tmp_path / "w"), "--height", "24", "--width", "32", "--video_frames", "4",

@@ -13,6 +13,7 @@ a fine MLP whose sigma is 0 everywhere, which raw_noise_std 0 never revives.
 
 import json
 import os
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -23,6 +24,7 @@ from tests.test_e2e_training import small_train_configs
 from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
 from vipnerf_tpu_torch.infer.tester import start_testing
 from vipnerf_tpu_torch.train.trainer import Trainer, start_training
+from vipnerf_tpu_torch.utils import tracing
 from vipnerf_tpu_torch.utils.io import read_image
 
 
@@ -180,9 +182,12 @@ def test_unported_options_raise(trained):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             start_training(port_configs(root, 20, train_num=9, device=[0, 1]))
-    out = start_training(port_configs(root, 20, train_num=9, device=["cpu", "cpu"], model_save_interval=20,
-                                      validation_interval=20))
-    assert sum(k for k, _ in out["synth01"]) == 20
+    t0 = time.perf_counter_ns()
+    start_training(port_configs(root, 20, train_num=9, device=["cpu", "cpu"], model_save_interval=20,
+                                validation_interval=20))
+    # rank 0's chunk spans, merged into this process's tracer
+    chunks = [r for r in tracing.snapshot()["spans"] if r["name"] == "train.chunk" and r["start_ns"] >= t0]
+    assert sum(r["attrs"]["steps"] for r in chunks) == 20
     scene = root / "runs/training/train0009/synth01"
     assert (scene / "saved_models/Model_Iter000020.tar").exists()
     assert max(r["step"] for r in scalars(scene) if r["tag"] == "train/TotalLoss") == 20

@@ -128,10 +128,10 @@ def test_f32_heads_gradients_match_jax_apply_mlp(models):
                                                            jnp.asarray(vd2))
     t_in = [torch.from_numpy(a).requires_grad_() for a in (pts, vd, vd2)]
     mlp.zero_grad(set_to_none=True)
-    before = k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"]
+    before = k1.launches()["fused_mlp_bf16_f32h"]
     out = k1.apply_fused_mlp(mlp, *t_in, dtype=torch.bfloat16, f32_heads=True)
     mlp_loss(out, torch).backward()
-    assert k1.fused_mlp_raw.launches_by_instance["fused_mlp_bf16_f32h"] == before  # CPU: the plain version
+    assert k1.launches()["fused_mlp_bf16_f32h"] == before  # CPU: the plain version
     want = state_dict_from_jax_params(to_np(g_j[0]))
     for name, p in mlp.named_parameters():
         assert p.grad is not None and p.grad.dtype == torch.float32, name

@@ -15,27 +15,26 @@ vipnerf_tpu/apps/common.py, without pandas):
   where it exists. The GPU machine has no video encoder, so a video is a
   directory of frames (`utils.io.save_video`).
 
-`stage_seconds` sums the wall clock of each stage over the app's calls
-since `reset_timings`: training, testing (the renders), qa, videos and
-static_videos; `chunk_seconds` lists the (steps, seconds) of each chunk the
-trainer ran in that time (not kept for `batch_scenes`).
+Each stage is a span of the tracer (`utils/tracing.py`): `app.training`,
+`app.testing` (the renders), `app.qa`, `app.videos` and
+`app.static_videos`, with the trainer's and tester's spans inside them.
 """
 
 import argparse
-import contextlib
 import datetime
 import subprocess
 import sys
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
 from vipnerf_tpu_torch.infer import tester as tester_mod
 from vipnerf_tpu_torch.train import multi_scene
 from vipnerf_tpu_torch.train import trainer as trainer_mod
+from vipnerf_tpu_torch.utils import tracing
 from vipnerf_tpu_torch.utils.io import read_csv_columns, read_image, save_video
 from vipnerf_tpu_torch.utils.naming import scene_dirname
 
@@ -61,19 +60,6 @@ class DatasetApp:
         self.scene_key = scene_key
         self.split_dir = split_dir
         self.root_dirpath = Path(root_dirpath) if root_dirpath else Path(".")
-        self.reset_timings()
-
-    def reset_timings(self):
-        self.stage_seconds: Dict[str, float] = {}
-        self.chunk_seconds: List[Tuple[int, float]] = []
-
-    @contextlib.contextmanager
-    def _stage(self, name: str):
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + time.time() - t0
 
     def _scene_dirname(self, scene_id) -> str:
         return scene_dirname(scene_id, self.scene_key)
@@ -94,12 +80,11 @@ class DatasetApp:
         `batch_scenes` all at once, over the selected devices."""
         train_configs = dict(train_configs)
         train_configs["root_dirpath"] = str(self.root_dirpath)
-        with self._stage("training"):
+        with tracing.span("app.training"):
             if train_configs.get("batch_scenes"):
                 multi_scene.start_training_batched(train_configs)
             else:
-                for chunks in trainer_mod.start_training(train_configs).values():
-                    self.chunk_seconds.extend(chunks)
+                trainer_mod.start_training(train_configs)
 
     # ---------------------------------------------------------------- testing
 
@@ -145,7 +130,7 @@ class DatasetApp:
         output_dirpath.mkdir(parents=True, exist_ok=True)
         tester_mod.save_test_configs(output_dirpath, test_configs)
 
-        with self._stage("testing"):
+        with tracing.span("app.testing"):
             tester_mod.start_testing(test_configs, self.build_scenes_data(test_configs),
                                      save_depth=True, save_depth_var=True, save_visibility=True)
         if run_qa:
@@ -171,7 +156,7 @@ class DatasetApp:
             "--resolution_suffix", test_configs.get("resolution_suffix", ""),
             "--device", _device_arg(test_configs.get("device", "all")),
         ]
-        with self._stage("qa"):
+        with tracing.span("app.qa"):
             subprocess.run(cmd, cwd=REPO_ROOT, check=False)
 
     # ----------------------------------------------------------------- videos
@@ -221,12 +206,12 @@ class DatasetApp:
                 save_video(scene_out / video_filename, frames)
 
     def start_testing_videos(self, test_configs: Dict[str, Any]):
-        with self._stage("videos"):
+        with tracing.span("app.videos"):
             self._video_track_testing(test_configs, False, "PredictedVideo.mp4", "_video{video_num:02}")
 
     def start_testing_static_videos(self, test_configs: Dict[str, Any]):
         """A fixed camera with the track's view directions."""
-        with self._stage("static_videos"):
+        with tracing.span("app.static_videos"):
             self._video_track_testing(test_configs, True, "StaticCameraVideo.mp4",
                                       "_video{video_num:02}_static_camera")
 
@@ -242,7 +227,7 @@ def run_main(demos: Dict[str, Callable], default: Optional[List[str]] = None,
     args = parser.parse_args(argv)
 
     print("Program started at " + datetime.datetime.now().strftime("%d/%m/%Y %I:%M:%S %p"))
-    start_time = time.time()
+    start_time = time.perf_counter()
     status = 0
     try:
         for name in args.demo_names:
@@ -255,5 +240,5 @@ def run_main(demos: Dict[str, Callable], default: Optional[List[str]] = None,
         status = 1
     print(run_result)
     print("Program ended at " + datetime.datetime.now().strftime("%d/%m/%Y %I:%M:%S %p"))
-    print("Execution time: " + str(datetime.timedelta(seconds=time.time() - start_time)))
+    print("Execution time: " + str(datetime.timedelta(seconds=time.perf_counter() - start_time)))
     return status

@@ -4,6 +4,8 @@ Rays are cut into tiles of `chunk_size`; the last tile is padded by
 repeating its last ray, so every tile has the same shape. Each tile renders
 eagerly on the model's device, the kept outputs stay there, and one copy at
 the end brings the frame to the host. Outputs do not depend on the tile size.
+Spans (`utils/tracing.py`): `render.tile` (`tile`) per tile, its losses
+included, and `render.gather` for the concatenation and the copy.
 
 With a `group` (`parallel.mesh.RayGroup`, every rank calling `render` with
 the same batch), each tile's rays are sharded over the ranks (the tile
@@ -17,6 +19,8 @@ import copy
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+
+from vipnerf_tpu_torch.utils import tracing
 
 # Keys returned to the host from a tile render (missing ones are skipped).
 _KEEP_KEYS = (
@@ -137,18 +141,21 @@ class TiledRenderer:
         parts: Dict[str, List[torch.Tensor]] = {}
         tile_losses: List[Dict[str, Any]] = []
         ray_keys = _ray_keys(batch, nr)
-        for tile_batch in _split_batch(batch, nr, tile, ray_keys):
-            out = self._render_tile(model, tile_batch, ray_keys, train=False, sec_views_vis=sec_views_vis,
-                                    retraw=with_losses)
-            for k in _KEEP_KEYS:
-                if k in out:
-                    parts.setdefault(k, []).append(out[k])
-            if with_losses:
-                tile_losses.append(self.loss_computer.compute_losses(
-                    tile_batch, out, return_loss_maps=return_loss_maps))
-        outputs = {
-            k: torch.cat(v, dim=0)[:nr].cpu().numpy() for k, v in parts.items()
-        }
+        for t, tile_batch in enumerate(_split_batch(batch, nr, tile, ray_keys)):
+            with tracing.span("render.tile", tile=t):
+                out = self._render_tile(model, tile_batch, ray_keys, train=False, sec_views_vis=sec_views_vis,
+                                        retraw=with_losses)
+                for k in _KEEP_KEYS:
+                    if k in out:
+                        parts.setdefault(k, []).append(out[k])
+                if with_losses:
+                    tile_losses.append(self.loss_computer.compute_losses(
+                        tile_batch, out, return_loss_maps=return_loss_maps))
+        with tracing.span("render.gather"):
+            outputs = {
+                k: torch.cat(v, dim=0)[:nr].cpu().numpy() for k, v in parts.items()
+            }
+            tracing.collect()
         return outputs, (_merge_losses(tile_losses, nr, tile) if with_losses else None)
 
 

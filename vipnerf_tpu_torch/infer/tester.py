@@ -9,6 +9,11 @@ Over several devices (`test_configs['device']`), `start_testing` runs one
 rank per device (`parallel.mesh.run_on_devices`): every rank renders each
 frame's tiles sharded over the ranks (`TiledRenderer` with the group, the
 JAX tester's mesh), and rank 0 alone writes.
+
+`predict_frame` is traced (`utils/tracing.py`): `render.frame` (`frame`,
+a running count, its interval on the card's stream too) with
+`render.prepare` (the rays), the tiled renderer's spans and
+`render.outputs` (the outputs rearranged on the host).
 """
 
 import copy
@@ -29,6 +34,7 @@ from vipnerf_tpu_torch.infer.renderer import (
 from vipnerf_tpu_torch.models.factory import get_model
 from vipnerf_tpu_torch.parallel.mesh import current_group, run_on_devices
 from vipnerf_tpu_torch.train import checkpoints
+from vipnerf_tpu_torch.utils import tracing
 from vipnerf_tpu_torch.utils.config import dict_diff
 from vipnerf_tpu_torch.utils.device import resolve_device
 from vipnerf_tpu_torch.utils.io import save_image as _save_image_raw
@@ -80,6 +86,7 @@ class NerfTester:
         self.model = self.model.to(self.device).eval()
         self.renderer = TiledRenderer(self.render_fn, render_configs, group=self.group)
         self.chunk_size = test_configs.get("chunk_size", 8192)
+        self.frames = 0  # frames predicted: the `frame` of each one's span
 
     def load_model(self, model_path: Path):
         model_path = Path(model_path)
@@ -100,15 +107,19 @@ class NerfTester:
         view_intrinsic: Optional[np.ndarray] = None,
         secondary_intrinsics: Optional[List[np.ndarray]] = None,
     ) -> Dict[str, np.ndarray]:
-        batch = self.data_preprocessor.create_test_data(
-            camera_pose, view_camera_pose, secondary_poses, True,
-            intrinsic, view_intrinsic, secondary_intrinsics,
-        )
-        outputs, _ = self.renderer.render(
-            self.model, batch, chunk_size=self.chunk_size,
-            sec_views_vis=secondary_poses is not None,
-        )
-        return self.data_preprocessor.retrieve_inference_outputs(outputs)
+        self.frames += 1
+        with tracing.span("render.frame", self.device, frame=self.frames):
+            with tracing.span("render.prepare"):
+                batch = self.data_preprocessor.create_test_data(
+                    camera_pose, view_camera_pose, secondary_poses, True,
+                    intrinsic, view_intrinsic, secondary_intrinsics,
+                )
+            outputs, _ = self.renderer.render(
+                self.model, batch, chunk_size=self.chunk_size,
+                sec_views_vis=secondary_poses is not None,
+            )
+            with tracing.span("render.outputs"):
+                return self.data_preprocessor.retrieve_inference_outputs(outputs)
 
     @staticmethod
     def save_image(path: Path, image: np.ndarray):

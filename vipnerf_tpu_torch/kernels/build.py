@@ -12,6 +12,9 @@ failed build raises with the compiler's output; nothing falls back. The
 ranks of a multi-device run only load: the launching process builds every
 library before it spawns them (`parallel.mesh.run_on_devices`), and a rank
 that finds one missing raises instead of compiling its own copy.
+
+Each compilation is a `kernels.build` span (`library`) of the tracer
+(`utils/tracing.py`), so a build inside a measured stretch shows.
 """
 
 import ctypes
@@ -22,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
+
+from vipnerf_tpu_torch.utils import tracing
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -42,7 +47,6 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _builds_forbidden = False
-build_seconds: Dict[str, float] = {}
 ptxas_reports: Dict[str, str] = {}
 
 
@@ -87,9 +91,9 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+def build_all(names: Optional[Iterable[str]] = None) -> None:
     """Compile every named source that has no library yet, all compilers
-    running at once. Returns the wall seconds of each build; raises with the
+    running at once, each a `kernels.build` span; raises with the
     compiler's output if one fails."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -101,13 +105,13 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             jobs[name] = (_command(name, tmp), tmp, out)
     procs = {
         name: (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, out,
-               time.perf_counter())
+               time.perf_counter_ns())
         for name, (cmd, tmp, out) in jobs.items()
     }
     failures = []
     for name, (proc, tmp, out, t0) in procs.items():
         log = proc.communicate()[0].decode(errors="replace")
-        build_seconds[name] = time.perf_counter() - t0
+        tracing.add("kernels.build", t0, time.perf_counter_ns(), library=name)
         ptxas_reports[name] = log
         if proc.returncode != 0:
             failures.append(f"{name}: {Path(proc.args[0]).name} exited {proc.returncode}\n{log}")
@@ -115,7 +119,6 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("build failed:\n" + "\n".join(failures))
-    return dict(build_seconds)
 
 
 def forbid_builds():

@@ -35,10 +35,12 @@ copies the heads kernel consumes (`heads_image`; `PACK_BYTES`).
 
 `fused_mlp_raw` is the wrapper: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs `fused_mlp_reference`, the same function in
-plain torch. It counts its launches in `fused_mlp_raw.launches`, and per
-instance in `fused_mlp_raw.launches_by_instance`. `fused_mlp_raw_ffma` runs
-the bf16_f32h function with FFMA heads on CUDA cores, the tensor-core heads'
-yardstick; nothing else calls it.
+plain torch. `fused_mlp_raw_ffma` runs the bf16_f32h function with FFMA
+heads on CUDA cores, the tensor-core heads' yardstick; nothing else calls
+it. Every launch on the card is counted in the tracer's table
+(`utils/tracing.py`) as `k1.launches.<kernel>`, per instance
+(`INSTANCE`), backward kernel (`BWD_KERNELS`) and yardstick (`FFMA`,
+`BWD_MMA_SYNC_KERNELS`); `launches(kernels)` reads them.
 
 Gradients: `FusedRaw` is the `torch.autograd.Function` around the wrapper
 (the counterpart of `_make_fused_raw`, a `jax.custom_vjp`). It takes the
@@ -74,6 +76,7 @@ from vipnerf_tpu_torch.core.encoding import positional_encoding
 from vipnerf_tpu_torch.core.sampling import ray_draw
 from vipnerf_tpu_torch.core.scene_linear import scene_matmul
 from vipnerf_tpu_torch.kernels import build
+from vipnerf_tpu_torch.utils import tracing
 
 PTS_IN = 64  # padded PE(pts) width (63 real)
 VIEW_IN = 32  # padded PE(view dir) width (27 real)
@@ -99,6 +102,8 @@ INSTANCE = {
     (torch.float32, torch.float32): "fused_mlp_f32",
     (torch.bfloat16, torch.float32): "fused_mlp_bf16_f32h",
 }
+FORWARD = tuple(INSTANCE.values())
+FFMA = "fused_mlp_bf16_f32h_ffma"  # bf16_f32h with FFMA heads, the yardstick on no path
 HEAD_NUMEL = W_NUMEL - TRUNK_NUMEL  # layers 8-11
 SPLIT_PARTS = 3  # bf16 parts of an f32 head weight in the bf16_f32h pack
 # bytes of one scene's packed weights, per instance
@@ -636,8 +641,7 @@ def fused_mlp_raw(
     if mode[0] != mode[1]:  # bf16_f32h: scratch for the trunk's h, which its heads' kernel reads back
         tensors.append(h_scratch(xe.shape[0], weights.scenes, xe.device))
     _launch(_entry(INSTANCE[mode], len(tensors) + 1), weights, xe, n_sec, tensors + [out])
-    fused_mlp_raw.launches += 1
-    fused_mlp_raw.launches_by_instance[INSTANCE[mode]] += 1
+    tracing.count("k1.launches." + INSTANCE[mode])
     return out
 
 
@@ -647,8 +651,8 @@ def fused_mlp_raw_ffma(
 ) -> torch.Tensor:
     """The bf16_f32h function with the heads in FFMA on CUDA cores (the
     trunk kernel, then the f32 kernel's heads on `heads32`, `ffma_heads` of
-    the same weights): the tensor-core heads' yardstick, CUDA tensors only.
-    Counts its launches in `fused_mlp_raw_ffma.launches`."""
+    the same weights): the tensor-core heads' yardstick, CUDA tensors only,
+    counted as `FFMA`."""
     _check(weights, xe, ve, ve2, n_sec)
     if weights.mode != (torch.bfloat16, torch.float32):
         raise TypeError(f"the FFMA heads take bf16_f32h weights, not {INSTANCE[weights.mode]}'s")
@@ -663,7 +667,7 @@ def fused_mlp_raw_ffma(
     h = h_scratch(xe.shape[0], weights.scenes, xe.device)
     _launch(_entry("fused_mlp_bf16_f32h_ffma", 8), weights, xe, n_sec,
             [xe, ve, ve2, weights.w_flat, heads32, weights.b_flat, h, out])
-    fused_mlp_raw_ffma.launches += 1
+    tracing.count("k1.launches." + FFMA)
     return out
 
 
@@ -1080,14 +1084,13 @@ def heads_bwd_points(weights: FusedWeights, params, h: torch.Tensor, ve: torch.T
     function) for bf16_f32h `weights` and the heads' parameters they were
     packed from: CPU tensors take the plain version; CUDA tensors launch
     the kernel on the current stream (or raise), d PE(dir) only where
-    `need_ve`/`need_ve2` ask. Counts its launches in
-    `heads_backward.launches_by_kernel["heads_bwd_points"]`."""
+    `need_ve`/`need_ve2` ask."""
     _check_heads_inputs(weights, h, ve, ve2, g, n_sec)
     if h.device.type == "cpu":
         return heads_points_reference(params, h, ve, ve2, g, n_sec)
     mid = _launch_points(False, weights, h, ve, ve2, g, n_sec, need_ve, need_ve2)
     if h.shape[0]:
-        heads_backward.launches_by_kernel["heads_bwd_points"] += 1
+        tracing.count("k1.launches.heads_bwd_points")
     return mid
 
 
@@ -1098,12 +1101,11 @@ def heads_bwd_weights(mid: HeadsIntermediates, h: torch.Tensor, ve: torch.Tensor
     `heads_bwd_points` took them) and outputs: CPU tensors take the plain
     version; CUDA tensors launch the kernel on the current stream (or
     raise): split-K products over the points, each CTA's share in f64, the
-    shares summed in a fixed order by a second launch. Counts its launches in
-    `heads_backward.launches_by_kernel["heads_bwd_weights"]`."""
+    shares summed in a fixed order by a second launch."""
     if h.device.type == "cpu":
         return heads_weights_reference(mid, h, ve, ve2, g, scenes, stacked)
     grads = _launch_weights(False, mid, h, ve, ve2, g, scenes, stacked)
-    heads_backward.launches_by_kernel["heads_bwd_weights"] += 1
+    tracing.count("k1.launches.heads_bwd_weights")
     return grads
 
 
@@ -1126,25 +1128,24 @@ def heads_bwd_points_mma_sync(weights: FusedWeights, h: torch.Tensor, ve: torch.
                               g: torch.Tensor, n_sec: int, need_ve: bool = True, need_ve2: bool = True
                               ) -> HeadsIntermediates:
     """The first design's per-point kernel (mma.sync, `heads_bwd_pack`'s
-    image), `heads_bwd_points`' yardstick: CUDA tensors only. Counts its
-    launches in `heads_backward_mma_sync.launches_by_kernel`."""
+    image), `heads_bwd_points`' yardstick: CUDA tensors only."""
     _check_heads_inputs(weights, h, ve, ve2, g, n_sec)
     if h.device.type != "cuda":
         raise ValueError(f"the first design's kernels run on cuda tensors only, not {h.device}")
     mid = _launch_points(True, weights, h, ve, ve2, g, n_sec, need_ve, need_ve2)
     if h.shape[0]:
-        heads_backward_mma_sync.launches_by_kernel["heads_bwd_points_mma_sync"] += 1
+        tracing.count("k1.launches.heads_bwd_points_mma_sync")
     return mid
 
 
 def heads_bwd_weights_mma_sync(mid: HeadsIntermediates, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
                                g: torch.Tensor, scenes: int = 1, stacked: bool = False):
     """The first design's weight-gradient kernel, `heads_bwd_weights`'
-    yardstick: CUDA tensors only, its launches counted likewise."""
+    yardstick: CUDA tensors only."""
     if h.device.type != "cuda":
         raise ValueError(f"the first design's kernels run on cuda tensors only, not {h.device}")
     grads = _launch_weights(True, mid, h, ve, ve2, g, scenes, stacked)
-    heads_backward_mma_sync.launches_by_kernel["heads_bwd_weights_mma_sync"] += 1
+    tracing.count("k1.launches.heads_bwd_weights_mma_sync")
     return grads
 
 
@@ -1158,18 +1159,11 @@ def heads_backward_mma_sync(weights: FusedWeights, params, h: torch.Tensor, ve: 
     return mid.d_h, grads, mid.d_ve, mid.d_ve2
 
 
-def reset_launch_counts():
-    """Zeroes the counts of `fused_mlp_raw` and of `heads_backward`. The
-    yardsticks' on no path, `fused_mlp_raw_ffma.launches` and
-    `heads_backward_mma_sync.launches_by_kernel`, run on from 0 at import."""
-    fused_mlp_raw.launches = 0
-    fused_mlp_raw.launches_by_instance = dict.fromkeys(INSTANCE.values(), 0)
-    heads_backward.launches_by_kernel = dict.fromkeys(BWD_KERNELS, 0)
-
-
-reset_launch_counts()
-fused_mlp_raw_ffma.launches = 0
-heads_backward_mma_sync.launches_by_kernel = dict.fromkeys(BWD_MMA_SYNC_KERNELS, 0)
+def launches(kernels=FORWARD) -> Dict[str, int]:
+    """Launches on the card of each of `kernels` since the tracer's last
+    reset (by default K1's forward instances)."""
+    table = tracing.counts("k1.launches.")
+    return {k: table.get(f"k1.launches.{k}", 0) for k in kernels}
 
 
 class FusedRaw(torch.autograd.Function):

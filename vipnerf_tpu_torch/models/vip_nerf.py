@@ -19,6 +19,11 @@ come from its own `poses` (S, nf, 4, 4), and each MLP call runs every scene
 on its own weights at once (K1 with a scene axis, or batched products).
 `unstack_model` gives one scene's `ViPNeRF` back, for checkpoints and
 validation.
+
+Under a profiler session `render_rays` also records its phases as spans
+(`utils/tracing.py` `detail`): `rays.sample`, then per level
+`rays.<level>.points` (samples and other-view directions), `.mlp` (K1's
+launch or the module) and `.composite`, with `rays.resample` between.
 """
 
 from typing import Any, Dict, List, Optional
@@ -31,6 +36,7 @@ from vipnerf_tpu_torch.core.rendering import volume_rendering
 from vipnerf_tpu_torch.core.sampling import coarse_z_vals, fine_z_vals
 from vipnerf_tpu_torch.kernels import fused_mlp as k1
 from vipnerf_tpu_torch.models.mlp import NeRFMLP
+from vipnerf_tpu_torch.utils import tracing
 
 
 class ViPNeRF(nn.Module):
@@ -209,24 +215,26 @@ def render_rays(
     out: Dict[str, torch.Tensor] = {}
     z_coarse = weights_coarse = None
     if coarse_needed:
-        z_coarse = coarse_z_vals(
-            near, far, mcfg["coarse_mlp"]["num_samples"], lindisp=mcfg["lindisp"],
-            perturb=perturb, generator=generator,
-        )
+        with tracing.detail("rays.sample"):
+            z_coarse = coarse_z_vals(
+                near, far, mcfg["coarse_mlp"]["num_samples"], lindisp=mcfg["lindisp"],
+                perturb=perturb, generator=generator,
+            )
         out_c, raw_c = _render_one_level(
-            model.coarse_model, mcfg["coarse_mlp"], z_coarse, rays_o, rays_d,
+            "coarse", model.coarse_model, mcfg["coarse_mlp"], z_coarse, rays_o, rays_d,
             rays_o_s, rays_d_s, view_dirs, rays_o2, **level_args,
         )
         weights_coarse = out_c["weights"]
         _collect(out, "coarse", z_coarse, out_c, raw_c, retraw)
 
     if fine_needed:
-        z_fine = fine_z_vals(
-            z_coarse, weights_coarse, mcfg["fine_mlp"]["num_samples"],
-            perturb=perturb, generator=generator,
-        )
+        with tracing.detail("rays.resample"):
+            z_fine = fine_z_vals(
+                z_coarse, weights_coarse, mcfg["fine_mlp"]["num_samples"],
+                perturb=perturb, generator=generator,
+            )
         out_f, raw_f = _render_one_level(
-            model.fine_model, mcfg["fine_mlp"], z_fine, rays_o, rays_d,
+            "fine", model.fine_model, mcfg["fine_mlp"], z_fine, rays_o, rays_d,
             rays_o_s, rays_d_s, view_dirs, rays_o2, **level_args,
         )
         _collect(out, "fine", z_fine, out_f, raw_f, retraw)
@@ -248,6 +256,7 @@ def _collect(out, suffix, z_vals, level_out, level_raw, retraw):
 
 
 def _render_one_level(
+    level: str,
     mlp: NeRFMLP,
     mlp_cfg: Dict[str, Any],
     z_vals: torch.Tensor,
@@ -266,26 +275,29 @@ def _render_one_level(
     bf16: bool,
     f32_heads: bool,
 ):
-    """One MLP evaluation + compositing pass (coarse or fine)."""
-    pts = rays_o_s[..., None, :] + rays_d_s[..., None, :] * z_vals[..., :, None]
-    view_dirs2 = None
-    if mlp_cfg["predict_visibility"] and sec_views_vis and rays_o2 is not None:
-        view_dirs2 = _compute_other_view_dirs(z_vals, rays_o, rays_d, rays_o2, ndc)
+    """One MLP evaluation + compositing pass (`level`: coarse or fine)."""
+    with tracing.detail(f"rays.{level}.points"):
+        pts = rays_o_s[..., None, :] + rays_d_s[..., None, :] * z_vals[..., :, None]
+        view_dirs2 = None
+        if mlp_cfg["predict_visibility"] and sec_views_vis and rays_o2 is not None:
+            view_dirs2 = _compute_other_view_dirs(z_vals, rays_o, rays_d, rays_o2, ndc)
 
-    raw = _run_mlp_on_samples(
-        mlp, pts, view_dirs if mlp_cfg["use_view_dirs"] else None, view_dirs2,
-        raw_noise_std=raw_noise_std, generator=generator,
-        bf16_matmuls=bf16, f32_heads=f32_heads,
-    )
-    if not ndc:
-        outputs = volume_rendering(
-            raw["rgb"], raw["sigma"][..., 0], z_vals=z_vals, rays_d=rays_d,
-            white_bkgd=white_bkgd, ndc=False, visibility2=raw.get("visibility2"),
+    with tracing.detail(f"rays.{level}.mlp"):
+        raw = _run_mlp_on_samples(
+            mlp, pts, view_dirs if mlp_cfg["use_view_dirs"] else None, view_dirs2,
+            raw_noise_std=raw_noise_std, generator=generator,
+            bf16_matmuls=bf16, f32_heads=f32_heads,
         )
-    else:
-        outputs = volume_rendering(
-            raw["rgb"], raw["sigma"][..., 0], z_vals_ndc=z_vals, rays_d_ndc=rays_d_s,
-            rays_o=rays_o, rays_d=rays_d, white_bkgd=white_bkgd, ndc=True,
-            visibility2=raw.get("visibility2"),
-        )
+    with tracing.detail(f"rays.{level}.composite"):
+        if not ndc:
+            outputs = volume_rendering(
+                raw["rgb"], raw["sigma"][..., 0], z_vals=z_vals, rays_d=rays_d,
+                white_bkgd=white_bkgd, ndc=False, visibility2=raw.get("visibility2"),
+            )
+        else:
+            outputs = volume_rendering(
+                raw["rgb"], raw["sigma"][..., 0], z_vals_ndc=z_vals, rays_d_ndc=rays_d_s,
+                rays_o=rays_o, rays_d=rays_d, white_bkgd=white_bkgd, ndc=True,
+                visibility2=raw.get("visibility2"),
+            )
     return outputs, raw

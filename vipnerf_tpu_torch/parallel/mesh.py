@@ -52,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from vipnerf_tpu_torch.kernels import build
+from vipnerf_tpu_torch.utils import tracing
 
 
 def _cuda_missing(device_sel) -> RuntimeError:
@@ -236,14 +237,15 @@ _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 def _rank_main(rank: int, world: int, address: str, backend: str, threads: int,
                fn: Callable, configs: Dict[str, Any], queue) -> None:
-    """A spawned rank: join the group, run `fn`, send rank 0's result."""
+    """A spawned rank: join the group, run `fn`, send rank 0's result and
+    its tracer's snapshot."""
     torch.set_num_threads(threads)
     build.forbid_builds()
     dist.init_process_group(backend, init_method=address, rank=rank, world_size=world)
     try:
         result = fn(configs)
         if rank == 0:
-            queue.put(result)
+            queue.put((result, tracing.snapshot()))
     finally:
         dist.destroy_process_group()
 
@@ -251,7 +253,8 @@ def _rank_main(rank: int, world: int, address: str, backend: str, threads: int,
 def run_on_devices(fn: Callable[[Dict[str, Any]], Any], configs: Dict[str, Any], device_sel: Any = None) -> Any:
     """`fn(configs)` on the devices `device_sel` selects (by default
     `configs['device']`; see the module docstring); returns rank 0's
-    result."""
+    result. Spawned ranks' spans and counters stay in their processes,
+    except rank 0's, which are merged into this process's tracer."""
     if device_sel is None:
         device_sel = configs.get("device", "all")
     if dist.is_initialized():
@@ -280,4 +283,6 @@ def run_on_devices(fn: Callable[[Dict[str, Any]], Any], configs: Dict[str, Any],
             results.append(queue.get())
     while not queue.empty():
         results.append(queue.get())
-    return results[0]
+    result, snapshot = results[0]
+    tracing.merge(snapshot)
+    return result

@@ -43,7 +43,7 @@ def sweep(workdir: Path, *, database: str, scene: str, train_num: int, set_num: 
             print(f"iter {it}: no checkpoint, skipping", flush=True)
             continue
         test_num = test_num_base + it // step
-        t0 = time.time()
+        t0 = time.perf_counter()
         test_configs = build_test_configs(
             entry_name=ENTRY_NAME,
             test_num=test_num,
@@ -60,7 +60,7 @@ def sweep(workdir: Path, *, database: str, scene: str, train_num: int, set_num: 
         app.start_testing(test_configs)
         qa_path = Path(workdir) / f"runs/testing/test{test_num:04}/QA_Scores.json"
         scores = json.loads(qa_path.read_text()).get("predicted_frames", {}) if qa_path.exists() else {}
-        results.append({"iter": it, "wall_s": round(time.time() - t0, 1), **scores})
+        results.append({"iter": it, "wall_s": round(time.perf_counter() - t0, 1), **scores})
         print(f"iter {it}: {scores} ({results[-1]['wall_s']}s)", flush=True)
     return results
 

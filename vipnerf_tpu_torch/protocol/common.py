@@ -17,7 +17,7 @@ import json
 import os
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ from vipnerf_tpu_torch.data.synthetic import (
     write_synthetic_database,
 )
 from vipnerf_tpu_torch.kernels import fused_mlp as k1
+from vipnerf_tpu_torch.utils import tracing
 from vipnerf_tpu_torch.utils.io import save_image
 from vipnerf_tpu_torch.utils.naming import scene_dirname
 
@@ -119,22 +120,28 @@ def read_scalars(scalars_path: Path) -> dict:
     return series
 
 
-def leg_figures(app, steps: int, scan_steps: int = 100) -> dict:
-    """What a leg's records say of its speed: the median of the trainer's
-    full chunks' ms per step (a chunk's clock stops when its losses are read,
-    before a checkpoint or validation), the steps per second over the whole
-    training stage (set-up, validation and checkpoints in it), each stage's
-    seconds (`DatasetApp`, since the leg's `reset_timings`) and the card's
-    peak memory."""
-    chunks = [1e3 * sec / k for k, sec in app.chunk_seconds if k == scan_steps]
-    training_s = app.stage_seconds.get("training", 0.0)
+def leg_figures(spans: List[dict], steps: int, scan_steps: int = 100) -> dict:
+    """What a leg's spans (the tracer's records since the leg began) say of
+    its speed: the median of the trainer's full chunks' ms per step (a
+    `train.chunk` ends when its losses are read, before a checkpoint or
+    validation), the steps per second over the whole training stage (set-up,
+    validation and checkpoints in it), each stage's seconds (the `app.*`
+    spans) and the card's peak memory."""
+    chunks = [(r["end_ns"] - r["start_ns"]) * 1e-6 / scan_steps for r in spans
+              if r["name"] == "train.chunk" and r["attrs"]["steps"] == scan_steps]
+    stage_s: dict = {}
+    for r in spans:
+        if r["name"].startswith("app."):
+            stage = r["name"][len("app."):]
+            stage_s[stage] = stage_s.get(stage, 0.0) + (r["end_ns"] - r["start_ns"]) * 1e-9
+    training_s = stage_s.get("training", 0.0)
     out = {
         "steps": steps,
         "ms_per_step_median": float(np.median(chunks)) if chunks else None,
         "ms_per_step_range": [min(chunks), max(chunks)] if chunks else None,
         "full_chunks": len(chunks),
         "steps_per_s_over_training": steps / training_s if training_s and steps else None,
-        "stage_s": dict(app.stage_seconds),
+        "stage_s": stage_s,
     }
     if torch.cuda.is_initialized():
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -145,13 +152,13 @@ def leg_figures(app, steps: int, scan_steps: int = 100) -> dict:
 def write_database_once(db_dir: Path, label: str, write: Callable[[], None]) -> None:
     """`write()` the synthetic database under `db_dir` unless its
     completion marker is there, then mark it complete."""
-    t0 = time.time()
+    t0 = time.perf_counter()
     marker = Path(db_dir) / DB_MARKER
     if not marker.exists():
         print(f"generating {label}...", flush=True)
         write()
         marker.touch()
-    print(f"db ready in {time.time() - t0:.0f}s", flush=True)
+    print(f"db ready in {time.perf_counter() - t0:.0f}s", flush=True)
 
 
 def run_demo_leg(workdir: Path, app_module, label: str, *, train_num: int, set_num: int, scene_ids: list,
@@ -161,8 +168,9 @@ def run_demo_leg(workdir: Path, app_module, label: str, *, train_num: int, set_n
     run from `workdir`: an earlier leg's test renders moved aside, training,
     testing with QA and both video tracks. Prints the wall clock and the QA
     scores; returns the leg's figures (`leg_figures`, over the steps this
-    leg trained) with its wall clock, seconds per tested frame, QA and each
-    K1 instance's launches over the leg (training, validation, testing)."""
+    leg trained and the spans it left) with its wall clock, seconds per
+    tested frame, QA and each K1 instance's launches over the leg (training,
+    validation, testing)."""
     workdir = Path(workdir)
     app = app_module.app
     os.chdir(workdir)
@@ -170,16 +178,16 @@ def run_demo_leg(workdir: Path, app_module, label: str, *, train_num: int, set_n
     scene_dir = scene_dirname(scene_ids[0], app.scene_key)
     scalars_path = workdir / f"runs/training/train{train_num:04}/{scene_dir}/logs/scalars.jsonl"
     before = set(read_scalars(scalars_path).get("train/TotalLoss", {}))
-    launches = dict(k1.fused_mlp_raw.launches_by_instance)
-    app.reset_timings()
-    t0 = time.time()
+    launches = k1.launches()
+    t0 = time.perf_counter_ns()
     app_module._run_full(train_num, set_num, sparse_depth=True, num_rays=2048, num_iterations=iters,
                          device=device, **{app.scene_key + "s": scene_ids}, **run_full_kwargs)
-    wall = time.time() - t0
+    wall = (time.perf_counter_ns() - t0) * 1e-9
     print(f"{label} WALL CLOCK: {wall:.0f}s", flush=True)
     steps = len(set(read_scalars(scalars_path).get("train/TotalLoss", {})) - before)
-    leg = {"iters": iters, "wall_s": round(wall, 1), **leg_figures(app, steps),
-           "k1_launches": {k: n - launches[k] for k, n in k1.fused_mlp_raw.launches_by_instance.items()}}
+    spans = [r for r in tracing.snapshot()["spans"] if r["start_ns"] >= t0]
+    leg = {"iters": iters, "wall_s": round(wall, 1), **leg_figures(spans, steps),
+           "k1_launches": {k: n - launches[k] for k, n in k1.launches().items()}}
     tested = len(list((workdir / f"runs/testing/test{train_num:04}/{scene_dir}/predicted_frames").glob("*.png")))
     if tested and "testing" in leg["stage_s"]:
         leg["s_per_tested_frame"] = leg["stage_s"]["testing"] / tested

@@ -121,10 +121,10 @@ def main(argv=None) -> dict:
                        val_frames=VAL_FRAMES, height=args.height, width=args.width,
                        video_frames=args.video_frames, with_visibility_prior=False)
 
-    t_gen = time.time()
+    t_gen = time.perf_counter()
     directions = main_visibility(["--database", "DTU", "--gen_nums", str(SET_NUM), "--root_dirpath", str(workdir),
                                   "--device", args.device])
-    gen_wall = time.time() - t_gen
+    gen_wall = time.perf_counter() - t_gen
     print(f"DTU PRIOR GENERATION WALL CLOCK: {gen_wall:.1f}s ({len(TRAIN_FRAMES)} views)", flush=True)
 
     # demo1b's call, the scan list swapped for the synthetic scan

@@ -134,10 +134,10 @@ def main(argv=None) -> dict:
     hand_dir = db_dir / "all/visibility_prior/VW02/synth01"
     print(f"hand-written priors present: {hand_dir.exists()}", flush=True)
 
-    t1 = time.time()
+    t1 = time.perf_counter()
     directions = main_visibility(["--database", "NeRF_LLFF", "--gen_nums", "2", "--root_dirpath", str(workdir),
                                   "--device", args.device])
-    gen_wall = time.time() - t1
+    gen_wall = time.perf_counter() - t1
     n_pairs = len(TRAIN_FRAMES) * (len(TRAIN_FRAMES) - 1) // 2
     print(f"PRIOR GENERATION WALL CLOCK: {gen_wall:.1f}s ({n_pairs} unordered pairs, both directions each)",
           flush=True)

@@ -26,7 +26,8 @@ Artifacts per scene, as the single-scene trainer writes them:
 Model_Iter{N:06}.tar with Model_Latest.tar (its model and its row of the
 optimizer). A resume starts from the latest checkpoint every scene has (the
 minimum), then renders a boundary validation that was cut short. The
-`profiler` hook traces chunks into the run's logs/profile.
+chunks are traced as the single-scene trainer's (`trainer.train_chunk`),
+and the `profiler` hook traces chunks into the run's logs/profile.
 
 All scenes need one resolution and frame count (true within a dataset's
 train set).
@@ -72,9 +73,10 @@ from vipnerf_tpu_torch.train.trainer import (
     run_device,
     run_dirs,
     save_run_configs,
-    step_seed,
+    train_chunk,
     validation_complete,
 )
+from vipnerf_tpu_torch.utils import tracing
 from vipnerf_tpu_torch.utils.config import init_seeds, merge_configs, save_model_configs
 from vipnerf_tpu_torch.utils.device import resolve_device
 
@@ -231,16 +233,22 @@ class MultiSceneTrainer:
 
     def _index_rows(self, it: int, k: int):
         """(S, K, R) flat indices into the stacked cache of every scene's
-        next k steps, on the device; the sparse-depth rows or None."""
+        next k steps, on the host; the sparse-depth rows or None."""
         chunks = [p.get_index_chunk(it, k) for p in self.preprocessors[self.local]]
         offsets = self.rays_per_scene * np.arange(len(chunks), dtype=np.int64)[:, None, None]
 
         def rows(blocks):
-            return torch.from_numpy(np.stack(blocks).astype(np.int64) + offsets).to(self.device)
+            return np.stack(blocks).astype(np.int64) + offsets
 
         nerf = rows([c[0] for c in chunks])
         sd = rows([c[1] for c in chunks]) if chunks[0][1] is not None else None
         return nerf, sd
+
+    def _read_scalars(self, chunk: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+        scalars = {name: torch.stack([c[name] for c in chunk]) for name in chunk[0]}
+        if self.group is not None:  # (k, S/n) per rank -> (k, S)
+            scalars = {name: self.group.gather(v.T.contiguous()).T for name, v in scalars.items()}
+        return {name: v.cpu().numpy() for name, v in scalars.items()}
 
     def train(self, num_iterations: int, *, validation_interval: Optional[int] = None,
               model_save_interval: Optional[int] = None, log_scalars: bool = True):
@@ -268,25 +276,19 @@ class MultiSceneTrainer:
         while it < num_iterations:
             k = chunk_boundary(it, self.configs, num_iterations, self.scan_steps,
                                validation_interval, model_save_interval)
-            nerf, sd = self._index_rows(it, k)
-            with profile_chunk(self.profiler_cfg if logs else None, it, k, logs, self.device):
-                chunk = []
-                for j in range(k):
-                    batch = prep0.gather_batch(nerf[:, j], None if sd is None else sd[:, j], it + j,
-                                               cache=self.cache, near=self.near, far=self.far)
-                    self.generator.manual_seed(step_seed(self.seed, it + j))
-                    chunk.append(self.train_step(self.model, batch, self.generator))
-                scalars = {name: torch.stack([c[name] for c in chunk]) for name in chunk[0]}
-                if self.group is not None:  # (k, S/n) per rank -> (k, S)
-                    scalars = {name: self.group.gather(v.T.contiguous()).T for name, v in scalars.items()}
-                scalars = {name: v.cpu().numpy() for name, v in scalars.items()}
+            scalars = train_chunk(
+                self, it, k, lambda: self._index_rows(it, k),
+                lambda rows, j: prep0.gather_batch(rows[0][:, j], None if rows[1] is None else rows[1][:, j], it + j,
+                                                   cache=self.cache, near=self.near, far=self.far),
+                self._read_scalars, profile_chunk(self.profiler_cfg if logs else None, it, k, logs, self.device))
             if loggers is not None:
-                for j in range(k):
-                    lr = float(self.lr_schedule(it + j))
-                    for i, logger in enumerate(loggers):
-                        for name, vals in scalars.items():
-                            logger.add_scalar(f"train/{name}", float(vals[j, i]), it + j + 1)
-                        logger.add_scalar("train/lr", lr, it + j + 1)
+                with tracing.span("train.log", it=it):
+                    for j in range(k):
+                        lr = float(self.lr_schedule(it + j))
+                        for i, logger in enumerate(loggers):
+                            for name, vals in scalars.items():
+                                logger.add_scalar(f"train/{name}", float(vals[j, i]), it + j + 1)
+                            logger.add_scalar("train/lr", lr, it + j + 1)
             it += k
             if self.verbose_log:
                 print(f"iter {it}/{num_iterations} TotalLoss per scene "

@@ -24,6 +24,9 @@ vipnerf_tpu/train/guards.py `loss_guard`).
   gradients are summed before one step; the loss scalars are summed too.
 - The loss scalars stay on the device, (S,) per name for a stacked model:
   the caller reads them when it needs them, not every step.
+- Spans (`utils/tracing.py`): per sub-batch `train.forward` (the render),
+  `train.losses` and `train.backward`, then `train.adam`; the forward and
+  the backward also time their interval on the parameters' device.
 - A `shard` (`parallel.mesh.StepShard`): the batch is this rank's part of
   the step, cut into the shard's sub-batches; before each, the generator (a
   `ShardGenerator`) is given this rank's rows of that global sub-batch, so
@@ -47,6 +50,7 @@ import torch
 from vipnerf_tpu_torch.losses import LossComputer
 from vipnerf_tpu_torch.train.guards import LossGuard
 from vipnerf_tpu_torch.train.lr_schedules import get_lr_schedule
+from vipnerf_tpu_torch.utils import tracing
 
 EPS = 1e-8
 
@@ -218,14 +222,18 @@ def make_train_step(
     part of the step (see the module docstring)."""
     sub_batch_size = configs.get("sub_batch_size") if shard is None else shard.sub_batch_size
     group = None if shard is None else shard.group
+    device = optimizer.params[0].device
 
     def loss_and_backward(model, batch, generator):
-        outputs = render_fn(model, configs, batch, train=True, generator=generator)
-        if model.scenes is None:
-            losses = loss_computer.compute_losses(batch, outputs, group=group)
-        else:
-            losses = loss_computer.scene_losses(batch, outputs, model.scenes)
-        losses["TotalLoss"].sum().backward()
+        with tracing.span("train.forward", device):
+            outputs = render_fn(model, configs, batch, train=True, generator=generator)
+        with tracing.span("train.losses"):
+            if model.scenes is None:
+                losses = loss_computer.compute_losses(batch, outputs, group=group)
+            else:
+                losses = loss_computer.scene_losses(batch, outputs, model.scenes)
+        with tracing.span("train.backward", device):
+            losses["TotalLoss"].sum().backward()
         return {k: (v["loss_value"] if isinstance(v, dict) else v).detach()
                 for k, v in losses.items()}
 
@@ -240,7 +248,8 @@ def make_train_step(
             scalars = part if scalars is None else {k: scalars[k] + part[k] for k in part}
         if group is not None:
             scalars = all_reduce_grads(optimizer.params, scalars, group)
-        optimizer.step(loss=scalars["TotalLoss"])
+        with tracing.span("train.adam"):
+            optimizer.step(loss=scalars["TotalLoss"])
         return scalars
 
     return train_step

@@ -19,11 +19,22 @@ validation, and a resume whose boundary validation is incomplete renders it
 again. `scan_steps`, `remat`, `netchunk_map*` and `step_dispatch` (TPU
 dispatch knobs) change no result and are accepted as they are.
 
+Every chunk is traced (`utils/tracing.py`, `train_chunk`, shared with the
+batched trainer): `train.chunk` with its index draw, the indices' copy to
+the device, one `train.step` per iteration (`it`) and the scalars' read;
+the steps' forward, losses, backward and Adam are spans of
+`train/step.py`; after the chunk, `train.log` is the logging of its
+scalars. The forward and the backward also time their interval on the
+card's stream, and the step its end (nothing is queued between Adam's last
+kernel and the step's end; the chunk's first step its start too), read
+back at the chunk's read of its scalars.
+
 `profiler: {start_iter, num_iters}` traces every chunk that overlaps those
 iterations with torch.profiler (host, and the card's kernels on CUDA) into
 {scene}/logs/profile/ as a Chrome trace, one file per chunk (the JAX
-trainer's jax.profiler hook). The validation helpers below serve the
-batched multi-scene trainer too (train/multi_scene.py).
+trainer's jax.profiler hook), with the program's spans on its timeline.
+The validation helpers below serve the batched multi-scene trainer too
+(train/multi_scene.py).
 
 More than one device (`configs['device']` a list, or "all" on a host with
 several GPUs): `start_training` runs one rank per device
@@ -49,7 +60,7 @@ import contextlib
 import copy
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +83,7 @@ from vipnerf_tpu_torch.utils.config import (
     save_model_configs,
 )
 from vipnerf_tpu_torch.utils.device import resolve_device
+from vipnerf_tpu_torch.utils import tracing
 from vipnerf_tpu_torch.utils.io import read_csv_columns, save_image, save_numpy_array
 from vipnerf_tpu_torch.utils.naming import scene_dirname
 
@@ -99,7 +111,8 @@ def chunk_boundary(it: int, configs: Dict[str, Any], total: int, scan_steps: int
 def profile_chunk(profiler_cfg: Optional[Dict[str, Any]], it: int, k: int, logs_dirpath: Path,
                   device: torch.device):
     """torch.profiler over the chunk [it, it + k) when it overlaps the
-    configured window, written to logs_dirpath/profile as a Chrome trace."""
+    configured window, written to logs_dirpath/profile as a Chrome trace;
+    the program's spans appear in it beside the operations and kernels."""
     if profiler_cfg is None or not (
             it < profiler_cfg["start_iter"] + profiler_cfg.get("num_iters", 1)
             and it + k > profiler_cfg["start_iter"]):
@@ -113,6 +126,34 @@ def profile_chunk(profiler_cfg: Optional[Dict[str, Any]], it: int, k: int, logs_
     out = Path(logs_dirpath) / "profile"
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / f"chunk_{it:06}-{it + k:06}.json"))
+
+
+def train_chunk(trainer, it: int, k: int, draw: Callable[[], Tuple[np.ndarray, Optional[np.ndarray]]],
+                gather: Callable[[Tuple[torch.Tensor, ...], int], Dict[str, Any]],
+                read: Callable[[List[Dict[str, Any]]], Dict[str, np.ndarray]], profiled) -> Dict[str, np.ndarray]:
+    """The chunk [it, it + k) of either trainer (its `model`, `device`,
+    `generator`, `seed` and `train_step`), in spans: `draw()` the index
+    blocks, copy them to the device, then per step `gather(blocks, j)` its
+    batch and train on it, the generator seeded from (seed, iteration), and
+    `read` the steps' loss scalars to the host, which waits for the last
+    step; the steps and the read run inside `profiled` (`profile_chunk`)."""
+    with tracing.span("train.chunk", it=it, steps=k):
+        with tracing.span("train.chunk.indices"):
+            host = draw()
+        with tracing.span("train.chunk.copy"):
+            blocks = tuple(None if b is None else torch.from_numpy(b).to(trainer.device) for b in host)
+        with profiled:
+            chunk = []
+            for j in range(k):
+                with tracing.span("train.step", trainer.device, start_event=j == 0, it=it + j):
+                    with tracing.span("train.gather"):
+                        batch = gather(blocks, j)
+                    trainer.generator.manual_seed(step_seed(trainer.seed, it + j))
+                    chunk.append(trainer.train_step(trainer.model, batch, trainer.generator))
+            with tracing.span("train.chunk.read"):
+                scalars = read(chunk)
+                tracing.collect()
+    return scalars
 
 
 def validation_complete(configs: Dict[str, Any], preps: Sequence, it: int,
@@ -221,11 +262,11 @@ def boundary_validation(renderer: TiledRenderer, model: torch.nn.Module, configs
     for tag, prep in (("train_images", train_prep), ("val_images", val_prep)):
         if verbose_log:
             print(f"validation/{tag} @ iter {it}...", flush=True)
-        t_val = time.time()
+        t_val = time.perf_counter()
         val_losses = run_validation(renderer, model, configs, it - 1, prep, sample_images_dirpath, verbose_log)
         logger.add_scalars(f"validation/{tag}", val_losses, it)
         if verbose_log:
-            print(f"validation/{tag} done in {time.time() - t_val:.0f}s", flush=True)
+            print(f"validation/{tag} done in {time.perf_counter() - t_val:.0f}s", flush=True)
 
 
 class Trainer:
@@ -266,7 +307,6 @@ class Trainer:
         self.seed = configs.get("seed", 0) or 0
         self.scan_steps = int(configs.get("scan_steps", 100))
         self.profiler_cfg = configs.get("profiler")
-        self.chunk_seconds: List[Tuple[int, float]] = []  # (steps, seconds) of each chunk trained
 
     # --------------------------------------------------------------- training
 
@@ -291,37 +331,28 @@ class Trainer:
             self._boundary_validation(start_iter, sample_images_dirpath)
 
         prep = self.train_data_preprocessor
+        rays_per_step = prep.num_rays + (prep.num_rays_sparse_depth if prep.sparse_depth_needed else 0)
         it = start_iter
-        t_start = time.time()
+        t_start = time.perf_counter()
         rays_done = 0
         while it < total_num_iters:
             k = chunk_boundary(it, self.configs, total_num_iters, self.scan_steps,
                                validation_interval, model_save_interval)
-            t_chunk = time.time()
-            nerf_idx, sd_idx = prep.get_index_chunk(it, k)
-            rays_done += k * (nerf_idx.shape[1] + (sd_idx.shape[1] if sd_idx is not None else 0))
-            if self.shard is not None:  # this rank's columns of every stream's block
-                nerf_idx = nerf_idx[:, self.shard.columns[0]]
-                sd_idx = None if sd_idx is None else sd_idx[:, self.shard.columns[1]]
-            nerf_dev = torch.from_numpy(nerf_idx).to(self.device)
-            sd_dev = torch.from_numpy(sd_idx).to(self.device) if sd_idx is not None else None
             profiler_cfg = self.profiler_cfg if self.writes else None
-            with profile_chunk(profiler_cfg, it, k, self.output_dirpath / "logs", self.device):
-                chunk = []
+            scalars = train_chunk(
+                self, it, k, lambda: self._index_blocks(it, k),
+                lambda blocks, j: prep.gather_batch(blocks[0][j], None if blocks[1] is None else blocks[1][j],
+                                                    it + j),
+                _read_scalars, profile_chunk(profiler_cfg, it, k, self.output_dirpath / "logs", self.device))
+            rays_done += k * rays_per_step
+            with tracing.span("train.log", it=it):
                 for j in range(k):
-                    batch = prep.gather_batch(nerf_dev[j], sd_dev[j] if sd_dev is not None else None, it + j)
-                    self.generator.manual_seed(step_seed(self.seed, it + j))
-                    chunk.append(self.train_step(self.model, batch, self.generator))
-                scalars = {name: torch.stack([s[name] for s in chunk]).cpu().numpy() for name in chunk[0]}
-            # the read of the scalars waited for the chunk's last step
-            self.chunk_seconds.append((k, time.time() - t_chunk))
-            for j in range(k):
-                for name, vals in scalars.items():
-                    self.logger.add_scalar(f"train/{name}", float(vals[j]), it + j + 1)
-                self.logger.add_scalar("train/lr", float(self.lr_schedule(it + j)), it + j + 1)
+                    for name, vals in scalars.items():
+                        self.logger.add_scalar(f"train/{name}", float(vals[j]), it + j + 1)
+                    self.logger.add_scalar("train/lr", float(self.lr_schedule(it + j)), it + j + 1)
             it += k
             if self.verbose_log:
-                elapsed = time.time() - t_start
+                elapsed = time.perf_counter() - t_start
                 print(f"iter {it}/{total_num_iters} TotalLoss {float(scalars['TotalLoss'][-1]):.5f} "
                       f"({rays_done / max(elapsed, 1e-9):,.0f} rays/s)", flush=True)
             # saved also at the last iteration when it is off every boundary
@@ -330,6 +361,14 @@ class Trainer:
             if it % validation_interval == 0:
                 self._boundary_validation(it, sample_images_dirpath)
         self.logger.flush()
+
+    def _index_blocks(self, it: int, k: int):
+        """The next k steps' index blocks (this rank's columns of each stream's)."""
+        nerf_idx, sd_idx = self.train_data_preprocessor.get_index_chunk(it, k)
+        if self.shard is not None:
+            nerf_idx = nerf_idx[:, self.shard.columns[0]]
+            sd_idx = None if sd_idx is None else sd_idx[:, self.shard.columns[1]]
+        return nerf_idx, sd_idx
 
     def _validation_complete(self, it: int, sample_images_dirpath: Path) -> bool:
         return validation_complete(self.configs, (self.train_data_preprocessor, self.val_data_preprocessor),
@@ -357,6 +396,10 @@ class Trainer:
         return iter_num
 
 
+def _read_scalars(chunk: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+    return {name: torch.stack([s[name] for s in chunk]).cpu().numpy() for name in chunk[0]}
+
+
 def resolve_scene_ids(configs: Dict[str, Any], database_dirpath: Path):
     """scene_ids from scene_ids/scene_names/scene_nums (numbers become
     zero-padded ids), else every scene of the train split CSV."""
@@ -374,15 +417,14 @@ def resolve_scene_ids(configs: Dict[str, Any], database_dirpath: Path):
     return [scene_dirname(n, "scene_num") for n in np.unique(data["scene_num"])]
 
 
-def start_training(configs: Dict[str, Any]) -> Dict[str, List[Tuple[int, float]]]:
+def start_training(configs: Dict[str, Any]) -> None:
     """Train every scene of `configs` into
     {root_dirpath}/runs/training/train{train_num:04}/{scene}/, on every
     device `configs['device']` selects (one rank each). On resume the saved
-    Configs.json is merged into `configs` first. Returns each scene's
-    (steps, seconds) of every chunk it trained (`Trainer.chunk_seconds`, of
-    rank 0)."""
+    Configs.json is merged into `configs` first. The chunks' spans are in
+    this process's tracer (rank 0's, with several devices)."""
     output_dirpath, _ = run_dirs(configs)
-    return run_on_devices(_start_training, configs, run_device(output_dirpath, configs))
+    run_on_devices(_start_training, configs, run_device(output_dirpath, configs))
 
 
 def run_dirs(configs: Dict[str, Any]) -> Tuple[Path, Path]:
@@ -413,7 +455,7 @@ def save_run_configs(output_dirpath: Path, configs: Dict[str, Any], group) -> Di
     return {**merged, **{k: configs[k] for k in ("root_dirpath", "output_dirpath") if k in configs}}
 
 
-def _start_training(configs: Dict[str, Any]) -> Dict[str, List[Tuple[int, float]]]:
+def _start_training(configs: Dict[str, Any]) -> None:
     output_dirpath, data_dirpath = run_dirs(configs)
     group = current_group(run_device(output_dirpath, configs))
     writes = group is None or group.is_writer
@@ -421,7 +463,6 @@ def _start_training(configs: Dict[str, Any]) -> Dict[str, List[Tuple[int, float]
     database_dirpath = data_dirpath / configs["database_dirpath"]
     device = resolve_device(configs.get("device", "all"))
 
-    chunk_seconds = {}
     for scene_id in resolve_scene_ids(configs, database_dirpath):
         init_seeds(configs.get("seed", 0))
         scene_output_dirpath = output_dirpath / f"{scene_id}"
@@ -452,5 +493,3 @@ def _start_training(configs: Dict[str, Any]) -> Dict[str, List[Tuple[int, float]
             trainer.logger.close()
         if group is not None:  # rank 0's last files are written
             group.barrier()
-        chunk_seconds[scene_id] = trainer.chunk_seconds
-    return chunk_seconds

@@ -8,7 +8,8 @@ is missing. The binding builds at the first decode, never at import.
 
 nvJPEG and libjpeg differ in the IDCT and the chroma upsampling, so a
 decode agrees with imageio's to a PSNR, not bit for bit (chip_smoke.py
-measures it on a 4:2:0 fixture).
+measures it on a 4:2:0 fixture). Each decode counts `jpeg.decodes` in the
+tracer's table (`utils/tracing.py`).
 """
 
 import ctypes
@@ -16,6 +17,7 @@ import ctypes
 import torch
 
 from vipnerf_tpu_torch.kernels import build
+from vipnerf_tpu_torch.utils import tracing
 
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 _STATUS = {1: "NOT_INITIALIZED", 2: "INVALID_PARAMETER", 3: "BAD_JPEG", 4: "JPEG_NOT_SUPPORTED",
@@ -60,8 +62,5 @@ def decode_jpeg(data: bytes, device="cuda") -> torch.Tensor:
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib.jpeg_decode(data, len(data), int(gray), out.data_ptr(), w * (1 if gray else 3), stream),
                "decoding")
-    decode_jpeg.launches += 1
+    tracing.count("jpeg.decodes")
     return out
-
-
-decode_jpeg.launches = 0
