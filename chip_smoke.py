@@ -20,7 +20,13 @@ Phases, each of which fails the run loudly:
    the L2 bytes its design reads per launch; bf16_f32h (heads on tensor
    cores from split bf16 products) also against its FFMA yardstick (the
    former heads on CUDA cores, on no path) at every one of those shapes,
-   timed beside it; each instance's weight pack per training step; then
+   timed beside it; each instance's weight pack per training step; the
+   encode kernel that writes K1's inputs (csrc/fused_mlp.cu
+   k1_encode_kernel) in the shipped mode at a serving tile's fine level
+   (8192 rays x 192 samples, n_sec 0) and a training step's (4096 x 192,
+   n_sec 2), directions per ray: bit for bit the torch chain's, timed
+   beside it and against its bytes bound (on the paths of phases 3, 4, 5
+   and 8 every K1 launch must be fed by one encode launch); then
    K1's backward in the shipped mode (csrc/fused_mlp_bwd.cu, the f32
    heads' gradient on the bf16 tensor cores, wgmma fed by bulk copies):
    the two kernels bit for bit the plain version on exact-sum inputs (and
@@ -135,7 +141,7 @@ Phases, each of which fails the run loudly:
    in one process, the scenes in both orders; the seconds of two ranks sharing one card (not a
    scaling figure);
 10. a JSON line of each of phases 3-9, of K1's backward, and of the
-   kernels (K1's instances and its two backward kernels; the FFMA yardstick
+   kernels (K1's instances, its two backward kernels and the encode; the FFMA yardstick
    and the backward's first design apart, under "yardsticks", each with
    its launches on the main path: 0), and the device line last.
 
@@ -272,6 +278,22 @@ def launches_since(k1, mark: dict, kernels=None) -> dict:
     since `mark`, a `tracing.counts()` taken before."""
     kernels = k1.FORWARD if kernels is None else kernels
     return {k: n - mark.get(f"k1.launches.{k}", 0) for k, n in k1.launches(kernels).items()}
+
+
+# (path, encode launches) of each path whose K1 launches were all fed by the
+# encode kernel (`encode_fed`)
+ENCODE_FED: list = []
+
+
+def encode_fed(k1, mark: dict, path: str) -> None:
+    """Records in `ENCODE_FED` the encode kernel's launches since `mark`,
+    which must equal K1's forward launches since then: every K1 launch on
+    `path` took its inputs from one encode launch."""
+    encodes = launches_since(k1, mark, [k1.ENCODE])[k1.ENCODE]
+    forward = sum(launches_since(k1, mark).values())
+    if encodes != forward:
+        raise AssertionError(f"{path}: {encodes} encode launches fed {forward} K1 launches")
+    ENCODE_FED.append((path, encodes))
 
 
 def launch_counts(k1, **counts) -> dict:
@@ -615,6 +637,55 @@ def phase_k1(k1, mlp, dev):
         pack_ms = cuda_ms(lambda: k1.kernel_buffers(k1.pack_layers(mlp, dtype, head), dtype, head), reps=20)
         log(f"K1 {name}: packing the weights takes {pack_ms:.4f} ms per training step")
     return worst, timings
+
+
+# ------------------------------------------------- K1's inputs (the encode kernel)
+
+# (rays, samples per ray, n_sec) of the encode's timed shapes, each one K1
+# launch's inputs: the serving path's fine tile, and a training step's fine
+# level
+ENCODE_SHAPES = {"serving": (CHUNK, 192, 0), "training": (TRAIN_RAYS, 192, TRAIN_SEC)}
+
+
+def encode_bytes(k1, n, rays, n_sec, trunk=torch.bfloat16, head=torch.float32) -> int:
+    """Bytes the encode must move for n points of `rays` rays: each point,
+    each of its secondary directions and each ray's direction read once
+    (f32), xe, ve and ve2 written once."""
+    return 12 * (n * (1 + n_sec) + rays) + n * (k1.PTS_IN * trunk.itemsize + k1.VIEW_IN * (1 + n_sec) * head.itemsize)
+
+
+def phase_encode(k1, dev):
+    """The encode kernel in the shipped mode at `ENCODE_SHAPES`, with the
+    directions per ray as the renderer gives them: bit for bit the torch
+    chain's (`encode_reference`), timed beside the chain (the renderer's
+    copy of each direction to its samples included) and against its bytes
+    bound. Returns the timings keyed by shape."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    unit = lambda t: torch.nn.functional.normalize(t, dim=-1)  # noqa: E731
+    timings = {}
+    for label, (rays, samples, n_sec) in ENCODE_SHAPES.items():
+        n = rays * samples
+        pts = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
+        vd = unit(torch.randn((rays, 3), generator=g, device=dev))
+        vd2 = unit(torch.randn((n, n_sec, 3), generator=g, device=dev)) if n_sec else None
+        got = k1.encode_inputs(pts, vd, vd2, torch.bfloat16, f32_heads=True)
+        want = k1.encode_reference(pts, vd, vd2, torch.bfloat16, f32_heads=True)
+        for a, b, name in zip(got[:3], want[:3], ("xe", "ve", "ve2")):
+            ints = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+            if not torch.equal(a.view(ints), b.view(ints)):
+                raise AssertionError(f"the encode kernel's {name} differs from the torch chain's at the {label} shape: "
+                                     f"max|diff| {(a.float() - b.float()).abs().max().item():.3g}")
+        ms = cuda_ms(lambda: k1.encode_inputs(pts, vd, vd2, torch.bfloat16, f32_heads=True), reps=20)
+        plain_ms = cuda_ms(lambda: k1.encode_reference(pts, vd, vd2, torch.bfloat16, f32_heads=True), reps=5)
+        nbytes = encode_bytes(k1, n, rays, n_sec)
+        bound = 1e3 * nbytes / PEAK_BYTES
+        log(f"K1 encode timing {label}: N={n} ({rays} rays x {samples} samples), n_sec={n_sec}, bf16_f32h: "
+            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} (the torch chain) bound_ms {bound:.4f} (bytes, "
+            f"{nbytes / 1e6:.1f} MB) share of bound {bound / ms:.3f}, {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s; "
+            f"bit for bit the chain's")
+        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", bytes=nbytes,
+                              shape={"points": n, "rays": rays, "n_sec": n_sec})
+    return timings
 
 
 # ------------------------------------------------- K1's backward (shipped mode)
@@ -1051,6 +1122,7 @@ def phase_slice(k1, dev, timings):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = launches_since(k1, mark)
+        encode_fed(k1, mark, "start_testing")
 
         tiles = math.ceil(H * W / CHUNK)
         expected = launch_counts(k1, fused_mlp_bf16=5 * 2 * tiles)
@@ -1127,6 +1199,7 @@ def phase_modes(k1, root, model_configs, test_configs, pose, tiles):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         launches = launches_since(k1, mark)
+        encode_fed(k1, mark, f"warm frame, {label}")
         path = "module MLP" if module else uses_fused_mlp(cfg["model"]["fine_mlp"], bf16, f32_heads)
         expected = launch_counts(k1, **{path: 2 * tiles})
         finite = all(np.isfinite(np.asarray(v)).all() for v in frame.values())
@@ -1394,6 +1467,7 @@ def phase_training_run(k1, root, configs, gt, tiles):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches_run = launches_since(k1, mark)
+    encode_fed(k1, mark, "start_training")
     val_frames = 3 + 1  # train frames (n_sec 2) + the validation frame
     expected = launch_counts(k1, fused_mlp_bf16=2 * n + 2 * tiles * val_frames)
     log(f"start_training: {n} steps and one validation of {val_frames} frames in {run_s:.2f} s; "
@@ -1413,6 +1487,7 @@ def phase_training_run(k1, root, configs, gt, tiles):
     text = out.getvalue()
     sys.stdout.write(text)
     launches_resume = launches_since(k1, mark)
+    encode_fed(k1, mark, "start_training, resumed")
     if f"Resuming Training from iteration {n + 1}" not in text:
         raise AssertionError(f"the second start_training did not resume at {n}")
     if launches_resume != launch_counts(k1, fused_mlp_bf16=2 * RESUME_STEPS):
@@ -2229,6 +2304,7 @@ def phase_pipeline(k1):
             for p in frames:
                 check_png(p)
         launches = launches_since(k1, mark)
+        encode_fed(k1, mark, "demo1a app: training, testing, videos")
         log(f"app video tracks: 2 frames each, moving {video_s['moving']:.2f} s, static {video_s['static']:.2f} s, "
             f"written as frame directories; K1 launches over the app's training, testing and videos {launches} "
             f"(the shipped f32 heads: fused_mlp_bf16_f32h only)")
@@ -2621,6 +2697,7 @@ def phase_protocol(k1, dev):
         finally:
             dtu.app.start_training = start_training
         shipped_launches = launches_since(k1, mark)
+        encode_fed(k1, mark, "protocol, shipped leg")
         shipped_backward = launches_since(k1, mark, k1.BWD_KERNELS)
         directions = summary["prior_s_per_direction"]
         pairs = [(a, b) for i, a in enumerate(driver.TRAIN_FRAMES) for b in driver.TRAIN_FRAMES[i + 1:]]
@@ -3201,6 +3278,7 @@ def main() -> int:
 
     mlp = NeRFMLP(flagship_mlp_config(0), torch.Generator().manual_seed(0)).to(dev)
     worst, timings = phase_k1(k1, mlp, dev)
+    encode = phase_encode(k1, dev)
     backward = phase_heads_backward(k1, dev)
     # the yardsticks (the first design's backward kernels, bf16_f32h with
     # FFMA heads): their launches from here on, less check_against_ffma's
@@ -3292,6 +3370,16 @@ def main() -> int:
     for name in K1_MODES:
         if not path_launches[name]:
             raise AssertionError(f"{name} was not launched on its path")
+    # launches per frame: those counted over phase_modes' one warm frame in
+    # the shipped mode
+    per_frame = dict(ENCODE_FED)["warm frame, bf16, f32 heads (default)"]
+    encode_entry = {"name": k1.ENCODE, "route": "cuda", "source": "vipnerf_tpu_torch/csrc/fused_mlp.cu",
+                    "replaces": "no TPU kernel: the torch chain of kernels/fused_mlp.py encode_reference",
+                    "launches": sum(n for _, n in ENCODE_FED), "launches_per_frame": per_frame,
+                    "paths_checked": [path for path, _ in ENCODE_FED], **encode["serving"],
+                    "training": encode["training"]}
+    log(f"K1 encode: {encode_entry['launches']} launches on {len(ENCODE_FED)} paths, each path's equal to its K1 "
+        f"forward launches; {per_frame} in a warm {W}x{H} frame")
     if ffma_path:
         raise AssertionError(f"the FFMA yardstick was launched {ffma_path} times on a path")
     # the FFMA heads are on no path: they are listed apart, as the
@@ -3306,7 +3394,7 @@ def main() -> int:
         "worst_max_abs_err": backward["worst"], "step_profile_ms": train["profile_ms"].get("k1_backward_ms"),
         "trajectory": {k: v for k, v in train["trajectory"].items() if k != "launches"}, "card": card}}))
     log(json.dumps({"kernels": [kernel_entry(name, path_launches[name]) for name in K1_MODES]
-                    + [bwd_entry(name) for name in BWD],
+                    + [bwd_entry(name) for name in BWD] + [encode_entry],
                     "yardsticks": [dict(kernel_entry(FFMA, ffma_path), yardstick_of="fused_mlp_bf16_f32h")]
                     + [bwd_entry(name, first=True) for name in BWD]}))
     print(json.dumps({"ok": True, "device": {

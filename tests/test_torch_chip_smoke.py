@@ -61,8 +61,8 @@ def test_phase_protocol_rehearses_on_the_cpu(tmp_path, monkeypatch):
     """chip_smoke's phase 8 on the CPU: the DTU control's driver at 24x32
     with 128 + 128 rays and 8 + 8 samples at the flagship width, a leg of
     30 steps, the seam from 29,998 to 30,002 (the validation at 30,000 in
-    it), K1's plain version standing in for the kernel and counted where
-    the wrapper would count the kernel's launches."""
+    it), K1's plain version and the encode's standing in for the kernels
+    and counted where the wrappers would count the kernels' launches."""
     from vipnerf_tpu_torch.apps import dtu
     from vipnerf_tpu_torch.kernels import fused_mlp as k1
 
@@ -90,6 +90,14 @@ def test_phase_protocol_rehearses_on_the_cpu(tmp_path, monkeypatch):
         return reference(layers, xe, ve, *args)
 
     monkeypatch.setattr(k1, "fused_mlp_reference", counted)
+    encode = k1.encode_reference
+
+    def counted_encode(pts, *args):
+        if len(pts):
+            tracing.count(f"k1.launches.{k1.ENCODE}")
+        return encode(pts, *args)
+
+    monkeypatch.setattr(k1, "encode_reference", counted_encode)
     torch.set_num_threads(2)
     out = ns["phase_protocol"](k1, torch.device("cpu"))
     seam = out["seam"]

@@ -230,6 +230,127 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(models):
         k1.fused_mlp_raw(w_f32h._replace(w_flat=w16.w_flat), xe_h, ve_h, ve2_h, ns)
 
 
+def _chain_before_the_kernel(pts, vd, vd2, dtype, fast, f32_heads):
+    """`encode_inputs` as it was written before the encode kernel: the torch
+    chain, literally, on per-point directions."""
+    pe = k1.positional_encoding
+    head = torch.float32 if f32_heads else dtype
+    n_sec = vd2.shape[1] if vd2 is not None else 0
+    xe = torch.nn.functional.pad(pe(pts, 10, fast), (0, 1)).to(dtype)
+    ve = torch.nn.functional.pad(pe(vd, 4, fast), (0, 5)).to(head)
+    ve2 = torch.nn.functional.pad(pe(vd2.reshape(-1, 3), 4, fast), (0, 5)).reshape(len(pts), -1).to(head) \
+        if n_sec else ve
+    return xe, ve, ve2, n_sec
+
+
+ENCODE_MODES = {"bf16": (torch.bfloat16, False), "f32": (torch.float32, False), "bf16_f32h": (torch.bfloat16, True)}
+
+
+@pytest.mark.parametrize("mode", list(ENCODE_MODES))
+@pytest.mark.parametrize("n_sec", [0, 1, 2, 3])
+@pytest.mark.parametrize("fast", [False, True])
+def test_encode_inputs_on_cpu_is_the_torch_chain(mode, n_sec, fast):
+    """CPU tensors take `encode_reference`, which is the chain as it was,
+    bit for bit, in every mode, n_sec and `fast_encoding`; they launch and
+    count nothing."""
+    dtype, f32_heads = ENCODE_MODES[mode]
+    pts, vd, vd2 = inputs(301, n_sec, seed=n_sec)
+    pts = pts * 40  # arguments up to 2^9 * 40: the sines' range reduction is exercised too
+    tracing.reset()
+    got = k1.encode_inputs(pts, vd, vd2, dtype, fast, f32_heads)
+    want = _chain_before_the_kernel(pts, vd, vd2, dtype, fast, f32_heads)
+    assert got[3] == want[3] == n_sec
+    for g, w, name in zip(got[:3], want[:3], ("xe", "ve", "ve2")):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.is_contiguous(), name
+        assert torch.equal(g.view(torch.int16 if g.dtype == torch.bfloat16 else torch.int32),
+                           w.view(torch.int16 if w.dtype == torch.bfloat16 else torch.int32)), name
+    if not n_sec:
+        assert got[2] is got[1]
+    assert tracing.counts("k1.") == {}
+
+
+@pytest.mark.parametrize("samples", [1, 64, 192])
+def test_encode_reads_a_ray_direction_for_its_samples(samples):
+    """view_dirs with one row per ray (R rows for R * samples points) encode
+    as the same directions copied out to every sample."""
+    rays = 3
+    pts, vd, vd2 = inputs(rays * samples, 2, seed=samples)
+    per_ray = vd[::samples].contiguous()
+    copied = per_ray[:, None, :].expand(rays, samples, 3).reshape(-1, 3)
+    for dtype, f32_heads in ENCODE_MODES.values():
+        got = k1.encode_inputs(pts, per_ray, vd2, dtype, f32_heads=f32_heads)
+        want = k1.encode_inputs(pts, copied, vd2, dtype, f32_heads=f32_heads)
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w)
+
+
+def test_apply_fused_mlp_takes_per_ray_directions(models):
+    """The renderer hands K1 one direction per ray: the same outputs as
+    directions copied out to every sample, stacked scenes too."""
+    _, mlp = models
+    pts, vd, vd2 = inputs(4 * 16, 2, seed=5)
+    per_ray = vd[::16].contiguous()
+    copied = per_ray.repeat_interleave(16, 0)
+    with torch.no_grad():
+        got = k1.apply_fused_mlp(mlp, pts, per_ray, vd2, dtype=torch.bfloat16, f32_heads=True)
+        want = k1.apply_fused_mlp(mlp, pts, copied, vd2, dtype=torch.bfloat16, f32_heads=True)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+BAD_ENCODE = {
+    "pts width": (lambda p, v, v2: (p[:, :2], v, v2), ValueError),
+    "pts rank": (lambda p, v, v2: (p[None], v, v2), ValueError),
+    "dirs not dividing": (lambda p, v, v2: (p, v[:5], v2), ValueError),
+    "dirs width": (lambda p, v, v2: (p, v[:, :2], v2), ValueError),
+    "no dirs for points": (lambda p, v, v2: (p, v[:0], v2), ValueError),
+    "dirs2 rows": (lambda p, v, v2: (p, v, v2[:4]), ValueError),
+    "dirs2 rank": (lambda p, v, v2: (p, v, v2.reshape(len(p), -1)), ValueError),
+    "n_sec 4": (lambda p, v, v2: (p, v, torch.cat([v2, v2], 1)), ValueError),
+    "f64 pts": (lambda p, v, v2: (p.double(), v, v2), TypeError),
+    "bf16 dirs": (lambda p, v, v2: (p, v.bfloat16(), v2), TypeError),
+    "f16 dirs2": (lambda p, v, v2: (p, v, v2.half()), TypeError),
+    "dirs on another device": (lambda p, v, v2: (p, v.to("meta"), v2), ValueError),
+    "dirs2 on another device": (lambda p, v, v2: (p, v, v2.to("meta")), ValueError),
+    "not cuda or cpu": (lambda p, v, v2: (p.to("meta"), v.to("meta"), v2.to("meta")), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_ENCODE))
+def test_encode_rejects_what_the_kernel_does_not_take(case):
+    """The wrapper's checks raise before anything runs, on either device."""
+    edit, error = BAD_ENCODE[case]
+    pts, vd, vd2 = inputs(64, 2)
+    tracing.reset()
+    with pytest.raises(error):
+        k1.encode_inputs(*edit(pts, vd, vd2), torch.bfloat16, f32_heads=True)
+    assert tracing.counts("k1.") == {}
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_encode_rejects_a_mode_k1_lacks(dtype):
+    with pytest.raises(TypeError):
+        k1.encode_inputs(*inputs(8, 0), dtype)
+
+
+def test_encode_keeps_the_gradient_of_tracked_inputs():
+    """On CPU tensors, inputs that autograd tracks take the torch chain, so
+    PE stays differentiable: d xe / d pts is the chain's."""
+    pts, vd, vd2 = inputs(16, 1)
+    pts = pts.clone().requires_grad_()
+    xe, _, _, _ = k1.encode_inputs(pts, vd, vd2, torch.float32)
+    xe.sum().backward()
+    want = pts.detach().clone().requires_grad_()
+    k1.positional_encoding(want, 10).sum().backward()
+    assert torch.equal(pts.grad, want.grad)
+
+
+def test_encode_of_no_points():
+    xe, ve, ve2, ns = k1.encode_inputs(*(t[:0] for t in inputs(4, 2)), torch.bfloat16, f32_heads=True)
+    assert (xe.shape, ve.shape, ve2.shape, ns) == ((0, 64), (0, 32), (0, 64), 2)
+    assert xe.dtype == torch.bfloat16 and ve.dtype == ve2.dtype == torch.float32
+
+
 def test_ffma_yardstick_rejects_what_it_does_not_take(models):
     """The FFMA heads (the tensor-core heads' yardstick) take bf16_f32h
     weights, their own f32 head buffer and CUDA tensors: on the CPU it

@@ -622,3 +622,109 @@ def test_timed_spans_without_a_collect_stay_bounded(device):
     torch.cuda.synchronize()
     t.collect()
     assert t._pending == [] and all(r["device_ms"] is not None for r in t.snapshot()["spans"])
+
+
+ENCODE_MODES = {"bf16": (torch.bfloat16, False), "f32": (torch.float32, False), "bf16_f32h": (torch.bfloat16, True)}
+
+
+def _encode_points(n, n_sec, seed, device, rays=None):
+    """Points up to |x| 4 (sine arguments up to 2^9 x 4), with a few far
+    outside, where CUDA's sincosf takes its slow range reduction; unit
+    directions, one per point or one per ray."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    pts = (torch.rand((n, 3), generator=g, device=device) * 2 - 1) * 4
+    far = torch.tensor([[300.0, -1000.0, 1e4], [-2.5e5, 7.0, 1e-30]], device=device)
+    pts[:min(n, 2)] = far[:min(n, 2)]
+    unit = lambda t: torch.nn.functional.normalize(t, dim=-1)  # noqa: E731
+    vd = unit(torch.randn((n if rays is None else rays, 3), generator=g, device=device))
+    vd2 = unit(torch.randn((n, n_sec, 3), generator=g, device=device)) if n_sec else None
+    return pts, vd, vd2
+
+
+def _assert_same_bits(got, want, label):
+    """Equal bits, or a report of how far apart (the largest difference and
+    how many entries differ)."""
+    assert got.dtype == want.dtype and got.shape == want.shape, label
+    ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    differ = got.view(ints) != want.view(ints)
+    if differ.any():
+        diff = (got.float() - want.float()).abs().max().item()
+        raise AssertionError(f"{label}: {int(differ.sum())} of {differ.numel()} entries differ, "
+                             f"max|diff| {diff:.3g}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(ENCODE_MODES))
+@pytest.mark.parametrize("n_sec", [0, 1, 2, 3])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 2048 + 37, 132 * 128 * 3 + 37])
+def test_encode_kernel_matches_the_torch_chain(device, mode, n_sec, fast, n):
+    """K1's inputs from the encode kernel: the torch chain's on the card
+    (`encode_reference`), bit for bit, one launch a call (none for no
+    points)."""
+    dtype, f32_heads = ENCODE_MODES[mode]
+    pts, vd, vd2 = _encode_points(n, n_sec, 100 * n_sec + n % 97, device)
+    before = k1.launches([k1.ENCODE])[k1.ENCODE]
+    got = k1.encode_inputs(pts, vd, vd2, dtype, fast, f32_heads)
+    torch.cuda.synchronize()
+    assert k1.launches([k1.ENCODE])[k1.ENCODE] == before + (1 if n else 0)
+    want = k1.encode_reference(pts, vd, vd2, dtype, fast, f32_heads)
+    assert got[3] == want[3] == n_sec
+    for g, w, name in zip(got[:3], want[:3], ("xe", "ve", "ve2")):
+        assert g.is_contiguous()
+        _assert_same_bits(g, w, f"{name} {mode} n_sec={n_sec} fast={fast} N={n}")
+    if not n_sec:
+        assert got[2] is got[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(ENCODE_MODES))
+@pytest.mark.parametrize("samples", [64, 192])
+@pytest.mark.parametrize("fast", [False, True])
+def test_encode_kernel_reads_a_ray_direction_per_sample(device, mode, samples, fast):
+    """Per-ray directions, read through the sample stride: the chain's
+    encoding of the directions copied out to every sample, bit for bit."""
+    dtype, f32_heads = ENCODE_MODES[mode]
+    rays = 8192 // 64 + 3
+    pts, vd, vd2 = _encode_points(rays * samples, 2, samples, device, rays=rays)
+    got = k1.encode_inputs(pts, vd, vd2, dtype, fast, f32_heads)
+    want = k1.encode_reference(pts, vd.repeat_interleave(samples, 0), vd2, dtype, fast, f32_heads)
+    for g, w, name in zip(got[:3], want[:3], ("xe", "ve", "ve2")):
+        _assert_same_bits(g, w, f"{name} {mode} samples={samples} fast={fast}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracked", [0, 1, 2])
+def test_encode_kernel_rejects_inputs_autograd_tracks(device, tracked):
+    """The kernel has no backward: on the card, a tracked pts, view
+    direction or secondary view raises before any launch."""
+    inputs = list(_encode_points(256, 1, 3, device))
+    inputs[tracked] = inputs[tracked].clone().requires_grad_()
+    before = k1.launches([k1.ENCODE])[k1.ENCODE]
+    with pytest.raises(ValueError, match="require grad"):
+        k1.encode_inputs(*inputs, torch.bfloat16, f32_heads=True)
+    assert k1.launches([k1.ENCODE])[k1.ENCODE] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sec", [0, 2])
+def test_stacked_k1_through_the_encode_kernel(device, monkeypatch, n_sec):
+    """Four scenes in one call, rows scene-major, directions per ray: one
+    encode launch feeds the one K1 launch, whose outputs are those of K1 fed
+    by the torch chain, bit for bit."""
+    _, stacked = _stacked_mlp(device, 4)
+    rays, samples = 4 * 37, 64
+    pts, vd, vd2 = _encode_points(rays * samples, n_sec, 7, device, rays=rays)
+    shaped = (pts.reshape(4, -1, 3), vd, None if vd2 is None else vd2.reshape(4, -1, n_sec, 3))
+    mark = tracing.counts()
+    with torch.no_grad():
+        got = k1.apply_fused_mlp(stacked, *shaped, dtype=torch.bfloat16, f32_heads=True)
+    torch.cuda.synchronize()
+    encodes = k1.launches([k1.ENCODE])[k1.ENCODE] - mark.get(f"k1.launches.{k1.ENCODE}", 0)
+    forward = sum(k1.launches().values()) - sum(mark.get(f"k1.launches.{k}", 0) for k in k1.FORWARD)
+    assert encodes == forward == 1
+    monkeypatch.setattr(k1, "encode_inputs", k1.encode_reference)
+    with torch.no_grad():
+        want = k1.apply_fused_mlp(stacked, *shaped, dtype=torch.bfloat16, f32_heads=True)
+    for key in want:
+        _assert_same_bits(got[key], want[key], key)

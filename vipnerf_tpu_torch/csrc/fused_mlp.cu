@@ -110,6 +110,10 @@
 //   f32 W^T read from a buffer of their own) stay reachable through
 //   vipnerf_fused_mlp_bf16_f32h_ffma as a yardstick, on no path.
 //
+// K1's inputs (xe, ve, ve2) come from k1_encode_kernel, below the f32
+// kernel: one bytes-bound pass that writes the padded, cast positional
+// encodings that kernels/fused_mlp.py's torch chain wrote in ~10 kernels.
+//
 // All mask the ragged last tile: rows past n load as zeros and are never
 // stored. C entry points return cudaGetLastError() after the launch.
 //
@@ -1199,6 +1203,153 @@ __global__ void __launch_bounds__(THREADS32, 1)
   }
 }
 
+// ------------------------------------------------------------- K1's inputs
+//
+// k1_encode_kernel writes what every K1 launch reads, in one pass over the
+// points: xe (N, 64) in the trunk's type, ve (N, 32) and ve2 (N, 32 n_sec) in
+// the heads', each row the positional encoding of kernels/fused_mlp.py
+// `encode_reference` ([x, sin(2^0 x), cos(2^0 x), sin(2^1 x), ...], each
+// block over the 3 coordinates; degree 10 for the point, 4 for a direction)
+// and its zero padding. It replaces no TPU kernel: XLA fuses the encoding into
+// K1's operands; in PyTorch it was ~10 kernels per input (multiply, sin, cos,
+// stack, cat, pad, cast).
+//
+// What bounds it: bytes. A point reads 12 B, and 12 more per secondary view
+// (its ray's direction, read through the sample stride row / samples, is
+// shared by the ray's points), and writes 256-768 B. Its 42-66 sincosf fit
+// under that time.
+// - A CTA of ENC_ROWS threads encodes ENC_ROWS rows, one a thread, in
+//   registers, and writes each output (xe, ve, each view of ve2) through
+//   shared memory: a thread stores its row as 16-byte chunks (rows padded by
+//   16 B, so the 8 threads of a store phase hit distinct banks), then the CTA
+//   copies the block out as 16-byte vectors of contiguous rows, whole
+//   128-byte lines per 8 threads.
+// - Numerics of the torch chain, bit for bit: x * 2^k is exact in f32;
+//   sincosf is CUDA's precise one (this library has no fast math); the
+//   fast_encoding recurrence s, c <- (2s)c, (c-s)(c+s) in __fmul_rn,
+//   __fadd_rn and __fsub_rn, so nothing contracts into an FMA; bf16 by
+//   __float2bfloat16_rn.
+constexpr int ENC_ROWS = 128;
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+// the 16-byte chunk c of a row of float values, in type T
+template <typename T>
+__device__ __forceinline__ uint4 enc_chunk(const float* v, int c) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(v[4 * c]), __float_as_uint(v[4 * c + 1]), __float_as_uint(v[4 * c + 2]),
+                      __float_as_uint(v[4 * c + 3]));
+  } else {
+    return make_uint4(bf16_pair(v[8 * c], v[8 * c + 1]), bf16_pair(v[8 * c + 2], v[8 * c + 3]),
+                      bf16_pair(v[8 * c + 4], v[8 * c + 5]), bf16_pair(v[8 * c + 6], v[8 * c + 7]));
+  }
+}
+
+// v[0, W): x, then per frequency k sin(2^k x), cos(2^k x), each over the 3
+// coordinates, then zeros
+template <int DEG, int W, bool FAST>
+__device__ __forceinline__ void enc_pe(const float (&x)[3], float (&v)[W]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) v[d] = x[d];
+  if constexpr (FAST) {
+    float s[3], c[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) sincosf(x[d], &s[d], &c[d]);
+#pragma unroll
+    for (int k = 0; k < DEG; ++k) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        v[3 + 6 * k + d] = s[d];
+        v[6 + 6 * k + d] = c[d];
+        const float s2 = __fmul_rn(__fmul_rn(2.0f, s[d]), c[d]);
+        c[d] = __fmul_rn(__fsub_rn(c[d], s[d]), __fadd_rn(c[d], s[d]));
+        s[d] = s2;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < DEG; ++k) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) sincosf(__fmul_rn(x[d], (float)(1 << k)), &v[3 + 6 * k + d], &v[6 + 6 * k + d]);
+    }
+  }
+#pragma unroll
+  for (int i = 3 * (1 + 2 * DEG); i < W; ++i) v[i] = 0.0f;
+}
+
+// this thread's row of the encoding of x, W values of T in 16-byte chunks,
+// into its row of the stage (SC chunks a row)
+template <typename T, int DEG, int W, bool FAST, int SC>
+__device__ __forceinline__ void enc_stage(uint4* stage, const float (&x)[3]) {
+  float v[W];
+  enc_pe<DEG, W, FAST>(x, v);
+#pragma unroll
+  for (int c = 0; c < W * (int)sizeof(T) / 16; ++c) stage[threadIdx.x * SC + c] = enc_chunk<T>(v, c);
+}
+
+// the stage's first `rows` rows (CHUNKS chunks each) to rows row0.. of out
+// (`stride` chunks a row), from chunk `col` of each
+template <int CHUNKS, int SC>
+__device__ __forceinline__ void enc_write(const uint4* stage, uint4* out, long long row0, int rows, int stride,
+                                          int col) {
+  for (int q = threadIdx.x; q < rows * CHUNKS; q += ENC_ROWS) {
+    const int r = q / CHUNKS, c = q % CHUNKS;
+    out[(row0 + r) * stride + col + c] = stage[r * SC + c];
+  }
+}
+
+template <typename TT, typename HT, bool FAST>
+__global__ void __launch_bounds__(ENC_ROWS, 4)
+    k1_encode_kernel(const float* __restrict__ pts, const float* __restrict__ dirs, const float* __restrict__ dirs2,
+                     TT* __restrict__ xe, HT* __restrict__ ve, HT* __restrict__ ve2, int n, int samples, int n_sec) {
+  constexpr int XC = PTS_IN * (int)sizeof(TT) / 16, VC = VIEW_IN * (int)sizeof(HT) / 16;
+  constexpr int SC = (XC > VC ? XC : VC) + 1;
+  __shared__ uint4 stage[ENC_ROWS * SC];
+  const long long row0 = (long long)blockIdx.x * ENC_ROWS, p = row0 + threadIdx.x;
+  const int rows = n - row0 < ENC_ROWS ? (int)(n - row0) : ENC_ROWS;
+  const bool live = p < n;
+  const int pi = live ? (int)p : 0, ray = pi / samples;  // 32-bit division: rows are ints
+  float x[3], d[3], d2[MAX_SEC][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    x[i] = live ? pts[3LL * pi + i] : 0.0f;
+    d[i] = live ? dirs[3LL * ray + i] : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < MAX_SEC; ++j) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) d2[j][i] = live && j < n_sec ? dirs2[3 * ((long long)pi * n_sec + j) + i] : 0.0f;
+  }
+
+  if (live) enc_stage<TT, 10, PTS_IN, FAST, SC>(stage, x);
+  __syncthreads();
+  enc_write<XC, SC>(stage, reinterpret_cast<uint4*>(xe), row0, rows, XC, 0);
+  __syncthreads();
+  if (live) enc_stage<HT, 4, VIEW_IN, FAST, SC>(stage, d);
+  __syncthreads();
+  enc_write<VC, SC>(stage, reinterpret_cast<uint4*>(ve), row0, rows, VC, 0);
+#pragma unroll
+  for (int j = 0; j < MAX_SEC; ++j) {
+    if (j >= n_sec) break;
+    __syncthreads();
+    if (live) enc_stage<HT, 4, VIEW_IN, FAST, SC>(stage, d2[j]);
+    __syncthreads();
+    enc_write<VC, SC>(stage, reinterpret_cast<uint4*>(ve2), row0, rows, n_sec * VC, j * VC);
+  }
+}
+
+template <typename TT, typename HT>
+int launch_encode(const void* pts, const void* dirs, const void* dirs2, void* xe, void* ve, void* ve2, int n,
+                  int samples, int n_sec, bool fast, void* stream) {
+  auto kernel = fast ? k1_encode_kernel<TT, HT, true> : k1_encode_kernel<TT, HT, false>;
+  kernel<<<(int)(((long long)n + ENC_ROWS - 1) / ENC_ROWS), ENC_ROWS, 0, (cudaStream_t)stream>>>(
+      (const float*)pts, (const float*)dirs, (const float*)dirs2, (TT*)xe, (HT*)ve, (HT*)ve2, n, samples, n_sec);
+  return (int)cudaGetLastError();
+}
+
 int sm_count() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
@@ -1299,4 +1450,25 @@ extern "C" int vipnerf_fused_mlp_bf16_f32h_ffma(const void* xe, const void* ve, 
   const int e = launch16<true>(xe, nullptr, nullptr, w, bias, h, scenes, n_per_scene, 0, stream);
   if (e != 0) return e;
   return launch32<true>(h, ve, ve2, heads32, bias, out, scenes, n_per_scene, n_sec, stream);
+}
+
+// K1's inputs from n points (pts (n, 3) f32), their view directions (dirs
+// (n / samples, 3) f32: row r of the points reads direction r / samples) and,
+// for n_sec > 0, their secondary view directions (dirs2 (n, n_sec, 3) f32):
+// xe (n, 64) in the trunk's type, ve (n, 32) and ve2 (n, 32 n_sec) in the
+// heads' (f32 where trunk_f32 / heads_f32 is set, else bf16; a bf16 trunk with
+// f32 heads is bf16_f32h, an f32 trunk takes f32 heads). fast: the config's
+// fast_encoding recurrence. One launch on the stream.
+extern "C" int vipnerf_k1_encode(const void* pts, const void* dirs, const void* dirs2, void* xe, void* ve,
+                                 void* ve2, int n, int samples, int n_sec, int trunk_f32, int heads_f32, int fast,
+                                 void* stream) {
+  if (n < 0 || samples < 1 || n_sec < 0 || n_sec > MAX_SEC || (n_sec > 0 && (!dirs2 || !ve2)) ||
+      (trunk_f32 && !heads_f32))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  if (trunk_f32) return launch_encode<float, float>(pts, dirs, dirs2, xe, ve, ve2, n, samples, n_sec, fast, stream);
+  if (heads_f32)
+    return launch_encode<__nv_bfloat16, float>(pts, dirs, dirs2, xe, ve, ve2, n, samples, n_sec, fast, stream);
+  return launch_encode<__nv_bfloat16, __nv_bfloat16>(pts, dirs, dirs2, xe, ve, ve2, n, samples, n_sec, fast,
+                                                      stream);
 }

@@ -42,6 +42,15 @@ it. Every launch on the card is counted in the tracer's table
 (`INSTANCE`), backward kernel (`BWD_KERNELS`) and yardstick (`FFMA`,
 `BWD_MMA_SYNC_KERNELS`); `launches(kernels)` reads them.
 
+Inputs: `encode_inputs` writes (xe, ve, ve2) from the points and their view
+directions. On CUDA tensors that is one launch of `k1_encode_kernel` (same
+source), which reads a ray's direction once for all its samples and writes
+the padded rows bit for bit as the torch chain `encode_reference` does
+(`positional_encoding`, pad, cast), counted as `k1.launches.k1_encode`: on
+the card every K1 launch of a path is fed by one. The kernel has no
+backward, so CUDA inputs that autograd tracks raise; CPU tensors take
+`encode_reference`, which stays differentiable.
+
 Gradients: `FusedRaw` is the `torch.autograd.Function` around the wrapper
 (the counterpart of `_make_fused_raw`, a `jax.custom_vjp`). It takes the
 module's own parameters as inputs; its backward recomputes the raw output
@@ -481,6 +490,63 @@ def prepare_weights(mlp, dtype: torch.dtype, f32_heads: bool = False) -> FusedWe
     return cache[1][mode]
 
 
+ENCODE = "k1_encode"  # the kernel that writes K1's inputs, counted as k1.launches.k1_encode
+
+
+def _per_point(view_dirs: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-ray directions (R, 3), each for n / R consecutive points, as one
+    row per point (a copy); per-point ones as they are."""
+    r = view_dirs.shape[0]
+    return view_dirs if r == n else view_dirs[:, None, :].expand(r, n // r, 3).reshape(n, 3)
+
+
+def encode_reference(
+    pts: torch.Tensor,
+    view_dirs: torch.Tensor,
+    view_dirs2: Optional[torch.Tensor],
+    dtype: torch.dtype,
+    fast: bool = False,
+    f32_heads: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """`encode_inputs`' function in plain torch (`positional_encoding`, then
+    the padding and the casts), on any device: CPU tensors take it, and the
+    card's tests hold the encode kernel to it bit for bit."""
+    npts = pts.shape[0]
+    n_sec = view_dirs2.shape[1] if view_dirs2 is not None else 0
+    head_dtype = torch.float32 if f32_heads else dtype
+    xe = F.pad(positional_encoding(pts, 10, fast), (0, PTS_IN - 63)).to(dtype)
+    ve = F.pad(positional_encoding(_per_point(view_dirs, npts), 4, fast), (0, VIEW_IN - 27)).to(head_dtype)
+    if n_sec:
+        enc2 = positional_encoding(view_dirs2.reshape(npts * n_sec, 3), 4, fast)
+        ve2 = F.pad(enc2, (0, VIEW_IN - 27)).reshape(npts, n_sec * VIEW_IN).to(head_dtype)
+    else:
+        ve2 = ve
+    return xe.contiguous(), ve.contiguous(), ve2.contiguous(), n_sec
+
+
+def _check_encode(pts, view_dirs, view_dirs2, mode) -> Tuple[int, int]:
+    """Raises on inputs the encode does not take; returns (points per
+    direction, n_sec)."""
+    if mode not in INSTANCE:
+        raise TypeError(f"K1 has no instance for a {mode[0]} trunk with {mode[1]} heads")
+    if pts.dim() != 2 or pts.shape[1] != 3:
+        raise ValueError(f"pts has shape {tuple(pts.shape)}, expected (N, 3)")
+    n, rays = pts.shape[0], view_dirs.shape[0]
+    if view_dirs.dim() != 2 or view_dirs.shape[1] != 3 or (n and (not rays or n % rays)):
+        raise ValueError(f"view_dirs has shape {tuple(view_dirs.shape)}, expected (R, 3) with R dividing {n}")
+    if view_dirs2 is not None and (view_dirs2.dim() != 3 or view_dirs2.shape[0] != n or view_dirs2.shape[2] != 3):
+        raise ValueError(f"view_dirs2 has shape {tuple(view_dirs2.shape)}, expected ({n}, n_sec, 3)")
+    n_sec = view_dirs2.shape[1] if view_dirs2 is not None else 0
+    if n_sec > MAX_SEC:
+        raise ValueError(f"n_sec must be in 0..{MAX_SEC}, got {n_sec}")
+    for name, t in (("pts", pts), ("view_dirs", view_dirs), ("view_dirs2", view_dirs2)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}, the encode takes torch.float32")
+        if t is not None and t.device != pts.device:
+            raise ValueError(f"{name} is on {t.device}, pts on {pts.device}")
+    return (n // rays if n else 1), n_sec
+
+
 def encode_inputs(
     pts: torch.Tensor,
     view_dirs: torch.Tensor,
@@ -493,18 +559,42 @@ def encode_inputs(
     `fast_encoding`) and zero-padding of the kernel's inputs: (xe, ve, ve2,
     n_sec), xe in `dtype`, ve and ve2 in the heads' dtype: f32, never
     rounded, with `f32_heads`. With no secondary view, K1 reads no ve2:
-    `ve` stands in for it."""
-    npts = pts.shape[0]
-    n_sec = view_dirs2.shape[1] if view_dirs2 is not None else 0
-    head_dtype = torch.float32 if f32_heads else dtype
-    xe = F.pad(positional_encoding(pts, 10, fast), (0, PTS_IN - 63)).to(dtype)
-    ve = F.pad(positional_encoding(view_dirs, 4, fast), (0, VIEW_IN - 27)).to(head_dtype)
-    if n_sec:
-        enc2 = positional_encoding(view_dirs2.reshape(npts * n_sec, 3), 4, fast)
-        ve2 = F.pad(enc2, (0, VIEW_IN - 27)).reshape(npts, n_sec * VIEW_IN).to(head_dtype)
-    else:
-        ve2 = ve
-    return xe.contiguous(), ve.contiguous(), ve2.contiguous(), n_sec
+    `ve` stands in for it. pts (N, 3), view_dirs (N, 3) or one direction
+    per ray, (R, 3) for R rays of N / R consecutive points each, view_dirs2
+    (N, n_sec, 3), all f32.
+
+    CUDA tensors launch the encode kernel (one pass, csrc/fused_mlp.cu
+    `k1_encode_kernel`, counted as `k1.launches.k1_encode`), which reads a
+    ray's direction through the sample stride, and has no backward: CUDA
+    inputs that autograd tracks raise. CPU tensors take `encode_reference`,
+    which stays differentiable."""
+    mode = (dtype, torch.float32 if f32_heads else dtype)
+    samples, n_sec = _check_encode(pts, view_dirs, view_dirs2, mode)
+    if pts.device.type == "cpu":
+        return encode_reference(pts, view_dirs, view_dirs2, dtype, fast, f32_heads)
+    if pts.device.type != "cuda":
+        raise ValueError(f"the encode runs on cuda or cpu tensors, not {pts.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (pts, view_dirs, view_dirs2)):
+        raise ValueError("the encode kernel has no backward: on the card, pts and view directions "
+                         "must not require grad")
+    n, dev = pts.shape[0], pts.device
+    xe = torch.empty((n, PTS_IN), dtype=mode[0], device=dev)
+    ve = torch.empty((n, VIEW_IN), dtype=mode[1], device=dev)
+    ve2 = torch.empty((n, VIEW_IN * n_sec), dtype=mode[1], device=dev) if n_sec else ve
+    if n:
+        fn = build.load("fused_mlp").vipnerf_k1_encode
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        inputs = [t.contiguous() for t in (pts, view_dirs)] + [view_dirs2.contiguous() if n_sec else None]
+        with torch.cuda.device(dev):
+            rc = fn(*(None if t is None else t.data_ptr() for t in inputs + [xe, ve, ve2 if n_sec else None]),
+                    n, samples, n_sec, int(mode[0] == torch.float32), int(mode[1] == torch.float32), int(fast),
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"K1's encode launch failed: cudaError {rc}")
+        tracing.count("k1.launches." + ENCODE)
+    return xe, ve, ve2, n_sec
 
 
 def fused_mlp_reference(
@@ -1231,7 +1321,10 @@ def apply_fused_mlp(
     `dtype`, the heads in f32 with `f32_heads` (the bf16_f32h instance).
     Same output dict (sigma, rgb, rgb_view_dependent, visibility[,
     visibility2]), f32, and differentiable in the module's parameters (and
-    pts/view dirs). A stacked MLP takes and gives (S, n, ...), in one call."""
+    pts/view dirs). A stacked MLP takes and gives (S, n, ...), in one call.
+    `view_dirs` may hold one direction per ray instead of one per point:
+    R rows for R rays of consecutive points (scene-major for a stacked
+    MLP), which `encode_inputs` reads with the sample stride."""
     if not supports_config(mlp.cfg):
         raise ValueError("K1 implements the flagship 8x256 config only")
     lead = pts.shape[:-1]

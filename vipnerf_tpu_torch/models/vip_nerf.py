@@ -125,24 +125,24 @@ def _run_mlp_on_samples(
     f32_heads: bool,
 ) -> Dict[str, torch.Tensor]:
     """Flatten (nr, ns, ...) samples, run the MLP (K1 or the module), reshape
-    back; a stacked MLP gets them as (S, nr * ns / S, ...), scene by scene."""
+    back; a stacked MLP gets them as (S, nr * ns / S, ...), scene by scene.
+    K1 takes the view dirs per ray (its encode reads them with the sample
+    stride); the module gets them copied out to every sample."""
     nr, ns = pts.shape[0], pts.shape[1]
     lead = (nr * ns,) if mlp.scenes is None else (mlp.scenes, nr * ns // mlp.scenes)
     pts_flat = pts.reshape(*lead, 3)
-    vd_flat = None
-    if view_dirs is not None:
-        vd_flat = view_dirs[:, None, :].expand(nr, ns, 3).reshape(*lead, 3)
     vd2_flat = None
     if view_dirs2 is not None:
         vd2_flat = view_dirs2.reshape(*lead, view_dirs2.shape[2], 3)
 
     if uses_fused_mlp(mlp.cfg, bf16_matmuls, f32_heads):
         raw = k1.apply_fused_mlp(
-            mlp, pts_flat, vd_flat, vd2_flat,
+            mlp, pts_flat, view_dirs, vd2_flat,
             raw_noise_std=raw_noise_std, generator=generator,
             dtype=torch.bfloat16 if bf16_matmuls else torch.float32, f32_heads=f32_heads,
         )
     else:
+        vd_flat = None if view_dirs is None else view_dirs[:, None, :].expand(nr, ns, 3).reshape(*lead, 3)
         raw = mlp(
             pts_flat, vd_flat, vd2_flat,
             raw_noise_std=raw_noise_std, generator=generator,
