@@ -40,7 +40,10 @@ heads on CUDA cores, the tensor-core heads' yardstick; nothing else calls
 it. Every launch on the card is counted in the tracer's table
 (`utils/tracing.py`) as `k1.launches.<kernel>`, per instance
 (`INSTANCE`), backward kernel (`BWD_KERNELS`) and yardstick (`FFMA`,
-`BWD_MMA_SYNC_KERNELS`); `launches(kernels)` reads them.
+`BWD_MMA_SYNC_KERNELS`); `launches(kernels)` reads them. Each call of the
+wrapper with other views also adds its points x `n_sec` to
+`vis.sec_view_points` (`SEC_VIEW_POINTS`: the rows K1's view branch runs for
+the other views, on the card or in the plain version), from the shapes alone.
 
 Inputs: `encode_inputs` writes (xe, ve, ve2) from the points and their view
 directions. On CUDA tensors that is one launch of `k1_encode_kernel` (same
@@ -113,6 +116,7 @@ INSTANCE = {
 }
 FORWARD = tuple(INSTANCE.values())
 FFMA = "fused_mlp_bf16_f32h_ffma"  # bf16_f32h with FFMA heads, the yardstick on no path
+SEC_VIEW_POINTS = "vis.sec_view_points"  # counter: points x other views through the view branch
 HEAD_NUMEL = W_NUMEL - TRUNK_NUMEL  # layers 8-11
 SPLIT_PARTS = 3  # bf16 parts of an f32 head weight in the bf16_f32h pack
 # bytes of one scene's packed weights, per instance
@@ -719,6 +723,8 @@ def fused_mlp_raw(
     tensors take the plain version; CUDA tensors launch the instance on the
     current stream (bf16_f32h: its trunk, then its heads, one count)."""
     _check(weights, xe, ve, ve2, n_sec)
+    if n_sec:
+        tracing.count(SEC_VIEW_POINTS, xe.shape[0] * n_sec)
     if xe.device.type == "cpu":
         return fused_mlp_reference(weights.layers, xe, ve, ve2, n_sec)
     if xe.device.type != "cuda":

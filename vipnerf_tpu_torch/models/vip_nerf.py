@@ -22,8 +22,11 @@ validation.
 
 Under a profiler session `render_rays` also records its phases as spans
 (`utils/tracing.py` `detail`): `rays.sample`, then per level
-`rays.<level>.points` (samples and other-view directions), `.mlp` (K1's
-launch or the module) and `.composite`, with `rays.resample` between.
+`rays.<level>.points` (the samples), `.sec_dirs` (the other views' origins,
+gathered at the first level, and their directions to the samples), `.mlp`
+(K1's launch or the module) and `.composite`, with `rays.resample` between.
+In training `rays.<level>.sec_dirs` is recorded always, timed on the rays'
+device as `train.forward` is.
 """
 
 from typing import Any, Dict, List, Optional
@@ -205,12 +208,10 @@ def render_rays(
         rays_o_s, rays_d_s = rays_o, rays_d
         near, far = batch["near"], batch["far"]
 
-    rays_o2 = None
+    # the other views' origins, or the poses and pixel ids to gather them from
+    secondary = None
     if predict_visibility and sec_views_vis:
-        if "rays_o2" in batch:
-            rays_o2 = batch["rays_o2"]
-        else:
-            rays_o2 = _gather_secondary_origins(batch["poses"], batch["pixel_id"])
+        secondary = batch["rays_o2"] if "rays_o2" in batch else (batch["poses"], batch["pixel_id"])
 
     out: Dict[str, torch.Tensor] = {}
     z_coarse = weights_coarse = None
@@ -220,9 +221,9 @@ def render_rays(
                 near, far, mcfg["coarse_mlp"]["num_samples"], lindisp=mcfg["lindisp"],
                 perturb=perturb, generator=generator,
             )
-        out_c, raw_c = _render_one_level(
+        out_c, raw_c, secondary = _render_one_level(
             "coarse", model.coarse_model, mcfg["coarse_mlp"], z_coarse, rays_o, rays_d,
-            rays_o_s, rays_d_s, view_dirs, rays_o2, **level_args,
+            rays_o_s, rays_d_s, view_dirs, secondary, train=train, **level_args,
         )
         weights_coarse = out_c["weights"]
         _collect(out, "coarse", z_coarse, out_c, raw_c, retraw)
@@ -233,9 +234,9 @@ def render_rays(
                 z_coarse, weights_coarse, mcfg["fine_mlp"]["num_samples"],
                 perturb=perturb, generator=generator,
             )
-        out_f, raw_f = _render_one_level(
+        out_f, raw_f, _ = _render_one_level(
             "fine", model.fine_model, mcfg["fine_mlp"], z_fine, rays_o, rays_d,
-            rays_o_s, rays_d_s, view_dirs, rays_o2, **level_args,
+            rays_o_s, rays_d_s, view_dirs, secondary, train=train, **level_args,
         )
         _collect(out, "fine", z_fine, out_f, raw_f, retraw)
 
@@ -265,8 +266,9 @@ def _render_one_level(
     rays_o_s: torch.Tensor,
     rays_d_s: torch.Tensor,
     view_dirs: Optional[torch.Tensor],
-    rays_o2: Optional[torch.Tensor],
+    secondary,
     *,
+    train: bool,
     ndc: bool,
     white_bkgd: bool,
     sec_views_vis: bool,
@@ -275,12 +277,19 @@ def _render_one_level(
     bf16: bool,
     f32_heads: bool,
 ):
-    """One MLP evaluation + compositing pass (`level`: coarse or fine)."""
+    """One MLP evaluation + compositing pass (`level`: coarse or fine).
+    `secondary` is the rays' other-view origins (nr, nf-1, 3), or the
+    (poses, pixel_id) to gather them from; returns the level's outputs, its
+    raw outputs and the origins, gathered where this level needed them."""
     with tracing.detail(f"rays.{level}.points"):
         pts = rays_o_s[..., None, :] + rays_d_s[..., None, :] * z_vals[..., :, None]
-        view_dirs2 = None
-        if mlp_cfg["predict_visibility"] and sec_views_vis and rays_o2 is not None:
-            view_dirs2 = _compute_other_view_dirs(z_vals, rays_o, rays_d, rays_o2, ndc)
+    view_dirs2 = None
+    if mlp_cfg["predict_visibility"] and sec_views_vis and secondary is not None:
+        name = f"rays.{level}.sec_dirs"
+        with tracing.span(name, rays_o.device) if train else tracing.detail(name):
+            if isinstance(secondary, tuple):
+                secondary = _gather_secondary_origins(*secondary)
+            view_dirs2 = _compute_other_view_dirs(z_vals, rays_o, rays_d, secondary, ndc)
 
     with tracing.detail(f"rays.{level}.mlp"):
         raw = _run_mlp_on_samples(
@@ -300,4 +309,4 @@ def _render_one_level(
                 rays_o=rays_o, rays_d=rays_d, white_bkgd=white_bkgd, ndc=True,
                 visibility2=raw.get("visibility2"),
             )
-    return outputs, raw
+    return outputs, raw, secondary

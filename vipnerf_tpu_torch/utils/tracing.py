@@ -12,25 +12,32 @@ wrappers record them where their work happens:
   per iteration and `train.chunk.read` (the loss scalars to the host);
   then `train.log` (`it`), the logging of the chunk's scalars;
 - inside `train.step`: `train.gather`, then per sub-batch `train.forward`,
-  `train.losses` and `train.backward`, then `train.adam`;
+  `train.losses` and `train.backward`, then `train.adam`; inside
+  `train.forward`, per level with other views, `rays.<level>.sec_dirs` (the
+  other views' origins and their directions to the samples,
+  `models/vip_nerf.py`), timed on the device;
 - `render.frame` (`frame`) with `render.prepare`, `render.tile` (`tile`)
   per tile, `render.gather` (the tiles' outputs to the host) and
   `render.outputs`;
 - `app.<stage>` for a dataset app's stages, `kernels.build` (`library`) per
   library compiled;
 - counters `k1.launches.<kernel>` (K1's instances, its backward kernels
-  and their yardsticks on the card) and `jpeg.decodes`.
+  and their yardsticks on the card), `vis.sec_view_points` (points x other
+  views through K1's view branch, per K1 forward call from its shapes) and
+  `jpeg.decodes`.
 
 While a `torch.profiler` session is active, whoever started it, each span
 also opens `torch.profiler.record_function` under its name, so the
 program's spans lie on the profiler's timeline beside the device's
 kernels; and the finer spans inside `render_rays` (`detail`: sampling,
-each MLP launch, compositing, resampling) are recorded only then.
+each MLP launch, compositing, resampling, and outside training the other
+views' directions) are recorded only then.
 
 A span given a CUDA `device` also records a timing event on that
 device's current stream (as the span opens) at each end (the forward, the
-backward and the frame), or at its end alone with `start_event=False` (a
-training step after its chunk's first, which the step before it bounds):
+other views' directions in training, the backward and the frame), or at
+its end alone with `start_event=False` (a training step after its chunk's
+first, which the step before it bounds):
 `collect`, called where the program already waits for the device (the
 chunk's read of its scalars, the frame's copy to the host), reads them
 back into the span's `device_ms`, its (start, end) on the device's
