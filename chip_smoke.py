@@ -38,7 +38,15 @@ Phases, each of which fails the run loudly:
    without ReLU ties; two launches bit for bit the same; timed at the
    training shapes at S = 1, 2, 4 in turns with the first design's kernels,
    beside their plain versions, their library routes (f32 torch.matmul per
-   product) and the yardstick, with the L2 bytes each design moves;
+   product) and the yardstick, with the L2 bytes each design moves; then
+   the trunk's backward (`k1.trunk_activations`, `k1.trunk_backward`: the
+   recompute kernel of csrc/fused_mlp.cu and the dX, dW and reduce kernels
+   of csrc/fused_mlp_bwd.cu) against its plain version at the training
+   step's two launch shapes at S = 1 and 4 and at ragged sizes (h8 bit for
+   bit K1's forward h, two calls bit for bit the same), timed at the
+   training shapes in turns with the route it replaced (autograd through
+   trunk_recompute on cuBLAS), beside its plain version and its bounds (on
+   the shipped paths of phases 5 and 8 every backward must run it);
 3. the serving path: a run tree at the flagship width (8x256 MLPs, 64+128
    samples, NDC, bf16 matmuls with bf16 heads) with seeded random weights,
    rendered by the port's `start_testing` at 1008x756 -- 3 train frames with
@@ -294,6 +302,17 @@ def encode_fed(k1, mark: dict, path: str) -> None:
     if encodes != forward:
         raise AssertionError(f"{path}: {encodes} encode launches fed {forward} K1 launches")
     ENCODE_FED.append((path, encodes))
+
+
+def trunk_fed(k1, mark: dict, path: str) -> None:
+    """The shipped-mode backward's trunk on `path` since `mark` ran in its
+    kernels: each of `k1.TRUNK_KERNELS` counted once per heads-backward
+    per-point launch (one of each per shipped backward on the card)."""
+    heads = launches_since(k1, mark, ["heads_bwd_points"])["heads_bwd_points"]
+    trunk = launches_since(k1, mark, k1.TRUNK_KERNELS)
+    if trunk != dict.fromkeys(k1.TRUNK_KERNELS, heads):
+        raise AssertionError(f"{path}: the trunk backward's kernels ran {trunk} for {heads} shipped backwards")
+    log(f"{path}: the trunk backward ran in its kernels in each of {heads} shipped backwards ({trunk})")
 
 
 def launch_counts(k1, **counts) -> dict:
@@ -968,6 +987,153 @@ def phase_heads_backward(k1, dev):
             timings[(scenes, level)] = time_heads_backward(k1, weights, *inputs,
                                                            f"S = {scenes} x {n} points ({level}), n_sec {TRAIN_SEC}")
             del inputs
+    return {"timings": timings, "worst": worst}
+
+
+TRUNK_SCENES = (1, 4)  # scenes per launch of the trunk backward timed at the training shapes
+TRUNK_RAGGED = (2048 + 37, 132 * 128 * 3 + 37)  # points per scene where a tile is ragged
+# The trunk backward's kernels against its plain version on the card
+# (`trunk_backward_reference`, bf16 products on cuBLAS, the route the kernels
+# replace), per gradient: max|err| / max|plain| and ||err|| / ||plain||.
+# Both round every d to bf16 after sums taken in other orders, so a bf16
+# step (2^-8 relative) can fall differently and carry on down the layers;
+# and the plain version's products reduce the points in long tensor-core
+# chains, which truncate (measured on an H100: at most 6.9e-3 and 2.7e-3,
+# the most at ~50k-260k points a scene).
+TOL_TRUNK_MAX = 2.0 ** -5
+TOL_TRUNK_RMS = 4e-3
+
+
+def trunk_inputs(k1, mlp, n, g, dev):
+    """The trunk backward's inputs on n points: the trunk's parameters, xe,
+    and d h of raw's gradient scale (bf16)."""
+    xe = k1_inputs(k1, n, 0, "fused_mlp_bf16_f32h", g, dev)[0]
+    params = [p.detach() for p in k1.module_params(mlp)[:2 * k1.FEATURE]]
+    d_h = (torch.randn((n, k1.WIDTH), generator=g, device=dev) * 1e-3).to(torch.bfloat16)
+    return params, xe, d_h
+
+
+def trunk_yardstick(k1, params, xe, d_h):
+    """The trunk's backward as the shipped mode ran it before its kernels:
+    autograd through `trunk_recompute` (bf16 products on cuBLAS and
+    autograd's elementwise kernels)."""
+    trunk_in = [p.detach().requires_grad_() for p in params]
+    with torch.enable_grad():
+        h = k1.trunk_recompute(trunk_in, xe)
+        return torch.autograd.grad(h, trunk_in, d_h.reshape(h.shape))
+
+
+def grad_ratios(got, want):
+    """Per gradient (max|err| / max|want|, ||err|| / ||want||)."""
+    out = []
+    for a, b in zip(got, want):
+        a, b = a.double(), b.double()
+        top, norm = b.abs().max().item(), b.norm().item()
+        out.append((((a - b).abs().max() / top).item() if top else 0.0, ((a - b).norm() / norm).item() if norm else 0.0))
+    return out
+
+
+def check_trunk_backward(k1, weights, params, xe, d_h, label):
+    """The kernels on one input: h8 bit for bit K1's forward h (its scratch
+    image), xe's image bit for bit, the 16 gradients against the plain
+    version (`TOL_TRUNK_*`), two calls bit for bit the same. Returns the
+    worst (max, rms) ratios."""
+    n, scenes = xe.shape[0], weights.scenes
+    act = k1.trunk_activations(weights, xe)
+    got = k1.trunk_backward(weights, act, d_h, scenes > 1)
+    again = k1.trunk_backward(weights, k1.trunk_activations(weights, xe), d_h, scenes > 1)
+    ve = torch.zeros((n, k1.VIEW_IN), dtype=torch.float32, device=xe.device)
+    h_fwd = k1.h_scratch(n, scenes, xe.device)
+    k1._launch(k1._entry("fused_mlp_bf16_f32h", 7), weights, xe, 0,
+               [xe, ve, ve, weights.w_flat, weights.b_flat, h_fwd, k1._output(weights, xe)])
+    want = k1.trunk_backward_reference(params, xe, d_h)
+    torch.cuda.synchronize()
+    live = k1.trunk_image(torch.ones_like(act.h8), scenes) > 0  # the image's rows of points
+    same_h8 = torch.equal(torch.where(live, h_fwd, 0).reshape(-1), k1.trunk_image(act.h8, scenes).reshape(-1))
+    same_xe = torch.equal(act.xe_img, k1.trunk_image(xe, scenes))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ratios = grad_ratios(got, want)
+    worst = (max(r[0] for r in ratios), max(r[1] for r in ratios))
+    finite = all(torch.isfinite(t).all() for t in got)
+    log(f"K1 trunk backward, {label}: h8 bit for bit K1's forward h {same_h8}, xe's image {same_xe}; gradients "
+        f"against the plain version (bf16, cuBLAS): worst max|err|/max|plain| {worst[0]:.3e} (limit "
+        f"{TOL_TRUNK_MAX:.3e}), worst ||err||/||plain|| {worst[1]:.3e} (limit {TOL_TRUNK_RMS:.1e}); per gradient "
+        + ", ".join(f"{r[0]:.1e}/{r[1]:.1e}" for r in ratios) + f"; two calls bit for bit {same}; finite {finite}")
+    if not (same_h8 and same_xe and same and finite and worst[0] <= TOL_TRUNK_MAX and worst[1] <= TOL_TRUNK_RMS):
+        raise AssertionError(f"the trunk backward's kernels fail their check: {label}")
+    return worst
+
+
+def trunk_bound_parts(k1, n) -> dict:
+    """Least times (ms) of the trunk backward on n points: its operations
+    (`k1.TRUNK_BWD_MACS`) on the bf16 tensor cores, its bytes with each
+    layer's (d, X) read once (fused) and once per product (two passes)."""
+    return {"ops": 2e3 * n * k1.TRUNK_BWD_MACS / PEAK_BF16_FLOPS,
+            "bytes_fused": 1e3 * k1.trunk_bwd_bytes(n) / PEAK_BYTES,
+            "bytes_two_pass": 1e3 * k1.trunk_bwd_bytes(n, 2) / PEAK_BYTES}
+
+
+def time_trunk_backward(k1, weights, params, xe, d_h, label):
+    """CUDA-event times of the recompute kernel, the layers' kernels and
+    both, of the plain version and of the yardstick (autograd through the
+    recompute on cuBLAS) in turns (yardstick, kernels, kernels, yardstick),
+    beside the bounds."""
+    scenes, n = weights.scenes, xe.shape[0]
+    act = k1.trunk_activations(weights, xe)
+    rec_ms = cuda_ms(lambda: k1.trunk_activations(weights, xe), reps=5)
+    lay_ms = cuda_ms(lambda: k1.trunk_backward(weights, act, d_h, scenes > 1), reps=5)
+    del act
+
+    def kernels():
+        k1.trunk_backward(weights, k1.trunk_activations(weights, xe), d_h, scenes > 1)
+
+    yard = lambda: trunk_yardstick(k1, params, xe, d_h)  # noqa: E731
+    turns = [cuda_ms(f, reps=3) for f in (yard, kernels, kernels, yard)]
+    plain_ms = cuda_ms(lambda: k1.trunk_backward_reference(params, xe, d_h), reps=3)
+    parts = trunk_bound_parts(k1, n)
+    ms = (turns[1] + turns[2]) / 2
+    out = dict(ms=ms, recompute_ms=rec_ms, layers_ms=lay_ms, yardstick_ms=(turns[0] + turns[3]) / 2,
+               turns_ms=turns, plain_ms=plain_ms, bound_parts_ms=parts)
+    log(f"K1 trunk backward timing, {label}: {ms:.4f} ms (recompute {rec_ms:.4f}, layers {lay_ms:.4f}; turns, "
+        f"yardstick / kernels / kernels / yardstick: {' / '.join(f'{t:.4f}' for t in turns)}); the yardstick "
+        f"(autograd through trunk_recompute, cuBLAS) {out['yardstick_ms']:.4f}, plain {plain_ms:.4f}; bounds: "
+        f"operations {parts['ops']:.4f}, bytes fused {parts['bytes_fused']:.4f}, two passes "
+        f"{parts['bytes_two_pass']:.4f}; share of the two-pass bound {parts['bytes_two_pass'] / ms:.3f}")
+    return out
+
+
+def phase_trunk_backward(k1, dev):
+    """The shipped mode's trunk backward on the card: its kernels against
+    the plain version at the training step's two launch shapes, S = 1 and
+    4, and at ragged sizes (S = 1, 2); then timed at the training shapes."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst = (0.0, 0.0)
+    cases = [(s, n) for s in TRUNK_SCENES for n in sorted(TRAIN_N.values())]
+    cases += [(1, n) for n in TRUNK_RAGGED] + [(2, TRUNK_RAGGED[0])]
+    for scenes, n in cases:
+        mlp = stacked_mlp(dev, scenes)
+        weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+        params, xe, d_h = trunk_inputs(k1, mlp, scenes * n, g, dev)
+        w = check_trunk_backward(k1, weights, params, xe, d_h, f"S = {scenes} x {n} points")
+        worst = (max(worst[0], w[0]), max(worst[1], w[1]))
+        del params, xe, d_h
+    timings = {}
+    for scenes in TRUNK_SCENES:
+        mlp = stacked_mlp(dev, scenes)
+        weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+        for level, n in TRAIN_N.items():
+            params, xe, d_h = trunk_inputs(k1, mlp, scenes * n, g, dev)
+            timings[(scenes, level)] = time_trunk_backward(k1, weights, params, xe, d_h,
+                                                           f"S = {scenes} x {n} points ({level})")
+            del params, xe, d_h
+            torch.cuda.empty_cache()
+    step = {s: sum(timings[(s, lv)]["ms"] for lv in TRAIN_N) for s in TRUNK_SCENES}
+    yard = {s: sum(timings[(s, lv)]["yardstick_ms"] for lv in TRAIN_N) for s in TRUNK_SCENES}
+    log(json.dumps({"k1_trunk_backward": {
+        "worst_max_ratio": worst[0], "worst_rms_ratio": worst[1],
+        "per_step_ms": {str(s): step[s] for s in TRUNK_SCENES},
+        "yardstick_per_step_ms": {str(s): yard[s] for s in TRUNK_SCENES},
+        "timings": {f"S{s}.{lv}": t for (s, lv), t in timings.items()}}}))
     return {"timings": timings, "worst": worst}
 
 
@@ -2244,6 +2410,7 @@ def phase_pipeline(k1):
         train_s = time.perf_counter() - t0
         launches_train = launches_since(k1, mark)
         backward_train = launches_since(k1, mark, k1.BWD_KERNELS)
+        trunk_fed(k1, mark, "demo1a app: training")
         if launches_train != launch_counts(k1, fused_mlp_bf16_f32h=2 * PIPE_STEPS) \
                 or backward_train != dict.fromkeys(BWD, 2 * PIPE_STEPS if torch.cuda.is_available() else 0):
             raise AssertionError(f"the app's {PIPE_STEPS} steps launched K1 {launches_train} and its backward "
@@ -2699,6 +2866,7 @@ def phase_protocol(k1, dev):
         shipped_launches = launches_since(k1, mark)
         encode_fed(k1, mark, "protocol, shipped leg")
         shipped_backward = launches_since(k1, mark, k1.BWD_KERNELS)
+        trunk_fed(k1, mark, "protocol, shipped leg")
         directions = summary["prior_s_per_direction"]
         pairs = [(a, b) for i, a in enumerate(driver.TRAIN_FRAMES) for b in driver.TRAIN_FRAMES[i + 1:]]
         if len(directions) != 2 * len(pairs) or summary["prior_devices"] != [str(dev)]:
@@ -3280,6 +3448,7 @@ def main() -> int:
     worst, timings = phase_k1(k1, mlp, dev)
     encode = phase_encode(k1, dev)
     backward = phase_heads_backward(k1, dev)
+    phase_trunk_backward(k1, dev)
     # the yardsticks (the first design's backward kernels, bf16_f32h with
     # FFMA heads): their launches from here on, less check_against_ffma's
     # comparisons, are launches on the main path's phases

@@ -110,6 +110,10 @@
 //   f32 W^T read from a buffer of their own) stay reachable through
 //   vipnerf_fused_mlp_bf16_f32h_ffma as a yardstick, on no path.
 //
+// The shipped mode's backward recomputes the trunk in trunk_recompute_kernel,
+// the bf16 kernel's trunk with every layer's h stored (below the bf16
+// kernel); csrc/fused_mlp_bwd.cu takes the trunk's gradient from them.
+//
 // K1's inputs (xe, ve, ve2) come from k1_encode_kernel, below the f32
 // kernel: one bytes-bound pass that writes the padded, cast positional
 // encodings that kernels/fused_mlp.py's torch chain wrote in ~10 kernels.
@@ -130,6 +134,7 @@
 // kernel without the axis (on an H100 the one-scene bf16 kernel ran ~14 %
 // slower with the scene arithmetic in it).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -241,6 +246,25 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
+
+// 1-D bulk copy shared -> global in the thread's bulk group; the group's
+// reads of shared memory end at bulk_wait_read, its writes at bulk_wait
+__device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// a box of a 3-D tensor map (coordinates innermost first) shared -> global,
+// in the thread's bulk group (commit it with bulk_commit)
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(map), "r"(src),
+               "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -423,8 +447,8 @@ __device__ __forceinline__ void mma_slab(float (&d)[R], uint32_t a, uint32_t b, 
 
 // One chunk of the weight stream (NSUB consecutive K-slabs of one layer):
 // wait for it, run it against the A slabs from `a` on, release it.
-template <int N, int SW, int NSUB, int R>
-__device__ __forceinline__ void mma_chunk(float (&d)[R], Ring& ring, uint32_t a, int accumulate, int lane) {
+template <int N, int SW, int NSUB, int R, typename RingT>
+__device__ __forceinline__ void mma_chunk(float (&d)[R], RingT& ring, uint32_t a, int accumulate, int lane) {
   const uint32_t b = ring.acquire();
   acc_fence(d, N / 2);
   wgmma_fence();
@@ -437,7 +461,8 @@ __device__ __forceinline__ void mma_chunk(float (&d)[R], Ring& ring, uint32_t a,
 }
 
 // a 256-wide trunk layer from the four h slabs, after the xe slab if `skip`
-__device__ __forceinline__ void mma_trunk(float (&d)[128], Ring& ring, uint32_t xe, uint32_t act, bool skip,
+template <typename RingT>
+__device__ __forceinline__ void mma_trunk(float (&d)[128], RingT& ring, uint32_t xe, uint32_t act, bool skip,
                                           int lane) {
   if (skip) mma_chunk<256, 128, 1>(d, ring, xe, 0, lane);
   for (int s = 0; s < 4; ++s) mma_chunk<256, 128, 1>(d, ring, act + s * A_SLAB, (s > 0) | skip, lane);
@@ -636,6 +661,151 @@ __global__ void __launch_bounds__(THREADS16, 1)
       const int oscene = tile_scene(), orow0 = (tile - oscene * tps) * TILE16 + wg * ROWS_WG;
       if (tid < ROWS_WG && orow0 + tid < nps)
         reinterpret_cast<uint4*>(out)[oscene * nps + orow0 + tid] = reinterpret_cast<const uint4*>(otile)[tid];
+    }
+  }
+}
+
+// ----------------------------------------------- trunk recompute (backward)
+
+// The shipped mode's backward recomputes the trunk (layers 0-7) and keeps
+// each layer's output for the trunk's gradient kernels (csrc/fused_mlp_bwd.cu,
+// trunk_bwd_*): the bf16 kernel's TRUNK path, layer for layer (the same
+// weight stream, products and epilogues), so its h is K1's forward h bit for
+// bit, with a store after every layer. Outputs, block 2 * tile + warpgroup
+// of 64 rows (rows past the scene's end too): xe's swizzled slab (8 KB a
+// block) into xe_img; h1..h7, the outputs of layers 0-6, as their 32 KB slab
+// images into image l - 1 of himg (2 x tiles blocks each); h8 row-major (N, 256)
+// for the heads' backward, its scene's rows only. Named apart from K1's
+// kernels (fused_mlp_*), so that a trace classes it with the backward.
+//
+// The stores are the producer warpgroup's: per consumer warpgroup one
+// thread waits for each layer's h (an mbarrier the consumer arrives on after
+// its epilogue), bulk-copies it out (h8 through a 3-D tensor map, scene x
+// row x column, whose 128-byte swizzle turns the slabs back into rows and
+// whose bounds keep each scene's ragged end), and arrives on a second
+// mbarrier once the copy has read it, which the consumer waits for before
+// its next epilogue overwrites h. The consumers hold no store address.
+//
+// Its shared memory: per consumer warpgroup h's four slabs and xe's, then
+// a deeper ring than the forward's (the stores share the copy engine).
+constexpr int RSTAGES = 4;
+constexpr int RW_XE = 4 * A_SLAB;
+constexpr int RW_BYTES = RW_XE + A_SLAB;
+constexpr int RRING = CONSUMERS * RW_BYTES;
+constexpr int RBARS = RRING + RSTAGES * STAGE_BYTES;  // full, empty, then per warpgroup h ready, h read
+constexpr int RSCENE = RBARS + (2 * RSTAGES + 2 * CONSUMERS) * 8;
+constexpr int SMEMR = RSCENE + 4 * CONSUMERS + 1024;
+static_assert(RW_BYTES % 1024 == 0 && SMEMR <= 232448, "shared memory");
+
+template <bool SCENES>
+__global__ void __launch_bounds__(THREADS16, 1)
+    trunk_recompute_kernel(const __nv_bfloat16* __restrict__ xe, const __nv_bfloat16* __restrict__ w,
+                           const float* __restrict__ bias, unsigned char* __restrict__ xe_img,
+                           unsigned char* __restrict__ himg, const __grid_constant__ CUtensorMap h8, int scenes,
+                           int nps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + RBARS, empty = full + 8 * RSTAGES, hready = empty + 8 * RSTAGES;
+  const uint32_t hread = hready + 8 * CONSUMERS;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int tps = (nps + TILE16 - 1) / TILE16;
+  const int ntiles = SCENES ? scenes * tps : tps;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RSTAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);
+    }
+    for (int c = 0; c < 2 * CONSUMERS; ++c) mbar_init(hready + 8 * c, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {  // the weight stream, layers 0-7 per tile
+      const unsigned char* wb = reinterpret_cast<const unsigned char*>(w);
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        if (SCENES) wb = reinterpret_cast<const unsigned char*>(w) + (size_t)(tile / tps) * F32H_BYTES;
+        for (int l = 0; l < FEATURE; ++l)
+          for (int k0 = 0; k0 < layer_k(l); k0 += SLAB_K) {
+            const uint32_t s = it % RSTAGES;
+            mbar_wait(empty + 8 * s, ((it / RSTAGES) & 1) ^ 1);
+            mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+            bulk_g2s(base + RRING + s * STAGE_BYTES, wb + 2 * w_off(l) + 2 * WIDTH * k0, STAGE_BYTES, full + 8 * s);
+            ++it;
+          }
+      }
+    } else if (tid == 32 || tid == 64) {  // warpgroup c's stores, layer by layer
+      const int c = tid / 32 - 1;
+      const uint32_t act = base + c * RW_BYTES;
+      uint32_t k = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        for (int l = 0; l < FEATURE; ++l, ++k) {
+          mbar_wait(hready + 8 * c, k & 1);
+          if (l < FEATURE - 1) {
+            bulk_s2g(himg + ((size_t)l * 2 * ntiles + 2 * tile + c) * (4 * A_SLAB), act, 4 * A_SLAB);
+          } else {
+            const int scene = SCENES ? tile / tps : 0;
+            const int lrow0 = (tile - scene * tps) * TILE16 + c * ROWS_WG;
+            for (int s = 0; s < 4; ++s) tma_store_3d(&h8, act + s * A_SLAB, s * SLAB_K, lrow0, scene);
+            bulk_commit();
+          }
+          bulk_wait_read();
+          mbar_arrive(hread + 8 * c);
+        }
+      }
+      bulk_wait();
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int warp = tid / 32, lane = tid % 32, bar_id = 1 + wg;
+    unsigned char* mine = smem + wg * RW_BYTES;
+    const uint32_t act = base + wg * RW_BYTES, xs = act + RW_XE;
+    const uint32_t ready = hready + 8 * wg, read = hread + 8 * wg;
+    RingN<RSTAGES> ring{base + RRING, full, empty, 0};
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    float d[128];
+    const uint32_t scene_slot = base + RSCENE + 4 * wg;
+    auto sbias = [&]() { return bias + (SCENES ? lds_s32(scene_slot) : 0) * B_ELEMS; };
+    uint32_t k = 0;  // layers handed to the stores
+    // bf16(acc) + b, ReLU, into h once the store of the h before it has
+    // read it; then h to the store
+    auto epilogue = [&](int l) {
+      if (tid == 0 && k > 0) mbar_wait(read, (k - 1) & 1);
+      bar_sync(bar_id, 128);  // no wgmma and no copy still reads h
+      epilogue_to_slabs<256, true>(d, sbias() + b_off(l), mine, warp, lane);
+      fence_proxy_async();
+      bar_sync(bar_id, 128);
+      if (tid == 0) mbar_arrive(ready);
+      ++k;
+    };
+
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      bar_sync(bar_id, 128);
+      const int scene = SCENES ? tile / tps : 0;
+      if (SCENES && tid == 0) sts_s32(scene_slot, scene);
+      const int lrow0 = (tile - scene * tps) * TILE16 + wg * ROWS_WG;
+      const int row0 = scene * nps + lrow0;
+      unsigned char* ximg = xe_img + ((size_t)2 * tile + wg) * A_SLAB;
+      for (int i = tid; i < ROWS_WG * 8; i += 128) {
+        const int r = i >> 3, c = i & 7, off = r * 128 + ((c ^ (r & 7)) << 4);
+        const uint4 v =
+            lrow0 + r < nps ? __ldg(reinterpret_cast<const uint4*>(xe + (size_t)(row0 + r) * PTS_IN) + c) : zero;
+        *reinterpret_cast<uint4*>(mine + RW_XE + off) = v;
+        *reinterpret_cast<uint4*>(ximg + off) = v;
+      }
+      fence_proxy_async();
+      bar_sync(bar_id, 128);
+
+      mma_chunk<256, 128, 1>(d, ring, xs, 0, lane);
+      epilogue(0);
+      for (int l = 1; l <= 7; ++l) {
+        mma_trunk(d, ring, xs, act, l == 5, lane);
+        epilogue(l);
+      }
     }
   }
 }
@@ -1439,6 +1609,55 @@ extern "C" int vipnerf_fused_mlp_bf16_f32h(const void* xe, const void* ve, const
   const int e = launch16<true>(xe, nullptr, nullptr, w, bias, h, scenes, n_per_scene, 0, stream);
   if (e != 0) return e;
   return launch_heads(h, ve, ve2, w, bias, out, scenes, n_per_scene, n_sec, stream);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the CUDA driver API's cuTensorMapEncodeTiled, through the runtime (no link to libcuda)
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The shipped mode's trunk recomputed for its backward (trunk_recompute_kernel):
+// xe (N, 64) bf16 and w, bias the bf16_f32h packs; outputs xe_img (8 KB per
+// 64 rows), himg (h1..h7, each scenes * 2 * ceil(n_per_scene / 128) blocks of
+// 32 KB) and h8 (N, 256) bf16. One launch on the stream.
+extern "C" int vipnerf_trunk_recompute(const void* xe, const void* w, const void* bias, void* xe_img, void* himg,
+                                       void* h8, int scenes, int n_per_scene, void* stream) {
+  if (!rows_fit(scenes, n_per_scene)) return (int)cudaErrorInvalidValue;
+  auto kernel = scenes > 1 ? trunk_recompute_kernel<true> : trunk_recompute_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEMR);
+  if (e != cudaSuccess) return (int)e;
+  if (n_per_scene <= 0) return 0;
+  const int tiles = scenes * ((n_per_scene + TILE16 - 1) / TILE16), sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  // h8 as (scenes, rows, columns): a box is one slab, 64 rows x 64 columns
+  const cuuint64_t dims[3] = {WIDTH, (cuuint64_t)n_per_scene, (cuuint64_t)scenes};
+  const cuuint64_t strides[2] = {WIDTH * 2, (cuuint64_t)n_per_scene * WIDTH * 2};
+  const cuuint32_t box[3] = {SLAB_K, ROWS_WG, 1}, one[3] = {1, 1, 1};
+  CUtensorMap map;
+  const EncodeTiled encode = encode_tiled();
+  if (!encode || encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, h8, dims, strides, box, one,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  kernel<<<tiles < sms ? tiles : sms, THREADS16, SMEMR, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)xe, (const __nv_bfloat16*)w, (const float*)bias, (unsigned char*)xe_img,
+      (unsigned char*)himg, map, scenes, n_per_scene);
+  return (int)cudaGetLastError();
 }
 
 // The same function with the FFMA heads, the tensor-core heads' yardstick:

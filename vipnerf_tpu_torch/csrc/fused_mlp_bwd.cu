@@ -1,12 +1,14 @@
 // K1's backward in the shipped mode (bf16 trunk, f32 heads) for Hopper
-// (sm_90a): the gradient of the f32 heads, layers 8-11.
+// (sm_90a): the gradient of the f32 heads, layers 8-11 (two kernels, first),
+// then that of the bf16 trunk, layers 7-0 (the trunk_bwd_* kernels, at the
+// end of this file, on the activations that csrc/fused_mlp.cu's
+// trunk_recompute_kernel keeps).
 //
 // Counterpart of the bwd of experiments/fused_mlp.py's jax.custom_vjp
 // (_make_fused_raw: bwd differentiates _raw_xla, which XLA computes with no
-// Pallas kernel of its own), restricted to the heads, which the JAX package
-// runs in f32 (vipnerf_tpu/models/mlp.py apply_mlp with f32_heads: h upcast,
-// then _dense in f32). The trunk's backward stays autograd in
-// kernels/fused_mlp.py; these two kernels give it d h.
+// Pallas kernel of its own). The JAX package runs the heads in f32
+// (vipnerf_tpu/models/mlp.py apply_mlp with f32_heads: h upcast, then _dense
+// in f32); the heads' kernels give the trunk's d h.
 //
 // The function, per scene, on N points with V = 1 + n_sec views:
 //   feature = h W8^T + b8; per view hv_v = relu([feature, pe_v] W10^T + b10)
@@ -178,6 +180,16 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t
       : "memory");
 }
 
+// 1-D bulk copy shared -> global in the thread's bulk group; the group's
+// reads of shared memory end at bulk_wait_read, its writes at bulk_wait
+__device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -190,6 +202,7 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma that owns them.
@@ -271,6 +284,25 @@ __device__ __forceinline__ void wgmma_n32_rs(float (&d)[16], const uint32_t (&a)
                "%11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
                : ACC8(0), ACC8(8)
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// the same for N = 64 in d[0..31] and N = 8 in d[0..3]
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+               "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+               "%31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+               : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+               : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n8_ss(float (&d)[4], uint64_t da, uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
 }
 
 #undef REGS64
@@ -1144,6 +1176,413 @@ __global__ void __launch_bounds__(THREADS, 1)
   else big_share<J_W10P, SCENES>(a, job, local, smem, base, tid);
 }
 
+// ------------------------------------------------------------ trunk backward
+
+// The trunk's gradient (layers 7 -> 0, bf16), from d h (the heads' backward)
+// and the activations trunk_recompute_kernel (csrc/fused_mlp.cu) kept. Per
+// layer l, D_l is the gradient at the layer's output before its ReLU, masked:
+//   D_7 = d h [h8 > 0];  D_{l-1} = bf16(D_l W_l) [X_l > 0] (X_l's h columns)
+//   dW_l = bf16(D_l^T X_l), db_l = bf16(1^T D_l), summed over the scene's points
+// with X_0 = xe, X_l = h_l, X_5 = [xe, h5]; bf16 where autograd's bf16
+// products and sums round. Activations and every D_l are slab images: per 64
+// rows, 64-column slabs with the 128-byte swizzle (8 KB), the layout of K1's
+// activations, so that one image is the K-major A operand of dX (rows the
+// points) and the MN-major operand of dW (K the points), each block one bulk
+// copy. Rows past a scene's end are zeros in every D_l.
+//
+// What bounds it: the bytes (~177 operations a byte at the fused bound);
+// this design makes two passes a layer, each reading D_l and X_l:
+// - trunk_bwd_dx_kernel, shaped like K1's bf16 kernel: persistent, a producer
+//   thread streaming the layer's packed weights (K1's pack, each K-slab one
+//   32 KB stage) into a 3-stage ring; two consumer warpgroups of 64 points
+//   bulk-copy D_l and X_l's blocks, run m64n64k16 per stage (B MN-major: the
+//   forward's K-slab of W read transposed) into 4 x 32 accumulators, round
+//   to bf16, mask with X_l > 0 over X_l's slabs in place and copy D_{l-1}
+//   out. FIRST (layer 7): D_7 is masked from d h and h8 as it is loaded,
+//   and written out for dW_7.
+// - trunk_bwd_dw_kernel: split-K over the points, one share per CTA (about
+//   one CTA per SM); a CTA's tile is 128 rows of dW (two warpgroups of 64)
+//   by 128 or 64 columns of X; a producer thread bulk-copies each block of
+//   64 points (D's two slabs of the tile's rows, X's slabs of its columns)
+//   into a 6-stage ring; both operands MN-major. DW_CHAIN blocks (16 k16
+//   steps) run back to back into one accumulator, each block's stage
+//   released as the next one's products start; then an f32 add moves the
+//   chain into the share's total (the tensor cores truncate each step's
+//   sum toward zero: a chain of 16 steps shrinks a sum by at most ~1e-6 of
+//   itself, a share-long one by up to ~1e-4, as much as the check of the
+//   gradients' norms allows); db from the same A times a block of ones
+//   (m64n8k16). Its time follows the bytes it pulls from L2 (2 KB a point
+//   a layer, each 64-point block read by the layer's four tiles); sharing
+//   X between two tiles' CTAs by a cluster multicast was slower on an H100.
+//   trunk_bwd_reduce_kernel sums each entry's shares in a fixed order (no
+//   atomics: two runs give the same bits), rounds to bf16 and writes the
+//   f32 gradient at the module's shape (w0's pad column and w5's dropped).
+
+// a trunk layer's input columns as packed and its K-slabs' offset in a
+// bf16_f32h pack (bytes)
+__host__ __device__ constexpr int trunk_k(int l) { return l == 0 ? 64 : (l == 5 ? 320 : 256); }
+__host__ __device__ constexpr int trunk_w_off(int l) {
+  int o = 0;
+  for (int i = 0; i < l; ++i) o += 2 * WIDTH * trunk_k(i);
+  return o;
+}
+constexpr int F32H_BYTES = 1615872;      // one scene's bf16_f32h pack (csrc/fused_mlp.cu)
+constexpr int T_SLAB = 64 * 64 * 2;      // 64 rows x 64 columns, 128-byte swizzle
+constexpr int T_BLOCK = 4 * T_SLAB;      // 64 rows of a 256-column image
+constexpr int T_WSLAB = WIDTH * 64 * 2;  // a K-slab of a trunk layer: 256 rows x 64 columns
+static_assert(trunk_w_off(8) == 2 * 491520, "the trunk's pack");
+
+// dX kernel: per consumer warpgroup D_l's block (A), then X_l's (the mask,
+// then D_{l-1}); the ring of weight K-slabs
+constexpr int DX_STAGES = 3;
+constexpr int DX_WG = 2 * T_BLOCK;
+constexpr int DX_RING = CONSUMERS * DX_WG;
+constexpr int DX_BARS = DX_RING + DX_STAGES * T_WSLAB;  // full, empty, then per warpgroup D's and X's arrivals
+constexpr int SMEM_DX = DX_BARS + (2 * DX_STAGES + 2 * CONSUMERS) * 8 + 1024;
+static_assert(SMEM_DX <= 232448 && DX_RING % 1024 == 0, "budget");
+
+// dW kernel: stages of a block of 64 points, D's two slabs at 0 and X's
+// one or two at DW_X; then 16 rows of bf16 ones (the bias's B)
+constexpr int DW_STAGES = 6;
+constexpr int DW_STAGE = 32768;
+constexpr int DW_X = 2 * T_SLAB;
+constexpr int DW_ONES = DW_STAGES * DW_STAGE;
+constexpr int DW_BARS = DW_ONES + 16 * 128;
+constexpr int SMEM_DW = DW_BARS + 2 * DW_STAGES * 8 + 1024;
+constexpr int DW_CHAIN = 4;                // blocks of 64 points per accumulator chain
+constexpr int DW_SHARE = 128 * 128 + 128;  // floats of a CTA's share: its tile (row stride 128), then db's rows
+static_assert(SMEM_DW <= 232448, "budget");
+
+__device__ __forceinline__ int t_swz(int r, int c) {
+  return (c >> 6) * T_SLAB + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// d's two bf16 halves where x's are above zero, else +0 (autograd's ReLU
+// backward: the gradient where the output is positive)
+__device__ __forceinline__ uint32_t relu_mask2(uint32_t d, uint32_t x) {
+  const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return (xf.x > 0.f ? (d & 0xFFFFu) : 0u) | (xf.y > 0.f ? (d & 0xFFFF0000u) : 0u);
+}
+
+struct TArgs {
+  const unsigned char* w;      // the bf16_f32h packs, one per scene
+  const unsigned char* d_in;   // D_l's image (FIRST: d h, (N, 256) row-major)
+  const __nv_bfloat16* h8;     // FIRST: h8 (N, 256), D_7's mask
+  const unsigned char* x_img;  // X_l's image: D_{l-1}'s mask
+  unsigned char* d_out;        // D_{l-1}'s image
+  unsigned char* d_first;      // FIRST: D_7's image
+  int layer, scenes, nps;
+};
+
+template <bool SCENES, bool FIRST>
+__global__ void __launch_bounds__(THREADS, 1) trunk_bwd_dx_kernel(const TArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + DX_BARS, empty = full + 8 * DX_STAGES, arrived = empty + 8 * DX_STAGES;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int tps = (a.nps + TILE - 1) / TILE;
+  const int ntiles = SCENES ? a.scenes * tps : tps;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DX_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < 2 * CONSUMERS; ++i) mbar_init(arrived + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // producer: the layer's K-slabs over its h columns, per tile (layer 5's
+    // first one is xe's, which takes no gradient)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      const int first = a.layer == 5 ? 1 : 0;
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const unsigned char* wb = a.w + (SCENES ? (size_t)(tile / tps) * F32H_BYTES : 0) + trunk_w_off(a.layer);
+        for (int j = 0; j < 4; ++j, ++it) {
+          const uint32_t s = it % DX_STAGES;
+          mbar_wait(empty + 8 * s, ((it / DX_STAGES) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, T_WSLAB);
+          bulk_g2s(base + DX_RING + s * T_WSLAB, wb + (size_t)(first + j) * T_WSLAB, T_WSLAB, full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int warp = tid / 32, lane = tid % 32, bar_id = 1 + wg;
+  unsigned char* dsm = smem + wg * DX_WG;
+  unsigned char* xsm = dsm + T_BLOCK;
+  const uint32_t dsa = base + wg * DX_WG, xsa = dsa + T_BLOCK;
+  const uint32_t dbar = arrived + 16 * wg, xbar = dbar + 8;
+  auto load_d = [&](int tile) {  // D_l's block of `tile` into the A slabs
+    mbar_expect_tx(dbar, T_BLOCK);
+    bulk_g2s(dsa, a.d_in + ((size_t)2 * tile + wg) * T_BLOCK, T_BLOCK, dbar);
+  };
+  if (!FIRST && tid == 0 && (int)blockIdx.x < ntiles) load_d(blockIdx.x);
+  uint32_t it = 0, phase = 0;
+  float acc[4][32];
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, phase ^= 1) {
+    if (tid == 0) bulk_wait_read();  // the previous tile's D_{l-1} has left X's slabs
+    bar_sync(bar_id, 128);
+    const int scene = SCENES ? tile / tps : 0;
+    const int lrow0 = (tile - scene * tps) * TILE + wg * ROWS_WG, row0 = scene * a.nps + lrow0;
+    const size_t blk = (size_t)2 * tile + wg;
+    if (tid == 0) {
+      mbar_expect_tx(xbar, T_BLOCK);
+      bulk_g2s(xsa, a.x_img + blk * T_BLOCK, T_BLOCK, xbar);
+    }
+    if constexpr (FIRST) {
+      const __nv_bfloat16* dh = reinterpret_cast<const __nv_bfloat16*>(a.d_in);
+      for (int i = tid; i < ROWS_WG * (WIDTH / 8); i += 128) {
+        const int r = i >> 5, c = (i & 31) * 8;
+        uint4 dv = make_uint4(0, 0, 0, 0), hv = dv;
+        if (lrow0 + r < a.nps) {
+          dv = __ldg(reinterpret_cast<const uint4*>(dh + (size_t)(row0 + r) * WIDTH + c));
+          hv = __ldg(reinterpret_cast<const uint4*>(a.h8 + (size_t)(row0 + r) * WIDTH + c));
+        }
+        const uint4 m = make_uint4(relu_mask2(dv.x, hv.x), relu_mask2(dv.y, hv.y), relu_mask2(dv.z, hv.z),
+                                   relu_mask2(dv.w, hv.w));
+        *reinterpret_cast<uint4*>(dsm + t_swz(r, c)) = m;
+        *reinterpret_cast<uint4*>(a.d_first + blk * T_BLOCK + t_swz(r, c)) = m;
+      }
+      fence_proxy_async();
+      bar_sync(bar_id, 128);
+    } else {
+      mbar_wait(dbar, phase);
+    }
+    // dX = D_l W_l: per stage 64 columns of X (a K-slab of W, read
+    // transposed), 16 k16 steps over D_l's 256 columns
+    static_for<4>([&](auto jc) {
+      constexpr int J = decltype(jc)::value;
+      const uint32_t s = it % DX_STAGES;
+      mbar_wait(full + 8 * s, (it / DX_STAGES) & 1);
+      const uint32_t b = base + DX_RING + s * T_WSLAB;
+      acc_fence(acc[J]);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 16; ++t)
+        wgmma_n64_ss<0, 1>(acc[J], desc_k<128>(dsa + (t >> 2) * T_SLAB + (t & 3) * 32),
+                           desc_mn<128>(b + t * 2048, T_SLAB, 1024), t > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      acc_fence(acc[J]);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+      ++it;
+    });
+    if (!FIRST) {  // the next tile's D_l loads while this one's epilogue runs
+      bar_sync(bar_id, 128);  // no wgmma still reads the A slabs
+      if (tid == 0 && tile + (int)gridDim.x < ntiles) load_d(tile + gridDim.x);
+    }
+    mbar_wait(xbar, phase);
+    // bf16(dX) where X_l > 0, over X_l in place, then out
+#pragma unroll
+    for (int J = 0; J < 4; ++J)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp * 16 + (lane >> 2) + 8 * h, c = 64 * J + 8 * jj + 2 * (lane & 3);
+          uint32_t* p = reinterpret_cast<uint32_t*>(xsm + t_swz(r, c));
+          const __nv_bfloat162 v = __floats2bfloat162_rn(acc[J][4 * jj + 2 * h], acc[J][4 * jj + 2 * h + 1]);
+          *p = relu_mask2(*reinterpret_cast<const uint32_t*>(&v), *p);
+        }
+    fence_proxy_async();
+    bar_sync(bar_id, 128);
+    if (tid == 0) bulk_s2g(a.d_out + blk * T_BLOCK, xsa, T_BLOCK);
+  }
+  if (tid == 0) bulk_wait();
+}
+
+// one column tile of a layer's dW: X's image (a block every `stride` bytes),
+// the tile's first slab in a block (bytes), its columns (64 or 128) and the
+// first of them among the layer's packed input columns
+struct TTile {
+  const unsigned char* src;
+  long long stride;
+  int off, cols, col0;
+};
+constexpr int MAX_TTILES = 3;
+
+struct DWArgs {
+  const unsigned char* d_img;  // D_l's image
+  TTile tile[MAX_TTILES];
+  float* shares;
+  int ntiles, scenes, blocks, splits;  // blocks: 64-row blocks per scene
+};
+
+// CTA c's share: rows 128 mt.. of dW, column tile nt, split `split` of the scene's blocks
+struct DWCta {
+  int mt, nt, split, scene;
+};
+__host__ __device__ inline DWCta dw_cta(int c, int ntiles, int splits) {
+  DWCta r;
+  r.mt = c & 1;
+  c >>= 1;
+  r.nt = c % ntiles;
+  c /= ntiles;
+  r.split = c % splits;
+  r.scene = c / splits;
+  return r;
+}
+__host__ __device__ inline int dw_cta_index(int mt, int nt, int split, int scene, int ntiles, int splits) {
+  return ((scene * splits + split) * ntiles + nt) * 2 + mt;
+}
+
+template <int NT>
+__device__ __forceinline__ void dw_share(const DWArgs& a, const DWCta& q, int nblk, uint32_t base, int tid) {
+  constexpr int R = NT / 2;
+  const uint32_t full = base + DW_BARS, empty = full + 8 * DW_STAGES;
+  const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const bool bias = q.nt == 0;
+  float acc[R], tot[R], acc8[4], tot8[4];
+  zero(tot);
+  zero(tot8);
+  zero(acc8);
+  int pend = 0;  // the first block whose stage is not released yet
+  auto release_to = [&](int end) {
+    for (; pend < end; ++pend)
+      if (lane == 0) mbar_arrive(empty + 8 * (pend % DW_STAGES));
+  };
+  for (int i = 0; i < nblk; ++i) {
+    const uint32_t s = i % DW_STAGES, st = base + s * DW_STAGE;
+    const int fresh = i % DW_CHAIN == 0;  // a chain's first block starts its accumulator
+    mbar_wait(full + 8 * s, (i / DW_STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const uint64_t da = desc_mn<128>(st + w * T_SLAB + t * 2048, T_SLAB, 1024);
+      const uint64_t db = desc_mn<128>(st + DW_X + t * 2048, T_SLAB, 1024);
+      if constexpr (NT == 128) wgmma_n128_ss<1, 1>(acc, da, db, t > 0 || !fresh);
+      else wgmma_n64_ss<1, 1>(acc, da, db, t > 0 || !fresh);
+      if (bias) wgmma_n8_ss<1, 1>(acc8, da, desc_mn<128>(base + DW_ONES, T_SLAB, 1024), t > 0 || !fresh);
+    }
+    wgmma_commit();
+    if (i % DW_CHAIN == DW_CHAIN - 1 || i == nblk - 1) {  // the chain's end: into the total
+      wgmma_wait0();
+      acc_fence(acc);
+      acc_fence(acc8);
+      release_to(i + 1);
+      add_into(tot, acc);
+      if (bias) add_into(tot8, acc8);
+    } else if (i > pend) {  // the block before this one has been read
+      wgmma_wait1();
+      release_to(i);
+    }
+  }
+  float* share = a.shares + (size_t)dw_cta_index(q.mt, q.nt, q.split, q.scene, a.ntiles, a.splits) * DW_SHARE;
+  const int r = 64 * w + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int jj = 0; jj < R / 4; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) share[(r + 8 * (e >> 1)) * 128 + 8 * jj + 2 * (lane & 3) + (e & 1)] = tot[4 * jj + e];
+  if (bias && (lane & 3) == 0) {  // every column of D^T 1 is the sum
+    share[128 * 128 + r] = tot8[0];
+    share[128 * 128 + r + 8] = tot8[2];
+  }
+}
+
+template <bool SCENES>
+__global__ void __launch_bounds__(THREADS, 1) trunk_bwd_dw_kernel(const DWArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + DW_BARS, empty = full + 8 * DW_STAGES;
+  const DWCta q = dw_cta(blockIdx.x, a.ntiles, a.splits);
+  const int b0 = (int)((long long)q.split * a.blocks / a.splits);
+  const int b1 = (int)((long long)(q.split + 1) * a.blocks / a.splits);
+  const TTile tl = a.tile[q.nt];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // 16 rows of bf16 ones (0x3F80), the bias's B operand
+  for (int i = threadIdx.x; i < 16 * 128 / 4; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(smem + DW_ONES)[i] = 0x3F803F80u;
+  fence_proxy_async();
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 128 * CONSUMERS) {
+      const size_t first = (size_t)q.scene * a.blocks;
+      const uint32_t xbytes = tl.cols * 128;
+      for (int b = b0; b < b1; ++b) {
+        const int i = b - b0;
+        const uint32_t s = i % DW_STAGES, st = base + s * DW_STAGE;
+        mbar_wait(empty + 8 * s, ((i / DW_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * T_SLAB + xbytes);
+        bulk_g2s(st, a.d_img + (first + b) * T_BLOCK + q.mt * 2 * T_SLAB, 2 * T_SLAB, full + 8 * s);
+        bulk_g2s(st + DW_X, tl.src + (first + b) * tl.stride + tl.off, xbytes, full + 8 * s);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  if (tl.cols == 128) dw_share<128>(a, q, b1 - b0, base, threadIdx.x);
+  else dw_share<64>(a, q, b1 - b0, base, threadIdx.x);
+}
+
+struct RArgs {
+  const float* shares;
+  float *w, *b;  // (scenes, 256, kreal) and (scenes, 256)
+  int layer, kreal, ntiles, splits, scenes;
+  int col0[MAX_TTILES];
+};
+
+// A thread per gradient entry: its shares summed in split order, rounded to
+// bf16 (as autograd's bf16 product or sum), written as f32.
+__global__ void __launch_bounds__(256) trunk_bwd_reduce_kernel(const RArgs a) {
+  const long long per_scene = (long long)WIDTH * (a.kreal + 1);
+  const long long gi = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (gi >= a.scenes * per_scene) return;
+  const int scene = (int)(gi / per_scene), e = (int)(gi % per_scene);
+  const bool is_w = e < WIDTH * a.kreal;
+  const int o = is_w ? e / a.kreal : e - WIDTH * a.kreal;
+  int nt = 0, n = 0;
+  if (is_w) {
+    const int ir = e % a.kreal;
+    const int ip = (a.layer == 0 || a.layer == 5) && ir >= 63 ? ir + 1 : ir;  // past the pad column
+#pragma unroll
+    for (int t = 1; t < MAX_TTILES; ++t)
+      if (t < a.ntiles && ip >= a.col0[t]) nt = t;
+    n = ip - a.col0[nt];
+  }
+  const size_t at = is_w ? (size_t)(o & 127) * 128 + n : (size_t)128 * 128 + (o & 127);
+  double sum = 0.0;
+  for (int sp = 0; sp < a.splits; ++sp)
+    sum += a.shares[(size_t)dw_cta_index(o >> 7, nt, sp, scene, a.ntiles, a.splits) * DW_SHARE + at];
+  const float v = __bfloat162float(__float2bfloat16_rn((float)sum));
+  if (is_w) a.w[(size_t)scene * WIDTH * a.kreal + e] = v;
+  else a.b[(size_t)scene * WIDTH + o] = v;
+}
+
+// the layer's column tiles of dW over X_l
+int trunk_tiles(int l, const unsigned char* xe_img, const unsigned char* h_l, TTile (&t)[MAX_TTILES]) {
+  const TTile xe{xe_img, T_SLAB, 0, 64, 0};
+  if (l == 0) {
+    t[0] = xe;
+    return 1;
+  }
+  const int c0 = l == 5 ? 64 : 0;
+  int n = 0;
+  if (l == 5) t[n++] = xe;
+  t[n++] = TTile{h_l, T_BLOCK, 0, 128, c0};
+  t[n++] = TTile{h_l, T_BLOCK, 2 * T_SLAB, 128, c0 + 128};
+  return n;
+}
+
+int dw_splits(int scenes, int ntiles, int sms) {
+  const int per = scenes * ntiles * 2;
+  return sms > per ? sms / per : 1;
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -1262,4 +1701,75 @@ extern "C" int vipnerf_heads_bwd_weights(const void* h, const void* g, const voi
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   heads_bwd_reduce_kernel<<<(unsigned)((share_entries(a) + 255) / 256), 256, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Floats of the trunk backward's dW shares for `scenes` scenes on this card:
+// the most CTAs any layer's dW launch takes, a share each.
+extern "C" long long vipnerf_trunk_bwd_share_floats(int scenes) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  long long most = 0;
+  for (int nt = 1; nt <= MAX_TTILES; ++nt) {
+    const long long ctas = (long long)scenes * nt * 2 * dw_splits(scenes, nt, sms);
+    most = ctas > most ? ctas : most;
+  }
+  return most * DW_SHARE;
+}
+
+// The trunk's gradient, layers 7 -> 0 (trunk_bwd_*), on the stream: w and
+// bias the bf16_f32h packs; xe_img, himg and h8 from vipnerf_trunk_recompute;
+// d_h (N, 256) bf16 from the heads' backward; dbuf0, dbuf1 two images of
+// scenes * 2 * ceil(n_per_scene / 128) blocks of 32 KB (D_l for odd l, for
+// even l); shares sized by vipnerf_trunk_bwd_share_floats; grads the 16 f32
+// outputs in the module's order (w0 (scenes, 256, 63), b0 (scenes, 256), ...,
+// w5 (scenes, 256, 319), ...). Per layer a dX launch (but layer 0), a dW
+// launch and a reduce launch.
+extern "C" int vipnerf_trunk_backward(const void* w, const void* xe_img, const void* himg, const void* h8,
+                                      const void* d_h, void* dbuf0, void* dbuf1, void* shares, void** grads,
+                                      int scenes, int n_per_scene, void* stream) {
+  if (!shape_ok(scenes, n_per_scene, 0)) return (int)cudaErrorInvalidValue;
+  const void* dx_kernels[4] = {(const void*)trunk_bwd_dx_kernel<false, false>, (const void*)trunk_bwd_dx_kernel<false, true>,
+                               (const void*)trunk_bwd_dx_kernel<true, false>, (const void*)trunk_bwd_dx_kernel<true, true>};
+  cudaError_t e;
+  for (const void* k : dx_kernels)
+    if ((e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DX)) != cudaSuccess) return (int)e;
+  auto dw = scenes > 1 ? trunk_bwd_dw_kernel<true> : trunk_bwd_dw_kernel<false>;
+  if ((e = cudaFuncSetAttribute(dw, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DW)) != cudaSuccess) return (int)e;
+  if (n_per_scene == 0) return 0;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)e;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int tps = cdiv(n_per_scene, TILE), ntiles = scenes * tps;
+  const size_t img = (size_t)2 * ntiles * T_BLOCK;
+  const unsigned char* h = (const unsigned char*)himg;
+  unsigned char* buf[2] = {(unsigned char*)dbuf1, (unsigned char*)dbuf0};  // D_l in buf[l % 2]
+  for (int l = 7; l >= 0; --l) {
+    const unsigned char* h_l = l > 0 ? h + (size_t)(l - 1) * img : nullptr;  // X_l's h columns
+    if (l > 0) {
+      const TArgs ta{(const unsigned char*)w, l == 7 ? (const unsigned char*)d_h : buf[l % 2], (const __nv_bfloat16*)h8,
+                     h_l, buf[(l - 1) % 2], buf[l % 2], l, scenes, n_per_scene};
+      const void* k = dx_kernels[2 * (scenes > 1) + (l == 7)];
+      void* args[1] = {(void*)&ta};
+      if ((e = cudaLaunchKernel(k, dim3(ntiles < sms ? ntiles : sms), dim3(THREADS), args, SMEM_DX, st)) != cudaSuccess)
+        return (int)e;
+    }
+    DWArgs da{};
+    da.d_img = buf[l % 2];
+    da.ntiles = trunk_tiles(l, (const unsigned char*)xe_img, h_l, da.tile);
+    da.shares = (float*)shares, da.scenes = scenes, da.blocks = 2 * tps;
+    da.splits = dw_splits(scenes, da.ntiles, sms);
+    dw<<<scenes * da.splits * da.ntiles * 2, THREADS, SMEM_DW, st>>>(da);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    RArgs ra{};
+    ra.shares = (const float*)shares, ra.w = (float*)grads[2 * l], ra.b = (float*)grads[2 * l + 1];
+    ra.layer = l, ra.kreal = l == 0 ? 63 : (l == 5 ? 319 : WIDTH), ra.ntiles = da.ntiles, ra.splits = da.splits;
+    ra.scenes = scenes;
+    for (int t = 0; t < da.ntiles; ++t) ra.col0[t] = da.tile[t].col0;
+    const long long entries = (long long)scenes * WIDTH * (ra.kreal + 1);
+    trunk_bwd_reduce_kernel<<<(unsigned)((entries + 255) / 256), 256, 0, st>>>(ra);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
 }

@@ -60,11 +60,15 @@ module's own parameters as inputs; its backward recomputes the raw output
 with `raw_recompute`, a differentiable torch function with K1's numerics
 (as `_raw_xla` is in JAX), and returns autograd's gradients of it: matrix
 products outside any kernel, as in the JAX package. In the shipped mode
-(bf16_f32h) only the bf16 trunk goes that way: the f32 heads' gradient
-(layers 8-11, d h, d PE(dir)) is `heads_backward`, two hand-written kernels
-in `csrc/fused_mlp_bwd.cu` on the bf16 tensor cores (`wgmma` fed by bulk
-copies) from the same split products as the forward's heads
-(`heads_backward_reference` on CPU tensors). Two yardsticks stay on no path:
+(bf16_f32h) the f32 heads' gradient (layers 8-11, d h, d PE(dir)) is
+`heads_backward`, two hand-written kernels in `csrc/fused_mlp_bwd.cu` on the
+bf16 tensor cores (`wgmma` fed by bulk copies) from the same split products
+as the forward's heads (`heads_backward_reference` on CPU tensors); on the
+card the trunk's is hand kernels too: `trunk_activations` recomputes it with
+K1's own trunk code, keeping every layer's h, and `trunk_backward` takes
+its gradient layer by layer (`trunk_backward_reference` is their plain
+version; CPU tensors take autograd through `trunk_recompute`, which it
+equals). Two yardsticks stay on no path:
 `heads_backward_recompute`, autograd through the f32 heads of
 `raw_recompute` on cuBLAS, and `heads_backward_mma_sync`, the first design
 of the two kernels (`csrc/fused_mlp_bwd_mma_sync.cu`).
@@ -1292,24 +1296,212 @@ class FusedRaw(torch.autograd.Function):
 
 
 def _f32h_backward(weights: FusedWeights, n_sec: int, saved, needs, g):
-    """FusedRaw's backward in the shipped mode: the trunk recomputed with
-    autograd up to h, the heads' gradients and d h from `heads_backward`,
-    then one `torch.autograd.grad` of h for the trunk's parameters and xe.
-    Returns the gradients of (xe, ve, ve2, *params)."""
+    """FusedRaw's backward in the shipped mode. CUDA tensors: the trunk's
+    recompute (`trunk_activations`), the heads' gradients and d h from
+    `heads_backward`, then the trunk's gradients (`trunk_backward`), both
+    trunk parts inside a `TRUNK_SPAN` span timed on the device; xe takes no
+    gradient there (the encode kernel has none either), so a tracked xe
+    raises. CPU tensors (the plain version): the trunk recomputed with
+    autograd up to h, the heads as on the card, then one
+    `torch.autograd.grad` of h for the trunk's parameters and xe. Returns
+    the gradients of (xe, ve, ve2, *params)."""
     xe, ve, ve2, *params = saved
     head = 2 * FEATURE
-    trunk = [t.detach().requires_grad_(need) for t, need in zip([xe] + params[:head], (needs[0],) + needs[3:3 + head])]
-    with torch.enable_grad():
-        h = trunk_recompute(trunk[1:], trunk[0])
-    d_h, head_grads, d_ve, d_ve2 = heads_backward(weights, [p.detach() for p in params[head:]],
-                                                  h.detach().reshape(-1, WIDTH).contiguous(), ve, ve2,
-                                                  g.float(), n_sec, needs[1], needs[2] and n_sec > 0)
-    wanted = [t for t in trunk if t.requires_grad]
-    grads = iter(torch.autograd.grad(h, wanted, d_h.reshape(h.shape), allow_unused=True) if wanted else ())
-    trunk_grads = [next(grads) if t.requires_grad else None for t in trunk]
+    head_params = [p.detach() for p in params[head:]]
+    need_ve, need_ve2 = needs[1], needs[2] and n_sec > 0
+    if xe.device.type == "cuda":
+        if needs[0]:
+            raise ValueError("on the card the shipped mode's backward gives xe no gradient: "
+                             "xe must not require grad")
+        with tracing.span(TRUNK_SPAN, xe.device, part="recompute"):
+            act = trunk_activations(weights, xe)
+        d_h, head_grads, d_ve, d_ve2 = heads_backward(weights, head_params, act.h8, ve, ve2, g.float(), n_sec,
+                                                      need_ve, need_ve2)
+        with tracing.span(TRUNK_SPAN, xe.device, part="layers"):
+            trunk_grads = [None] + trunk_backward(weights, act, d_h, params[0].dim() == 3)
+    else:
+        trunk = [t.detach().requires_grad_(need)
+                 for t, need in zip([xe] + params[:head], (needs[0],) + needs[3:3 + head])]
+        with torch.enable_grad():
+            h = trunk_recompute(trunk[1:], trunk[0])
+        d_h, head_grads, d_ve, d_ve2 = heads_backward(weights, head_params, h.detach().reshape(-1, WIDTH).contiguous(),
+                                                      ve, ve2, g.float(), n_sec, need_ve, need_ve2)
+        wanted = [t for t in trunk if t.requires_grad]
+        grads = iter(torch.autograd.grad(h, wanted, d_h.reshape(h.shape), allow_unused=True) if wanted else ())
+        trunk_grads = [next(grads) if t.requires_grad else None for t in trunk]
+    trunk_grads = [gr if need else None for gr, need in zip(trunk_grads, needs[:1] + needs[3:3 + head])]
     head_grads = [gr if need else None for gr, need in zip(head_grads, needs[3 + head:])]
     return (trunk_grads[0], d_ve if needs[1] else None, d_ve2 if needs[2] else None,
             *trunk_grads[1:], *head_grads)
+
+
+# The shipped mode's trunk backward on the card: the recompute kernel
+# (csrc/fused_mlp.cu `trunk_recompute_kernel`, behind `trunk_activations`)
+# and the layers' gradient kernels (csrc/fused_mlp_bwd.cu `trunk_bwd_*`,
+# behind `trunk_backward`), each wrapper call counted as
+# `k1.launches.<name>`; `TRUNK_SPAN` spans (`part` "recompute", "layers")
+# time both on the device.
+TRUNK_KERNELS = ("trunk_recompute", "trunk_backward")
+TRUNK_SPAN = "k1.trunk_backward"
+TRUNK_IMAGES = FEATURE - 1  # h1..h7 kept as images; h8 row-major
+
+
+# multiply-adds per point of the trunk's backward, padded widths: the
+# recompute (layers 0-7), the weight gradients (as many), the input
+# gradients of layers 7..1 (h's 256 columns at layer 5; xe takes none)
+TRUNK_BWD_MACS = 2 * TRUNK_NUMEL + 7 * WIDTH * WIDTH
+
+
+def trunk_bwd_bytes(n: int, passes: int = 1) -> int:
+    """Bytes the trunk's backward must move for n points if each layer's
+    products read their (d, X) once (`passes` 1, the fused bound) or once
+    per product (2, this design): the recompute reads xe and writes h1..h8,
+    the backward reads d h and h8, then per layer reads d and X (xe's 64
+    columns at layer 0, [xe, h5] at layer 5) and writes d of the layer
+    below (but layer 0)."""
+    d, x = 2 * WIDTH, [2 * k for k in (PTS_IN, WIDTH, WIDTH, WIDTH, WIDTH, PTS_IN + WIDTH, WIDTH, WIDTH)]
+    per_layer = passes * (FEATURE * d + sum(x)) + (FEATURE - 1) * d
+    return n * (2 * PTS_IN + FEATURE * d + 2 * d + per_layer)
+
+
+class TrunkActivations(NamedTuple):
+    """What the trunk's recompute keeps for its backward, for n points of
+    `scenes` scenes: xe's and h1..h7's slab images (per 64 rows, the
+    64-column slabs with the 128-byte swizzle that K1 holds in shared
+    memory; 64-row blocks of each scene's 128-row tiles, as `h_scratch`),
+    and h8, the trunk's output, (n, 256) row-major: the h the heads take."""
+
+    xe_img: torch.Tensor  # (rows, 64) bf16, rows = h_scratch_bytes(n, scenes) / 512
+    h_img: torch.Tensor  # (TRUNK_IMAGES, rows, 256) bf16
+    h8: torch.Tensor  # (n, 256) bf16
+
+
+def trunk_image(t: torch.Tensor, scenes: int = 1) -> torch.Tensor:
+    """(n, c) rows of `scenes` scenes -> their slab image as `TrunkActivations`
+    holds it (rows past a scene's end zero): the layout's definition in
+    plain torch, for the tests."""
+    n, c = t.shape
+    nps = n // scenes
+    per = -(-nps // TILE_ROWS) * TILE_ROWS
+    padded = F.pad(t.reshape(scenes, nps, c), (0, 0, 0, per - nps)).reshape(-1, 64, c // SLAB_K, SLAB_K)
+    r = torch.arange(64, device=t.device)[:, None]
+    q = torch.arange(SLAB_K // 8, device=t.device)[None, :]
+    blocks = padded.permute(0, 2, 1, 3).reshape(-1, c // SLAB_K, 64, SLAB_K // 8, 8)
+    out = torch.empty_like(blocks)
+    out[:, :, r, q ^ (r & 7)] = blocks
+    return out.reshape(-1, c)
+
+
+def _check_trunk(weights: FusedWeights, xe: torch.Tensor) -> None:
+    if weights.mode != (torch.bfloat16, torch.float32):
+        raise TypeError(f"the trunk's backward kernels take bf16_f32h weights, not {INSTANCE[weights.mode]}'s")
+    if xe.dim() != 2 or xe.shape[1] != PTS_IN or xe.dtype != torch.bfloat16 or not xe.is_contiguous():
+        raise ValueError(f"xe must be a contiguous (N, {PTS_IN}) bf16 tensor, not {tuple(xe.shape)} {xe.dtype}")
+    if xe.device.type != "cuda":
+        raise ValueError(f"the trunk's backward kernels run on cuda tensors only, not {xe.device}")
+    if xe.shape[0] % weights.scenes:
+        raise ValueError(f"{xe.shape[0]} rows do not split into {weights.scenes} scenes")
+    if weights.w_flat.device != xe.device:
+        raise ValueError(f"weights on {weights.w_flat.device}, xe on {xe.device}")
+
+
+def trunk_activations(weights: FusedWeights, xe: torch.Tensor) -> TrunkActivations:
+    """The trunk's recompute for its backward on the card: one launch of
+    `trunk_recompute_kernel` (K1's trunk, layer for layer: h8 is K1's
+    forward h bit for bit), counted as `k1.launches.trunk_recompute`."""
+    _check_trunk(weights, xe)
+    n, scenes, dev = xe.shape[0], weights.scenes, xe.device
+    rows = h_scratch_bytes(n, scenes) // (2 * WIDTH)
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    act = TrunkActivations(torch.empty((rows, PTS_IN), **bf16), torch.empty((TRUNK_IMAGES, rows, WIDTH), **bf16),
+                           torch.empty((n, WIDTH), **bf16))
+    if n:
+        fn = build.load("fused_mlp").vipnerf_trunk_recompute
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        with torch.cuda.device(dev):
+            rc = fn(xe.data_ptr(), weights.w_flat.data_ptr(), weights.b_flat.data_ptr(), act.xe_img.data_ptr(),
+                    act.h_img.data_ptr(), act.h8.data_ptr(), scenes, n // scenes, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the trunk's recompute launch failed: cudaError {rc}")
+        tracing.count("k1.launches.trunk_recompute")
+    return act
+
+
+def trunk_grad_shapes(scenes: int) -> List[Tuple[int, ...]]:
+    """The trunk's 16 parameters' shapes, `module_params` order, with the
+    scene axis."""
+    ins = [63, WIDTH, WIDTH, WIDTH, WIDTH, 319, WIDTH, WIDTH]
+    return [shape for k in ins for shape in ((scenes, WIDTH, k), (scenes, WIDTH))]
+
+
+def trunk_backward(weights: FusedWeights, act: TrunkActivations, d_h: torch.Tensor, stacked: bool = False
+                   ) -> List[torch.Tensor]:
+    """The trunk's gradients on the card from d h (n, 256) bf16 and the
+    recompute's activations: one call of the layers' kernels (dX, dW and
+    its reduce per layer, csrc/fused_mlp_bwd.cu), counted as
+    `k1.launches.trunk_backward`. Returns the 16 parameters' f32 gradients
+    (`module_params` order, the module's shapes; with the scene axis if
+    `stacked`), `trunk_backward_reference`'s function."""
+    n, scenes, dev = act.h8.shape[0], weights.scenes, act.h8.device
+    if tuple(d_h.shape) != (n, WIDTH) or d_h.dtype != torch.bfloat16 or not d_h.is_contiguous() or d_h.device != dev:
+        raise ValueError(f"d_h must be a contiguous ({n}, {WIDTH}) bf16 tensor on {dev}")
+    alloc = torch.empty if n else torch.zeros
+    grads = [alloc(shape, dtype=torch.float32, device=dev) for shape in trunk_grad_shapes(scenes)]
+    if n:
+        lib = build.load("fused_mlp_bwd")
+        fn, floats = lib.vipnerf_trunk_backward, lib.vipnerf_trunk_bwd_share_floats
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            floats.argtypes, floats.restype = [ctypes.c_int], ctypes.c_longlong
+        with torch.cuda.device(dev):
+            shares = torch.empty(floats(scenes), dtype=torch.float32, device=dev)
+            dbuf = [torch.empty_like(act.h_img[0]) for _ in range(2)]
+            ptrs = (ctypes.c_void_p * len(grads))(*(t.data_ptr() for t in grads))
+            rc = fn(weights.w_flat.data_ptr(), act.xe_img.data_ptr(), act.h_img.data_ptr(), act.h8.data_ptr(),
+                    d_h.data_ptr(), dbuf[0].data_ptr(), dbuf[1].data_ptr(), shares.data_ptr(), ptrs, scenes,
+                    n // scenes, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the trunk's backward launch failed: cudaError {rc}")
+        tracing.count("k1.launches.trunk_backward")
+    return grads if stacked else [t[0] for t in grads]
+
+
+def trunk_backward_reference(params, xe: torch.Tensor, d_h: torch.Tensor) -> List[torch.Tensor]:
+    """The trunk's backward written out layer by layer in the working dtype
+    (xe's), rounding where autograd through `trunk_recompute` rounds: the
+    forward keeps each layer's input and output; then per layer, 7 to 0, d
+    masked by the output's ReLU (d is zero where the output is not
+    positive), dW = d^T X (per scene for stacked parameters), db = the
+    column sums of d, and d X = d W, of which layer 5 passes on h's
+    columns. Returns the 16 parameters' gradients (`module_params` order),
+    f32 at the module's shapes: w0's and w5's pad column dropped."""
+    w, b = _recompute_layers(params, xe.dtype)
+    stacked = w[0].dim() == 3
+    x = xe.reshape(w[0].shape[0], -1, PTS_IN) if stacked else xe
+    ins, outs, h = [], [], x
+    with torch.no_grad():
+        for i in range(FEATURE):
+            ins.append(torch.cat([x, h], dim=-1) if i == 5 else h)
+            h = _dense(ins[-1], w[i].detach(), b[i].detach(), True)
+            outs.append(h)
+        d = d_h.reshape(h.shape).to(xe.dtype)
+        grads: List[torch.Tensor] = [None] * (2 * FEATURE)
+        for i in reversed(range(FEATURE)):
+            d = torch.where(outs[i] > 0, d, torch.zeros_like(d))
+            if stacked:
+                gw, gb = torch.stack([d[s].t().mm(ins[i][s]) for s in range(d.shape[0])]), d.sum(-2)
+            else:
+                gw, gb = d.t().mm(ins[i]), d.sum(0)
+            if i in (0, 5):
+                gw = torch.cat([gw[..., :63], gw[..., 64:]], dim=-1)
+            grads[2 * i], grads[2 * i + 1] = gw.float(), gb.float()
+            if i:
+                d = torch.bmm(d, w[i].detach()) if stacked else d.mm(w[i].detach())
+                d = d[..., PTS_IN:] if i == 5 else d
+    return grads
 
 
 def apply_fused_mlp(
