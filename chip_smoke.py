@@ -17,10 +17,11 @@ Phases, each of which fails the run loudly:
    library yardstick's times at those shapes, and at the training step's
    two launch shapes (4096 rays x 64 and x 192 samples, n_sec 2), each with
    its bound (the trunk's and the heads' operations and the bytes apart) and
-   the L2 bytes its design reads per launch; bf16_f32h (heads on tensor
-   cores from split bf16 products) also against its FFMA yardstick (the
-   former heads on CUDA cores, on no path) at every one of those shapes,
-   timed beside it; each instance's weight pack per training step; the
+   the L2 bytes its design reads per launch; bf16_f32h's heads (on tensor
+   cores from split bf16 products) also against plain f32 heads on K1's own
+   h (`k1.heads_recompute` on `k1.trunk_activations`' h8, TF32 off) at
+   every one of those shapes; each instance's weight pack per training
+   step; the
    encode kernel that writes K1's inputs (csrc/fused_mlp.cu
    k1_encode_kernel) in the shipped mode at a serving tile's fine level
    (8192 rays x 192 samples, n_sec 0) and a training step's (4096 x 192,
@@ -31,14 +32,13 @@ Phases, each of which fails the run loudly:
    heads' gradient on the bf16 tensor cores, wgmma fed by bulk copies):
    the two kernels bit for bit the plain version on exact-sum inputs (and
    the forward heads on one), each against its plain version in f64 and
-   both end to end against f64, the yardstick (autograd through
-   raw_recompute's f32 heads) and the first design's kernels
-   (csrc/fused_mlp_bwd_mma_sync.cu, on no path) at the training step's two
-   launch shapes for n_sec 0..3, at S = 2 and at ragged sizes, on inputs
-   without ReLU ties; two launches bit for bit the same; timed at the
-   training shapes at S = 1, 2, 4 in turns with the first design's kernels,
-   beside their plain versions, their library routes (f32 torch.matmul per
-   product) and the yardstick, with the L2 bytes each design moves; then
+   both end to end against f64 and the yardstick (autograd through
+   raw_recompute's f32 heads) at the training step's two launch shapes for
+   n_sec 0..3, at S = 2 and at ragged sizes, on inputs without ReLU ties;
+   two launches bit for bit the same; timed at the training shapes at S =
+   1, 2, 4, beside their plain versions, their library routes (f32
+   torch.matmul per product) and the yardstick, with their L2 bytes by
+   design; then
    the trunk's backward (`k1.trunk_activations`, `k1.trunk_backward`: the
    recompute kernel of csrc/fused_mlp.cu and the dX, dW and reduce kernels
    of csrc/fused_mlp_bwd.cu) against its plain version at the training
@@ -97,7 +97,7 @@ Phases, each of which fails the run loudly:
    1008x756 (3 train views each) in one database; the scene-batched K1
    (every instance, 2 and 4 scenes with their own weights, at the
    training step's launch shapes) against its plain version and bit for bit against
-   single-scene launches (bf16_f32h also against its FFMA yardstick),
+   single-scene launches (bf16_f32h's heads also against plain f32 heads),
    timed beside them, the plain version and a
    `torch.baddbmm` chain; the NeRF_LLFF app with `batch_scenes: true` at
    the flagship width with bf16 heads for 100 steps (checkpoint at 50,
@@ -149,9 +149,8 @@ Phases, each of which fails the run loudly:
    in one process, the scenes in both orders; the seconds of two ranks sharing one card (not a
    scaling figure);
 10. a JSON line of each of phases 3-9, of K1's backward, and of the
-   kernels (K1's instances, its two backward kernels and the encode; the FFMA yardstick
-   and the backward's first design apart, under "yardsticks", each with
-   its launches on the main path: 0), and the device line last.
+   kernels (K1's instances, its two backward kernels and the encode), and
+   the device line last.
 
 It needs CUDA and the repository around it, and exits non-zero without a
 result otherwise. Nothing of JAX is imported.
@@ -196,16 +195,17 @@ K1_MODES = {"fused_mlp_bf16": (torch.bfloat16, False), "fused_mlp_f32": (torch.f
 TOL_REL_MAX = {"fused_mlp_bf16": 2.0 ** -5, "fused_mlp_f32": 1e-5,
                "fused_mlp_bf16_f32h": 2.0 ** -8}  # max|err| / max|plain|
 TOL_REL_RMS = {"fused_mlp_bf16": 2e-3, "fused_mlp_f32": 1e-6, "fused_mlp_bf16_f32h": 2e-4}  # ||err|| / ||plain||
-# bf16_f32h against its FFMA yardstick (`fused_mlp_raw_ffma`) on the same
-# inputs: both run the same trunk code, so h is the same and the difference
-# is the heads' arithmetic alone, split bf16 products on tensor cores against
-# FFMA, both f32-accurate (measured 1.9e-6 and 1.3e-6 on an H100 80GB HBM3 at
-# 700 W: the tensor cores round each k16 step's sum toward zero, which
-# tests/test_torch_fused_mlp.py's emulation reproduces); a single TF32 or bf16
-# pass over an f32 operand misses these by more than 10x, a split missing one
-# operand's third part does not (the same file emulates both)
-TOL_HEADS_MAX = 3e-5  # max|new - ffma| / max|ffma|
-TOL_HEADS_RMS = 3e-6  # ||new - ffma|| / ||ffma||
+# bf16_f32h against plain f32 heads (`k1.heads_recompute`, TF32 off) on
+# K1's own h (`k1.trunk_activations`' h8, bit for bit the forward's): the
+# difference is the heads' arithmetic alone, split bf16 products on tensor
+# cores against f32 products, both f32-accurate (measured at most 1.9e-6 and
+# 1.4e-6 on an H100 80GB HBM3 at 700 W: the tensor cores round each k16
+# step's sum toward zero, which tests/test_torch_fused_mlp.py's emulation
+# reproduces); a single TF32 or bf16 pass over an f32 operand misses these by
+# more than 10x, a split missing one operand's third part does not (the same
+# file emulates both)
+TOL_HEADS_MAX = 3e-5  # max|new - plain| / max|plain|
+TOL_HEADS_RMS = 3e-6  # ||new - plain|| / ||plain||
 # The shipped mode's heads backward (kernels/fused_mlp.py heads_backward)
 # on inputs whose ReLU ties are taken out (`untie_relu`); errors are
 # max|err| / max|ref| and ||err|| / ||ref|| per tensor, and the share of d
@@ -246,7 +246,7 @@ TOL_BWD_POINTS_MAX = 6e-7
 TOL_BWD_WEIGHTS_MAX = 4e-7
 TOL_BWD_WEIGHTS_RMS = 1.5e-7
 # End to end against the yardstick (autograd through raw_recompute's f32
-# heads, cuBLAS FFMA): one-pass TF32 reads >1000x over (emulated). First
+# heads, cuBLAS in f32): one-pass TF32 reads >1000x over (emulated). First
 # set at 1e-5 and 5e-6; on an H100 80GB HBM3 at 700 W the yardstick then
 # read up to 4.83e-6 (max) and 4.58e-6 (RMS) from the kernels at 786,432
 # points, where the kernels read 2.1e-7 and 1.3e-7 from f64 (the
@@ -415,9 +415,6 @@ def k1_inputs(k1, n, n_sec, name, g, dev):
     return k1.encode_inputs(pts, vd, vd2, dtype, f32_heads=f32_heads)
 
 
-FFMA = "fused_mlp_bf16_f32h_ffma"  # bf16_f32h with FFMA heads: the tensor-core heads' yardstick, on no path
-
-
 def rel_errors(out, ref):
     """max|out - ref| / max|ref| and ||out - ref|| / ||ref||, in f32."""
     out, ref = out.float(), ref.float()
@@ -425,24 +422,37 @@ def rel_errors(out, ref):
         ((out - ref).norm() / ref.norm().clamp_min(1e-30)).item()
 
 
-def check_against_ffma(k1, weights, heads32, out, xe, ve, ve2, ns, label):
-    """bf16_f32h's output against its FFMA yardstick on the same inputs
-    (`TOL_HEADS_*`), and the yardstick against the plain version (the
-    instance's `TOL_REL_*`). Returns the yardstick's max|err| from the plain
-    version."""
-    ffma = k1.fused_mlp_raw_ffma(weights, heads32, xe, ve, ve2, ns)
-    tracing.count("chip_smoke.ffma_compared")  # a comparison's launch, not a path's
-    torch.cuda.synchronize()
+# (label, max, rms) of each check of bf16_f32h's heads against plain f32
+# heads (`check_heads_against_plain`), in turn
+HEADS_CHECKED: list = []
+
+
+def plain_heads(k1, mlp, weights, xe, ve, ve2, ns):
+    """bf16_f32h's raw output from plain f32 heads (`k1.heads_recompute` on
+    `mlp`'s f32 head parameters, TF32 off) on K1's own h
+    (`k1.trunk_activations`' h8, bit for bit the forward's)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the plain heads run with TF32 off")
+    with torch.no_grad():
+        heads = [p.detach() for p in k1.module_params(mlp)[2 * k1.FEATURE:]]
+        return k1.heads_recompute(heads, k1.trunk_activations(weights, xe).h8, ve, ve2, ns)
+
+
+def check_heads_against_plain(k1, mlp, weights, out, xe, ve, ve2, ns, label):
+    """bf16_f32h's output against plain f32 heads on the same h
+    (`plain_heads`, `TOL_HEADS_*`), and those against the plain version
+    (the instance's `TOL_REL_*`); the errors go to `HEADS_CHECKED`."""
+    plain = plain_heads(k1, mlp, weights, xe, ve, ve2, ns)
     ref = k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns).float()
-    h_max, h_rms = rel_errors(out, ffma)
-    f_max, f_rms = rel_errors(ffma, ref)
-    log(f"K1 fused_mlp_bf16_f32h against its FFMA heads, {label}: max|new - ffma|/max|ffma| {h_max:.3g} "
-        f"(tol {TOL_HEADS_MAX:.3g}), rms rel {h_rms:.3g} (tol {TOL_HEADS_RMS:.3g}); the FFMA route against the "
-        f"plain version {f_max:.3g}, rms rel {f_rms:.3g}")
-    if not (h_max <= TOL_HEADS_MAX and h_rms <= TOL_HEADS_RMS and bool(torch.isfinite(ffma).all())
-            and f_max <= TOL_REL_MAX["fused_mlp_bf16_f32h"] and f_rms <= TOL_REL_RMS["fused_mlp_bf16_f32h"]):
-        raise AssertionError(f"bf16_f32h's tensor-core heads disagree with its FFMA heads: {label}")
-    return (ffma.float() - ref).abs().max().item()
+    h_max, h_rms = rel_errors(out, plain)
+    p_max, p_rms = rel_errors(plain, ref)
+    log(f"K1 fused_mlp_bf16_f32h against plain f32 heads on its h, {label}: max|new - plain|/max|plain| "
+        f"{h_max:.3g} (tol {TOL_HEADS_MAX:.3g}), rms rel {h_rms:.3g} (tol {TOL_HEADS_RMS:.3g}); the plain heads "
+        f"against the plain version {p_max:.3g}, rms rel {p_rms:.3g}")
+    HEADS_CHECKED.append((label, h_max, h_rms))
+    if not (h_max <= TOL_HEADS_MAX and h_rms <= TOL_HEADS_RMS and bool(torch.isfinite(plain).all())
+            and p_max <= TOL_REL_MAX["fused_mlp_bf16_f32h"] and p_rms <= TOL_REL_RMS["fused_mlp_bf16_f32h"]):
+        raise AssertionError(f"bf16_f32h's tensor-core heads disagree with plain f32 heads: {label}")
 
 
 
@@ -588,19 +598,15 @@ def exact_heads_case(case: str, n: int, scenes: int = 1, n_sec: int = 2, seed: i
 def phase_k1(k1, mlp, dev):
     """K1 against its plain version on the card at every checked shape, timed
     at the serving path's two tile shapes and the training step's two launch
-    shapes, each instance; bf16_f32h also against its FFMA yardstick at every
-    shape, timed beside it. Returns the worst max|err| of each instance (and
-    of the yardstick, under `FFMA`) and the timings keyed by (instance or
-    `FFMA`, n_sec, n)."""
+    shapes, each instance; bf16_f32h's heads also against plain f32 heads at
+    every shape. Returns the worst max|err| of each instance and the timings
+    keyed by (instance, n_sec, n)."""
     g = torch.Generator(device=dev).manual_seed(1)
     worst = {}
     timings = {}
     for name, (dtype, f32_heads) in K1_MODES.items():
         weights = k1.prepare_weights(mlp, dtype, f32_heads)
-        heads32 = k1.ffma_heads(weights) if f32_heads else None
         worst[name] = 0.0
-        if f32_heads:
-            worst[FFMA] = 0.0
         for n_sec in range(4):
             timed = set(TILE_N.values()) if n_sec in (0, 2) else set()
             if n_sec == TRAIN_SEC:
@@ -623,32 +629,27 @@ def phase_k1(k1, mlp, dev):
                     raise AssertionError(f"K1 disagrees with its plain version: {name} n_sec={n_sec} N={n}")
                 worst[name] = max(worst[name], err)
                 if f32_heads:
-                    worst[FFMA] = max(worst[FFMA], check_against_ffma(
-                        k1, weights, heads32, out, xe, ve, ve2, ns, f"n_sec={n_sec} N={n}"))
+                    check_heads_against_plain(k1, mlp, weights, out, xe, ve, ve2, ns, f"n_sec={n_sec} N={n}")
                 if n not in timed:
                     continue
-                runs = {name: lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns)}
-                if f32_heads:
-                    runs[FFMA] = lambda: k1.fused_mlp_raw_ffma(weights, heads32, xe, ve, ve2, ns)
                 plain_ms = cuda_ms(lambda: k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns), reps=3)
                 lib_ms = cuda_ms(lambda: library_raw(weights.layers, xe, ve, ve2, ns), reps=5)
                 bound, bound_by = k1_bound_ms(k1, n, ns, name)
                 parts = k1_bound_parts(k1, n, ns, name)
-                for run_name, run in runs.items():
-                    ms = cuda_ms(run)
-                    l2 = k1.stream_bytes(run_name, n, ns)
-                    tflops = 2 * n * (k1.MACS_PER_POINT + ns * k1.MACS_PER_SEC_VIEW) / (ms * 1e-3) / 1e12
-                    extra = (f", 3xTF32 split-product bound {f32_split_bound_ms(k1, n, ns):.4f} ms"
-                             if name == "fused_mlp_f32" else "")
-                    log(f"K1 timing {run_name} n_sec={n_sec} N={n}: kernel_ms {ms:.4f} "
-                        f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (torch.nn.functional.linear "
-                        f"per layer, no single call) bound_ms {bound:.4f} ({bound_by}; trunk operations "
-                        f"{parts['trunk_ops']:.4f}, heads operations {parts['heads_ops']:.4f}, bytes "
-                        f"{parts['bytes']:.4f}) share of bound {bound / ms:.3f}, achieved {tflops:.1f} TFLOP/s "
-                        f"of the function's own products, L2 bytes per launch by design {l2 / 1e9:.3f} GB "
-                        f"({l2 / (ms * 1e-3) / 1e12:.2f} TB/s){extra}")
-                    timings[(run_name, n_sec, n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                                         bound_ms=bound, bound_by=bound_by, bound_parts_ms=parts)
+                ms = cuda_ms(lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns))
+                l2 = k1.stream_bytes(name, n, ns)
+                tflops = 2 * n * (k1.MACS_PER_POINT + ns * k1.MACS_PER_SEC_VIEW) / (ms * 1e-3) / 1e12
+                extra = (f", 3xTF32 split-product bound {f32_split_bound_ms(k1, n, ns):.4f} ms"
+                         if name == "fused_mlp_f32" else "")
+                log(f"K1 timing {name} n_sec={n_sec} N={n}: kernel_ms {ms:.4f} "
+                    f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (torch.nn.functional.linear "
+                    f"per layer, no single call) bound_ms {bound:.4f} ({bound_by}; trunk operations "
+                    f"{parts['trunk_ops']:.4f}, heads operations {parts['heads_ops']:.4f}, bytes "
+                    f"{parts['bytes']:.4f}) share of bound {bound / ms:.3f}, achieved {tflops:.1f} TFLOP/s "
+                    f"of the function's own products, L2 bytes per launch by design {l2 / 1e9:.3f} GB "
+                    f"({l2 / (ms * 1e-3) / 1e12:.2f} TB/s){extra}")
+                timings[(name, n_sec, n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                                 bound_ms=bound, bound_by=bound_by, bound_parts_ms=parts)
     # training repacks every step (the optimizer moves the weights): the
     # pack of each mode, its layers' padding and casts included
     for name, (dtype, f32_heads) in K1_MODES.items():
@@ -751,10 +752,10 @@ def check_heads_backward(k1, weights, params, h, ve, ve2, up, ns, label):
     """The two kernels on one input: the per-point kernel against its plain
     version in f64 (`TOL_BWD_POINTS_*`), the weight kernel against its plain
     version in f64 on the per-point kernel's outputs (`TOL_BWD_WEIGHTS_*`),
-    both end to end against the whole plain version in f64 (`TOL_BWD_*`),
-    against the yardstick (`TOL_BWD_YARD_*`) and against the first design's
-    kernels (`heads_backward_mma_sync`, `TOL_BWD_YARD_*`). Returns each
-    kernel's max|err| against its plain version."""
+    both end to end against the whole plain version in f64 (`TOL_BWD_*`)
+    and against the yardstick (`TOL_BWD_YARD_*`). Returns each kernel's
+    max|err| against its plain version, and the errors against the
+    yardstick (`bwd_errors`) under "yardstick"."""
     stacked = params[0].dim() == 3
     mid = k1.heads_bwd_points(weights, params, h, ve, ve2, up, ns)
     grads = k1.heads_bwd_weights(mid, h, ve, ve2, up, weights.scenes, stacked)
@@ -768,8 +769,6 @@ def check_heads_backward(k1, weights, params, h, ve, ve2, up, ns, label):
     full = k1.heads_weights_reference(want_mid, h, ve, ve2, up, weights.scenes, stacked)
     e2e = bwd_errors(got, (want_mid.d_h, full, want_mid.d_ve, want_mid.d_ve2))
     yard = bwd_errors(got, k1.heads_backward_recompute(params, h, ve, ve2, up, ns))
-    got_first = k1.heads_backward_mma_sync(weights, params, h, ve, ve2, up, ns)
-    first = bwd_errors(got, got_first)
     finite = all(bool(torch.isfinite(t).all()) for t in [mid.d_h.float(), *grads, mid.d_ve]
                  + ([mid.d_ve2] if ns else []))
     fmt = lambda d: ", ".join(f"{k} {v[0]:.3g}/{v[1]:.3g}" if isinstance(v, tuple) else f"{k} {v:.3g}"  # noqa: E731
@@ -778,21 +777,16 @@ def check_heads_backward(k1, weights, params, h, ve, ve2, up, ns, label):
         f"vs f64 on its inputs {fmt(weights_err)}; end to end vs f64 max {e2e['max']:.3g} (tol {TOL_BWD_MAX:.3g}), "
         f"rms {e2e['rms']:.3g} (tol {TOL_BWD_RMS:.3g}), d h off {e2e['dh_off']:.3g} (tol {TOL_BWD_DH_FRAC:.3g}); "
         f"vs the yardstick max {yard['max']:.3g} (tol {TOL_BWD_YARD_MAX:.3g}), rms {yard['rms']:.3g} "
-        f"(tol {TOL_BWD_YARD_RMS:.3g}), d h off {yard['dh_off']:.3g} (tol {TOL_BWD_YARD_DH_FRAC:.3g}); vs the first "
-        f"design's kernels (mma.sync) max {first['max']:.3g}, rms {first['rms']:.3g}, d h off {first['dh_off']:.3g}; "
+        f"(tol {TOL_BWD_YARD_RMS:.3g}), d h off {yard['dh_off']:.3g} (tol {TOL_BWD_YARD_DH_FRAC:.3g}); "
         f"finite {finite}")
     if not (finite and points_ok(points) and weights_ok(weights_err) and e2e["max"] <= TOL_BWD_MAX
-            and e2e["rms"] <= TOL_BWD_RMS and e2e["dh_off"] <= TOL_BWD_DH_FRAC
-            and all(y["max"] <= TOL_BWD_YARD_MAX and y["rms"] <= TOL_BWD_YARD_RMS
-                    and y["dh_off"] <= TOL_BWD_YARD_DH_FRAC for y in (yard, first))):
+            and e2e["rms"] <= TOL_BWD_RMS and e2e["dh_off"] <= TOL_BWD_DH_FRAC and yard["max"] <= TOL_BWD_YARD_MAX
+            and yard["rms"] <= TOL_BWD_YARD_RMS and yard["dh_off"] <= TOL_BWD_YARD_DH_FRAC):
         raise AssertionError(f"K1's heads backward disagrees with its plain version or its yardstick: {label}")
     err_points = max((getattr(mid, f).double() - getattr(want_mid, f)).abs().max().item()
                      for f in POINT_FIELDS if getattr(want_mid, f) is not None)
     err_weights = max((a.double() - b).abs().max().item() for a, b in zip(grads, want_w))
-    # the first design's, end to end (its gradients and d PE(dir) against f64)
-    err_first = max((a.double() - b).abs().max().item() for a, b in zip(
-        [*got_first[1], got_first[2], got_first[3]], [*full, want_mid.d_ve, want_mid.d_ve2]) if b is not None)
-    return {"heads_bwd_points": err_points, "heads_bwd_weights": err_weights, "mma_sync": err_first}
+    return {"heads_bwd_points": err_points, "heads_bwd_weights": err_weights, "yardstick": yard}
 
 
 def heads_bound_parts(k1, n, n_sec, scenes=1):
@@ -846,45 +840,37 @@ def library_heads_routes(k1, params, h, ve, ve2, up, ns, mid, scenes):
 
 
 def time_heads_backward(k1, weights, params, h, ve, ve2, up, ns, label):
-    """CUDA-event times of each kernel (the wrapper's call) against the
-    first design's kernel in turns (first design, new, new, first design),
-    of its plain version in f32, of its library route
-    (`library_heads_routes`) and of the yardstick on the same inputs, with
-    the kernels' bounds and their L2 bytes by design."""
+    """CUDA-event times of each kernel (the wrapper's call), of its plain
+    version in f32, of its library route (`library_heads_routes`) and of the
+    yardstick on the same inputs, with the kernels' bounds and their L2
+    bytes by design."""
     stacked = params[0].dim() == 3
     scenes, n = weights.scenes, h.shape[0]
     mid = k1.heads_bwd_points(weights, params, h, ve, ve2, up, ns, False, False)
     run = {"heads_bwd_points": lambda: k1.heads_bwd_points(weights, params, h, ve, ve2, up, ns, False, False),
            "heads_bwd_weights": lambda: k1.heads_bwd_weights(mid, h, ve, ve2, up, scenes, stacked)}
-    first = {"heads_bwd_points": lambda: k1.heads_bwd_points_mma_sync(weights, h, ve, ve2, up, ns, False, False),
-             "heads_bwd_weights": lambda: k1.heads_bwd_weights_mma_sync(mid, h, ve, ve2, up, scenes, stacked)}
     plain = {"heads_bwd_points": lambda: k1.heads_points_reference(params, h, ve, ve2, up, ns),
              "heads_bwd_weights": lambda: k1.heads_weights_reference(mid, h, ve, ve2, up, scenes, stacked)}
     library = library_heads_routes(k1, params, h, ve, ve2, up, ns, mid, scenes)
     out = {}
     bounds = heads_bound_parts(k1, n, ns, scenes)
     for name in BWD:
-        turns = [cuda_ms(f, reps=5) for f in (first[name], run[name], run[name], first[name])]
         parts = bounds[name]
-        out[name] = dict(ms=(turns[1] + turns[2]) / 2, mma_sync_ms=(turns[0] + turns[3]) / 2, turns_ms=turns,
-                         plain_ms=cuda_ms(plain[name], reps=3), library_ms=cuda_ms(library[name], reps=5),
-                         bound_ms=max(parts.values()), bound_by=max(parts, key=parts.get), bound_parts_ms=parts,
-                         l2_bytes_by_design=k1.bwd_stream_bytes(name, n, ns, scenes),
-                         mma_sync_l2_bytes_by_design=k1.bwd_stream_bytes(name + "_mma_sync", n, ns, scenes))
+        out[name] = dict(ms=cuda_ms(run[name]), plain_ms=cuda_ms(plain[name], reps=3),
+                         library_ms=cuda_ms(library[name], reps=5), bound_ms=max(parts.values()),
+                         bound_by=max(parts, key=parts.get), bound_parts_ms=parts,
+                         l2_bytes_by_design=k1.bwd_stream_bytes(name, n, ns, scenes))
     yard_ms = cuda_ms(lambda: k1.heads_backward_recompute(params, h, ve, ve2, up, ns), reps=3)
     total = sum(out[k]["ms"] for k in BWD)
     for name in BWD:
         o = out[name]
-        log(f"K1 backward timing, {label}, {name}: {o['ms']:.4f} ms (turns, first design / new / new / first "
-            f"design: {' / '.join(f'{t:.4f}' for t in o['turns_ms'])}), share of bound {o['bound_ms'] / o['ms']:.3f}"
-            f"; the first design (mma.sync) {o['mma_sync_ms']:.4f}, plain {o['plain_ms']:.4f}, library "
-            f"{o['library_ms']:.4f}; bound {o['bound_ms']:.4f} by {o['bound_by']} (operations "
-            f"{o['bound_parts_ms']['ops']:.4f}, bytes {o['bound_parts_ms']['bytes']:.4f}); L2 bytes by design "
-            f"{o['l2_bytes_by_design']} ({o['l2_bytes_by_design'] / n:.0f} per point; the first design's "
-            f"{o['mma_sync_l2_bytes_by_design'] / n:.0f})")
-    log(f"K1 backward timing, {label}: both {total:.4f} ms (the first design's "
-        f"{sum(out[k]['mma_sync_ms'] for k in BWD):.4f}) against the yardstick (autograd through raw_recompute's "
-        f"f32 heads, cuBLAS) {yard_ms:.4f} ms")
+        log(f"K1 backward timing, {label}, {name}: {o['ms']:.4f} ms, share of bound {o['bound_ms'] / o['ms']:.3f}; "
+            f"plain {o['plain_ms']:.4f}, library {o['library_ms']:.4f}; bound {o['bound_ms']:.4f} by "
+            f"{o['bound_by']} (operations {o['bound_parts_ms']['ops']:.4f}, bytes "
+            f"{o['bound_parts_ms']['bytes']:.4f}); L2 bytes by design {o['l2_bytes_by_design']} "
+            f"({o['l2_bytes_by_design'] / n:.0f} per point)")
+    log(f"K1 backward timing, {label}: both {total:.4f} ms against the yardstick (autograd through "
+        f"raw_recompute's f32 heads, cuBLAS) {yard_ms:.4f} ms")
     return {**out, "yardstick_ms": yard_ms, "both_ms": total}
 
 
@@ -954,18 +940,19 @@ def exact_forward_on_card(k1, dev):
 def phase_heads_backward(k1, dev):
     """K1's backward in the shipped mode: the exact-sum cases bit for bit
     (and the forward heads on the witness case); the two kernels against
-    their plain versions, the yardstick and the first design's kernels at
-    the training step's two launch shapes for n_sec 0..3, at S = 2, and at
-    ragged sizes; two launches bit for bit the same at the training fine
-    shape (S = 1, 2); their times against the first design's in turns, the
-    plain versions' and the library routes' at the training shapes at S =
-    1, 2, 4. Returns the timings and each kernel's worst max|err|."""
+    their plain versions and the yardstick at the training step's two
+    launch shapes for n_sec 0..3, at S = 2, and at ragged sizes; two
+    launches bit for bit the same at the training fine shape (S = 1, 2);
+    their times, the plain versions' and the library routes' at the
+    training shapes at S = 1, 2, 4. Returns the timings, each kernel's worst
+    max|err| and the worst errors against the yardstick."""
     for case in ("dense", "witness"):
         for scenes in (1, 2):
             exact_case_on_card(k1, case, scenes, dev)
     exact_forward_on_card(k1, dev)
     g = torch.Generator(device=dev).manual_seed(4)
-    worst = dict.fromkeys(BWD + ("mma_sync",), 0.0)
+    worst = dict.fromkeys(BWD, 0.0)
+    worst_yard = {"max": 0.0, "rms": 0.0, "dh_off": 0.0}
     timings = {}
     cases = [(1, n, n_sec) for n in sorted(TRAIN_N.values()) for n_sec in range(4)]
     cases += [(1, n, n_sec) for n in RAGGED_N for n_sec in (0, 3)] + [(2, TRAIN_N["fine"], TRAIN_SEC),
@@ -976,6 +963,7 @@ def phase_heads_backward(k1, dev):
         inputs = heads_inputs(k1, mlp, scenes * n, n_sec, g, dev)
         errs = check_heads_backward(k1, weights, *inputs, f"S = {scenes} x {n} points, n_sec {n_sec}")
         worst = {k: max(worst[k], errs[k]) for k in worst}
+        worst_yard = {k: max(v, errs["yardstick"][k]) for k, v in worst_yard.items()}
         if n == TRAIN_N["fine"] and n_sec == TRAIN_SEC:
             check_reproducible(k1, weights, *inputs, f"S = {scenes} x {n} points, n_sec {n_sec}")
         del inputs
@@ -987,7 +975,10 @@ def phase_heads_backward(k1, dev):
             timings[(scenes, level)] = time_heads_backward(k1, weights, *inputs,
                                                            f"S = {scenes} x {n} points ({level}), n_sec {TRAIN_SEC}")
             del inputs
-    return {"timings": timings, "worst": worst}
+    log(f"K1 backward against the yardstick, worst of {len(cases)} cases: max {worst_yard['max']:.3g} "
+        f"(tol {TOL_BWD_YARD_MAX:.3g}), rms {worst_yard['rms']:.3g} (tol {TOL_BWD_YARD_RMS:.3g}), d h off "
+        f"{worst_yard['dh_off']:.3g} (tol {TOL_BWD_YARD_DH_FRAC:.3g})")
+    return {"timings": timings, "worst": worst, "worst_yardstick": worst_yard}
 
 
 TRUNK_SCENES = (1, 4)  # scenes per launch of the trunk backward timed at the training shapes
@@ -1944,8 +1935,8 @@ def phase_k1_scenes(k1, dev, scenes):
                 raise AssertionError(f"the scene-batched K1 disagrees ({name}, {level})")
             worst[name] = max(worst[name], err)
             if f32_heads:
-                check_against_ffma(k1, weights, k1.ffma_heads(weights), raw, xe, ve, ve2, ns,
-                                   f"{scenes} scenes x {n} points ({level}, n_sec {ns}), one launch each")
+                check_heads_against_plain(k1, stacked, weights, raw, xe, ve, ve2, ns,
+                                          f"{scenes} scenes x {n} points ({level}, n_sec {ns}), one launch")
             ms = cuda_ms(lambda: k1.fused_mlp_raw(weights, xe, ve, ve2, ns))
             singles_ms = cuda_ms(lambda: [k1.fused_mlp_raw(single_w[s], *parts[s], ns) for s in range(scenes)])
             plain_ms = cuda_ms(lambda: k1.fused_mlp_reference(weights.layers, xe, ve, ve2, ns), reps=3)
@@ -3449,10 +3440,6 @@ def main() -> int:
     encode = phase_encode(k1, dev)
     backward = phase_heads_backward(k1, dev)
     phase_trunk_backward(k1, dev)
-    # the yardsticks (the first design's backward kernels, bf16_f32h with
-    # FFMA heads): their launches from here on, less check_against_ffma's
-    # comparisons, are launches on the main path's phases
-    yardsticks = tracing.counts()
     launches, s_per_frame, frame_s, modes = phase_slice(k1, dev, timings)
     train = phase_train(k1, dev, timings)
     pipeline = phase_pipeline(k1)
@@ -3460,12 +3447,10 @@ def main() -> int:
     database = phase_database(k1, dev)
     protocol = phase_protocol(k1, dev)
     parallel = phase_parallel(k1, dev)
-    compared = tracing.counts().get("chip_smoke.ffma_compared", 0) - yardsticks.get("chip_smoke.ffma_compared", 0)
-    ffma_path = launches_since(k1, yardsticks, [k1.FFMA])[k1.FFMA] - compared
-    mma_sync_path = launches_since(k1, yardsticks, k1.BWD_MMA_SYNC_KERNELS)
-    log(f"K1's backward, the first design's kernels' launches on the main path: {mma_sync_path} (expected 0)")
-    log(f"K1 {FFMA} launches on the main path: {ffma_path} (expected 0; "
-        f"{compared} more compared bf16_f32h with it)")
+    rms = [r for _, _, r in HEADS_CHECKED]
+    log(f"K1 fused_mlp_bf16_f32h against plain f32 heads, {len(rms)} checks: worst max "
+        f"{max(m for _, m, _ in HEADS_CHECKED):.3g} (tol {TOL_HEADS_MAX:.3g}), rms {min(rms):.3g} to {max(rms):.3g} "
+        f"(tol {TOL_HEADS_RMS:.3g})")
 
     log(json.dumps({"slice": {
         "resolution": [H, W], "chunk_size": CHUNK, "k1_timing_shape": {"points": MAIN_N, "n_sec": 0},
@@ -3504,20 +3489,16 @@ def main() -> int:
                                + protocol["k1_backward_launches_shipped"][name]
                                + train["trajectory"]["launches"][name])
 
-    def bwd_entry(name, first=False):
+    def bwd_entry(name):
         fine = backward["timings"][(1, "fine")][name]
-        entry = {"name": name + "_mma_sync" if first else name, "route": "cuda",
-                 "source": f"vipnerf_tpu_torch/csrc/fused_mlp_bwd{'_mma_sync' if first else ''}.cu",
-                 "replaces": "experiments/fused_mlp.py:261",
-                 "launches": mma_sync_path[name + "_mma_sync"] if first else path_launches[name],
-                 "max_abs_err": backward["worst"]["mma_sync" if first else name],
-                 "ms": fine["mma_sync_ms" if first else "ms"], "plain_ms": fine["plain_ms"],
-                 "bound_ms": fine["bound_ms"], "bound_by": "bytes" if fine["bound_by"] == "bytes" else "operations",
-                 "bound_parts_ms": fine["bound_parts_ms"], "library_ms": fine["library_ms"],
-                 "l2_bytes_by_design": fine["mma_sync_l2_bytes_by_design" if first else "l2_bytes_by_design"],
-                 "yardstick_ms": backward["timings"][(1, "fine")]["yardstick_ms"],
-                 "shape": {"points": TRAIN_N["fine"], "n_sec": TRAIN_SEC}}
-        return dict(entry, yardstick_of=name) if first else entry
+        return {"name": name, "route": "cuda", "source": "vipnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
+                "replaces": "experiments/fused_mlp.py:261", "launches": path_launches[name],
+                "max_abs_err": backward["worst"][name], "ms": fine["ms"], "plain_ms": fine["plain_ms"],
+                "bound_ms": fine["bound_ms"], "bound_by": "bytes" if fine["bound_by"] == "bytes" else "operations",
+                "bound_parts_ms": fine["bound_parts_ms"], "library_ms": fine["library_ms"],
+                "l2_bytes_by_design": fine["l2_bytes_by_design"],
+                "yardstick_ms": backward["timings"][(1, "fine")]["yardstick_ms"],
+                "shape": {"points": TRAIN_N["fine"], "n_sec": TRAIN_SEC}}
 
     def kernel_entry(name, launches):
         main_shape = timings[(name, 0, MAIN_N)]
@@ -3549,23 +3530,16 @@ def main() -> int:
                     "training": encode["training"]}
     log(f"K1 encode: {encode_entry['launches']} launches on {len(ENCODE_FED)} paths, each path's equal to its K1 "
         f"forward launches; {per_frame} in a warm {W}x{H} frame")
-    if ffma_path:
-        raise AssertionError(f"the FFMA yardstick was launched {ffma_path} times on a path")
-    # the FFMA heads are on no path: they are listed apart, as the
-    # tensor-core heads' yardstick, timed in the same call
     for name in BWD:
         if not path_launches[name]:
             raise AssertionError(f"{name} was not launched on its path")
-    if any(mma_sync_path.values()):
-        raise AssertionError(f"the first design's backward kernels were launched on a path: {mma_sync_path}")
     log(json.dumps({"k1_backward": {
         "timings": {f"S={s} {level}": t for (s, level), t in backward["timings"].items()},
-        "worst_max_abs_err": backward["worst"], "step_profile_ms": train["profile_ms"].get("k1_backward_ms"),
+        "worst_max_abs_err": backward["worst"], "worst_against_yardstick": backward["worst_yardstick"],
+        "step_profile_ms": train["profile_ms"].get("k1_backward_ms"),
         "trajectory": {k: v for k, v in train["trajectory"].items() if k != "launches"}, "card": card}}))
     log(json.dumps({"kernels": [kernel_entry(name, path_launches[name]) for name in K1_MODES]
-                    + [bwd_entry(name) for name in BWD] + [encode_entry],
-                    "yardsticks": [dict(kernel_entry(FFMA, ffma_path), yardstick_of="fused_mlp_bf16_f32h")]
-                    + [bwd_entry(name, first=True) for name in BWD]}))
+                    + [bwd_entry(name) for name in BWD] + [encode_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

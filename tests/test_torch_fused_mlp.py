@@ -28,13 +28,15 @@ against the JAX package's f32 heads on the JAX trunk's own h, raw and after
 chip_smoke's heads-only tolerances (`TOL_HEADS_MAX` 3e-5 of the largest
 output, `TOL_HEADS_RMS` 3e-6 RMS; measured at most 1.4e-6 and 9.5e-7 raw),
 which a one-pass TF32 emulation misses by more than 10x. The truncating
-accumulation is what puts the card's heads ~1e-6 from its FFMA heads: sums
-rounded to nearest read ~7x less.
+accumulation is what puts the card's heads ~1e-6 from plain f32 heads on
+the same h: sums rounded to nearest read ~7x less.
 
 The kernel itself runs only on the card: tests/test_torch_kernels_cuda.py.
 """
 
+import ast
 import itertools
+import re
 import sys
 from pathlib import Path
 
@@ -351,25 +353,42 @@ def test_encode_of_no_points():
     assert xe.dtype == torch.bfloat16 and ve.dtype == ve2.dtype == torch.float32
 
 
-def test_ffma_yardstick_rejects_what_it_does_not_take(models):
-    """The FFMA heads (the tensor-core heads' yardstick) take bf16_f32h
-    weights, their own f32 head buffer and CUDA tensors: on the CPU it
-    raises instead of running, and launches nothing."""
-    _, mlp = models
-    mixed = k1.prepare_weights(mlp, torch.bfloat16, f32_heads=True)
-    heads32 = k1.ffma_heads(mixed)
-    assert heads32.dtype == torch.float32 and heads32.numel() == k1.HEAD_NUMEL
-    xe, ve, ve2, ns = k1.encode_inputs(*inputs(64, 2), torch.bfloat16, f32_heads=True)
-    before = k1.launches([k1.FFMA])
-    with pytest.raises(ValueError, match="cuda tensors only"):  # the yardstick has no plain twin of its own
-        k1.fused_mlp_raw_ffma(mixed, heads32, xe, ve, ve2, ns)
-    with pytest.raises(ValueError, match="not ffma_heads"):
-        k1.fused_mlp_raw_ffma(mixed, heads32[:-1], xe, ve, ve2, ns)
-    w16 = k1.prepare_weights(mlp, torch.bfloat16)
-    xe16, ve16, ve2_16, _ = k1.encode_inputs(*inputs(64, 2), torch.bfloat16)
-    with pytest.raises(TypeError):  # bf16 heads
-        k1.fused_mlp_raw_ffma(w16, heads32, xe16, ve16, ve2_16, ns)
-    assert k1.launches([k1.FFMA]) == before
+def _c_lookups(path):
+    """(library, entry) of every `vipnerf_*` C entry that a module's
+    functions look up: each function's `build.load("<library>")` and the
+    `vipnerf_*` names in it, as attributes or strings."""
+    found = set()
+    for fn in ast.walk(ast.parse(path.read_text())):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        nodes = list(ast.walk(fn))
+        libs = {n.args[0].value for n in nodes if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+                and n.func.attr == "load" and n.args and isinstance(n.args[0], ast.Constant)}
+        names = {n.attr for n in nodes if isinstance(n, ast.Attribute) and n.attr.startswith("vipnerf_")}
+        names |= {n.value for n in nodes if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                  and re.fullmatch(r"vipnerf_\w+", n.value) and not n.value.startswith("vipnerf_tpu")}
+        if names:
+            assert len(libs) == 1, (path.name, fn.name, libs)
+            found |= {(next(iter(libs)), name) for name in names}
+    return found
+
+
+def test_every_bound_c_entry_is_in_its_source():
+    """Every `vipnerf_*` C entry the port's wrappers look up (K1's instances
+    through `_entry`, by their `INSTANCE` names) is declared `extern "C"` in
+    the source that `build.SOURCES` maps its library to, and every source
+    listed there exists."""
+    from vipnerf_tpu_torch.kernels import build
+
+    for source in build.SOURCES.values():
+        assert (build.CSRC_DIR / source).is_file(), source
+    lookups = set().union(*(_c_lookups(path) for path in sorted(build.PKG_DIR.rglob("*.py"))))
+    lookups |= {("fused_mlp", "vipnerf_" + name) for name in k1.INSTANCE.values()}
+    assert {("fused_mlp_bwd", "vipnerf_heads_bwd_points"), ("fused_mlp", "vipnerf_k1_encode")} <= lookups
+    for lib, name in sorted(lookups):
+        assert lib in build.SOURCES, (lib, name)
+        src = (build.CSRC_DIR / build.SOURCES[lib]).read_text()
+        assert re.search(r'extern "C" [\w ]+\b' + name + r"\(", src), (lib, name)
 
 
 def test_packing_layout(models):
@@ -411,7 +430,7 @@ def test_f32_heads_packing(models):
     assert torch.equal(mixed.b_flat[:bias_trunk], w16.b_flat[:bias_trunk])
     assert torch.equal(mixed.b_flat[bias_trunk:], w32.b_flat[bias_trunk:])
     assert [w.dtype for w, _ in mixed.layers] == [torch.bfloat16] * 8 + [torch.float32] * 4
-    assert torch.equal(k1.ffma_heads(mixed), w32.w_flat[k1.TRUNK_NUMEL:])  # the FFMA yardstick's f32 W^T
+    assert all(torch.equal(a, b) for (a, _), (b, _) in zip(mixed.layers[k1.FEATURE:], w32.layers[k1.FEATURE:]))
 
 
 def _round_bits(x, drop):
@@ -505,8 +524,8 @@ def test_f32_heads_stream_inverts_to_the_parts(models, layer):
 
 def test_stream_bytes_follow_the_pack(models):
     """`k1.stream_bytes`, the L2 bytes chip_smoke prints beside each time,
-    from the packs themselves: a tile (the f32 kernel's and the FFMA heads'
-    64-row block) reads its instance's whole pack, bf16_f32h's trunk writes
+    from the packs themselves: a tile (the f32 kernel's 64-row block) reads
+    its instance's whole pack, bf16_f32h's trunk writes
     h to `h_scratch` and its heads read it back, each secondary view
     replays the view layers (bf16_f32h: its stream's per-view chunk, as
     `_stream_parts` reads it), and the bytes follow the tiles of each scene."""
@@ -517,20 +536,16 @@ def test_stream_bytes_follow_the_pack(models):
     _, _, w10, w11 = _stream_parts(mixed.w_flat[2 * k1.TRUNK_NUMEL:].view(torch.bfloat16))
     h_trip = 2 * k1.h_scratch(128, 1, "cpu").numel() * 2
     view16 = 2 * sum(w16.layers[i][0].numel() for i in (k1.VIEW, k1.VIEW_OUT))
-    ffma_trunk = 2 * k1.TRUNK_NUMEL + h_trip
     tile = {"fused_mlp_bf16": (128, w16.w_flat.numel() * 2, view16),
             "fused_mlp_f32": (64, w32.w_flat.numel() * 4, 2 * view16),
             "fused_mlp_bf16_f32h": (128, mixed.w_flat.numel() + h_trip,
-                                    3 * 2 * (w10[0, :, k1.WIDTH:].numel() + w11[0].numel())),
-            "fused_mlp_bf16_f32h_ffma": (64, ffma_trunk + k1.ffma_heads(mixed).numel() * 4, 2 * view16)}
+                                    3 * 2 * (w10[0, :, k1.WIDTH:].numel() + w11[0].numel()))}
     for name, (rows, pack, view) in tile.items():
         assert k1.stream_bytes(name, rows, 0) == pack, name
         assert k1.stream_bytes(name, rows, 2) == pack + 2 * view, name
         for ns in (0, 3):
             assert k1.stream_bytes(name, 2 * 3 * 128, ns, scenes=2) == 6 * k1.stream_bytes(name, 128, ns), name
             assert k1.stream_bytes(name, rows + 1, ns) == k1.stream_bytes(name, 2 * rows, ns), name
-    assert k1.stream_bytes("fused_mlp_bf16_f32h_ffma", 128, 1) == ffma_trunk + 2 * (
-        k1.ffma_heads(mixed).numel() * 4 + 2 * view16)
     with pytest.raises(ValueError):
         k1.stream_bytes("fused_mlp", 128, 0)
 
@@ -702,15 +717,16 @@ def test_split_heads_emulation_matches_jax_f32_heads(models, n_sec):
     assert tf32_max > 10 * TOL_HEADS_MAX and tf32_rms > 10 * TOL_HEADS_RMS, (tf32_max, tf32_rms)
 
 
-# ||tensor-core heads - FFMA heads|| / ||FFMA heads|| on the card, over every
+# ||tensor-core heads - plain heads|| / ||plain heads|| on the card (plain f32
+# heads on the same h, chip_smoke's `check_heads_against_plain`), over every
 # shape chip_smoke checks (n_sec 0-3, ragged, path shapes, S = 2 and 4): H100
 # 80GB HBM3 at 700 W
-CARD_HEADS_RMS = (8.43e-7, 1.34e-6)
+CARD_HEADS_RMS = (8.43e-7, 1.37e-6)
 
 
 @pytest.mark.parametrize("n_sec", [0, 1, 2, 3])
 def test_truncating_accumulation_accounts_for_the_card_heads_error(models, n_sec):
-    """Why the card's tensor-core heads sit ~1e-6 (RMS) from its FFMA heads,
+    """Why the card's tensor-core heads sit ~1e-6 (RMS) from plain f32 heads,
     some 7x the f32 rounding of a sum: each k16 step's f32 sum truncates
     (rounds toward zero). With that accumulation the emulation lands within
     2x of the card's band (measured 8.8e-7 to 9.5e-7 here); with sums

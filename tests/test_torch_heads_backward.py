@@ -547,17 +547,14 @@ def test_chain_length_of_the_per_point_products(chain):
 
 def test_kernel_constants_match_the_source():
     """The constants the emulation, the wrappers and chip_smoke use are the
-    CUDA sources': the redesigned kernels' chain, interval, shares and weight
-    stream, and the first design's weight image."""
-    csrc = Path(k1.__file__).resolve().parent.parent / "csrc"
-    src, first = (csrc / "fused_mlp_bwd.cu").read_text(), (csrc / "fused_mlp_bwd_mma_sync.cu").read_text()
+    CUDA source's: the kernels' chain, interval, shares and weight stream."""
+    src = (Path(k1.__file__).resolve().parent.parent / "csrc/fused_mlp_bwd.cu").read_text()
     assert f"constexpr int CHAIN = {k1.BWD_CHAIN};" in src and f"constexpr int PROMOTE = {k1.BWD_PROMOTE};" in src
     assert f"constexpr int KSPLIT = {k1.BWD_KSPLIT};" in src
     assert f"constexpr int KSPLIT_SMALL = {k1.BWD_KSPLIT_SMALL};" in src
     assert f"constexpr int CHUNK = {k1.BWD_CHUNK};" in src
     assert f"constexpr int STREAM_CHUNKS = {k1.BWD_STREAM_CHUNKS};" in src
     assert f"SMALL_ELEMS == {k1.BWD_SMALL_NUMEL}" in src
-    assert f"IMG_ELEMS == {k1.BWD_IMG_NUMEL}" in first and f"SMALL_ELEMS == {k1.BWD_SMALL_NUMEL}" in first
     order = ", ".join(f"J_{name[1:].upper() if name != 'small' else 'SMALL'} = {i}"
                       for i, (name, *_) in enumerate(k1.BWD_WEIGHT_JOBS))
     assert f"enum {{ {order}, NJOBS = {len(k1.BWD_WEIGHT_JOBS)} }};" in src
@@ -574,7 +571,7 @@ def test_backward_stream_is_the_split_weights_in_the_kernels_order():
     matrix `bwd_stream_blocks` names; S = 2 packs each scene's in turn."""
     mlp = NeRFMLP(CFG, torch.Generator().manual_seed(8), scenes=2)
     weights = k1.prepare_weights(mlp, torch.bfloat16, True)
-    image, stream = weights.heads_bwd[0], weights.heads_bwd_stream
+    stream = weights.heads_bwd_stream
     assert stream.numel() * 2 == 2 * k1.BWD_STREAM_CHUNKS * k1.BWD_CHUNK and stream.dtype == torch.bfloat16
     assert torch.equal(k1.bwd_stream_index("cpu").sort().values, torch.arange(k1.BWD_IMG_NUMEL))
     for s in range(2):
@@ -645,9 +642,7 @@ def test_l2_bytes_by_design_follow_the_stream_and_the_tiles(scenes, n, n_sec):
     """`bwd_stream_bytes`: the per-point kernel passes over its weight
     stream once per 128-point tile of each scene (48 chunks, one per view,
     one more per view with d PE(dir)); the weight kernel reads each tile's
-    columns of its points, at least what `bwd_bytes` says it must read; at
-    the training fine shape the redesign moves less than the first design
-    does, per kernel."""
+    columns of its points, at least what `bwd_bytes` says it must read."""
     tiles = scenes * -(-(n // scenes) // 128)
     for dve in (False, True):
         assert k1.bwd_stream_bytes("heads_bwd_points", n, n_sec, scenes, dve) == \
@@ -655,9 +650,6 @@ def test_l2_bytes_by_design_follow_the_stream_and_the_tiles(scenes, n, n_sec):
     weights = k1.bwd_stream_bytes("heads_bwd_weights", n, n_sec, scenes)
     must = k1.bwd_bytes(n, n_sec, scenes)[1] - scenes * 4 * (k1.HEAD_NUMEL + 256 + 1 + 128 + 4)
     assert weights >= must
-    if n == 786432:
-        for kernel in k1.BWD_KERNELS:
-            assert k1.bwd_stream_bytes(kernel, n, n_sec) < k1.bwd_stream_bytes(kernel + "_mma_sync", n, n_sec)
 
 
 def test_weight_kernel_job_variants_cut_the_source():
@@ -701,11 +693,11 @@ def test_exact_sum_cases(case):
 
 
 def test_backward_image_is_the_split_weights_and_follows_every_optimizer_step():
-    """The heads backward's weight image (`heads_bwd_pack`, in the
-    bf16_f32h pack cache): each matrix of `BWD_MATS` as three bf16 parts
-    that sum to it exactly (W8, W10's feature and PE(dir) columns, their
-    transposes), the f32 biases and small layers beside; after an optimizer
-    step the cache holds the image of the new weights."""
+    """The heads backward's weight image (`heads_bwd_pack`): each matrix of
+    `BWD_MATS` as three bf16 parts that sum to it exactly (W8, W10's feature
+    and PE(dir) columns, their transposes), the f32 biases and small layers
+    beside; after an optimizer step the bf16_f32h pack cache holds the new
+    weights' stream (`heads_bwd_stream` of their image) and small layers."""
     mlp = NeRFMLP(CFG, torch.Generator().manual_seed(5))
     opt = torch.optim.Adam(mlp.parameters(), lr=1e-2)
     rng = np.random.default_rng(6)
@@ -716,7 +708,10 @@ def test_backward_image_is_the_split_weights_and_follows_every_optimizer_step():
         out = k1.apply_fused_mlp(mlp, pts, vd, dtype=torch.bfloat16, f32_heads=True)
         sum(v.square().sum() for v in out.values()).backward()
         opt.step()
-        image, small = k1.prepare_weights(mlp, torch.bfloat16, True).heads_bwd
+        image, small = k1.heads_bwd_pack(k1.pack_layers(mlp, torch.bfloat16, torch.float32))
+        cached = k1.prepare_weights(mlp, torch.bfloat16, True)
+        assert torch.equal(cached.heads_bwd_stream, k1.heads_bwd_stream(image))
+        assert torch.equal(cached.heads_bwd_small, small)
         w8, w10 = mlp.feature_linear.weight.detach(), torch.nn.functional.pad(mlp.views_linears[0].weight.detach(),
                                                                             (0, 5))
         mats = [w8, w10[:, :256], w10[:, 256:], w10[:, :256].t(), w8.t(), w10[:, 256:].t()]

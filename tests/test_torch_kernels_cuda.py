@@ -11,10 +11,10 @@ the RMS ratio): bf16 1/32 and 2e-3 (kernel and plain version sum in
 different orders, so a bf16 rounding can land one step apart and carry on);
 f32 1e-5 and 1e-6 (summation order only); bf16_f32h (the shipped mode:
 bf16 trunk, f32 heads) 1/256 and 2e-4 (the trunk's bf16 steps only); its
-tensor-core heads (split bf16 products) against its FFMA heads on the same
-trunk, chip_smoke's `TOL_HEADS_MAX` 3e-5 and `TOL_HEADS_RMS` 3e-6 (both
-f32-accurate, so only summation differs: the tensor cores round each k16
-step's sum toward zero). The scene-batched launch is held
+tensor-core heads (split bf16 products) against plain f32 heads on K1's own
+h (chip_smoke's `plain_heads`), `TOL_HEADS_MAX` 3e-5 and `TOL_HEADS_RMS`
+3e-6 (both f32-accurate, so only summation differs: the tensor cores round
+each k16 step's sum toward zero). The scene-batched launch is held
 against the plain version looped over the scenes with the same tolerances,
 and against each scene's single-scene launch bit for bit. K1's backward on
 the card is held against autograd through its recompute there, bit for
@@ -30,9 +30,9 @@ shapes, S = 1, 4, and ragged sizes, h8 bit for bit K1's forward h, two
 calls bit for bit, and the inputs they refuse. The heads backward's kernels against
 their plain versions in f64 and the yardstick at ragged sizes, n_sec 0-3,
 S = 1, 2 (chip_smoke's `check_heads_backward` and its `TOL_BWD_*`), and
-bit for bit on chip_smoke's exact-sum cases; against the first design's
-kernels (`heads_backward_mma_sync`, csrc/fused_mlp_bwd_mma_sync.cu) within
-`TOL_BWD_YARD_*`; two launches of each bit for bit the same; the weight
+bit for bit on chip_smoke's exact-sum cases; against the yardstick
+(`heads_backward_recompute`) within `TOL_BWD_YARD_*` at the training
+shape too; two launches of each bit for bit the same; the weight
 kernel's grid and scratch as `k1.bwd_weight_grid` lays them out; K1 through 100 training steps
 at the flagship width, K1 with the yardstick backward and the module MLP,
 each pair compared (chip_smoke's `phase_trajectory` and `TRAJ_TOL_*`, the
@@ -178,10 +178,12 @@ def test_fused_raw_backward_matches_the_recompute(device, dtype, n):
 @pytest.mark.parametrize("scenes", [1, 2])
 @pytest.mark.parametrize("n_sec", [0, 1, 2, 3])
 @pytest.mark.parametrize("n", [2048 + 37, 132 * 128 * 3 + 37, 1])
-def test_f32h_tensor_core_heads_match_the_ffma_heads(device, scenes, n_sec, n):
-    """bf16_f32h's heads on tensor cores against the FFMA heads on the same
-    trunk (the same h): within the heads-only tolerances, for one scene and
-    for two stacked scenes (n rows each) in one launch."""
+def test_f32h_tensor_core_heads_match_the_plain_heads(device, scenes, n_sec, n):
+    """bf16_f32h's heads on tensor cores against plain f32 heads on K1's own
+    h (chip_smoke's `plain_heads`: `k1.heads_recompute` on
+    `k1.trunk_activations`' h8, TF32 off): within the heads-only
+    tolerances, for one scene and for two stacked scenes (n rows each) in
+    one launch."""
     singles, stacked = _stacked_mlp(device, scenes)
     mlp = singles[0] if scenes == 1 else stacked
     g = torch.Generator(device=device).manual_seed(7 + n_sec)
@@ -192,15 +194,15 @@ def test_f32h_tensor_core_heads_match_the_ffma_heads(device, scenes, n_sec, n):
     vd2 = unit(torch.randn((rows, n_sec, 3), generator=g, device=device)) if n_sec else None
     xe, ve, ve2, ns = k1.encode_inputs(pts, vd, vd2, torch.bfloat16, f32_heads=True)
     weights = k1.prepare_weights(mlp, torch.bfloat16, f32_heads=True)
-    before = k1.launches([k1.FFMA])[k1.FFMA]
+    tracing.reset()
     out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns)
-    ffma = k1.fused_mlp_raw_ffma(weights, k1.ffma_heads(weights), xe, ve, ve2, ns)
+    plain = cs.plain_heads(k1, mlp, weights, xe, ve, ve2, ns)
     torch.cuda.synchronize()
-    assert k1.launches([k1.FFMA])[k1.FFMA] == before + 1
+    assert k1.launches() == {**dict.fromkeys(k1.FORWARD, 0), "fused_mlp_bf16_f32h": 1}
     assert torch.isfinite(out).all() and not out[:, 5 + n_sec:].any()
-    err = out - ffma
-    assert err.abs().max().item() <= TOL_HEADS_MAX * ffma.abs().max().item()
-    assert err.norm().item() <= TOL_HEADS_RMS * ffma.norm().item()
+    err = out - plain
+    assert err.abs().max().item() <= TOL_HEADS_MAX * plain.abs().max().item()
+    assert err.norm().item() <= TOL_HEADS_RMS * plain.norm().item()
 
 
 def _stacked_mlp(device, scenes):
@@ -529,25 +531,24 @@ def test_heads_backward_is_exact_on_the_exact_sum_cases(device, case, scenes):
 @pytest.mark.cuda
 @pytest.mark.parametrize("scenes, n_sec, n", [(1, 0, 2048 + 37), (1, 3, 132 * 128 * 3 + 37), (2, 2, 2048 + 37),
                                               (1, 2, 4096 * 64)])
-def test_heads_backward_matches_the_first_design(device, scenes, n_sec, n):
-    """The redesigned kernels against the first design's (mma.sync,
-    on no path) on the same inputs: every gradient and d PE(dir) within
-    `TOL_BWD_YARD_*` (max and RMS relative to the first design's), d h off
-    its rounding on at most `TOL_BWD_YARD_DH_FRAC` of the entries; one
-    launch of each of the four kernels, each counted by its own wrapper."""
+def test_heads_backward_matches_the_recompute(device, scenes, n_sec, n):
+    """The kernels against the yardstick (`heads_backward_recompute`:
+    autograd through raw_recompute's f32 heads, TF32 off) on the same
+    inputs: every gradient and d PE(dir) within `TOL_BWD_YARD_*` (max and
+    RMS relative to the yardstick's), d h off its rounding on at most
+    `TOL_BWD_YARD_DH_FRAC` of the entries; one launch of each kernel."""
     mlp = cs.stacked_mlp(device, scenes)
     weights = k1.prepare_weights(mlp, torch.bfloat16, True)
     g = torch.Generator(device=device).manual_seed(21 + n_sec)
     params, h, ve, ve2, up, ns = cs.heads_inputs(k1, mlp, scenes * n, n_sec, g, device)
     tracing.reset()
     got = k1.heads_backward(weights, params, h, ve, ve2, up, ns)
-    first = k1.heads_backward_mma_sync(weights, params, h, ve, ve2, up, ns)
-    err = cs.bwd_errors(got, first)
-    print(f"S = {scenes} x {n} points, n_sec {n_sec}: the redesigned kernels against the first design's {err}")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    err = cs.bwd_errors(got, k1.heads_backward_recompute(params, h, ve, ve2, up, ns))
+    print(f"S = {scenes} x {n} points, n_sec {n_sec}: the kernels against the recompute {err}")
     assert err["max"] <= cs.TOL_BWD_YARD_MAX and err["rms"] <= cs.TOL_BWD_YARD_RMS
     assert err["dh_off"] <= cs.TOL_BWD_YARD_DH_FRAC
     assert k1.launches(k1.BWD_KERNELS) == dict.fromkeys(k1.BWD_KERNELS, 1)
-    assert k1.launches(k1.BWD_MMA_SYNC_KERNELS) == dict.fromkeys(k1.BWD_MMA_SYNC_KERNELS, 1)
 
 
 @pytest.mark.cuda

@@ -106,9 +106,6 @@
 //   (the feature columns of the view layer once per point, the PE(dir)
 //   columns and the output layer once per view); 2.89 ms per 1.57M points at
 //   n_sec 0. The h round trip (1 KB per point) is not part of the function.
-// - The former FFMA heads (the f32 kernel with HEADS = true: CUDA cores,
-//   f32 W^T read from a buffer of their own) stay reachable through
-//   vipnerf_fused_mlp_bf16_f32h_ffma as a yardstick, on no path.
 //
 // The shipped mode's backward recomputes the trunk in trunk_recompute_kernel,
 // the bf16 kernel's trunk with every layer's h stored (below the bf16
@@ -1253,27 +1250,21 @@ __device__ __forceinline__ void layer32(const float* a1, int lda1, int k1, const
   }
 }
 
-// HEADS: FFMA heads for the bf16_f32h mode, the yardstick of the tensor-core
-// heads kernel. `xin` is then h as the trunk's 32 KB slab images (one per 64
-// rows, the same blocks as this kernel's), not xe (N, PTS_IN) f32, and `w`
-// points at scene 0's f32 head layers (W^T), HEAD_ELEMS floats from scene
-// to scene.
-template <bool SCENES, bool HEADS>
+template <bool SCENES>
 __global__ void __launch_bounds__(THREADS32, 1)
-    fused_mlp_f32_kernel(const void* __restrict__ xin, const float* __restrict__ ve,
+    fused_mlp_f32_kernel(const float* __restrict__ xe, const float* __restrict__ ve,
                          const float* __restrict__ ve2, const float* __restrict__ w,
                          const float* __restrict__ bias, float* __restrict__ out, int n, int n_sec) {
-  const float* xe = static_cast<const float*>(xin);
   // blockIdx.x is block t % tps of scene t / tps: move every pointer to the
   // scene's rows and weights, then n counts the scene's rows
   const int tps = (n + BM32 - 1) / BM32;
   const int scene = SCENES ? blockIdx.x / tps : 0;
   if (SCENES) {
-    if (!HEADS) xe += (size_t)scene * n * PTS_IN;
+    xe += (size_t)scene * n * PTS_IN;
     ve += (size_t)scene * n * VIEW_IN;
     ve2 += (size_t)scene * n * VIEW_IN * (n_sec > 0 ? n_sec : 1);
     out += (size_t)scene * n * NOUT;
-    w += (size_t)scene * (HEADS ? HEAD_ELEMS : W_ELEMS);
+    w += (size_t)scene * W_ELEMS;
     bias += (size_t)scene * B_ELEMS;
   }
   extern __shared__ __align__(16) float smem32[];
@@ -1289,29 +1280,11 @@ __global__ void __launch_bounds__(THREADS32, 1)
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const int ve2_ld = VIEW_IN * (n_sec > 0 ? n_sec : 1);
 
-  if constexpr (HEADS) {
-    // h, bf16 -> f32 into h1, where the trunk below would leave it; the
-    // scene's 64-row block b is the trunk's block 2 * tiles + b
-    const unsigned char* hb = static_cast<const unsigned char*>(xin) +
-                              ((size_t)scene * 2 * ((n + TILE16 - 1) / TILE16) + blockIdx.x - scene * tps) * (4 * A_SLAB);
-    for (int i = tid; i < BM32 * (WIDTH / 8); i += THREADS32) {
-      const int r = i / (WIDTH / 8), c = i % (WIDTH / 8);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row0 + r < n) v = __ldg(reinterpret_cast<const uint4*>(hb + swz128(r, 8 * c)));
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-      const float2 a = __bfloat1622float2(p[0]), b = __bfloat1622float2(p[1]);
-      const float2 e = __bfloat1622float2(p[2]), f = __bfloat1622float2(p[3]);
-      float* dst = h1 + r * H32_LD + c * 8;
-      *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-      *reinterpret_cast<float4*>(dst + 4) = make_float4(e.x, e.y, f.x, f.y);
-    }
-  } else {
-    for (int i = tid; i < BM32 * (PTS_IN / 4); i += THREADS32) {
-      const int r = i / (PTS_IN / 4), c = i % (PTS_IN / 4);
-      const float4 v =
-          row0 + r < n ? __ldg(reinterpret_cast<const float4*>(xe + (size_t)(row0 + r) * PTS_IN) + c) : zero;
-      *reinterpret_cast<float4*>(sx + r * XE32_LD + c * 4) = v;
-    }
+  for (int i = tid; i < BM32 * (PTS_IN / 4); i += THREADS32) {
+    const int r = i / (PTS_IN / 4), c = i % (PTS_IN / 4);
+    const float4 v =
+        row0 + r < n ? __ldg(reinterpret_cast<const float4*>(xe + (size_t)(row0 + r) * PTS_IN) + c) : zero;
+    *reinterpret_cast<float4*>(sx + r * XE32_LD + c * 4) = v;
   }
   const int vpieces = (VIEW_IN / 4) * (1 + n_sec);
   for (int i = tid; i < BM32 * vpieces; i += THREADS32) {
@@ -1328,28 +1301,26 @@ __global__ void __launch_bounds__(THREADS32, 1)
   __syncthreads();
 
   const Sink32 to_h0{h0, H32_LD, 0, 0, 0}, to_h1{h1, H32_LD, 0, 0, 0};
-#define W32(l) (w + w_off(l) - (HEADS ? TRUNK_ELEMS : 0))
+#define W32(l) (w + w_off(l))
 #define B32(l) (bias + b_off(l))
-  if constexpr (!HEADS) {
-    // trunk: activations ping-pong between h0 and h1
-    layer32<256, 64, true>(sx, XE32_LD, 64, sx, XE32_LD, W32(0), B32(0), wbuf, to_h0);
-    __syncthreads();
-    layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(1), B32(1), wbuf, to_h1);
-    __syncthreads();
-    layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(2), B32(2), wbuf, to_h0);
-    __syncthreads();
-    layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(3), B32(3), wbuf, to_h1);
-    __syncthreads();
-    layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(4), B32(4), wbuf, to_h0);
-    __syncthreads();
-    // skip layer: [xe, h] with no copy
-    layer32<256, 320, true>(sx, XE32_LD, 64, h0, H32_LD, W32(5), B32(5), wbuf, to_h1);
-    __syncthreads();
-    layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(6), B32(6), wbuf, to_h0);
-    __syncthreads();
-    layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(7), B32(7), wbuf, to_h1);
-    __syncthreads();
-  }
+  // trunk: activations ping-pong between h0 and h1
+  layer32<256, 64, true>(sx, XE32_LD, 64, sx, XE32_LD, W32(0), B32(0), wbuf, to_h0);
+  __syncthreads();
+  layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(1), B32(1), wbuf, to_h1);
+  __syncthreads();
+  layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(2), B32(2), wbuf, to_h0);
+  __syncthreads();
+  layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(3), B32(3), wbuf, to_h1);
+  __syncthreads();
+  layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(4), B32(4), wbuf, to_h0);
+  __syncthreads();
+  // skip layer: [xe, h] with no copy
+  layer32<256, 320, true>(sx, XE32_LD, 64, h0, H32_LD, W32(5), B32(5), wbuf, to_h1);
+  __syncthreads();
+  layer32<256, 256, true>(h1, H32_LD, 256, h1, H32_LD, W32(6), B32(6), wbuf, to_h0);
+  __syncthreads();
+  layer32<256, 256, true>(h0, H32_LD, 256, h0, H32_LD, W32(7), B32(7), wbuf, to_h1);
+  __syncthreads();
   // heads: feature -> h0, sigma -> output column 0
   layer32<256, 256, false>(h1, H32_LD, 256, h1, H32_LD, W32(8), B32(8), wbuf, to_h0);
   layer32<8, 256, false>(h1, H32_LD, 256, h1, H32_LD, W32(9), B32(9), wbuf, Sink32{so, NOUT, 0, 1, 0});
@@ -1529,9 +1500,8 @@ int sm_count() {
 
 }  // namespace
 
-// dynamic shared memory per CTA of each kernel: 0 the f32 one (its FFMA heads
-// too), 1 the bf16 one (its trunk too), 2 the bf16_f32h heads; ptxas reports
-// static only
+// dynamic shared memory per CTA of each kernel: 0 the f32 one, 1 the bf16 one
+// (its trunk too), 2 the bf16_f32h heads; ptxas reports static only
 extern "C" int vipnerf_fused_mlp_smem_bytes(int kernel) {
   return kernel == 2 ? SMEMH : (kernel == 1 ? SMEM16 : SMEM32);
 }
@@ -1556,16 +1526,15 @@ static int launch16(const void* xe, const void* ve, const void* ve2, const void*
   return (int)cudaGetLastError();
 }
 
-template <bool HEADS>
-static int launch32(const void* xin, const void* ve, const void* ve2, const void* w, const void* bias, void* out,
+static int launch32(const void* xe, const void* ve, const void* ve2, const void* w, const void* bias, void* out,
                     int scenes, int n_per_scene, int n_sec, void* stream) {
-  auto kernel = scenes > 1 ? fused_mlp_f32_kernel<true, HEADS> : fused_mlp_f32_kernel<false, HEADS>;
+  auto kernel = scenes > 1 ? fused_mlp_f32_kernel<true> : fused_mlp_f32_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM32);
   if (e != cudaSuccess) return (int)e;
   if (n_per_scene <= 0) return 0;
   kernel<<<scenes * ((n_per_scene + BM32 - 1) / BM32), THREADS32, SMEM32, (cudaStream_t)stream>>>(
-      xin, (const float*)ve, (const float*)ve2, (const float*)w, (const float*)bias, (float*)out, n_per_scene,
-      n_sec);
+      (const float*)xe, (const float*)ve, (const float*)ve2, (const float*)w, (const float*)bias, (float*)out,
+      n_per_scene, n_sec);
   return (int)cudaGetLastError();
 }
 
@@ -1596,7 +1565,7 @@ extern "C" int vipnerf_fused_mlp_f32(const void* xe, const void* ve, const void*
                                      const void* bias, void* out, int scenes, int n_per_scene, int n_sec,
                                      void* stream) {
   if (n_sec < 0 || n_sec > MAX_SEC || !rows_fit(scenes, n_per_scene)) return (int)cudaErrorInvalidValue;
-  return launch32<false>(xe, ve, ve2, w, bias, out, scenes, n_per_scene, n_sec, stream);
+  return launch32(xe, ve, ve2, w, bias, out, scenes, n_per_scene, n_sec, stream);
 }
 
 // xe bf16; ve, ve2 and out f32; w the bf16_f32h packs (bytes); h scratch for
@@ -1658,17 +1627,6 @@ extern "C" int vipnerf_trunk_recompute(const void* xe, const void* w, const void
       (const __nv_bfloat16*)xe, (const __nv_bfloat16*)w, (const float*)bias, (unsigned char*)xe_img,
       (unsigned char*)himg, map, scenes, n_per_scene);
   return (int)cudaGetLastError();
-}
-
-// The same function with the FFMA heads, the tensor-core heads' yardstick:
-// heads32 holds each scene's f32 W^T of layers 8-11 (HEAD_ELEMS floats).
-extern "C" int vipnerf_fused_mlp_bf16_f32h_ffma(const void* xe, const void* ve, const void* ve2, const void* w,
-                                                const void* heads32, const void* bias, void* h, void* out,
-                                                int scenes, int n_per_scene, int n_sec, void* stream) {
-  if (n_sec < 0 || n_sec > MAX_SEC || !rows_fit(scenes, n_per_scene)) return (int)cudaErrorInvalidValue;
-  const int e = launch16<true>(xe, nullptr, nullptr, w, bias, h, scenes, n_per_scene, 0, stream);
-  if (e != 0) return e;
-  return launch32<true>(h, ve, ve2, heads32, bias, out, scenes, n_per_scene, n_sec, stream);
 }
 
 // K1's inputs from n points (pts (n, 3) f32), their view directions (dirs

@@ -1629,8 +1629,7 @@ extern "C" int vipnerf_heads_bwd_smem_bytes(int which) { return which == 0 ? SME
 
 // The weight gradients' scratch and grids: what = 1, the doubles of the
 // shares; 2, the first launch's CTAs; 3, the entries of a tile's share over
-// every tile (the second launch's threads); 0, none (the first design's
-// counters)
+// every tile (the second launch's threads); any other, 0
 extern "C" long long vipnerf_heads_bwd_scratch(int scenes, int nps, int n_sec, int what) {
   const WArgs a = make_wargs(scenes, nps, n_sec);
   const WJob& last = a.job[NJOBS - 1];

@@ -33,8 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 
 # library name -> source file under csrc/
-SOURCES = {"fused_mlp": "fused_mlp.cu", "fused_mlp_bwd": "fused_mlp_bwd.cu",
-           "fused_mlp_bwd_mma_sync": "fused_mlp_bwd_mma_sync.cu", "raystream": "raystream.cpp",
+SOURCES = {"fused_mlp": "fused_mlp.cu", "fused_mlp_bwd": "fused_mlp_bwd.cu", "raystream": "raystream.cpp",
            "jpeg_decode": "jpeg_decode.cpp"}
 # library name -> (header, library) of the CUDA toolkit it is built against
 TOOLKIT_LIBS = {"jpeg_decode": ("nvjpeg.h", "nvjpeg")}

@@ -35,15 +35,13 @@ copies the heads kernel consumes (`heads_image`; `PACK_BYTES`).
 
 `fused_mlp_raw` is the wrapper: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs `fused_mlp_reference`, the same function in
-plain torch. `fused_mlp_raw_ffma` runs the bf16_f32h function with FFMA
-heads on CUDA cores, the tensor-core heads' yardstick; nothing else calls
-it. Every launch on the card is counted in the tracer's table
-(`utils/tracing.py`) as `k1.launches.<kernel>`, per instance
-(`INSTANCE`), backward kernel (`BWD_KERNELS`) and yardstick (`FFMA`,
-`BWD_MMA_SYNC_KERNELS`); `launches(kernels)` reads them. Each call of the
-wrapper with other views also adds its points x `n_sec` to
-`vis.sec_view_points` (`SEC_VIEW_POINTS`: the rows K1's view branch runs for
-the other views, on the card or in the plain version), from the shapes alone.
+plain torch. Every launch on the card is counted in the tracer's table
+(`utils/tracing.py`) as `k1.launches.<kernel>`, per instance (`INSTANCE`)
+and backward kernel (`BWD_KERNELS`, `TRUNK_KERNELS`); `launches(kernels)`
+reads them. Each call of the wrapper with other views also adds its points
+x `n_sec` to `vis.sec_view_points` (`SEC_VIEW_POINTS`: the rows K1's view
+branch runs for the other views, on the card or in the plain version), from
+the shapes alone.
 
 Inputs: `encode_inputs` writes (xe, ve, ve2) from the points and their view
 directions. On CUDA tensors that is one launch of `k1_encode_kernel` (same
@@ -68,10 +66,8 @@ card the trunk's is hand kernels too: `trunk_activations` recomputes it with
 K1's own trunk code, keeping every layer's h, and `trunk_backward` takes
 its gradient layer by layer (`trunk_backward_reference` is their plain
 version; CPU tensors take autograd through `trunk_recompute`, which it
-equals). Two yardsticks stay on no path:
-`heads_backward_recompute`, autograd through the f32 heads of
-`raw_recompute` on cuBLAS, and `heads_backward_mma_sync`, the first design
-of the two kernels (`csrc/fused_mlp_bwd_mma_sync.cu`).
+equals). `heads_backward_recompute`, autograd through the f32 heads of
+`raw_recompute` on cuBLAS, is the heads backward's yardstick on no path.
 
 Scene axis (batched multi-scene training, the counterpart of vmap over K1):
 a stacked MLP (`models.mlp.NeRFMLP(..., scenes=S)`) packs S scenes' weights
@@ -119,7 +115,6 @@ INSTANCE = {
     (torch.bfloat16, torch.float32): "fused_mlp_bf16_f32h",
 }
 FORWARD = tuple(INSTANCE.values())
-FFMA = "fused_mlp_bf16_f32h_ffma"  # bf16_f32h with FFMA heads, the yardstick on no path
 SEC_VIEW_POINTS = "vis.sec_view_points"  # counter: points x other views through the view branch
 HEAD_NUMEL = W_NUMEL - TRUNK_NUMEL  # layers 8-11
 SPLIT_PARTS = 3  # bf16 parts of an f32 head weight in the bf16_f32h pack
@@ -152,8 +147,8 @@ class FusedWeights(NamedTuple):
     dtype: torch.dtype  # the trunk's
     scenes: int = 1
     head_dtype: Optional[torch.dtype] = None  # the heads', when it is not the trunk's
-    heads_bwd: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # bf16_f32h: `heads_bwd_pack` of the layers
-    heads_bwd_stream: Optional[torch.Tensor] = None  # bf16_f32h: `heads_bwd_stream` of heads_bwd's image
+    heads_bwd_stream: Optional[torch.Tensor] = None  # bf16_f32h: `heads_bwd_stream` of `heads_bwd_pack`'s image
+    heads_bwd_small: Optional[torch.Tensor] = None  # bf16_f32h: `heads_bwd_pack`'s f32 biases and small layers
 
     @property
     def mode(self) -> Tuple[torch.dtype, torch.dtype]:
@@ -334,20 +329,19 @@ def heads_index(device: torch.device) -> torch.Tensor:
 
 
 TILE_ROWS = 128  # points per tile of the bf16 kernel and of bf16_f32h's trunk and heads kernels
-BLOCK_ROWS_F32 = 64  # points per block of the f32 kernel (and of the FFMA heads)
+BLOCK_ROWS_F32 = 64  # points per block of the f32 kernel
 # bytes of `heads_image`'s per-view chunk: W10's PE(dir) columns and W11, each part
 HEADS_VIEW_BYTES = SPLIT_PARTS * 2 * (LAYER_SHAPES[VIEW][0] * (LAYER_SHAPES[VIEW][1] - WIDTH)
                                       + LAYER_SHAPES[VIEW_OUT][0] * LAYER_SHAPES[VIEW_OUT][1])
 
 
 def stream_bytes(instance: str, n: int, n_sec: int, scenes: int = 1) -> int:
-    """Bytes one launch of `instance` (or of "fused_mlp_bf16_f32h_ffma", the
-    FFMA yardstick) on n points of `scenes` scenes streams from L2 by its
-    design, beyond its inputs and outputs: each tile's (f32: each block's)
-    pass over the packed weights, the view layers again per secondary view
-    (bf16_f32h: the heads' per-view chunk), and bf16_f32h's h round trip
-    through `h_scratch` (written, then read back). Counted from the pack's
-    sizes, not measured."""
+    """Bytes one launch of `instance` on n points of `scenes` scenes streams
+    from L2 by its design, beyond its inputs and outputs: each tile's (f32:
+    each block's) pass over the packed weights, the view layers again per
+    secondary view (bf16_f32h: the heads' per-view chunk), and bf16_f32h's h
+    round trip through `h_scratch` (written, then read back). Counted from
+    the pack's sizes, not measured."""
     tiles = scenes * -(-(n // scenes) // TILE_ROWS)
     blocks = scenes * -(-(n // scenes) // BLOCK_ROWS_F32)
     view = {dt: b[VIEW] + b[VIEW_OUT] for dt, b in LAYER_BYTES.items()}  # the view layers, whole
@@ -355,20 +349,18 @@ def stream_bytes(instance: str, n: int, n_sec: int, scenes: int = 1) -> int:
         return tiles * (PACK_BYTES[torch.bfloat16, torch.bfloat16] + n_sec * view[torch.bfloat16])
     if instance == "fused_mlp_f32":
         return blocks * (PACK_BYTES[torch.float32, torch.float32] + n_sec * view[torch.float32])
-    trunk = tiles * 2 * TRUNK_NUMEL + 2 * h_scratch_bytes(n, scenes)
     if instance == "fused_mlp_bf16_f32h":
-        return trunk + tiles * (SPLIT_PARTS * 2 * HEAD_NUMEL + n_sec * HEADS_VIEW_BYTES)
-    if instance == "fused_mlp_bf16_f32h_ffma":
-        return trunk + blocks * (4 * HEAD_NUMEL + n_sec * view[torch.float32])
+        return tiles * (2 * TRUNK_NUMEL + SPLIT_PARTS * 2 * HEAD_NUMEL + n_sec * HEADS_VIEW_BYTES) \
+            + 2 * h_scratch_bytes(n, scenes)
     raise ValueError(f"no K1 instance {instance}")
 
 
-def _images(part, dtype: torch.dtype, lo: int) -> torch.Tensor:
-    """The packed layout's entries from lo on, for `part`'s layers (with
-    their leading scene axis, if any)."""
+def _images(part, dtype: torch.dtype) -> torch.Tensor:
+    """The packed layout's first entries, for `part`'s layers, the first
+    ones of `LAYER_SHAPES` (with their leading scene axis, if any)."""
     lead = part[0][0].shape[:-2]
     flat = torch.cat([w.reshape(*lead, -1) for w, _ in part], dim=-1)
-    return flat[..., pack_index(dtype, flat.device)[lo:lo + flat.shape[-1]] - lo]
+    return flat[..., pack_index(dtype, flat.device)[:flat.shape[-1]]]
 
 
 def kernel_buffers(layers, dtype: torch.dtype, head_dtype: Optional[torch.dtype] = None
@@ -381,11 +373,11 @@ def kernel_buffers(layers, dtype: torch.dtype, head_dtype: Optional[torch.dtype]
     lead = layers[0][0].shape[:-2]  # () or (S,)
     head_dtype = head_dtype or dtype
     if head_dtype == dtype:
-        w_flat = _images(layers, dtype, 0)
+        w_flat = _images(layers, dtype)
     else:
         heads = torch.cat([w.reshape(*lead, -1) for w, _ in layers[FEATURE:]], dim=-1)
         parts = torch.cat(split_bf16(heads), dim=-1)
-        w_flat = torch.cat([_images(layers[:FEATURE], dtype, 0).view(torch.uint8),
+        w_flat = torch.cat([_images(layers[:FEATURE], dtype).view(torch.uint8),
                             parts[..., heads_index(parts.device)].view(torch.uint8)], dim=-1)
     return w_flat.reshape(-1), torch.cat([b for _, b in layers], dim=-1).reshape(-1)
 
@@ -396,8 +388,7 @@ def kernel_buffers(layers, dtype: torch.dtype, head_dtype: Optional[torch.dtype]
 # matrix's three parts one after the other: W8 (feature = h W8^T), W10's
 # feature columns and its PE(dir) columns (the view layer's forward), their
 # transposes and W8's (d feature = D W10f, d h = d feature W8, d PE(dir) = d
-# hv W10p). The first design's kernels (`heads_backward_mma_sync`) read this
-# image as it is; the per-point kernel reads its permutation
+# hv W10p). The per-point kernel reads this image's permutation
 # `heads_bwd_stream`.
 BWD_MATS = (("w8", WIDTH, WIDTH), ("w10f", 128, WIDTH), ("w10p", 128, VIEW_IN),
             ("w10ft", WIDTH, 128), ("w8t", WIDTH, WIDTH), ("w10pt", VIEW_IN, 128))
@@ -471,12 +462,6 @@ def heads_bwd_stream(image: torch.Tensor, scenes: int = 1) -> torch.Tensor:
     return image.reshape(scenes, -1)[:, bwd_stream_index(image.device)].reshape(-1)
 
 
-def ffma_heads(weights: "FusedWeights") -> torch.Tensor:
-    """The FFMA heads' weights for `fused_mlp_raw_ffma`: layers 8-11 of a
-    bf16_f32h pack's f32 layers as W^T, each scene's in turn."""
-    return _images(weights.layers[FEATURE:], torch.float32, TRUNK_NUMEL).reshape(-1)
-
-
 def prepare_weights(mlp, dtype: torch.dtype, f32_heads: bool = False) -> FusedWeights:
     """Packed weights of `mlp` for the instance of (`dtype`, `f32_heads`),
     cached on it per instance until a parameter changes."""
@@ -491,10 +476,10 @@ def prepare_weights(mlp, dtype: torch.dtype, f32_heads: bool = False) -> FusedWe
     if mode not in cache[1]:
         layers = pack_layers(mlp, dtype, head_dtype)
         w_flat, b_flat = kernel_buffers(layers, dtype, head_dtype)
-        mixed = head_dtype != dtype
-        bwd = heads_bwd_pack(layers) if mixed else None
-        cache[1][mode] = FusedWeights(layers, w_flat, b_flat, dtype, mlp.scenes or 1, head_dtype if mixed else None,
-                                      bwd, heads_bwd_stream(bwd[0], mlp.scenes or 1) if mixed else None)
+        scenes, mixed = mlp.scenes or 1, head_dtype != dtype
+        image, small = heads_bwd_pack(layers) if mixed else (None, None)
+        cache[1][mode] = FusedWeights(layers, w_flat, b_flat, dtype, scenes, head_dtype if mixed else None,
+                                      heads_bwd_stream(image, scenes) if mixed else None, small)
     return cache[1][mode]
 
 
@@ -745,32 +730,6 @@ def fused_mlp_raw(
     return out
 
 
-def fused_mlp_raw_ffma(
-    weights: FusedWeights, heads32: torch.Tensor, xe: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
-    n_sec: int,
-) -> torch.Tensor:
-    """The bf16_f32h function with the heads in FFMA on CUDA cores (the
-    trunk kernel, then the f32 kernel's heads on `heads32`, `ffma_heads` of
-    the same weights): the tensor-core heads' yardstick, CUDA tensors only,
-    counted as `FFMA`."""
-    _check(weights, xe, ve, ve2, n_sec)
-    if weights.mode != (torch.bfloat16, torch.float32):
-        raise TypeError(f"the FFMA heads take bf16_f32h weights, not {INSTANCE[weights.mode]}'s")
-    if heads32.dtype != torch.float32 or heads32.numel() != weights.scenes * HEAD_NUMEL \
-            or heads32.device != xe.device:
-        raise ValueError("heads32 is not ffma_heads of these weights")
-    if xe.device.type != "cuda":
-        raise ValueError(f"the FFMA heads run on cuda tensors only, not {xe.device}")
-    out = _output(weights, xe)
-    if xe.shape[0] == 0:
-        return out
-    h = h_scratch(xe.shape[0], weights.scenes, xe.device)
-    _launch(_entry("fused_mlp_bf16_f32h_ffma", 8), weights, xe, n_sec,
-            [xe, ve, ve2, weights.w_flat, heads32, weights.b_flat, h, out])
-    tracing.count("k1.launches." + FFMA)
-    return out
-
-
 def module_params(mlp) -> List[torch.Tensor]:
     """The flagship MLP's parameters in `raw_recompute`'s order: trunk 0..7
     (weight, bias each), feature, sigma head, view hidden, view output."""
@@ -816,10 +775,12 @@ def trunk_recompute(params, xe: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _heads_recompute(params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor, n_sec: int) -> torch.Tensor:
+def heads_recompute(params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor, n_sec: int) -> torch.Tensor:
     """Layers 8-11 of `raw_recompute` on h (the trunk's output, cast here to
     ve's dtype) and the heads' parameters (the last 8 of `module_params`):
-    raw (N, 8)."""
+    raw (N, 8). In f32 (TF32 off) on K1's own h (`trunk_activations`' h8)
+    it is the plain version that the card holds bf16_f32h's tensor-core
+    heads to."""
     n = ve.shape[0]
     w, b = _recompute_layers(params, ve.dtype, FEATURE)
     if w[FEATURE].dim() == 3:
@@ -852,7 +813,7 @@ def raw_recompute(
     `fused_mlp_reference`, the products run in the working dtype (cuBLAS on
     the card), as XLA's do. Stacked parameters (S scenes) take S blocks of
     N/S rows and run each layer as one batched product over the scenes."""
-    return _heads_recompute(params[2 * FEATURE:], trunk_recompute(params[:2 * FEATURE], xe), ve, ve2, n_sec)
+    return heads_recompute(params[2 * FEATURE:], trunk_recompute(params[:2 * FEATURE], xe), ve, ve2, n_sec)
 
 
 def _secondary_grad_out(g: torch.Tensor, v: int) -> torch.Tensor:
@@ -968,7 +929,7 @@ def heads_backward_recompute(params, h: torch.Tensor, ve: torch.Tensor, ve2: tor
     The kernels' yardstick; nothing on a path calls it."""
     inputs = [t.detach().requires_grad_() for t in [h, ve, ve2] + list(params)]
     with torch.enable_grad():
-        out = _heads_recompute(inputs[3:], inputs[0], inputs[1], inputs[2] if n_sec else inputs[1], n_sec)
+        out = heads_recompute(inputs[3:], inputs[0], inputs[1], inputs[2] if n_sec else inputs[1], n_sec)
         grads = torch.autograd.grad(out, inputs if n_sec else inputs[:2] + inputs[3:], g.to(out.dtype))
     if not n_sec:
         grads = grads[:2] + (None,) + grads[2:]
@@ -977,9 +938,6 @@ def heads_backward_recompute(params, h: torch.Tensor, ve: torch.Tensor, ve2: tor
 
 # the heads backward's two kernels, in launch order (each wrapper has its name)
 BWD_KERNELS = ("heads_bwd_points", "heads_bwd_weights")
-# the first design's two kernels (csrc/fused_mlp_bwd_mma_sync.cu), the
-# redesigned ones' yardstick on no path
-BWD_MMA_SYNC_KERNELS = ("heads_bwd_points_mma_sync", "heads_bwd_weights_mma_sync")
 # csrc/fused_mlp_bwd.cu's arithmetic: the per-point kernel's part products
 # run BWD_CHAIN k16 steps into a fresh accumulator before they join the
 # total; the weight kernel's accumulator runs BWD_PROMOTE k16 steps (a block
@@ -1070,39 +1028,29 @@ def bwd_mn_offset(k: int, c: int, cols: int) -> int:
 
 
 def bwd_stream_bytes(kernel: str, n: int, n_sec: int, scenes: int = 1, need_ve: bool = False) -> int:
-    """Bytes one launch of a heads-backward kernel (`BWD_KERNELS` or
-    `BWD_MMA_SYNC_KERNELS`) on n points moves through L2 by its design,
-    counted from its tiles, not measured: the per-point kernels' passes over
-    the weight image, one per 128-point tile (the first design's also the
-    rows it reads back from its own outputs); the weight kernels' rows of X
-    and Y, each CTA reading its output tile's columns of its points."""
+    """Bytes one launch of a heads-backward kernel (`BWD_KERNELS`) on n
+    points moves through L2 by its design, counted from its tiles, not
+    measured: the per-point kernel's passes over the weight stream, one per
+    128-point tile; the weight kernel's rows of X and Y, each CTA reading
+    its output tile's columns of its points."""
     views, dve = 1 + n_sec, int(need_ve)
     tiles = scenes * -(-(n // scenes) // TILE_ROWS)
     if kernel == "heads_bwd_points":
         return tiles * (48 + views * (1 + dve)) * BWD_CHUNK
-    if kernel == "heads_bwd_points_mma_sync":  # 24 KB chunks, W10p^T's 6 KB; feature, D, d feature, d hv read back
-        return tiles * ((48 + views) * BWD_CHUNK + 4 * views * dve * BWD_CHUNK // 4) \
-            + n * 4 * (2 * WIDTH + 128 + views * 128 * dve)
     if kernel == "heads_bwd_weights":  # dW8 (4 tiles), dW10f (2), dW10p per view, the small jobs
         per_point = 4 * (4 * 64 + 2 * WIDTH) + 2 * (4 * 128 + 4 * 128) + views * (4 * 128 + 4 * VIEW_IN) \
             + 4 * NOUT + 2 * WIDTH + views * 4 * 128
         return n * per_point
-    if kernel == "heads_bwd_weights_mma_sync":  # 64 x 64 tiles: X's 64 columns, Y's 64 (dW11 Y's, X 4 of g)
-        per_point = 16 * (4 * 64 + 2 * 64) + 8 * (4 * 64 + 4 * 64) + views * 2 * (4 * 64 + 4 * VIEW_IN) \
-            + views * 2 * (16 + 4 * 64) + 4 * (16 + 2 * 64)
-        return n * per_point
     raise ValueError(f"no heads-backward kernel {kernel}")
 
 
-def _bwd_fns(mma_sync: bool = False):
-    """The C entries (per-point, weights, scratch) of the redesigned kernels
-    or of the first design's."""
-    lib = build.load("fused_mlp_bwd_mma_sync" if mma_sync else "fused_mlp_bwd")
-    sfx = "_mma_sync" if mma_sync else ""
-    fns = [getattr(lib, f"vipnerf_heads_bwd_{k}{sfx}") for k in ("points", "weights", "scratch")]
-    if fns[0].argtypes is None:  # the first design's weight kernel also takes its counters
+def _bwd_fns():
+    """The heads backward's C entries: per-point, weights, scratch."""
+    lib = build.load("fused_mlp_bwd")
+    fns = [lib.vipnerf_heads_bwd_points, lib.vipnerf_heads_bwd_weights, lib.vipnerf_heads_bwd_scratch]
+    if fns[0].argtypes is None:
         fns[0].argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fns[1].argtypes = [ctypes.c_void_p] * (20 if mma_sync else 19) + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fns[1].argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fns[2].argtypes = [ctypes.c_int] * 4
         fns[0].restype = fns[1].restype = ctypes.c_int
         fns[2].restype = ctypes.c_longlong
@@ -1122,9 +1070,9 @@ def _check_heads_inputs(weights: FusedWeights, h, ve, ve2, g, n_sec: int):
         raise ValueError(f"the heads backward runs on cuda or cpu tensors, not {h.device}")
 
 
-def _launch_points(mma_sync: bool, weights: FusedWeights, h, ve, ve2, g, n_sec: int, need_ve: bool,
-                   need_ve2: bool) -> HeadsIntermediates:
-    """One launch of a per-point kernel on CUDA tensors (or none for no
+def _launch_points(weights: FusedWeights, h, ve, ve2, g, n_sec: int, need_ve: bool, need_ve2: bool
+                   ) -> HeadsIntermediates:
+    """One launch of the per-point kernel on CUDA tensors (or none for no
     points): its outputs, allocated here."""
     n, views, dev = h.shape[0], 1 + n_sec, h.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -1134,21 +1082,19 @@ def _launch_points(mma_sync: bool, weights: FusedWeights, h, ve, ve2, g, n_sec: 
         torch.empty((n, views, 128), **f32), torch.empty((n, VIEW_IN), **f32) if need_ve else None,
         torch.empty((n, VIEW_IN * n_sec), **f32) if need_ve2 and n_sec else None)
     if n:
-        image, small = weights.heads_bwd
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         with torch.cuda.device(dev):
-            rc = _bwd_fns(mma_sync)[0](
-                *map(ptr, (h, ve, ve2, g, image if mma_sync else weights.heads_bwd_stream, small, *mid)),
+            rc = _bwd_fns()[0](
+                *map(ptr, (h, ve, ve2, g, weights.heads_bwd_stream, weights.heads_bwd_small, *mid)),
                 weights.scenes, n // weights.scenes, n_sec, int(need_ve or need_ve2),
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"heads backward, per-point kernel{' (mma.sync)' if mma_sync else ''}: "
-                               f"launch failed: cudaError {rc}")
+            raise RuntimeError(f"heads backward, per-point kernel: launch failed: cudaError {rc}")
     return mid
 
 
-def _launch_weights(mma_sync: bool, mid: HeadsIntermediates, h, ve, ve2, g, scenes: int, stacked: bool):
-    """One launch of a weight-gradient kernel on CUDA tensors: the 8
+def _launch_weights(mid: HeadsIntermediates, h, ve, ve2, g, scenes: int, stacked: bool):
+    """One launch of the weight-gradient kernel on CUDA tensors: the 8
     gradients in the module's shapes (with the scene axis if `stacked`)."""
     n, dev = h.shape[0], h.device
     n_sec = mid.hv.shape[1] - 1
@@ -1157,21 +1103,18 @@ def _launch_weights(mma_sync: bool, mid: HeadsIntermediates, h, ve, ve2, g, scen
             or any(tuple(t.shape) != shape or not t.is_contiguous() or (t is not h and t.dtype != torch.float32)
                    for t, shape in shapes):
         raise ValueError("the per-point intermediates, h, PE(dir) and g do not match")
-    _, launch, scratch = _bwd_fns(mma_sync)
+    _, launch, scratch = _bwd_fns()
     f32 = dict(dtype=torch.float32, device=dev)
     outs = [torch.empty((scenes, *shape), **f32) for shape in (
         (WIDTH, WIDTH), (1, WIDTH), (128, WIDTH), (128, VIEW_IN), (4, 128), (WIDTH,), (1,), (128,), (4,))]
     nps = n // scenes
-    scratch_tensors = [torch.empty(max(scratch(scenes, nps, n_sec, 1), 1), dtype=torch.float64, device=dev)]
-    if mma_sync:  # its counters, zero
-        scratch_tensors.append(torch.zeros(max(scratch(scenes, nps, n_sec, 0), 1), dtype=torch.int32, device=dev))
+    shares = torch.empty(max(scratch(scenes, nps, n_sec, 1), 1), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         rc = launch(*(t.data_ptr() for t in (h, g, ve, ve2, mid.feature, mid.d_feature, mid.D, mid.hv, mid.d_hv,
-                                             *outs, *scratch_tensors)),
+                                             *outs, shares)),
                     scenes, nps, n_sec, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"heads backward, weight-gradient kernel{' (mma.sync)' if mma_sync else ''}: "
-                           f"launch failed: cudaError {rc}")
+        raise RuntimeError(f"heads backward, weight-gradient kernel: launch failed: cudaError {rc}")
     w8, w9, w10f, w10p, w11, b8, b9, b10, b11 = outs
     grads = [w8, b8, w9, b9, torch.cat([w10f, w10p[..., :27]], dim=-1), b10, w11, b11]
     return grads if stacked else [t[0] for t in grads]
@@ -1188,7 +1131,7 @@ def heads_bwd_points(weights: FusedWeights, params, h: torch.Tensor, ve: torch.T
     _check_heads_inputs(weights, h, ve, ve2, g, n_sec)
     if h.device.type == "cpu":
         return heads_points_reference(params, h, ve, ve2, g, n_sec)
-    mid = _launch_points(False, weights, h, ve, ve2, g, n_sec, need_ve, need_ve2)
+    mid = _launch_points(weights, h, ve, ve2, g, n_sec, need_ve, need_ve2)
     if h.shape[0]:
         tracing.count("k1.launches.heads_bwd_points")
     return mid
@@ -1204,7 +1147,7 @@ def heads_bwd_weights(mid: HeadsIntermediates, h: torch.Tensor, ve: torch.Tensor
     shares summed in a fixed order by a second launch."""
     if h.device.type == "cpu":
         return heads_weights_reference(mid, h, ve, ve2, g, scenes, stacked)
-    grads = _launch_weights(False, mid, h, ve, ve2, g, scenes, stacked)
+    grads = _launch_weights(mid, h, ve, ve2, g, scenes, stacked)
     tracing.count("k1.launches.heads_bwd_weights")
     return grads
 
@@ -1221,41 +1164,6 @@ def heads_backward(weights: FusedWeights, params, h: torch.Tensor, ve: torch.Ten
         return heads_backward_reference(params, h, ve, ve2, g, n_sec)
     mid = heads_bwd_points(weights, params, h, ve, ve2, g, n_sec, need_ve, need_ve2)
     grads = heads_bwd_weights(mid, h, ve, ve2, g, weights.scenes, params[0].dim() == 3)
-    return mid.d_h, grads, mid.d_ve, mid.d_ve2
-
-
-def heads_bwd_points_mma_sync(weights: FusedWeights, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
-                              g: torch.Tensor, n_sec: int, need_ve: bool = True, need_ve2: bool = True
-                              ) -> HeadsIntermediates:
-    """The first design's per-point kernel (mma.sync, `heads_bwd_pack`'s
-    image), `heads_bwd_points`' yardstick: CUDA tensors only."""
-    _check_heads_inputs(weights, h, ve, ve2, g, n_sec)
-    if h.device.type != "cuda":
-        raise ValueError(f"the first design's kernels run on cuda tensors only, not {h.device}")
-    mid = _launch_points(True, weights, h, ve, ve2, g, n_sec, need_ve, need_ve2)
-    if h.shape[0]:
-        tracing.count("k1.launches.heads_bwd_points_mma_sync")
-    return mid
-
-
-def heads_bwd_weights_mma_sync(mid: HeadsIntermediates, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
-                               g: torch.Tensor, scenes: int = 1, stacked: bool = False):
-    """The first design's weight-gradient kernel, `heads_bwd_weights`'
-    yardstick: CUDA tensors only."""
-    if h.device.type != "cuda":
-        raise ValueError(f"the first design's kernels run on cuda tensors only, not {h.device}")
-    grads = _launch_weights(True, mid, h, ve, ve2, g, scenes, stacked)
-    tracing.count("k1.launches.heads_bwd_weights_mma_sync")
-    return grads
-
-
-def heads_backward_mma_sync(weights: FusedWeights, params, h: torch.Tensor, ve: torch.Tensor, ve2: torch.Tensor,
-                            g: torch.Tensor, n_sec: int, need_ve: bool = True, need_ve2: bool = True):
-    """`heads_backward` through the first design's two kernels (mma.sync
-    from ldmatrix fragments, cp.async double buffers): the redesigned
-    kernels' yardstick on no path, CUDA tensors only, the same returns."""
-    mid = heads_bwd_points_mma_sync(weights, h, ve, ve2, g, n_sec, need_ve, need_ve2)
-    grads = heads_bwd_weights_mma_sync(mid, h, ve, ve2, g, weights.scenes, params[0].dim() == 3)
     return mid.d_h, grads, mid.d_ve, mid.d_ve2
 
 

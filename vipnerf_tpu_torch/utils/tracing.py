@@ -21,8 +21,8 @@ wrappers record them where their work happens:
   `render.outputs`;
 - `app.<stage>` for a dataset app's stages, `kernels.build` (`library`) per
   library compiled;
-- counters `k1.launches.<kernel>` (K1's instances, its backward kernels
-  and their yardsticks on the card), `vis.sec_view_points` (points x other
+- counters `k1.launches.<kernel>` (K1's instances, its encode and its
+  backward kernels on the card), `vis.sec_view_points` (points x other
   views through K1's view branch, per K1 forward call from its shapes) and
   `jpeg.decodes`.
 
