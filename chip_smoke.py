@@ -156,12 +156,14 @@ It needs CUDA and the repository around it, and exits non-zero without a
 result otherwise. Nothing of JAX is imported.
 """
 
+import collections
 import contextlib
 import copy
 import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1431,7 +1433,9 @@ class TrainRig:
         cfg["model"].update(bf16_matmuls=bf16, f32_heads=f32_heads)
         step = make_train_step(cfg, self.render_rays, self.loss_computer,
                                make_optimizer(cfg, self.model.parameters()))
-        return lambda batch: step(self.model, batch, self.generator)
+        fn = lambda batch: step(self.model, batch, self.generator)  # noqa: E731
+        fn.eager = lambda batch: step.eager(self.model, batch, self.generator)
+        return fn
 
     def batch(self, it: int):
         return self.prep.get_next_batch(it)
@@ -1625,6 +1629,7 @@ def phase_training_run(k1, root, configs, gt, tiles):
     run_s = time.perf_counter() - t0
     launches_run = launches_since(k1, mark)
     encode_fed(k1, mark, "start_training")
+    graph_engaged(mark, n, "start_training")
     val_frames = 3 + 1  # train frames (n_sec 2) + the validation frame
     expected = launch_counts(k1, fused_mlp_bf16=2 * n + 2 * tiles * val_frames)
     log(f"start_training: {n} steps and one validation of {val_frames} frames in {run_s:.2f} s; "
@@ -1645,6 +1650,7 @@ def phase_training_run(k1, root, configs, gt, tiles):
     sys.stdout.write(text)
     launches_resume = launches_since(k1, mark)
     encode_fed(k1, mark, "start_training, resumed")
+    graph_engaged(mark, RESUME_STEPS, "start_training, resumed")
     if f"Resuming Training from iteration {n + 1}" not in text:
         raise AssertionError(f"the second start_training did not resume at {n}")
     if launches_resume != launch_counts(k1, fused_mlp_bf16=2 * RESUME_STEPS):
@@ -1696,6 +1702,76 @@ def phase_training_run(k1, root, configs, gt, tiles):
     return {"launches": launches_run["fused_mlp_bf16"] + launches_resume["fused_mlp_bf16"],
             "seconds": run_s, "resume_seconds": resume_s, "psnr": trained, "psnr_untrained": untrained,
             "total_loss_first20": first, "total_loss_last20": last}
+
+
+def graph_engaged(mark: dict, steps: int, path: str) -> dict:
+    """The training step's CUDA graph since `mark` (one trainer's run of
+    `steps` steps): every step after the eager first is a replay."""
+    now = tracing.counts("train.graph.")
+    got = {k: now.get(f"train.graph.{k}", 0) - mark.get(f"train.graph.{k}", 0) for k in ("captures", "replays")}
+    if not torch.cuda.is_available():  # a rehearsal on the CPU: every step eager
+        return got
+    log(f"{path}: the step's CUDA graph captured {got['captures']} time(s), replayed {got['replays']} "
+        f"of {steps} steps")
+    if got["replays"] != steps - 1 or got["captures"] < 1:
+        raise AssertionError(f"{path}: {got['replays']} replays in {steps} steps, expected {steps - 1}")
+    return got
+
+
+# K1's kernels by name, each with the counter (`k1.launches.<counter>`) one
+# of whose counts launches it, and how many times: a bf16_f32h forward is
+# its TRUNK pass and its heads; the heads backward's weights a reduce
+# launch besides; the trunk's backward per layer 7 -> 0 a dX launch (but
+# layer 0), a dW launch and a reduce launch
+COUNTED_KERNELS = {
+    "fused_mlp_bf16_kernel": ("fused_mlp_bf16_f32h", 1), "fused_mlp_heads_kernel": ("fused_mlp_bf16_f32h", 1),
+    "k1_encode_kernel": ("k1_encode", 1), "heads_bwd_points_kernel": ("heads_bwd_points", 1),
+    "heads_bwd_weights_kernel": ("heads_bwd_weights", 1), "heads_bwd_reduce_kernel": ("heads_bwd_weights", 1),
+    "trunk_recompute_kernel": ("trunk_recompute", 1), "trunk_bwd_dx_kernel": ("trunk_backward", 7),
+    "trunk_bwd_dw_kernel": ("trunk_backward", 8), "trunk_bwd_reduce_kernel": ("trunk_backward", 8),
+}
+LAUNCH_CHECK_STEPS = 4
+
+
+def kernel_base_name(name: str):
+    """A device event's kernel name without namespace, template arguments or
+    parameters ("void (anonymous namespace)::trunk_bwd_dx_kernel<false,
+    true>(...)" -> "trunk_bwd_dx_kernel"), None where it has no namespace."""
+    m = re.search(r"::(\w+)[<(]", name)
+    return m.group(1) if m else None
+
+
+def profiled_launches(step, rig, start_it: int, count: int):
+    """torch.profiler over `count` steps of `step` after an unprofiled one:
+    the launches of each of `COUNTED_KERNELS` seen on the device, and what
+    the tracer's `k1.launches.*` counters added over the same steps."""
+    step(rig.batch(start_it))
+    torch.cuda.synchronize()
+    mark = tracing.counts("k1.launches.")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(count):
+            step(rig.batch(start_it + 1 + i))
+        torch.cuda.synchronize()
+    now = tracing.counts("k1.launches.")
+    seen = collections.Counter(
+        kernel_base_name(e.name) for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+        and kernel_base_name(e.name) in COUNTED_KERNELS)
+    return dict(seen), {k[len("k1.launches."):]: v - mark.get(k, 0) for k, v in now.items() if v != mark.get(k, 0)}
+
+
+def replays_launch_what_they_count(step, rig) -> dict:
+    """A replay adds the counts its capture recorded, whatever it launches;
+    so K1's kernels are counted by name on the device over replayed steps
+    and held to those counts, and to what eager steps launch and count."""
+    seen, counted = profiled_launches(step, rig, 4000, LAUNCH_CHECK_STEPS)
+    seen_eager, counted_eager = profiled_launches(step.eager, rig, 4100, LAUNCH_CHECK_STEPS)
+    want = {name: per * counted.get(c, 0) for name, (c, per) in COUNTED_KERNELS.items() if counted.get(c, 0)}
+    log(f"replayed steps: K1's kernels on the device {seen} in {LAUNCH_CHECK_STEPS} steps; the tracer's counts "
+        f"{counted}; eager steps launch {seen_eager}")
+    if seen != want or seen_eager != seen or counted_eager != counted or set(want) != set(COUNTED_KERNELS):
+        raise AssertionError(f"replays launched {seen}, their counters give {want}; eager steps launched "
+                             f"{seen_eager} and counted {counted_eager}")
+    return {"steps": LAUNCH_CHECK_STEPS, "launched": seen, "counted": counted}
 
 
 def timed_steps(step, rig, start_it: int, count: int, warmup: int = 3):
@@ -1820,8 +1896,13 @@ def phase_train(k1, dev, timings):
         mark = tracing.counts()
         seconds = timed_steps(step, rig, 2000, TIMED_STEPS)
         launches = launches_since(k1, mark)["fused_mlp_bf16_f32h"]
+        graph_engaged(mark, TIMED_STEPS + 3, "warm training steps")
         peak = torch.cuda.max_memory_allocated()
         med_ms = 1e3 * float(np.median(seconds))
+        eager_ms = 1e3 * float(np.median(timed_steps(step.eager, rig, 2500, TIMED_STEPS)))
+        log(f"warm training step at S = 1, graphed {med_ms:.2f} ms, eager {eager_ms:.2f} ms (medians of "
+            f"{TIMED_STEPS} steps, one synchronise per step)")
+        replay_launches = replays_launch_what_they_count(step, rig)
         k1_ms = sum(timings[("fused_mlp_bf16_f32h", TRAIN_SEC, n)]["ms"] for n in TRAIN_N.values())
         log(f"warm training step (shipped mode: bf16, f32 heads, K1 fused_mlp_bf16_f32h): median {med_ms:.2f} ms "
             f"over {TIMED_STEPS} steps (min {1e3 * min(seconds):.2f}, max {1e3 * max(seconds):.2f}), "
@@ -1850,7 +1931,8 @@ def phase_train(k1, dev, timings):
             if launches_m != expected:
                 raise AssertionError(f"precision mode {label}: K1 launches {launches_m}")
             modes[label] = {"ms": ms, "path": path, "launches": launches_m}
-    return {"run": run, "step_ms": med_ms, "step_ms_all": [1e3 * s for s in seconds],
+    return {"run": run, "step_ms": med_ms, "eager_step_ms": eager_ms, "replay_launches": replay_launches,
+            "step_ms_all": [1e3 * s for s in seconds],
             "rays_per_s": TRAIN_RAYS / (med_ms / 1e3), "k1_ms": k1_ms, "peak_bytes": peak,
             "profile_ms": profile, "modes": modes, "grad_check": grads, "trajectory": trajectory}
 
@@ -2007,9 +2089,11 @@ def ms_grad_check(k1, trainer):
     return worst
 
 
-def ms_timed_steps(k1, trainer, steps, start_it=0, warmup=3):
+def ms_timed_steps(k1, trainer, steps, start_it=0, warmup=3, eager=False):
     """Host-clock seconds of `steps` warm batched steps (gather included),
-    one synchronise per step, and K1's launches over all of them."""
+    one synchronise per step, and K1's launches over all of them; graphed
+    (the trainer's step), or `eager`."""
+    train_step = trainer.train_step.eager if eager else trainer.train_step
     nerf, sd = (None if r is None else torch.from_numpy(r).to(trainer.device)
                 for r in trainer._index_rows(start_it, warmup + steps))
     prep0 = trainer.preprocessors[0]
@@ -2018,7 +2102,7 @@ def ms_timed_steps(k1, trainer, steps, start_it=0, warmup=3):
         batch = prep0.gather_batch(nerf[:, j], None if sd is None else sd[:, j], start_it + j,
                                    cache=trainer.cache, near=trainer.near, far=trainer.far)
         trainer.generator.manual_seed(start_it + j)
-        return trainer.train_step(trainer.model, batch, trainer.generator)
+        return train_step(trainer.model, batch, trainer.generator)
 
     mark = tracing.counts()
     for j in range(warmup):
@@ -2040,7 +2124,9 @@ def ms_time_trainer(k1, trainer, label):
     over all its scenes, K1's launches per step and the peak memory."""
     s = len(trainer.scene_ids)
     torch.cuda.reset_peak_memory_stats()
+    mark = tracing.counts()
     seconds, launches = ms_timed_steps(k1, trainer, MS_TIMED_STEPS)
+    graph_engaged(mark, MS_TIMED_STEPS + 3, f"warm batched steps, S = {label}")
     med = float(np.median(seconds))
     out = {"ms": 1e3 * med, "ms_min": 1e3 * min(seconds), "ms_max": 1e3 * max(seconds),
            "rays_per_s": s * TRAIN_RAYS / med, "k1_launches_per_step": launches / (MS_TIMED_STEPS + 3),
@@ -2050,6 +2136,11 @@ def ms_time_trainer(k1, trainer, label):
         f"all; K1 launches {launches} in {MS_TIMED_STEPS + 3} steps; peak memory {out['peak_bytes'] / 2**30:.2f} GiB")
     if launches != 2 * (MS_TIMED_STEPS + 3):
         raise AssertionError(f"S = {label}: K1 ran {launches} times in {MS_TIMED_STEPS + 3} steps")
+    if s in (1, 4):
+        eager = float(np.median(ms_timed_steps(k1, trainer, MS_TIMED_STEPS, start_it=500, eager=True)[0]))
+        out["eager_ms"] = 1e3 * eager
+        log(f"warm batched step, S = {label}: graphed {1e3 * med:.2f} ms, eager {1e3 * eager:.2f} ms (medians of "
+            f"{MS_TIMED_STEPS} steps, one synchronise per step)")
     return out
 
 

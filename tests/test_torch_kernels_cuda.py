@@ -784,3 +784,242 @@ def test_trunk_backward_kernels_refuse_what_they_do_not_take(device):
     for bad in (d_h.float(), d_h[:-2].contiguous(), d_h.t()):
         with pytest.raises(ValueError, match="d_h must be"):
             k1.trunk_backward(weights, act, bad, True)
+
+
+# ------------------------------------------------ the training step's CUDA graph
+
+
+GRAPH_STEPS = 5
+
+
+def _graph_configs(root, scenes=1, prior_at=30000):
+    """The flagship training configs in the shipped mode (bf16 trunk, f32
+    heads: llff_2view's), for 1 scene or `scenes` in lockstep."""
+    from vipnerf_tpu_torch.data.synthetic_rig import flagship_training_configs
+
+    cfg = flagship_training_configs(root, 100, visibility_prior_start_iter=prior_at)
+    cfg["model"].update(bf16_matmuls=True, f32_heads=True)
+    if scenes > 1:
+        cfg["data_loader"]["scene_names"] = [f"synth{i + 1:02}" for i in range(scenes)]
+        cfg.update(batch_scenes=True)
+    return cfg
+
+
+class _GraphRig:
+    """A model at llff_2view's step shapes (2048 + 2048 rays, 64 + 128
+    samples) on a small synthetic LLFF scene, or `scenes` of them stacked
+    (the batched trainer's model and batches), its batches by iteration, and
+    steps over it from one saved state."""
+
+    def __init__(self, root, device, scenes=1, prior_at=30000):
+        from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
+        from vipnerf_tpu_torch.models.vip_nerf import render_rays
+        from vipnerf_tpu_torch.parallel.mesh import ShardGenerator
+
+        for i in range(scenes):
+            write_synthetic_database(root / "data/databases", scene_name=f"synth{i + 1:02}", num_frames=5,
+                                     train_frames=(0, 2, 4), val_frames=(1,), height=189, width=252, seed=i)
+        self.cfg, self.scenes, self.device = _graph_configs(root, scenes, prior_at), scenes, device
+        self.render = render_rays
+        if scenes == 1:
+            rig = cs.TrainRig(root, self.cfg, device)
+            self.model, self.loss_computer, self._batch = rig.model, rig.loss_computer, rig.batch
+        else:
+            from vipnerf_tpu_torch.train.multi_scene import MultiSceneTrainer
+
+            t = MultiSceneTrainer(self.cfg, self.cfg["data_loader"]["scene_names"],
+                                  root / "data" / self.cfg["database_dirpath"], device=device, verbose_log=False)
+            self.model, self.loss_computer = t.model, t.loss_computer
+            prep = t.preprocessors[0]
+
+            def batch(it):
+                nerf, sd = (None if r is None else torch.from_numpy(r).to(device) for r in t._index_rows(it, 1))
+                return prep.gather_batch(nerf[:, 0], None if sd is None else sd[:, 0], it, cache=t.cache,
+                                         near=t.near, far=t.far)
+
+            self._batch = batch
+        self.generator = ShardGenerator(device)
+        self.start = [p.detach().clone() for p in self.model.parameters()]
+        self.batches = {}
+
+    def batch(self, it):
+        """Iteration `it`'s batch, drawn once (the preprocessor's index draw
+        moves on at each call): every run sees the same batches."""
+        if it not in self.batches:
+            self.batches[it] = self._batch(it)
+        return {k: v.clone() if torch.is_tensor(v) else v for k, v in self.batches[it].items()}
+
+    def step(self):
+        """A fresh optimizer and step from the saved state."""
+        from vipnerf_tpu_torch.train.step import make_optimizer, make_train_step
+
+        with torch.no_grad():
+            for p, s in zip(self.model.parameters(), self.start):
+                p.copy_(s)
+        opt = make_optimizer(self.cfg, self.model.parameters(), scenes=None if self.scenes == 1 else self.scenes)
+        return make_train_step(self.cfg, self.render, self.loss_computer, opt), opt
+
+    def run(self, fn, its):
+        """`fn` over the iterations `its`, the generator seeded per step as
+        the trainers seed it; each step's losses."""
+        from vipnerf_tpu_torch.train.trainer import step_seed
+
+        batches = [self.batch(it) for it in its]
+        out = []
+        for it, b in zip(its, batches):
+            self.generator.manual_seed(step_seed(7, it))
+            out.append({k: v.clone() for k, v in fn(self.model, b, self.generator).items()})
+        return out
+
+
+def _state(rig, opt):
+    return ([p.detach().clone() for p in rig.model.parameters()]
+            + [opt.exp_avg.clone(), opt.exp_avg_sq.clone(), opt.count.clone()])
+
+
+def _max_gap(a, b):
+    """The largest |a - b| over matching tensors (lists of tensors or of dicts)."""
+    flat = lambda xs: [t for x in xs for t in (x.values() if isinstance(x, dict) else [x])]  # noqa: E731
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(flat(a), flat(b), strict=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes", [1, 2])
+def test_graphed_steps_equal_the_eager_steps(device, tmp_path, scenes):
+    """From one state, GRAPH_STEPS steps replayed as the step's CUDA graph
+    (one eager warm-up, one capture replayed, then replays) against the
+    same steps eager, at llff_2view's shapes, one scene and two in
+    lockstep: the losses each step returns, the parameters, Adam's moments
+    and count, and the generator's state after the steps (its draws: the
+    perturbation and the sigma noise). Two eager runs of the same steps are
+    compared too: the graph is held bit for bit where they are, and within
+    their own gap where they are not (float atomics in autograd's scatter
+    kernels sum in any order); both gaps are printed (`-s`)."""
+    from vipnerf_tpu_torch.train.step import GraphedStep
+
+    rig = _GraphRig(tmp_path, device, scenes)
+    its = list(range(30000, 30000 + GRAPH_STEPS))
+    runs = {}
+    for name in ("eager", "eager again", "graphed"):
+        step, opt = rig.step()
+        assert isinstance(step, GraphedStep)
+        losses = rig.run(step if name == "graphed" else step.eager, its)
+        torch.cuda.synchronize()
+        runs[name] = (losses, _state(rig, opt), rig.generator.get_state())
+        if name == "graphed":
+            assert (step.graph.graph is not None) and step.key is not None
+    spread = max(_max_gap(runs["eager"][0], runs["eager again"][0]), _max_gap(runs["eager"][1], runs["eager again"][1]))
+    gap = max(_max_gap(runs["eager"][0], runs["graphed"][0]), _max_gap(runs["eager"][1], runs["graphed"][1]))
+    print(f"S = {scenes}: graphed against eager, largest gap {gap:.3e}; two eager runs {spread:.3e}")
+    assert gap <= spread
+    for name in ("eager again", "graphed"):
+        assert torch.equal(runs[name][2], runs["eager"][2])  # the same draws, the generator where eager leaves it
+    assert runs["graphed"][1][-1].tolist() == [GRAPH_STEPS] * scenes
+
+
+@pytest.mark.cuda
+def test_graph_recaptures_at_a_loss_stage_and_a_replaced_state(device, tmp_path):
+    """The visibility prior staged in at iteration 30003: the step there is
+    captured again and its TotalLoss carries the new weight; Adam's moments
+    replaced by a copy: captured again; replays otherwise."""
+    rig = _GraphRig(tmp_path, device, prior_at=30003)
+    step, opt = rig.step()
+    before = tracing.counts("train.graph.")
+    seen = []
+    for it in range(30000, 30007):
+        if it == 30005:
+            opt.exp_avg = opt.exp_avg.clone()
+        (losses,) = rig.run(step, [it])
+        counts = tracing.counts("train.graph.")
+        seen.append(tuple(counts.get(k, 0) - before.get(k, 0) for k in ("train.graph.captures", "train.graph.replays")))
+        weights = {name: rig.loss_computer.get_loss_weight(name, it) for name in rig.loss_computer.losses}
+        total = torch.zeros((), dtype=torch.float64)
+        for name, w in weights.items():
+            total = total + w * losses[name].double().cpu()
+        assert float(losses["TotalLoss"]) == pytest.approx(float(total), rel=1e-6), it
+    assert weights["VisibilityPriorLoss01"] > 0
+    assert seen == [(0, 0), (1, 1), (1, 2), (2, 3), (2, 4), (3, 5), (3, 6)]
+
+
+@pytest.mark.cuda
+def test_a_replay_counts_what_an_eager_step_counts(device, tmp_path):
+    """K1's launches and the points through its view branch, per step: the
+    replays add what the eager step adds."""
+    rig = _GraphRig(tmp_path, device)
+    step, _ = rig.step()
+    deltas = []
+    for it in range(30000, 30004):
+        before = tracing.counts()
+        rig.run(step, [it])
+        after = tracing.counts()
+        deltas.append({k: v - before.get(k, 0) for k, v in after.items()
+                       if k.startswith(("k1.launches.", "vis.")) and v != before.get(k, 0)})
+    assert deltas[0]["k1.launches.fused_mlp_bf16_f32h"] == 2 and deltas[0]["vis.sec_view_points"] > 0
+    assert deltas[1] == deltas[2] == deltas[3] == deltas[0]
+
+
+@pytest.mark.cuda
+def test_an_eager_k1_forward_after_replays_packs_the_current_parameters(device, tmp_path):
+    """Replays write the parameters unseen by autograd; the step bumps their
+    versions, so an eager use of K1 after them (a validation render) packs
+    the current parameters, not the last capture's: its pack is a fresh
+    pack's bit for bit, and its output K1's plain version's on them."""
+    rig = _GraphRig(tmp_path, device)
+    step, _ = rig.step()
+    mlp = rig.model.fine_model
+    rig.run(step, list(range(30000, 30003)))
+    first = k1.prepare_weights(mlp, torch.bfloat16, True).w_flat.clone()
+    rig.run(step, list(range(30003, 30006)))
+    weights = k1.prepare_weights(mlp, torch.bfloat16, True)
+    fresh = k1.kernel_buffers(k1.pack_layers(mlp, torch.bfloat16, torch.float32), torch.bfloat16, torch.float32)
+    assert torch.equal(weights.w_flat, fresh[0]) and torch.equal(weights.b_flat, fresh[1])
+    assert not torch.equal(first, weights.w_flat)  # the parameters moved in between
+    name = k1.INSTANCE[weights.mode]
+    xe, ve, ve2, ns = cs.k1_inputs(k1, 2048 + 37, 2, name, torch.Generator(device=device).manual_seed(3), device)
+    out = k1.fused_mlp_raw(weights, xe, ve, ve2, ns).float()
+    ref = k1.fused_mlp_reference(k1.pack_layers(mlp, torch.bfloat16, torch.float32), xe, ve, ve2, ns).float()
+    assert (out - ref).abs().max().item() <= TOL_REL_MAX[name] * ref.abs().max().item()
+    assert (out - ref).norm().item() <= TOL_REL_RMS[name] * ref.norm().item()
+
+
+@pytest.mark.cuda
+def test_profiled_replays_show_the_kernels_and_time_their_spans(device, tmp_path):
+    """torch.profiler over replayed steps (the benchmark's traced chunk) sees
+    K1's forward, its heads backward and the trunk's kernels by name, and
+    the tracer gives each replayed step its device-timed spans (forward,
+    backward, the other views' directions, the trunk's backward), which the
+    benchmark's readers read; `graphed_steps.train` reads 100 %."""
+    bench = Path(__file__).resolve().parent.parent / "benchmark"
+    sys.path.insert(0, str(bench))
+    from harness import cells, trace
+
+    rig = _GraphRig(tmp_path, device)
+    step, _ = rig.step()
+    tracing.reset()
+    its = list(range(30000, 30006))
+
+    def stepped(model, batch, gen):
+        with tracing.span("train.step", device, it=stepped.it):
+            stepped.it += 1
+            return step(model, batch, gen)
+
+    stepped.it = its[0]
+    rig.run(stepped, its[:2])
+    prof = trace.start_profiler()
+    rig.run(stepped, its[2:])
+    torch.cuda.synchronize()
+    prof.stop()
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    for part in ("fused_mlp_", "heads_bwd_", "trunk_bwd_", "trunk_recompute", "k1_encode"):
+        assert any(part in n for n in names), part
+    seconds = trace.reduce_profile(prof)["seconds"]
+    assert seconds["k1_fwd"] > 0 and seconds["k1_bwd"] > 0
+    tracing.collect()
+    # the window: the profiled steps after the first (step_ms_p95 times each from the step before it)
+    run = {"counts": {"kind": "train", "steps": len(its) - 3, "trace_steps": 0}}
+    for metric in ("forward_ms_per_step.train", "backward_ms_per_step.train", "sec_views_ms_per_step.train",
+                   "trunk_bwd_ms_per_step.train", "step_ms_p95.train"):
+        value = cells.reader(metric, bench)(run)
+        print(f"{metric}: {value}")
+        assert value is not None and 0 < value < 1e3, metric
+    assert cells.reader("graphed_steps.train", bench)(run) == 100.0

@@ -11,9 +11,32 @@ import torch
 from vipnerf_tpu_torch.core.rays import depth_from_ndc
 
 
+class _Cumprod(torch.autograd.Function):
+    """torch.cumprod along the last axis, with torch's own backward for
+    factors that are not 0 (the reversed cumulative sum of output x grad,
+    over the factors) but without its test for zeros, which reads the device
+    from the host (a `.item()`): a wait in every backward, and an operation
+    a CUDA graph cannot capture. The transmittance's factors 1 - alpha +
+    1e-10 are never 0 (alpha <= 1)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] <= 1:
+            return grad
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
-    """cumprod([1, x_0, ..., x_{n-2}]) along the last axis."""
-    inclusive = torch.cumprod(x, dim=-1)
+    """cumprod([1, x_0, ..., x_{n-2}]) along the last axis, for factors
+    that are not 0."""
+    inclusive = _Cumprod.apply(x)
     return torch.cat([torch.ones_like(x[..., :1]), inclusive[..., :-1]], dim=-1)
 
 

@@ -34,7 +34,7 @@ BUILD_DIR = PKG_DIR / "build"
 
 # library name -> source file under csrc/
 SOURCES = {"fused_mlp": "fused_mlp.cu", "fused_mlp_bwd": "fused_mlp_bwd.cu", "raystream": "raystream.cpp",
-           "jpeg_decode": "jpeg_decode.cpp"}
+           "jpeg_decode": "jpeg_decode.cpp", "trace_stamps": "trace_stamps.cu"}
 # library name -> (header, library) of the CUDA toolkit it is built against
 TOOLKIT_LIBS = {"jpeg_decode": ("nvjpeg.h", "nvjpeg")}
 

@@ -17,7 +17,8 @@ schedule reads the count of accepted updates.
 
 The state holds S guards at once (one per scene in batched multi-scene
 training, as `vmap` of the optax wrapper gives) and stays on the device: a
-decision costs a few elementwise kernels and no host read.
+decision costs a few elementwise kernels and no host read. It is updated in
+place, so a training step replayed as a CUDA graph carries it on.
 """
 
 from typing import Any, Dict
@@ -45,9 +46,10 @@ class LossGuard:
         accept = (first | (self.count < self.warmup) | (self.skips >= self.max_consecutive_skips)
                   | (loss <= self.factor * self.ema))
         ema_next = torch.where(first, loss, self.ema_decay * self.ema + (1.0 - self.ema_decay) * loss)
-        self.ema = torch.where(accept, ema_next, self.ema)
-        self.skips = torch.where(accept, 0, self.skips + 1).int()
-        self.count = self.count + 1
+        # in place, as the optimizer's state: a replayed CUDA graph writes where it captured
+        self.ema.copy_(torch.where(accept, ema_next, self.ema))
+        self.skips.copy_(torch.where(accept, 0, self.skips + 1))
+        self.count.add_(1)
         return accept
 
     def state(self, row: int) -> Dict[str, Any]:

@@ -39,8 +39,17 @@ vipnerf_tpu/train/guards.py `loss_guard`).
   on every rank, so the parameters stay identical across ranks. Where the
   scenes are sharded, the step needs no collective.
 
+- On a CUDA device in one process (no `group`), the step is captured once
+  as a CUDA graph and replayed (`GraphedStep`): the host launches one graph
+  a step instead of the render's, the losses', autograd's and Adam's
+  operations. Everything a step carries to the next (parameters, Adam's
+  moments and count, the guard's state) is updated in place, on every
+  path, so that the replays see it. Steps on the CPU and across ranks run
+  eagerly.
+
 The JAX package's TPU dispatch (`make_scan_train`, `make_host_loop_train`,
-`default_step_dispatch`) has no counterpart: PyTorch runs eagerly.
+`default_step_dispatch`) has no counterpart; the CUDA graph plays the part
+of its compiled step.
 """
 
 from typing import Any, Callable, Dict, List, Optional
@@ -109,15 +118,18 @@ class Adam:
         lr = self.schedule(self.count.float())
         update = m / (1.0 - self.b1 ** t)[:, None]
         update = update / (torch.sqrt(v / (1.0 - self.b2 ** t)[:, None]) + EPS) * -lr[:, None]
+        # the state is written in place: a replayed CUDA graph writes where it captured
         if self.guard is None:
-            self.exp_avg, self.exp_avg_sq, self.count = m, v, self.count + 1
+            self.exp_avg.copy_(m)
+            self.exp_avg_sq.copy_(v)
+            self.count.add_(1)
         else:
             accept = self.guard(loss)
             keep = accept[:, None]
             update = torch.where(keep, update, 0.0)
-            self.exp_avg = torch.where(keep, m, self.exp_avg)
-            self.exp_avg_sq = torch.where(keep, v, self.exp_avg_sq)
-            self.count = self.count + accept.int()
+            self.exp_avg.copy_(torch.where(keep, m, self.exp_avg))
+            self.exp_avg_sq.copy_(torch.where(keep, v, self.exp_avg_sq))
+            self.count.add_(accept.int())
         pieces = update.split(self.sizes, dim=1)
         torch._foreach_add_(self.params, [u.reshape(p.shape) for u, p in zip(pieces, self.params)])
 
@@ -208,6 +220,141 @@ def all_reduce_grads(params: List[torch.Tensor], scalars: Dict[str, torch.Tensor
     return {k: piece.reshape(()) for k, piece in zip(names, pieces[len(grads):])}
 
 
+class StepGraph:
+    """The CUDA graph of a training step on `device`: `warm` runs the step
+    eagerly on a side stream (torch's warm-up before a capture), `capture`
+    captures it on that stream with the step's generator registered (each
+    replay then draws from the generator's seed and offset at its launch,
+    as the eager step draws), `replay` launches it on the current stream.
+    A capture that fails raises."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.graph = None
+
+    def warm(self, fn: Callable):
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        current.wait_stream(self.stream)
+        return out
+
+    def capture(self, fn: Callable, generator) -> torch.Tensor:
+        self.graph = None  # the old graph's memory goes back first
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:  # its state, which a subclass (`ShardGenerator`) shares
+            graph.register_generator_state(generator.graphsafe_get_state())
+        with torch.cuda.graph(graph, stream=self.stream):
+            out = fn()
+        self.graph = graph
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class GraphedStep:
+    """A training step on a CUDA device in one process, replayed as one CUDA
+    graph: the host launches the graph instead of the step's hundreds of
+    operations. The kernels and their order are the eager step's.
+
+    The first call runs `step` eagerly (the warm-up); the next one captures
+    it and replays the capture to run itself; every later call copies its
+    batch into the graph's inputs and replays. A call re-captures where the
+    graph would replay something else than the eager step would run: a
+    change of the staged loss weights (`LossComputer.get_loss_weight` at the
+    batch's `iter_num`, the only use of the iteration in a step), of the
+    batch's keys, shapes or dtypes (or its other non-tensor values), of the
+    generator, or of the data pointer of any parameter or optimizer state
+    (a state replaced instead of written in place). Each call returns its
+    own loss scalars, copied out of the graph's outputs.
+
+    Around the graph: the generator is seeded by the caller before each
+    call, as for an eager step; the parameters' `_version`s are bumped after
+    each replay (which writes them in place unseen by autograd's counters),
+    so that a cache keyed on them, K1's packed weights, packs again for an
+    eager use; the tracer records the capture's counts and device-timed
+    spans and adds them again per replay (`utils/tracing.py`), counts
+    `train.graph.captures` and `train.graph.replays`, and marks the
+    replayed step's span `graph=True`.
+
+    `graph` is a `StepGraph`, or a stand-in with its methods (tests)."""
+
+    def __init__(self, step: Callable, optimizer: Adam, loss_computer: LossComputer, graph,
+                 device: torch.device):
+        self.eager = step
+        self.optimizer, self.loss_computer, self.graph, self.device = optimizer, loss_computer, graph, device
+        self.warm = False
+        self.key = None
+        self.inputs: Dict[str, Any] = {}  # the batch the graph reads
+        self.outputs = None  # the loss scalars the graph writes, flat
+        self.layout: List[tuple] = []  # (name, shape, dtype, start, stop) of each scalar in `outputs`
+        self.recording = None
+
+    def state(self) -> List[torch.Tensor]:
+        """Every tensor the step carries to the next: parameters, Adam's
+        moments and count, the loss guard's state."""
+        opt = self.optimizer
+        guard = [] if opt.guard is None else [opt.guard.ema, opt.guard.count, opt.guard.skips]
+        return list(opt.params) + [opt.exp_avg, opt.exp_avg_sq, opt.count] + guard
+
+    def signature(self, batch: Dict[str, Any], generator) -> tuple:
+        """What the graph bakes in, of a call: see the class docstring."""
+        it = int(batch["iter_num"])
+        weights = tuple(self.loss_computer.get_loss_weight(name, it) for name in self.loss_computer.losses)
+        layout = tuple((k, tuple(v.shape), v.dtype, v.device) if torch.is_tensor(v) else (k, v)
+                       for k, v in sorted(batch.items()) if k != "iter_num")
+        return weights, layout, id(generator), tuple(t.data_ptr() for t in self.state())
+
+    def __call__(self, model, batch: Dict[str, Any], generator) -> Dict[str, torch.Tensor]:
+        if not self.warm:
+            self.warm = True
+            return self.graph.warm(lambda: self.eager(model, batch, generator))
+        key = self.signature(batch, generator)
+        if key != self.key:
+            self._capture(model, batch, generator)
+            self.key = key
+        else:
+            for k, v in batch.items():
+                if torch.is_tensor(v) and v is not self.inputs[k]:
+                    self.inputs[k].copy_(v)
+        with tracing.replay(self.recording):
+            self.graph.replay()
+        tracing.count("train.graph.replays")
+        tracing.annotate(graph=True)
+        self._bump_versions()
+        flat = self.outputs.clone()
+        return {name: flat[a:b].view(shape).to(dtype) for name, shape, dtype, a, b in self.layout}
+
+    def _bump_versions(self) -> None:
+        for p in self.optimizer.params:
+            torch.autograd.graph.increment_version(p)
+
+    def _capture(self, model, batch: Dict[str, Any], generator) -> None:
+        self.key = self.recording = self.outputs = None
+        # the graph's own copy of the batch: later calls copy theirs in, never into the caller's tensors
+        self.inputs = {k: v.clone() if torch.is_tensor(v) else v for k, v in batch.items()}
+        self.optimizer.zero_grad()  # the last step's gradients are freed before the capture
+        self._bump_versions()  # a pack cached by an eager use is packed again inside the graph
+        recording = tracing.Recording(self.device)  # outside the graph: its row counter is not the graph's
+        layout = []
+
+        def step():
+            with tracing.capture(recording):
+                scalars = self.eager(model, self.inputs, generator)
+                sizes = [v.numel() for v in scalars.values()]
+                ends = [sum(sizes[:i + 1]) for i in range(len(sizes))]
+                layout[:] = [(name, tuple(v.shape), v.dtype, end - size, end)
+                             for (name, v), size, end in zip(scalars.items(), sizes, ends)]
+                return torch.cat([v.reshape(-1).float() for v in scalars.values()])
+
+        self.outputs = self.graph.capture(step, generator)
+        self.recording, self.layout = recording, layout
+        tracing.count("train.graph.captures")
+
+
 def make_train_step(
     configs: Dict[str, Any],
     render_fn: Callable,
@@ -219,7 +366,13 @@ def make_train_step(
     after one optimizer step; a stacked model's losses are per scene, (S,),
     and backward runs on their sum, which gives each scene its own gradient
     (the scenes share no parameter). With a `shard`, `batch` is this rank's
-    part of the step (see the module docstring)."""
+    part of the step (see the module docstring).
+
+    With the parameters on a CUDA device and no `group` in the shard (no
+    collective in the step), the step is a `GraphedStep`: replayed as one
+    CUDA graph from its second call on. Elsewhere (the CPU, ranks that share
+    the ray axis) it runs eagerly. Either way `train_step.eager` is the
+    eager step."""
     sub_batch_size = configs.get("sub_batch_size") if shard is None else shard.sub_batch_size
     group = None if shard is None else shard.group
     device = optimizer.params[0].device
@@ -252,4 +405,7 @@ def make_train_step(
             optimizer.step(loss=scalars["TotalLoss"])
         return scalars
 
+    if device.type == "cuda" and group is None:
+        return GraphedStep(train_step, optimizer, loss_computer, StepGraph(device), device)
+    train_step.eager = train_step
     return train_step

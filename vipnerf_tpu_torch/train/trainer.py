@@ -27,7 +27,11 @@ the steps' forward, losses, backward and Adam are spans of
 scalars. The forward and the backward also time their interval on the
 card's stream, and the step its end (nothing is queued between Adam's last
 kernel and the step's end; the chunk's first step its start too), read
-back at the chunk's read of its scalars.
+back at the chunk's read of its scalars. On a CUDA device in one process
+every step after a trainer's first is a replay of the step's CUDA graph
+(`train/step.py` `GraphedStep`): its `train.step` carries `graph=True` and
+its forward's and backward's spans (timed by the graph), not its losses'
+or Adam's.
 
 `profiler: {start_iter, num_iters}` traces every chunk that overlaps those
 iterations with torch.profiler (host, and the card's kernels on CUDA) into
