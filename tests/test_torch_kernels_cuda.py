@@ -792,13 +792,19 @@ def test_trunk_backward_kernels_refuse_what_they_do_not_take(device):
 GRAPH_STEPS = 5
 
 
-def _graph_configs(root, scenes=1, prior_at=30000):
+def _graph_configs(root, scenes=1, prior_at=30000, sparse_depth=True):
     """The flagship training configs in the shipped mode (bf16 trunk, f32
-    heads: llff_2view's), for 1 scene or `scenes` in lockstep."""
+    heads: llff_2view's), for 1 scene or `scenes` in lockstep; without
+    `sparse_depth`, demo1d's ablation (1024 NeRF rays, no sparse-depth
+    stream or loss: llff_2view_vp's)."""
     from vipnerf_tpu_torch.data.synthetic_rig import flagship_training_configs
 
     cfg = flagship_training_configs(root, 100, visibility_prior_start_iter=prior_at)
     cfg["model"].update(bf16_matmuls=True, f32_heads=True)
+    if not sparse_depth:
+        del cfg["data_loader"]["sparse_depth"]
+        cfg["data_loader"]["num_rays"] = 1024
+        cfg["losses"] = [loss for loss in cfg["losses"] if loss["name"] != "SparseDepthMSE01"]
     if scenes > 1:
         cfg["data_loader"]["scene_names"] = [f"synth{i + 1:02}" for i in range(scenes)]
         cfg.update(batch_scenes=True)
@@ -811,7 +817,7 @@ class _GraphRig:
     (the batched trainer's model and batches), its batches by iteration, and
     steps over it from one saved state."""
 
-    def __init__(self, root, device, scenes=1, prior_at=30000):
+    def __init__(self, root, device, scenes=1, prior_at=30000, sparse_depth=True):
         from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
         from vipnerf_tpu_torch.models.vip_nerf import render_rays
         from vipnerf_tpu_torch.parallel.mesh import ShardGenerator
@@ -819,7 +825,7 @@ class _GraphRig:
         for i in range(scenes):
             write_synthetic_database(root / "data/databases", scene_name=f"synth{i + 1:02}", num_frames=5,
                                      train_frames=(0, 2, 4), val_frames=(1,), height=189, width=252, seed=i)
-        self.cfg, self.scenes, self.device = _graph_configs(root, scenes, prior_at), scenes, device
+        self.cfg, self.scenes, self.device = _graph_configs(root, scenes, prior_at, sparse_depth), scenes, device
         self.render = render_rays
         if scenes == 1:
             rig = cs.TrainRig(root, self.cfg, device)
@@ -915,6 +921,67 @@ def test_graphed_steps_equal_the_eager_steps(device, tmp_path, scenes):
     for name in ("eager again", "graphed"):
         assert torch.equal(runs[name][2], runs["eager"][2])  # the same draws, the generator where eager leaves it
     assert runs["graphed"][1][-1].tolist() == [GRAPH_STEPS] * scenes
+
+
+@pytest.mark.cuda
+def test_eight_scenes_without_sparse_depth_replay_the_eager_steps(device, tmp_path):
+    """demo1d's step (1024 NeRF rays a scene, no sparse-depth stream, three
+    losses: llff_2view_vp's) for 8 scenes in lockstep: the batch carries no
+    sparse-depth field, every step after the warm-up is a replay of one
+    capture, and the graphed steps are the eager ones, bit for bit where two
+    eager runs are, else within their gap (printed with `-s`)."""
+    rig = _GraphRig(tmp_path, device, scenes=8, sparse_depth=False)
+    batch = rig.batch(30000)
+    assert not any("sparse_depth" in k for k in batch) and bool(batch["indices_mask_nerf"].all())
+    assert batch["rays_o"].shape[0] == 8 * 1024
+    its = list(range(30000, 30000 + GRAPH_STEPS))
+    runs = {}
+    for name in ("eager", "eager again", "graphed"):
+        step, opt = rig.step()
+        before = tracing.counts("train.graph.")
+        losses = rig.run(step if name == "graphed" else step.eager, its)
+        torch.cuda.synchronize()
+        after = tracing.counts("train.graph.")
+        runs[name] = (losses, _state(rig, opt))
+        if name == "graphed":
+            assert {k: after.get(k, 0) - before.get(k, 0) for k in ("train.graph.captures", "train.graph.replays")} \
+                == {"train.graph.captures": 1, "train.graph.replays": GRAPH_STEPS - 1}
+    assert all(tuple(step_losses) == ("MSE01", "VisibilityLoss01", "VisibilityPriorLoss01", "TotalLoss")
+               and step_losses["TotalLoss"].shape == (8,) for step_losses in runs["graphed"][0])
+    spread = max(_max_gap(runs["eager"][0], runs["eager again"][0]), _max_gap(runs["eager"][1], runs["eager again"][1]))
+    gap = max(_max_gap(runs["eager"][0], runs["graphed"][0]), _max_gap(runs["eager"][1], runs["graphed"][1]))
+    print(f"S = 8 without sparse depth: graphed against eager, largest gap {gap:.3e}; two eager runs {spread:.3e}")
+    assert gap <= spread
+
+
+@pytest.mark.cuda
+def test_eight_scenes_without_sparse_depth_count_one_ray_stream_in_the_trainers_loop(device, tmp_path):
+    """llff_2view_vp's run through `MultiSceneTrainer.train` (S = 8, 1024
+    NeRF rays a scene, no sparse-depth stream), two chunks of GRAPH_STEPS
+    steps from iteration 30000: each step counts 8 x 1024 NeRF rays and no
+    sparse-depth ray, every step after the first is a replay of one capture,
+    and each chunk's `train.log` logs steps x 8 x (three terms, TotalLoss and
+    the learning rate), as its counter and its span's `scalars` say."""
+    from vipnerf_tpu_torch.data.synthetic import write_synthetic_database
+    from vipnerf_tpu_torch.train.multi_scene import MultiSceneTrainer
+
+    scenes, start, steps = 8, 30000, 2 * GRAPH_STEPS
+    for i in range(scenes):
+        write_synthetic_database(tmp_path / "data/databases", scene_name=f"synth{i + 1:02}", num_frames=5,
+                                 train_frames=(0, 2, 4), val_frames=(1,), height=189, width=252, seed=i)
+    cfg = dict(_graph_configs(tmp_path, scenes, sparse_depth=False), scan_steps=GRAPH_STEPS)
+    t = MultiSceneTrainer(cfg, cfg["data_loader"]["scene_names"], tmp_path / "data" / cfg["database_dirpath"],
+                          device=device, output_dirpath=tmp_path / "runs", verbose_log=False)
+    t.save_checkpoints(start)
+    tracing.reset()
+    t.train(start + steps, validation_interval=0, model_save_interval=0)
+    t.close()
+    per_chunk = GRAPH_STEPS * scenes * 5
+    logs = [s["attrs"] for s in tracing.snapshot()["spans"] if s["name"] == "train.log"]
+    assert logs == [{"it": start, "scalars": per_chunk}, {"it": start + GRAPH_STEPS, "scalars": per_chunk}]
+    assert tracing.counts("train.") == {"train.rays.nerf": steps * scenes * 1024, "train.rays.sparse_depth": 0,
+                                        "train.graph.captures": 1, "train.graph.replays": steps - 1,
+                                        "train.log.scalars": 2 * per_chunk}
 
 
 @pytest.mark.cuda

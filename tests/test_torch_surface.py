@@ -132,9 +132,11 @@ def test_preprocess_poses_spherifies_like_jax():
 
 class RecordingWriter:
     calls = []
+    queues = []
 
-    def __init__(self, logdir):
+    def __init__(self, logdir, max_queue=10):
         self.calls.append(("init", logdir))
+        self.queues.append(max_queue)
 
     def add_scalar(self, tag, value, step):
         self.calls.append(("add_scalar", tag, float(value), int(step)))
@@ -171,6 +173,8 @@ def test_tensorboard_scalars_match_the_jax_logger(monkeypatch, tmp_path):
         assert RecordingWriter.calls[0] == ("init", str(tmp_path / name / "logs"))
     assert calls["torch"] == calls["jax"]
     assert sum(c[0] == "add_scalar" for c in calls["torch"]) == 5
+    # the port's writer queues a chunk's events instead of waiting for each one's write
+    assert RecordingWriter.queues[-1] == t_logging.TB_QUEUE >= 8 * 100 * 5
     assert records["torch"] == records["jax"]
 
 

@@ -189,7 +189,12 @@ def test_a_cpu_chunk_traces_every_step(tmp_path):
         assert [r["name"] for r in children(records, step)] == [
             "train.gather", "train.forward", "train.losses", "train.backward", "train.adam"]
         assert step["device_ms"] is None
-    assert [r["attrs"] for r in by_name(records, "train.log")] == [{"it": 0}]  # the scalars' logging
+    # the scalars' logging: each step's losses, TotalLoss and the learning rate
+    logged = 3 * (len(cfg["losses"]) + 2)
+    assert [r["attrs"] for r in by_name(records, "train.log")] == [{"it": 0, "scalars": logged}]
+    counts = tracing.counts()
+    assert counts["train.log.scalars"] == logged
+    assert counts["train.rays.nerf"] == 3 * 32 and counts["train.rays.sparse_depth"] == 3 * 16
     assert by_name(records, "app.training") == []  # start_training outside an app: no stage span
 
 

@@ -282,7 +282,9 @@ class MultiSceneTrainer:
                                                    cache=self.cache, near=self.near, far=self.far),
                 self._read_scalars, profile_chunk(self.profiler_cfg if logs else None, it, k, logs, self.device))
             if loggers is not None:
-                with tracing.span("train.log", it=it):
+                logged = k * len(loggers) * (len(scalars) + 1)  # each scene's loss scalars and lr, per step
+                tracing.count("train.log.scalars", logged)
+                with tracing.span("train.log", it=it, scalars=logged):
                     for j in range(k):
                         lr = float(self.lr_schedule(it + j))
                         for i, logger in enumerate(loggers):

@@ -24,7 +24,10 @@ batched trainer): `train.chunk` with its index draw, the indices' copy to
 the device, one `train.step` per iteration (`it`) and the scalars' read;
 the steps' forward, losses, backward and Adam are spans of
 `train/step.py`; after the chunk, `train.log` is the logging of its
-scalars. The forward and the backward also time their interval on the
+scalars (`scalars`: the logger's `add_scalar` calls, also added to the
+counter `train.log.scalars`). Each step's rays of each stream are counted
+(`train.rays.nerf`, `train.rays.sparse_depth`). The forward and the
+backward also time their interval on the
 card's stream, and the step its end (nothing is queued between Adam's last
 kernel and the step's end; the chunk's first step its start too), read
 back at the chunk's read of its scalars. On a CUDA device in one process
@@ -92,6 +95,10 @@ from vipnerf_tpu_torch.utils.io import read_csv_columns, save_image, save_numpy_
 from vipnerf_tpu_torch.utils.naming import scene_dirname
 
 
+# rays a step of the NeRF stream and of the sparse-depth stream (every scene's), counted per step
+RAY_COUNTERS = ("train.rays.nerf", "train.rays.sparse_depth")
+
+
 def step_seed(seed: int, iteration: int) -> int:
     """The training generator's seed at `iteration`."""
     return (int(seed) << 32) + int(iteration)
@@ -140,18 +147,23 @@ def train_chunk(trainer, it: int, k: int, draw: Callable[[], Tuple[np.ndarray, O
     blocks, copy them to the device, then per step `gather(blocks, j)` its
     batch and train on it, the generator seeded from (seed, iteration), and
     `read` the steps' loss scalars to the host, which waits for the last
-    step; the steps and the read run inside `profiled` (`profile_chunk`)."""
+    step; the steps and the read run inside `profiled` (`profile_chunk`).
+    Each step adds its rays of each stream, from the blocks' shapes, to the
+    counters `RAY_COUNTERS` (0 for a stream the configs do not draw)."""
     with tracing.span("train.chunk", it=it, steps=k):
         with tracing.span("train.chunk.indices"):
             host = draw()
         with tracing.span("train.chunk.copy"):
             blocks = tuple(None if b is None else torch.from_numpy(b).to(trainer.device) for b in host)
+        rays = [0 if b is None else b.numel() // k for b in blocks]  # each stream's rays a step
         with profiled:
             chunk = []
             for j in range(k):
                 with tracing.span("train.step", trainer.device, start_event=j == 0, it=it + j):
                     with tracing.span("train.gather"):
                         batch = gather(blocks, j)
+                    for name, n in zip(RAY_COUNTERS, rays):
+                        tracing.count(name, n)
                     trainer.generator.manual_seed(step_seed(trainer.seed, it + j))
                     chunk.append(trainer.train_step(trainer.model, batch, trainer.generator))
             with tracing.span("train.chunk.read"):
@@ -349,7 +361,9 @@ class Trainer:
                                                     it + j),
                 _read_scalars, profile_chunk(profiler_cfg, it, k, self.output_dirpath / "logs", self.device))
             rays_done += k * rays_per_step
-            with tracing.span("train.log", it=it):
+            logged = k * (len(scalars) + 1)  # each loss scalar and the learning rate, per step
+            tracing.count("train.log.scalars", logged)
+            with tracing.span("train.log", it=it, scalars=logged):
                 for j in range(k):
                     for name, vals in scalars.items():
                         self.logger.add_scalar(f"train/{name}", float(vals[j]), it + j + 1)

@@ -10,7 +10,8 @@ wrappers record them where their work happens:
 - `train.chunk` (`it`, `steps`) with `train.chunk.indices` (the index
   draw), `train.chunk.copy` (indices to the device), `train.step` (`it`)
   per iteration and `train.chunk.read` (the loss scalars to the host);
-  then `train.log` (`it`), the logging of the chunk's scalars;
+  then `train.log` (`it`, `scalars`: the logger's `add_scalar` calls),
+  the logging of the chunk's scalars;
 - inside `train.step`: `train.gather`, then per sub-batch `train.forward`,
   `train.losses` and `train.backward`, then `train.adam`; inside
   `train.forward`, per level with other views, `rays.<level>.sec_dirs` (the
@@ -25,7 +26,11 @@ wrappers record them where their work happens:
   backward kernels on the card), `vis.sec_view_points` (points x other
   views through K1's view branch, per K1 forward call from its shapes) and
   `jpeg.decodes`; `train.graph.captures` and `train.graph.replays` (the
-  step's CUDA graph, `train/step.py`).
+  step's CUDA graph, `train/step.py`); `train.rays.nerf` and
+  `train.rays.sparse_depth` (each step's rays of each stream, summed over
+  the scenes, from the index blocks' shapes at the step's gather, which
+  runs on the host before every step, replayed or not) and
+  `train.log.scalars` (the scalars `train.log` spans logged).
 
 While a `torch.profiler` session is active, whoever started it, each span
 also opens `torch.profiler.record_function` under its name, so the
